@@ -1,0 +1,67 @@
+"""MISO front door in PyTorch: ``compile()`` and ``serve()``.
+
+    from repro_torch import api as miso
+
+    prog = miso.MisoProgram()
+    prog.add(miso.CellType("rod", init, transition))
+    exe = miso.compile(prog)                  # runs on cuda; device="cpu"
+    result = exe.run(exe.init(0), 100)        # -> RunResult
+
+The same protocol as ``repro.api`` (the JAX reference); this slice
+registers the ``lockstep`` back-end and the temporal serving engine.
+"""
+
+from .core.cell import NO_REDUNDANCY, CellType, MisoSemanticsError, RedundancyPolicy  # noqa: F401
+from .core.executor import (  # noqa: F401
+    BACKENDS,
+    Executor,
+    RunResult,
+    available_backends,
+    compile,
+    register_backend,
+)
+from .core.fault import FaultSpec, random_fault_campaign  # noqa: F401
+from .core.graph import DependencyGraph  # noqa: F401
+from .core.program import MisoProgram  # noqa: F401
+from .core.redundancy import FaultLedger  # noqa: F401
+from .models.lm_cells import ServeConfig  # noqa: F401
+from .obs import MetricsRegistry  # noqa: F401
+from .serving.engine import EngineConfig, EngineParts, ServingEngine
+
+
+def serve(program, adapter, config=None, *, device="cuda") -> ServingEngine:
+    """Compile ``program`` into a continuous-batching ``ServingEngine`` on
+    ``device`` (cuda unless the caller asks for the CPU).
+
+    program -- a MisoProgram with a slot-masked decoder cell (the LM:
+               ``serving.lm.lm_engine_parts`` returns ``EngineParts``).
+    adapter -- the ``SlotAdapter`` describing the slotted cell.
+    config  -- an ``EngineConfig`` (backend, queue depth, compare
+               cadence, checkpointing, registry).
+
+    Returns the engine; call ``.start(seed)`` before submitting."""
+    return ServingEngine(program, adapter, config, device=device)
+
+
+__all__ = [
+    "BACKENDS",
+    "CellType",
+    "DependencyGraph",
+    "EngineConfig",
+    "EngineParts",
+    "Executor",
+    "FaultLedger",
+    "FaultSpec",
+    "MetricsRegistry",
+    "MisoProgram",
+    "MisoSemanticsError",
+    "NO_REDUNDANCY",
+    "RedundancyPolicy",
+    "RunResult",
+    "ServeConfig",
+    "available_backends",
+    "compile",
+    "random_fault_campaign",
+    "register_backend",
+    "serve",
+]

@@ -1,0 +1,62 @@
+"""The weights-and-state bridge between the JAX package and this one.
+
+Both packages keep cell states as the same nested dicts, so a state made
+by the JAX package, turned into numpy arrays (``jax.tree.map(np.asarray,
+...)``), maps leaf for leaf onto this package's state.  bfloat16 crosses
+as its bit pattern: numpy has no native bfloat16, so a bf16 leaf arrives
+as an ``ml_dtypes`` array and becomes a ``torch.bfloat16`` tensor with
+the same bits; going back, ``tree_to_numpy`` hands bf16 out as ``uint16``
+words.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.executor import resolve_device
+from .models.config import ModelConfig
+from .tree import tree_map
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def states_from_numpy(tree, device="cuda"):
+    """numpy tree (whole program states, or any part) -> tensor tree on
+    ``device``, bf16 bits preserved."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
+
+
+def tree_to_numpy(tree):
+    """tensor tree -> numpy tree on the host; bf16 leaves become their
+    ``uint16`` bit patterns (numpy cannot hold bf16 without ml_dtypes)."""
+
+    def conv(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return tree_map(conv, tree)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
+    """The JAX params tree (numpy leaves) as this package's params, every
+    floating leaf in ``cfg.compute_dtype``.  Checks the tree has the
+    layout this package's model reads."""
+    params = states_from_numpy(tree, device)
+    want = {"embed", "final_norm", "segments"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    if set(params) != want:
+        raise ValueError(f"params keys {sorted(params)} != {sorted(want)}")
+    d, V = cfg.d_model, cfg.vocab_size
+    if tuple(params["embed"].shape) != (V, d):
+        raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(V, d)}")
+    dt = cfg.compute_dtype
+    return tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, params)

@@ -1,0 +1,326 @@
+"""Dependability primitives (paper §IV).
+
+Because a cell's state is written by exactly one transition and read
+states are immutable (double buffering), replication is mechanically
+identical to data parallelism: give the state a leading *replica axis* R
+and run the transition once per replica.
+
+  DMR (level 2): compare the two new states; a mismatch is reported (the
+      caller decides between them with a third execution).
+  TMR (level 3): bitwise majority vote; mismatching replicas are
+      re-synchronized to the voted value, and per-replica mismatch
+      counters feed permanent-fault localization.
+
+Every integer result here (mismatch counts, votes, fingerprints, ledger
+entries) equals the JAX package's bit for bit.  uint32 wraparound math is
+done in int64 with an explicit ``& 0xFFFFFFFF`` because the CPU build of
+torch has no uint32 ``+``/``>>``; the same code runs on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+from .cell import CellType, restrict_reads, undeclared_read_error
+from .fault import FaultSpec, bitcast_back, bitcast_int, inject
+
+Tree = Any
+
+MAX_REPLICAS = 3
+
+
+# --------------------------------------------------------------------------
+# comparison primitives
+# --------------------------------------------------------------------------
+def bit_mismatch_elems(a: Tree, b: Tree) -> torch.Tensor:
+    """Number of elements whose bit patterns differ (float32 scalar)."""
+    total = None
+    for la, lb in zip(tree_leaves(a), tree_leaves(b)):
+        n = (bitcast_int(la) != bitcast_int(lb)).sum(dtype=torch.float32)
+        total = n if total is None else total + n
+    return total if total is not None else torch.zeros((), dtype=torch.float32)
+
+
+def majority_vote(a: Tree, b: Tree, c: Tree) -> Tree:
+    """Elementwise bitwise 2-of-3 majority (exact for replicated
+    transitions)."""
+
+    def vote(x, y, z):
+        ux, uy, uz = bitcast_int(x), bitcast_int(y), bitcast_int(z)
+        v = (ux & uy) | (ux & uz) | (uy & uz)
+        return v.to(torch.bool) if x.dtype == torch.bool else bitcast_back(v, x.dtype)
+
+    return tree_map(vote, a, b, c)
+
+
+_M = 0xFFFFFFFF
+_PHI = 0x9E3779B9
+_MIX = 2654435761
+_FNV = 16777619
+
+
+def _mul32(a, b):
+    """``a * b mod 2**32`` for int64 operands in [0, 2**32): split ``a``
+    into 16-bit halves so no partial product leaves int64."""
+    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M
+
+
+def _words(leaf: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows, n) int64 holding each element's bits as a uint32 word:
+    narrow types zero-extend, 64-bit types keep their low word (the JAX
+    package's ``bitcast_uint(x).astype(uint32)``)."""
+    s = bitcast_int(leaf)
+    nbytes = s.element_size()
+    mask = _M if nbytes >= 4 else (1 << (8 * nbytes)) - 1
+    return s.reshape(rows, -1).to(torch.int64) & mask
+
+
+def fingerprint_rows(state: Tree, rows: int) -> torch.Tensor:
+    """(rows, 4) int64 of uint32 words: the 128-bit ``fingerprint`` of
+    each row's view of ``state``, whose leaves all lead with a ``rows``
+    axis.  Row r's result equals ``fingerprint`` of the state sliced at
+    r (the JAX package's ``vmap(fingerprint)``)."""
+    h = None
+    for k, leaf in enumerate(tree_leaves(state)):
+        v = _words(leaf, rows)
+        idx = torch.arange(v.shape[1], dtype=torch.int64, device=v.device) & _M
+        w = (_mul32(idx, _MIX) + _PHI) & _M
+        wphi = _mul32(w, _PHI)
+        h1 = _mul32(v, w).sum(dim=1)
+        h2 = _mul32(v ^ w, _MIX).sum(dim=1)
+        h3 = _mul32(v ^ wphi, _FNV).sum(dim=1)
+        h4 = (((v + w) & _M) ^ (v >> 7)).sum(dim=1)
+        leaf_h = torch.stack([h1, h2, h3, h4], dim=1) & _M
+        if h is None:
+            h = torch.zeros_like(leaf_h)
+        h = _mul32(h, _FNV) ^ ((leaf_h + (k + 1)) & _M)
+    if h is None:
+        return torch.zeros((rows, 4), dtype=torch.int64)
+    return h
+
+
+def fingerprint(state: Tree) -> torch.Tensor:
+    """128-bit (4 uint32 words, held in int64) order-sensitive fingerprint
+    of a state tree: four modular accumulators over position-weighted
+    words, chained over leaves with the leaf index as salt.  Bitwise equal
+    to ``repro.core.redundancy.fingerprint`` (the per-leaf definition, not
+    the flat-stream ``state_hash``)."""
+    return fingerprint_rows(tree_map(lambda x: x.reshape(1, *x.shape), state), 1)[0]
+
+
+# --------------------------------------------------------------------------
+# reports
+# --------------------------------------------------------------------------
+def fingerprint_majority(hs: torch.Tensor):
+    """Majority relation over a (3, 4) stack of replica fingerprints.
+
+    Returns ``((eq01, eq02, eq12), idx, per)``: the pairwise equality
+    flags, the index of a replica belonging to the majority, and the
+    per-replica mismatch indicators (float32)."""
+    eq01 = torch.all(hs[0] == hs[1])
+    eq02 = torch.all(hs[0] == hs[2])
+    eq12 = torch.all(hs[1] == hs[2])
+    idx = torch.where(eq01 | eq02, 0, torch.where(eq12, 1, 0))
+    per = torch.stack(
+        [
+            (~(eq01 | eq02)).to(torch.float32),
+            (~(eq01 | eq12)).to(torch.float32),
+            (~(eq02 | eq12)).to(torch.float32),
+        ]
+    )
+    return (eq01, eq02, eq12), idx, per
+
+
+def zero_report() -> dict:
+    """A clean report.  Host (CPU) tensors, so an unreplicated cell's
+    report never forces a device synchronisation in the ledger."""
+    return {
+        "mismatch_elems": torch.zeros((), dtype=torch.float32),
+        "events": torch.zeros((), dtype=torch.float32),
+        "per_replica": torch.zeros((MAX_REPLICAS,), dtype=torch.float32),
+    }
+
+
+# --------------------------------------------------------------------------
+# replication helpers
+# --------------------------------------------------------------------------
+def replicate_state(state: Tree, level: int) -> Tree:
+    """Duplicate the memory contents -> leading replica axis of size
+    ``level`` (real copies: replicas are written independently)."""
+    if level == 1:
+        return state
+    return tree_map(lambda x: x.unsqueeze(0).repeat(level, *([1] * x.dim())), state)
+
+
+def canonical_state(state: Tree, level: int) -> Tree:
+    """The agreed single view of a replicated state (replica 0)."""
+    if level == 1:
+        return state
+    return tree_map(lambda x: x[0], state)
+
+
+def _canonical_reads(
+    cell: CellType, prevs: Mapping[str, Tree], levels: Mapping[str, int]
+) -> dict:
+    """Reads with cells replicated at a *different* level canonicalized."""
+    R = cell.redundancy.level
+    canon = {}
+    for name, val in restrict_reads(cell, prevs).items():
+        lr = levels.get(name, 1)
+        canon[name] = canonical_state(val, lr) if lr not in (1, R) else val
+    return canon
+
+
+def _call(cell: CellType, reads: dict) -> Tree:
+    try:
+        return cell.transition(reads)
+    except KeyError as e:  # read of an undeclared cell
+        raise undeclared_read_error(
+            cell, e.args[0] if e.args else e, tuple(reads)
+        ) from None
+
+
+def replicated_transition(
+    cell: CellType,
+    prevs: Mapping[str, Tree],
+    levels: Mapping[str, int],
+    *,
+    cell_id: int,
+    step: int,
+    fault: Optional[FaultSpec] = None,
+) -> Tree:
+    """The replicated front half of ``run_transition`` (R > 1): one
+    transition per replica, reading replica r of every read cell that is
+    replicated at the same level (broadcast otherwise), then the armed
+    fault.  (The JAX package vmaps over the replica axis; a loop gives
+    the same per-replica results.)"""
+    R = cell.redundancy.level
+    canon = _canonical_reads(cell, prevs, levels)
+    outs = []
+    for r in range(R):
+        reads = {
+            name: tree_map(lambda x, r=r: x[r], val) if levels.get(name, 1) == R else val
+            for name, val in canon.items()
+        }
+        outs.append(_call(cell, reads))
+    new = tree_map(lambda *xs: torch.stack(xs), *outs)
+    if fault is not None:
+        new = inject(fault, cell_id=cell_id, step=step, replicated_state=new)
+    return new
+
+
+def run_transition(
+    cell: CellType,
+    prevs: Mapping[str, Tree],
+    levels: Mapping[str, int],
+    *,
+    cell_id: int,
+    step: int,
+    fault: Optional[FaultSpec] = None,
+    compare_now: bool = True,
+) -> tuple[Tree, dict]:
+    """Execute one cell transition under its redundancy policy.
+
+    prevs: full program state (replicated cells carry their replica axis).
+    Returns (new state for this cell — with replica axis if level>1,
+    report)."""
+    policy = cell.redundancy
+    R = policy.level
+
+    if R == 1:
+        new = _call(cell, _canonical_reads(cell, prevs, levels))
+        if fault is not None:
+            # unprotected cells are still physically strikeable — the flip
+            # simply goes undetected (the paper's motivating failure mode)
+            exp = tree_map(lambda x: x.unsqueeze(0), new)
+            exp = inject(fault, cell_id=cell_id, step=step, replicated_state=exp)
+            new = tree_map(lambda x: x[0], exp)
+        return new, zero_report()
+
+    new = replicated_transition(
+        cell, prevs, levels, cell_id=cell_id, step=step, fault=fault
+    )
+    reps = [tree_map(lambda x, i=i: x[i], new) for i in range(R)]
+    device = tree_leaves(new)[0].device
+    report = {k: v.to(device) for k, v in zero_report().items()}
+
+    if R == 2:
+        if policy.compare == "hash":
+            h = torch.stack([fingerprint(r) for r in reps])
+            diff = (h[0] != h[1]).sum(dtype=torch.float32)
+        else:
+            diff = bit_mismatch_elems(reps[0], reps[1])
+        if not compare_now:
+            diff = torch.zeros_like(diff)
+        report["mismatch_elems"] = diff
+        report["events"] = (diff > 0).to(torch.float32)
+        return new, report
+
+    # R == 3: correction by vote
+    if policy.compare == "hash":
+        h = torch.stack([fingerprint(r) for r in reps])
+        _, idx, per = fingerprint_majority(h)
+        voted = tree_map(lambda x: x[idx], new)
+    else:
+        voted = majority_vote(*reps)
+        per = torch.stack([bit_mismatch_elems(r, voted) for r in reps])
+    if not compare_now:
+        per = torch.zeros_like(per)
+    report["per_replica"] = (per > 0).to(torch.float32) * torch.clamp(per, min=1.0)
+    report["mismatch_elems"] = per.sum()
+    report["events"] = (per.sum() > 0).to(torch.float32)
+    # re-synchronize replicas to the voted value (prevents divergence)
+    return replicate_state(voted, R), report
+
+
+# --------------------------------------------------------------------------
+# permanent-fault localization (paper: "By identifying MISO cells that are
+# frequently erroneous, it is possible to detect permanent failures")
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class FaultLedger:
+    """Host-side accumulator of per-cell mismatch reports."""
+
+    window: int = 100
+    threshold: int = 3
+    totals: dict = dataclasses.field(default_factory=dict)
+    recent: dict = dataclasses.field(default_factory=dict)
+    flagged: set = dataclasses.field(default_factory=set)
+
+    def update(self, step: int, reports: Mapping[str, dict]) -> None:
+        for name, rep in reports.items():
+            ev = float(rep["events"])
+            t = self.totals.setdefault(
+                name, {"events": 0.0, "elems": 0.0, "per_replica": [0.0] * 3}
+            )
+            t["events"] += ev
+            t["elems"] += float(rep["mismatch_elems"])
+            # per_replica may be shorter than MAX_REPLICAS: the serving
+            # engine sizes it to the request's actual level (DMR -> 2)
+            pr = [float(x) for x in rep["per_replica"]]
+            for i, x in enumerate(pr[:MAX_REPLICAS]):
+                t["per_replica"][i] += 1.0 if x > 0 else 0.0
+            if ev > 0:
+                self.recent.setdefault(name, []).append(step)
+                self.recent[name] = [
+                    s for s in self.recent[name] if s > step - self.window
+                ]
+                if len(self.recent[name]) >= self.threshold:
+                    self.flagged.add(name)
+
+    def permanent_fault_suspects(self) -> dict:
+        """cells (and, under TMR, which replica slot) needing maintenance."""
+        out = {}
+        for name in self.flagged:
+            pr = self.totals[name]["per_replica"]
+            # DMR cannot attribute the faulty replica (a two-way
+            # disagreement is symmetric); TMR majority voting can.
+            worst = (
+                max(range(3), key=lambda i: pr[i]) if any(p > 0 for p in pr) else None
+            )
+            out[name] = {"replica": worst, "events": self.totals[name]["events"]}
+        return out

@@ -1,0 +1,281 @@
+"""Model building blocks: norms, RoPE, GQA attention, MLPs.
+
+A port of the GQA/MLP subset of ``repro/models/layers.py``: plain
+functions on tensors, parameters in plain dicts with the JAX package's
+keys and layouts.  Attention has three execution paths:
+
+  * ``blockwise_attention`` — online-softmax attention over KV blocks
+    (prefill), plain torch as in the JAX package;
+  * ``decode_attention`` — single-query attention over a dense cache,
+    plain torch as in the JAX package;
+  * the paged branch of ``gqa_attention`` — single-query attention
+    through a page table, the hand-written CUDA kernel
+    ``kernels.paged_decode.paged_gqa_attention``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.paged_decode import NEG_INF, attend, paged_gqa_attention
+from .config import ModelConfig
+
+Params = dict
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+def dense_init(gen, d_in: int, d_out: int, dtype, device, scale=None):
+    scale = (d_in**-0.5) if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (n * w.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float, sections=None):
+    """cos/sin tables for positions (..., S) -> (..., S, dim/2)."""
+    if sections is not None:
+        raise NotImplementedError("M-RoPE is not ported yet")
+    half = dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv = 1.0 / (theta**exponent)
+    freqs = positions[..., None].float() * inv
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, Dk)
+    k: torch.Tensor,  # (B, Hkv, Sk, Dk)
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    B, Hq, Sq, Dk = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = (Dk**-0.5) if scale is None else scale
+    block_k = min(block_k, Sk)
+    if Sk % block_k:
+        raise ValueError(f"Sk={Sk} is not a multiple of block_k={block_k}")
+    if G > 1:
+        k = k.repeat_interleave(G, dim=1)
+        v = v.repeat_interleave(G, dim=1)
+    dev = q.device
+    qf = q.float() * scale
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hq, Sq, v.shape[-1]), dtype=torch.float32, device=dev)
+    for j in range(Sk // block_k):
+        kblk = k[:, :, j * block_k : (j + 1) * block_k].float()
+        vblk = v[:, :, j * block_k : (j + 1) * block_k].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kblk)
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        mask = torch.ones((Sq, block_k), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vblk)
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / torch.clamp(l, min=1e-30)[..., None], 0.0)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, Hq, 1, Dk)
+    k_cache: torch.Tensor,  # (B, Hkv, S, Dk)
+    v_cache: torch.Tensor,  # (B, Hkv, S, Dv)
+    slot_pos: torch.Tensor,  # (B, S) absolute position in each slot, -1 = empty
+    pos: torch.Tensor,  # (B,) current absolute position of the query
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    Dk = q.shape[-1]
+    scale = (Dk**-0.5) if scale is None else scale
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        valid &= slot_pos > (pos[:, None] - window)
+    return attend(q[:, :, 0], k_cache, v_cache, valid, scale)[:, :, None]
+
+
+# --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+def gqa_init(gen, cfg: ModelConfig, device) -> Params:
+    d, dh, dt = cfg.d_model, cfg.head_dim, cfg.compute_dtype
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * dh, dt, device),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * dh, dt, device),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * dh, dt, device),
+        "wo": dense_init(gen, cfg.n_heads * dh, d, dt, device),
+    }
+    if cfg.use_bias:
+        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((n * dh,), dtype=dt, device=device)
+    return p
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Dense KV cache for one layer.  SWA archs only keep `window` slots."""
+    S = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "slot_pos": torch.full((batch, S), -1, dtype=torch.int32, device=device),
+    }
+
+
+def gqa_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, device) -> dict:
+    """Paged KV pool for one layer: ``n_pages`` fixed-size pages shared by
+    every slot; the per-slot page table maps logical page -> pool row."""
+    shape = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+    }
+
+
+def gqa_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (B, S)
+    cache: Optional[dict] = None,  # decode when present
+    block_k: int = 1024,
+    active: Optional[torch.Tensor] = None,  # (B,) serving slot mask (decode)
+    pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
+    rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """GQA attention.  Decode (``cache`` given) writes the new K/V lane
+    INTO ``cache`` in place and returns it: ``decode_step`` hands every
+    layer views of a fresh copy of the stacked cache, so the caller's
+    previous buffer (kept for the §IV replay) is never written."""
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.use_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, dh)
+    k = k.reshape(B, S, cfg.n_kv_heads, dh)
+    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta, cfg.mrope_sections)
+    q = apply_rope(q, cos, sin).transpose(1, 2)  # (B, H, S, D)
+    k = apply_rope(k, cos, sin).transpose(1, 2)
+    v = v.transpose(1, 2)
+
+    if cache is None:
+        out = blockwise_attention(q, k, v, causal=True, window=cfg.window, block_k=block_k)
+        return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], None
+    if S != 1:
+        raise ValueError("decode path handles one token at a time")
+    pos = positions[:, 0]
+    if pages is not None:
+        if cfg.window:
+            raise ValueError("paged decode excludes windowed archs")
+        # the write lands at (row, lane) through the page table.  JAX drops
+        # the scatter to an out-of-range row for inactive slots and
+        # unmapped pages; torch would raise, so those rows are left out
+        if rows_lanes is None:
+            rows_lanes = paged_write_rows(pages, pos, active, cache["k"].shape)
+        rows, lanes, sel = rows_lanes
+        cache["k"][rows, :, lanes] = k[sel, :, 0].to(cache["k"].dtype)
+        cache["v"][rows, :, lanes] = v[sel, :, 0].to(cache["v"].dtype)
+        out = paged_gqa_attention(
+            q[:, :, 0].contiguous(), cache["k"], cache["v"], pages, pos.contiguous()
+        )
+        return out.reshape(B, S, cfg.n_heads * dh) @ p["wo"], cache
+    Sc = cache["k"].shape[2]
+    slot = pos % Sc
+    bidx = torch.arange(B, device=x.device)
+
+    def gate(new, old):
+        # serving slot mask: an inactive slot keeps its old bytes
+        if active is None:
+            return new
+        return torch.where(active.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+
+    cache["k"][bidx, :, slot] = gate(k[:, :, 0].to(cache["k"].dtype), cache["k"][bidx, :, slot])
+    cache["v"][bidx, :, slot] = gate(v[:, :, 0].to(cache["v"].dtype), cache["v"][bidx, :, slot])
+    cache["slot_pos"][bidx, slot] = gate(pos.to(torch.int32), cache["slot_pos"][bidx, slot])
+    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=cfg.window)
+    return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], cache
+
+
+def paged_write_rows(pages, pos, active, pool_shape):
+    """``(rows, lanes, sel)`` of one decode step's paged K/V write into a
+    pool of ``pool_shape`` (N, Hkv, ps, D): the slots ``sel`` that write
+    (active, with a pool row in [0, N) — the rows JAX's scatter does not
+    drop) and their row and lane.  The same for every layer, so
+    ``decode_step`` computes it once (the selection is a host round trip)."""
+    N, page_size = pool_shape[0], pool_shape[2]
+    P = pages.shape[1]
+    pidx = torch.div(pos, page_size, rounding_mode="floor").long()
+    row = pages.gather(1, pidx.clamp(0, P - 1)[:, None])[:, 0]
+    ok = (row >= 0) & (row < N) & (pidx < P)
+    if active is not None:
+        ok = ok & active
+    sel = ok.nonzero()[:, 0]
+    return row[sel].long(), (pos[sel] % page_size).long(), sel
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device) -> Params:
+    p = {
+        "w1": dense_init(gen, d_model, d_ff, dtype, device),
+        "w2": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+    if act == "swiglu":
+        p["w3"] = dense_init(gen, d_model, d_ff, dtype, device)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p["w1"]
+    if act == "swiglu":
+        h = F.silu(h) * (x @ p["w3"])
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["w2"]

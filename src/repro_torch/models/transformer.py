@@ -1,0 +1,241 @@
+"""The decoder-only LM, GQA/MLP segments (a port of the matching subset of
+``repro/models/transformer.py``).
+
+Parameters are the JAX package's tree: ``{"embed", "final_norm",
+"segments": [stacked per-layer dicts]}``, each segment's leaves carrying
+a leading layer axis.  Layers run as a Python loop over that axis.
+
+Entry points:
+  forward(...)      logits (prefill; optional cache fill with prompt_len)
+  decode_step(...)  one-token serve step over a dense or paged KV cache
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..tree import tree_map
+from . import layers as L
+from .config import ModelConfig
+
+Params = dict
+
+
+# --------------------------------------------------------------------------
+# segment plan
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str  # attn_mlp (the only kind ported so far)
+    count: int  # layers in the segment
+
+
+def segment_plan(cfg: ModelConfig) -> list[Segment]:
+    if cfg.mixer_type != "mlp" or cfg.attn_type != "gqa" or cfg.n_codebooks != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: only GQA/MLP text decoders are ported "
+            f"(mixer={cfg.mixer_type}, attn={cfg.attn_type})"
+        )
+    return [Segment("attn_mlp", cfg.n_layers)]
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def _layer_init(gen, cfg: ModelConfig, device) -> Params:
+    d, dt = cfg.d_model, cfg.compute_dtype
+    return {
+        "ln1": torch.ones((d,), dtype=dt, device=device),
+        "ln2": torch.ones((d,), dtype=dt, device=device),
+        "attn": L.gqa_init(gen, cfg, device),
+        "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    """Random weights from ``gen``, laid out as the JAX package's tree
+    (the draws differ: torch cannot reproduce ``jax.random``)."""
+    dt = cfg.compute_dtype
+    d, V = cfg.d_model, cfg.vocab_size
+    embed = torch.randn((V, d), generator=gen, dtype=torch.float32, device=device) * 0.02
+    params: Params = {"embed": embed.to(dt), "final_norm": torch.ones((d,), dtype=dt, device=device)}
+    segs = []
+    for seg in segment_plan(cfg):
+        layers = [_layer_init(gen, cfg, device) for _ in range(seg.count)]
+        segs.append(tree_map(lambda *xs: torch.stack(xs), *layers))
+    params["segments"] = segs
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, d, V, dt, device)
+    return params
+
+
+# --------------------------------------------------------------------------
+# embedding / unembedding
+# --------------------------------------------------------------------------
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+# --------------------------------------------------------------------------
+# layer bodies
+# --------------------------------------------------------------------------
+def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None,
+               prompt_len=None, pages=None, rows_lanes=None):
+    """Returns (out, cache_out): the updated cache (decode), the filled
+    cache (fill_cache), or None.  ``prompt_len`` masks the fill for
+    bucket-padded prefill: entries at positions >= prompt_len are
+    scrubbed (slot_pos = -1, zero K/V), so the filled cache equals an
+    exact-length prefill's."""
+    if cache is not None:
+        return L.gqa_attention(p, x, cfg, positions=positions, cache=cache,
+                               active=active, pages=pages, rows_lanes=rows_lanes)
+    out, _ = L.gqa_attention(p, x, cfg, positions=positions, cache=None)
+    if not fill_cache:
+        return out, None
+    # re-derive the kv projections to populate a decode cache
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    if cfg.use_bias:
+        k = k + p["bk"].reshape(cfg.n_kv_heads, dh)
+        v = v + p["bv"].reshape(cfg.n_kv_heads, dh)
+    cos, sin = L.rope_cos_sin(positions, dh, cfg.rope_theta, cfg.mrope_sections)
+    kc = L.apply_rope(k, cos, sin).transpose(1, 2)
+    vc = v.transpose(1, 2)
+    if cfg.window and S >= cfg.window:
+        raise NotImplementedError("sliding-window cache fill is not ported yet")
+    sp = torch.broadcast_to(positions, (B, S)).to(torch.int32)
+    if prompt_len is not None:
+        keep = (sp >= 0) & (sp < prompt_len)
+        kc = torch.where(keep[:, None, :, None], kc, torch.zeros_like(kc))
+        vc = torch.where(keep[:, None, :, None], vc, torch.zeros_like(vc))
+        sp = torch.where(keep, sp, -1)
+    return out, {"k": kc, "v": vc, "slot_pos": sp}
+
+
+def _layer_apply(p: Params, h, cfg: ModelConfig, positions, cache, fill_cache,
+                 active=None, prompt_len=None, pages=None, rows_lanes=None):
+    """One layer: [norm -> attention -> residual] [norm -> MLP -> residual].
+    Returns (h, cache_out)."""
+    a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
+                         positions, cache, fill_cache, active, prompt_len,
+                         pages, rows_lanes)
+    h = h + a
+    h = h + L.mlp(p["mlp"], L.rmsnorm(h, p["ln2"], cfg.rms_eps), cfg.mlp_act)
+    return h, cout
+
+
+# --------------------------------------------------------------------------
+# forward / decode
+# --------------------------------------------------------------------------
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # (B, S)
+    *,
+    positions: Optional[torch.Tensor] = None,
+    fill_cache: bool = False,
+    prompt_len=None,
+):
+    """Returns (logits, filled_cache | None).
+
+    ``prompt_len`` (serving's bucketed prefill): the true prompt length
+    when ``tokens`` is right-padded to a bucket; the filled caches are
+    scrubbed past it and logits at real positions are untouched."""
+    B, S = tokens.shape[:2]
+    if prompt_len is not None and cfg.window:
+        raise ValueError("prompt_len (bucket-padded prefill) requires full-attention models")
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None, :]
+    h = embed_tokens(params, tokens, cfg)
+    caches = []
+    for seg, sp in zip(segment_plan(cfg), params["segments"]):
+        couts = []
+        for i in range(seg.count):
+            lp = tree_map(lambda x, i=i: x[i], sp)
+            h, cout = _layer_apply(lp, h, cfg, positions, None, fill_cache,
+                                   prompt_len=prompt_len)
+            couts.append(cout)
+        caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
+    h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    logits = unembed(params, h, cfg)
+    cache_out = None
+    if fill_cache:
+        cache_out = {
+            "segments": caches,
+            "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        }
+    return logits, cache_out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    out = []
+    for seg in segment_plan(cfg):
+        one = L.gqa_cache_init(cfg, batch, max_len, device)
+        out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
+    return {"segments": out, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, page_size: int,
+                     device) -> dict:
+    """Paged serving cache: per-layer page POOLS shared by every slot (the
+    page axis replaces the batch axis of the dense cache), plus the
+    per-slot ``pos``."""
+    if cfg.window:
+        raise ValueError("paged cache excludes sliding-window archs")
+    out = []
+    for seg in segment_plan(cfg):
+        one = L.gqa_paged_cache_init(cfg, n_pages, page_size, device)
+        out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
+    return {"segments": out, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    cache: dict,
+    tokens: torch.Tensor,
+    *,
+    active: Optional[torch.Tensor] = None,
+    pages: Optional[torch.Tensor] = None,
+):
+    """One serve step: tokens (B, 1) -> (logits (B, 1, V), new cache).
+
+    ``active`` (B,) bool is the continuous batcher's slot mask: inactive
+    slots keep their cache bytes and position.  ``pages`` (B, P) switches
+    to the paged pools (one paged-attention kernel launch per layer).
+
+    The cache is written out of place: every stacked cache leaf is copied
+    once, and the layers write their new lane into the copy.  The input
+    ``cache`` is left untouched — the serving engine keeps it as the
+    immutable previous buffer of the §IV replay."""
+    pos = cache["pos"]
+    positions = pos[:, None]
+    h = embed_tokens(params, tokens, cfg)
+    rows_lanes = None
+    if pages is not None:
+        pool_shape = cache["segments"][0]["k"].shape[1:]  # one layer's pool
+        rows_lanes = L.paged_write_rows(pages, pos, active, pool_shape)
+    new_segs = []
+    for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
+        new_c = {k: v.clone() for k, v in sc.items()}
+        for i in range(seg.count):
+            lp = tree_map(lambda x, i=i: x[i], sp)
+            lc = {k: v[i] for k, v in new_c.items()}  # views into the copy
+            h, _ = _layer_apply(lp, h, cfg, positions, lc, False, active, None,
+                                pages, rows_lanes)
+        new_segs.append(new_c)
+    h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    logits = unembed(params, h, cfg)
+    new_pos = pos + 1 if active is None else pos + active.to(pos.dtype)
+    return logits, {"segments": new_segs, "pos": new_pos}

@@ -1,0 +1,157 @@
+"""LM adapter for the continuous batcher: the slot-masked serve program
+of ``models/lm_cells.py`` packaged as a ``SlotAdapter`` (a port of
+``repro/serving/lm.py`` without speculation).
+
+    cfg = get_config("internlm2-1.8b")
+    prog, adapter = lm_engine_parts(cfg, ServeConfig(batch=8, max_len=512,
+                                                     paged=True))
+    engine = repro_torch.api.serve(prog, adapter)
+
+Prefill is BUCKETED as in the JAX package: prompts are right-padded to a
+geometric ladder (``ServeConfig.prefill_bucket_min`` doubling up to
+``max_len``) and the padded positions are masked out of the filled cache
+by ``prompt_len``, so the slot state equals an exact-length prefill's.
+Prefill is optionally CHUNKED (``ServeConfig.prefill_chunk``): the tail
+of a long prompt rides into the slot's ``pending`` segment and is walked
+inside the resident transition.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.executor import resolve_device
+from ..models.config import ModelConfig
+from ..models.lm_cells import (
+    ServeConfig,
+    make_slot_serve_program,
+    paged_pool_pages,
+    paged_serving_supported,
+    paged_slot_decoder_init,
+    prefill_bucket_ladder,
+    prefill_slot_state,
+    slot_decoder_init,
+)
+from .engine import EngineParts, SlotAdapter
+from .request import Request
+from .slots import infer_slot_axes
+
+
+def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> EngineParts:
+    """``EngineParts(program, adapter)`` for ``repro_torch.api.serve``:
+    the resident slot-masked LM serve program plus the glue the engine
+    needs to run it.  ``device`` must be the engine's device."""
+    dev = resolve_device(device)
+    prog = make_slot_serve_program(cfg, scfg)
+    paged = scfg.paged and paged_serving_supported(cfg)
+    # bucket padding is maskable only for full-attention text caches
+    bucketable = cfg.mixer_type != "mamba2" and not cfg.n_vision_tokens and not cfg.window
+    ladder = prefill_bucket_ladder(scfg) if bucketable else ()
+    chunk = scfg.prefill_chunk if not cfg.n_vision_tokens else 0
+    if chunk > 0 and ladder:
+        # a chunk-sized head must run a chunk-sized forward
+        ladder = tuple(sorted(set(ladder) | {min(chunk, scfg.max_len)}))
+    buckets_used: set = set()
+
+    def prefill(req: Request, states: dict):
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        plen = int(prompt.shape[0])
+        c0 = plen if chunk <= 0 or plen <= chunk else max(chunk, plen - scfg.max_len)
+        bucket = min((b for b in ladder if b >= c0), default=c0)
+        # the bucket-sized forward is paid for regardless: cover as much
+        # prompt as fits in it, shrinking the walked tail
+        c0 = min(plen, bucket)
+        head = np.zeros((bucket,), np.int32)
+        head[:c0] = prompt[:c0]
+        pend = np.zeros((scfg.max_len,), np.int32)
+        n_pending = plen - c0
+        pend[:n_pending] = prompt[c0:]
+        slot_state, first = prefill_slot_state(
+            cfg,
+            scfg,
+            states["weights"]["params"],
+            torch.from_numpy(head).to(dev),
+            prompt_len=c0 if bucketable else None,
+            pending=torch.from_numpy(pend).to(dev),
+            n_pending=n_pending,
+        )
+        buckets_used.add(bucket)
+        if n_pending:
+            # the real first token comes from the tick that consumes the
+            # last pending prompt token
+            return slot_state, None, n_pending
+        return slot_state, first, 0
+
+    def validate(req: Request) -> Optional[str]:
+        plen = int(np.asarray(req.prompt).shape[0])
+        if plen + req.max_new_tokens > scfg.max_len and not cfg.window:
+            return (
+                f"prompt {plen} + budget {req.max_new_tokens} exceeds "
+                f"cache capacity {scfg.max_len}"
+            )
+        return None
+
+    table = surgery = pre_tick = has_capacity = None
+    if paged:
+        from .paging import PageTable, infer_paged_axes, make_pre_tick, paged_surgery
+
+        psize = scfg.page_size
+        n_pages = paged_pool_pages(scfg)
+        table = PageTable(n_pages, psize, scfg.max_len // psize)
+        axes = infer_paged_axes(
+            lambda b: paged_slot_decoder_init(cfg, b, scfg.max_len, psize, n_pages, "meta")
+        )
+
+        def reserve_fn(req: Request) -> int:
+            # worst-case pages of ONE replica slot
+            return table.pages_for(min(req.prompt_len + req.max_new_tokens, scfg.max_len))
+
+        def make_empty():
+            # the scrub template only reads non-pool leaves: a 1-page pool
+            return paged_slot_decoder_init(cfg, 1, scfg.max_len, psize, 1, dev)
+
+        surgery = paged_surgery(table, "decoder", axes, make_empty(), reserve_fn=reserve_fn)
+        pre_tick = make_pre_tick(table, "decoder", scfg.batch, walk_chunk=max(1, chunk))
+
+        def has_capacity(req: Request) -> bool:
+            return table.can_admit(req.n_slots * reserve_fn(req))
+
+    else:
+        axes = infer_slot_axes(lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta"))
+
+        def make_empty():
+            return slot_decoder_init(cfg, 1, scfg.max_len, dev)
+
+    def stats() -> dict:
+        out = {
+            "prefill_buckets_used": len(buckets_used),
+            "prefill_buckets": list(ladder) if ladder else None,
+            "prefill_chunk": chunk,
+            "paged": paged,
+        }
+        if table is not None:
+            out["pages_total"] = table.n_pages
+            out["pages_free"] = table.free_pages
+            out["page_faults"] = table.page_faults
+            out["page_size"] = table.page_size
+        return out
+
+    adapter = SlotAdapter(
+        cell="decoder",
+        n_slots=scfg.batch,
+        slot_axes=axes,
+        prefill=prefill,
+        read_tokens=lambda dec: dec["tokens"],
+        make_empty=make_empty,
+        validate=validate,
+        stats=stats,
+        surgery=surgery,
+        has_capacity=has_capacity,
+        pre_tick=pre_tick,
+        walk_chunk=max(1, chunk),
+        contiguous_replicas=not paged,
+    )
+    return EngineParts(prog, adapter)
