@@ -6,13 +6,27 @@
 Needs a CUDA device and nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``);
 imports nothing of JAX.  Phases, each of which raises on failure:
 
-  1. build    -- every CUDA kernel of the serving path, from
+  1. build    -- every CUDA kernel of the port's paths, from
                  ``src/repro_torch/csrc``, one nvcc per source in parallel.
-  2. kernels  -- each kernel against its plain PyTorch version on the card
-                 at the serving path's shapes, with its tolerance; device
-                 times (CUDA-graph replays, so host overhead is excluded)
-                 of the kernel, the plain version and a library yardstick,
-                 beside the bound computed from this run's inputs.
+  2. kernels  -- K5 against its plain PyTorch version on the card at the
+                 serving path's shapes, with its tolerance; device times
+                 (CUDA-graph replays, so host overhead is excluded) of the
+                 kernel, the plain version and a library yardstick, beside
+                 the bound computed from this run's inputs.
+  2b. epilogue -- K1-K4 (the DMR/TMR compare, vote and fingerprint
+                 kernels) BITWISE against their plain versions, each run
+                 twice, on the 4K blend's padded word stream and on odd
+                 sizes (raw, padded as the wrappers pad, and unaligned),
+                 with one bit flip in one replica; device times beside the
+                 bound.
+  2c. loop    -- the paper's loop: Listing 1's image blend at 4K UHD
+                 compiled with ``backend="auto"`` (must resolve to
+                 ``lockstep_cuda``), 64 steps each of DMR (bitwise, hash,
+                 compare_every=4) and TMR with a bit flip at step 20:
+                 detected at step 20 / voted away, states bitwise equal to
+                 the port's ``lockstep`` (DMR) or the unstruck run (TMR),
+                 K1/K2 launches equal to the compared steps; then K3 and
+                 K4 through ``kernels.ops`` on the final state.
   3. engine   -- the main path: ``repro_torch.api.serve`` on full-width,
                  full-depth internlm2-1.8b (bf16, random weights from a
                  seed) with paged KV: 8 staggered requests, policies
@@ -23,8 +37,9 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   4. check    -- a reduced f32 model served the same way must emit the
                  tokens a full-sequence forward pass predicts.
 
-The last lines are the engine's and the kernels' JSON records, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the loop's, the engine's and the kernels' JSON
+records, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -43,8 +58,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 SEED = 0
-KERNELS = ["paged_gqa_decode"]
+KERNELS = ["paged_gqa_decode", "redundancy_epilogue"]
 
 
 def log(msg: str) -> None:
@@ -205,6 +221,310 @@ def kernel_phase() -> dict:
         "ms_all_lanes_valid": ms_full,
         "bound_ms_all_lanes_valid": bound_full,
     }
+
+
+# --------------------------------------------------------------------------
+# phase 2b: K1-K4 against their plain versions, bitwise
+# --------------------------------------------------------------------------
+W4K, H4K = 3840, 2160
+#: the 4K blend's state, 3 f32 channels, padded to ``pick_block`` (64 Ki)
+STREAM_4K = 380 * 65536
+ODD_SIZES = (1, 129, 65537)
+NO_LIBRARY = ("no single PyTorch call computes the vote with its counts, or the "
+              "4-word position-weighted fingerprint")
+
+
+def epilogue_specs():
+    """name -> (wrapper, plain version, streams read, words the wrappers pad
+    to, integer ops per word and bytes per word as counted in
+    csrc/redundancy_epilogue.cu, TPU kernel it replaces)."""
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import state_hash as sh
+    from repro_torch.kernels import tmr_vote as tv
+
+    return {
+        "dmr_compare": (fs.dmr_compare, fs.dmr_compare_plain, 2, fs.pick_block, 28, 8,
+                        "src/repro/kernels/fused_step.py:81"),
+        "tmr_step": (fs.tmr_step, fs.tmr_step_plain, 3, fs.pick_block, 25, 16,
+                     "src/repro/kernels/fused_step.py:134"),
+        "state_hash": (sh.state_hash, sh.state_hash_plain, 1, lambda n: ops.HASH_BLOCK, 14, 4,
+                       "src/repro/kernels/state_hash.py:85"),
+        "tmr_vote": (tv.tmr_vote, tv.tmr_vote_plain, 3, lambda n: ops.VOTE_BLOCK, 11, 16,
+                     "src/repro/kernels/tmr_vote.py:50"),
+    }
+
+
+def replica_streams(n: int, gen, pad_to: int = 0, offset: int = 0):
+    """Three replica word streams of n words (zero-padded to ``pad_to``),
+    replica 1 with bit 30 of its middle word flipped; ``offset`` > 0 makes
+    them views that start ``offset`` words into a buffer (not 16-byte
+    aligned)."""
+    m = max(n, pad_to)
+    base = torch.zeros(m + offset, dtype=torch.int32, device="cuda")
+    base[offset : offset + n] = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                                              generator=gen, device="cuda")
+    reps = [base.clone()[offset:] for _ in range(3)]
+    reps[1][n // 2] ^= 1 << 30
+    return reps
+
+
+def epilogue_bound(n: int, ops_per_word: int, bytes_per_word: int) -> tuple[float, str]:
+    t_bytes = n * bytes_per_word / HBM_BYTES_PER_S
+    t_ops = n * ops_per_word / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bits_equal(t1, t2) -> bool:
+    """Two trees (or tuples) of tensors hold the same shapes, dtypes and bits."""
+    from repro_torch.core.fault import bitcast_int
+
+    l1, l2 = _leaves(t1), _leaves(t2)
+    return len(l1) == len(l2) and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(bitcast_int(a), bitcast_int(b))
+        for a, b in zip(l1, l2))
+
+
+def epilogue_phase() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    records = {}
+    for name, (kernel, plain, k, pad, ops_pw, bytes_pw, replaces) in epilogue_specs().items():
+        cases = [("4K", STREAM_4K, 0, 0)]
+        for n in ODD_SIZES:
+            padded = n + (-n) % pad(n)
+            cases += [(f"n={n}", n, 0, 0), (f"n={n} padded to {padded}", n, padded, 0),
+                      (f"n={n} unaligned", n, 0, 1)]
+        for label, n, pad_to, offset in cases:
+            reps = replica_streams(n, gen, pad_to, offset)
+            ins = reps[:k] if k > 1 else reps[1:2]  # K3 hashes the struck replica
+            got = kernel(*ins)
+            again = kernel(*ins)
+            torch.cuda.synchronize()
+            ref = plain(*ins)
+            if not bits_equal(got, again):
+                raise AssertionError(f"{name} {label}: two runs disagree")
+            if not bits_equal(got, ref):
+                raise AssertionError(f"{name} {label}: kernel != plain version")
+            if name == "dmr_compare" and int(got[0]) != 1:
+                raise AssertionError(f"{name} {label}: {int(got[0])} mismatching words, not 1")
+            if name in ("tmr_step", "tmr_vote") and (
+                    got[1].tolist() != [0, 1, 0] or not torch.equal(got[0], reps[0])):
+                raise AssertionError(f"{name} {label}: vote did not outvote the flip")
+        log(f"epilogue: {name} bitwise equal to its plain version, twice, on "
+            f"{len(cases)} streams (4K = {STREAM_4K} words; {', '.join(c[0] for c in cases[1:])})")
+        # times at the 4K stream: one replica set is 100-300 MB, above the 50 MB L2
+        reps = replica_streams(STREAM_4K, gen)
+        ins = reps[:k] if k > 1 else reps[1:2]
+        launches0 = kernel.launches
+        ms = graph_ms(lambda: kernel(*ins))
+        eager_ms = events_ms(lambda: kernel(*ins))
+        plain_ms = graph_ms(lambda: plain(*ins), reps=2, iters=3)
+        kernel.launches = launches0  # comparison launches do not count
+        bound_ms, bound_by = epilogue_bound(STREAM_4K, ops_pw, bytes_pw)
+        log(f"epilogue: {name} at the 4K stream: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms, "
+            f"{STREAM_4K * bytes_pw / (ms * 1e-3) / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_pw} B and {ops_pw} int ops a word)")
+        records[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/redundancy_epilogue.cu",
+            "replaces": replaces,
+            "launches": None,
+            "max_abs_err": 0.0,
+            "tolerance": "bitwise",
+            "ms": ms,
+            "eager_ms": eager_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "int_ops_per_word": ops_pw,
+            "bytes_per_word": bytes_pw,
+            "library_ms": None,
+            "library_why": NO_LIBRARY,
+        }
+    return records
+
+
+# --------------------------------------------------------------------------
+# phase 2c: the paper's loop, Listing 1 at 4K under DMR and TMR
+# --------------------------------------------------------------------------
+LOOP_STEPS = 64
+STRIKE_STEP = 20
+
+
+def blend_program(policy):
+    """Paper Listing 1: ImageBlend {r, g, b} blends toward the unreplicated
+    StaticImage, c = .99 c + .01 StaticImage.c, at 4K UHD; both images
+    made from the generator on the device."""
+    from repro_torch import api
+
+    n = W4K * H4K
+
+    def image(gen, dev):
+        return {c: torch.rand(n, generator=gen, device=dev) * 255 for c in "rgb"}
+
+    prog = api.MisoProgram()
+    prog.add(api.CellType(
+        "ImageBlend", image,
+        lambda prev: {c: 0.99 * prev["ImageBlend"][c] + 0.01 * prev["StaticImage"][c] for c in "rgb"},
+        reads=("StaticImage",), redundancy=policy))
+    prog.add(api.CellType("StaticImage", image, lambda prev: prev["StaticImage"]))
+    return prog
+
+
+def loop_phase(epi: dict) -> dict:
+    from repro_torch import api
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import state_hash as sh
+    from repro_torch.kernels import tmr_vote as tv
+    from repro_torch.tree import tree_map
+
+    dmr = api.RedundancyPolicy(level=2)
+    tmr = api.RedundancyPolicy(level=3)
+    fault = api.FaultSpec.at(step=STRIKE_STEP, cell_id=0, replica=1, leaf=0,
+                             index=(H4K // 2) * W4K + W4K // 2, bit=30)
+    wrappers = (fs.dmr_compare, fs.tmr_step, sh.state_hash, tv.tmr_vote)
+    exe = api.compile(blend_program(dmr), backend="auto")
+    if exe.name != "lockstep_cuda":
+        raise AssertionError(f"backend='auto' resolved to {exe.name!r}, not 'lockstep_cuda'")
+    s_dmr = exe.init(SEED)
+    torch.cuda.synchronize()
+    launches = {}
+    for w in wrappers:  # counts start here
+        w.launches = 0
+
+    def run(exe, states, faults=None):
+        res = exe.run(states, LOOP_STEPS, faults=faults)
+        torch.cuda.synchronize()
+        return res
+
+    # (a) DMR bitwise, against the port's own lockstep on the card
+    k0 = fs.dmr_compare.launches
+    res = run(exe, s_dmr, fault)
+    launches["dmr_bitwise"] = fs.dmr_compare.launches - k0
+    ref_exe = api.compile(blend_program(dmr), backend="lockstep")
+    ref = run(ref_exe, s_dmr, fault)
+    recent = exe.ledger.recent.get("ImageBlend", [])
+    if recent[:1] != [STRIKE_STEP] or recent != ref_exe.ledger.recent["ImageBlend"]:
+        raise AssertionError(f"DMR: events at {recent[:3]}..., not from step {STRIKE_STEP}")
+    if not bits_equal(res.states, ref.states) or not bits_equal(res.reports, ref.reports):
+        raise AssertionError("DMR: lockstep_cuda states/reports differ from lockstep")
+    if exe.ledger.totals != ref_exe.ledger.totals:
+        raise AssertionError("DMR: ledger totals differ from lockstep")
+    canon = res.states["ImageBlend"]
+    if not all(bool(torch.isfinite(x[0]).all()) for x in _leaves(canon)):
+        raise AssertionError("DMR: replica 0 is not finite")
+    log(f"loop: auto -> {exe.name}; DMR bitwise: first event at step {recent[0]}, "
+        f"{exe.ledger.totals['ImageBlend']['events']:.0f} events over {LOOP_STEPS} steps, "
+        f"states, reports and ledger bitwise equal to lockstep; K1 launches "
+        f"{launches['dmr_bitwise']}")
+
+    # (b) DMR compare="hash": the kernel's fingerprints decide
+    exe_h = api.compile(blend_program(api.RedundancyPolicy(level=2, compare="hash")), backend="auto")
+    k0 = fs.dmr_compare.launches
+    res_h = run(exe_h, s_dmr, fault)
+    launches["dmr_hash"] = fs.dmr_compare.launches - k0
+    recent_h = exe_h.ledger.recent.get("ImageBlend", [])
+    if recent_h != recent or not bits_equal(res_h.states, res.states):
+        raise AssertionError(f"DMR hash: events at {recent_h[:3]}..., not those of bitwise")
+
+    # (c) DMR compare_every=4: the kernel runs on every 4th step only
+    exe_4 = api.compile(blend_program(dmr), backend="auto", compare_every=4)
+    k0 = fs.dmr_compare.launches
+    res_4 = run(exe_4, s_dmr, fault)
+    launches["dmr_every4"] = fs.dmr_compare.launches - k0
+    recent_4 = exe_4.ledger.recent.get("ImageBlend", [])
+    if recent_4[:1] != [STRIKE_STEP + 3] or not bits_equal(res_4.states, res.states):
+        raise AssertionError(f"DMR every 4: events at {recent_4[:3]}, not from step {STRIKE_STEP + 3}")
+    del s_dmr, res, ref, res_h, res_4
+
+    # (d) TMR: voted away at once; the final states are the unstruck run's
+    exe_t = api.compile(blend_program(tmr), backend="auto")
+    s_tmr = exe_t.init(SEED)
+    k0 = fs.tmr_step.launches
+    res_t = run(exe_t, s_tmr, fault)
+    launches["tmr"] = fs.tmr_step.launches - k0
+    tot = exe_t.ledger.totals["ImageBlend"]
+    if tot["per_replica"] != [0.0, 1.0, 0.0] or tot["events"] != 1.0:
+        raise AssertionError(f"TMR: totals {tot}, want one event on replica 1")
+    clean_exe = api.compile(blend_program(tmr), backend="auto")
+    clean = run(clean_exe, s_tmr)
+    if not bits_equal(res_t.states, clean.states):
+        raise AssertionError("TMR: the struck run's final states differ from the unstruck run's")
+    if not all(bool(torch.isfinite(x).all()) for x in _leaves(res_t.states)):
+        raise AssertionError("TMR: state not finite")
+    log(f"loop: DMR hash: first event at step {recent_h[0]}, K1 launches "
+        f"{launches['dmr_hash']}; DMR compare_every=4: first event at step {recent_4[0]}, "
+        f"K1 launches {launches['dmr_every4']}; TMR: {tot['events']:.0f} event, per replica "
+        f"{tot['per_replica']}, final states bitwise equal to the unstruck run; K2 launches "
+        f"{launches['tmr']} (+{LOOP_STEPS} unstruck)")
+    want = {"dmr_bitwise": LOOP_STEPS, "dmr_hash": LOOP_STEPS, "dmr_every4": LOOP_STEPS // 4,
+            "tmr": LOOP_STEPS}
+    if launches != want:
+        raise AssertionError(f"K1/K2 launches {launches} != the compared steps {want}")
+
+    # K3 and K4 through kernels.ops on the final state, against the plain versions
+    final = res_t.states["ImageBlend"]  # (3, n) per channel, all replicas equal
+    fp = ops.fingerprint_fused(tree_map(lambda x: x[0], final))
+    fp_ref = sh.state_hash_plain(ops.flatten_to_u32(tree_map(lambda x: x[0], final),
+                                                    multiple=ops.HASH_BLOCK))
+    struck = tree_map(lambda x: x.clone(), final)
+    g = struck["g"]
+    g[2, g.shape[1] // 3] = -g[2, g.shape[1] // 3]  # a sign flip in replica 2
+    voted, counts = ops.tmr_vote_pytree(struck)
+    flats = ops.flatten_replicas(struck, 3, multiple=ops.VOTE_BLOCK)
+    voted_ref, counts_ref = tv.tmr_vote_plain(flats[0], flats[1], flats[2])
+    torch.cuda.synchronize()
+    if not bits_equal(fp, fp_ref):
+        raise AssertionError("fingerprint_fused: K3 != plain version")
+    if not bits_equal(counts, counts_ref) or counts.tolist() != [0, 0, 1]:
+        raise AssertionError(f"tmr_vote_pytree: counts {counts.tolist()} != plain / [0, 0, 1]")
+    voted_words = ops.flatten_to_u32(voted, multiple=ops.VOTE_BLOCK)
+    if not bits_equal(voted_words, voted_ref) or not bits_equal(voted, tree_map(lambda x: x[0], final)):
+        raise AssertionError("tmr_vote_pytree: voted state != plain version / replica 0")
+    for w, key in zip(wrappers, ("dmr_compare", "tmr_step", "state_hash", "tmr_vote")):
+        epi[key]["launches"] = w.launches  # and are read here
+        if w.launches == 0:
+            raise AssertionError(f"{key} was not launched on the paper's loop")
+    log(f"loop: ops.fingerprint_fused (K3) and ops.tmr_vote_pytree (K4, counts "
+        f"{counts.tolist()}) on the final state bitwise equal to the plain versions; "
+        f"launches on the loop: " + ", ".join(f"{k} {v['launches']}" for k, v in epi.items()))
+
+    # ms per step, lockstep vs lockstep_cuda, in turns; then the epilogue's parts
+    timing = {}
+    for label, policy, states in (("dmr", dmr, None), ("tmr", tmr, s_tmr)):
+        prog = blend_program(policy)
+        if states is None:
+            states = api.compile(prog, backend="lockstep").init(SEED)
+        for backend in ("lockstep", "lockstep_cuda", "lockstep_cuda", "lockstep"):
+            e = api.compile(prog, backend=backend)
+            e.run(states, 4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.run(states, 16)
+            torch.cuda.synchronize()
+            timing.setdefault(f"{label}_{backend}_ms_per_step", []).append(
+                (time.perf_counter() - t0) / 16 * 1e3)
+        new = states["ImageBlend"]
+        R = policy.level
+        layout = ops.word_layout(new, lead=1)
+        blk = fs.pick_block(layout.total)
+        flat_ms = events_ms(lambda: ops.flatten_replicas(new, R, multiple=blk, layout=layout))
+        flats = ops.flatten_replicas(new, R, multiple=blk, layout=layout)
+        like = tree_map(lambda x: x[0], new)
+        unflat_ms = events_ms(lambda: [x.unsqueeze(0).repeat(R, 1) for x in _leaves(
+            ops.unflatten_from_u32(flats[0], like, layout=layout))])
+        timing[f"{label}_flatten_ms"] = flat_ms
+        timing[f"{label}_unflatten_replicate_ms"] = unflat_ms
+        kernel = "dmr_compare" if R == 2 else "tmr_step"
+        fused = timing[f"{label}_lockstep_cuda_ms_per_step"]
+        plain = timing[f"{label}_lockstep_ms_per_step"]
+        log(f"loop: {label.upper()} 4K ms/step: lockstep {plain[0]:.3f} / {plain[1]:.3f}, "
+            f"lockstep_cuda {fused[0]:.3f} / {fused[1]:.3f}; {kernel} {epi[kernel]['ms']:.4f} ms "
+            f"({epi[kernel]['ms'] / min(fused) * 100:.1f} % of a step), flatten {flat_ms:.4f} ms"
+            + (f", unflatten + replicate {unflat_ms:.4f} ms" if R == 3 else ""))
+    return {"launches": launches, **timing}
 
 
 # --------------------------------------------------------------------------
@@ -425,11 +745,15 @@ def main() -> int:
         regs = [ln.strip() for ln in log_path.read_text().splitlines() if "registers" in ln]
         log(f"build: {name}: {'; '.join(regs)}")
     record = kernel_phase()
+    epi = epilogue_phase()
+    loop = loop_phase(epi)
+    torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
     eng = engine_phase()
     record["launches"] = eng["launches"]
     check_phase()
+    print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, *epi.values()]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -7,10 +7,15 @@
     exe = miso.compile(prog)                  # runs on cuda; device="cpu"
     result = exe.run(exe.init(0), 100)        # -> RunResult
 
-The same protocol as ``repro.api`` (the JAX reference); this slice
-registers the ``lockstep`` back-end and the temporal serving engine.
+The same protocol as ``repro.api`` (the JAX reference).  Back-ends:
+``lockstep``, ``lockstep_cuda`` (the replicated cells' compare or vote
+fused into one CUDA kernel per step) and ``auto`` (``lockstep_cuda`` on
+a card, ``lockstep`` on the CPU); and the temporal serving engine.
+
+    exe = miso.compile(prog, backend="auto")  # -> lockstep_cuda on cuda
 """
 
+from .core.backend_cuda import LockstepCudaExecutor  # noqa: F401
 from .core.cell import NO_REDUNDANCY, CellType, MisoSemanticsError, RedundancyPolicy  # noqa: F401
 from .core.executor import (  # noqa: F401
     BACKENDS,
@@ -52,6 +57,7 @@ __all__ = [
     "Executor",
     "FaultLedger",
     "FaultSpec",
+    "LockstepCudaExecutor",
     "MetricsRegistry",
     "MisoProgram",
     "MisoSemanticsError",

@@ -25,3 +25,6 @@ from .redundancy import (  # noqa: F401
     majority_vote,
     replicate_state,
 )
+
+# registers the fused ``lockstep_cuda`` back-end
+from . import backend_cuda  # noqa: F401

@@ -1,0 +1,120 @@
+"""Fused lock-step back-end: ``compile(prog, backend="lockstep_cuda")``.
+
+The counterpart of ``repro/core/backend_pallas.py`` (``lockstep_pallas``).
+The redundant compare or vote is part of the compiled program, not a
+wrapper around it (MISO §IV): each replicated cell's dependability
+epilogue is ONE kernel per step (``kernels/fused_step.py``, CUDA on the
+card):
+
+  DMR -- K1 ``dmr_compare``: word compare + both replica fingerprints in
+         one pass over the flat word streams;
+  TMR -- K2 ``tmr_step``: majority vote + per-replica mismatch counts +
+         the voted state's fingerprint in one pass.
+
+The transition, fault injection and read-prev/write-next semantics are
+those of ``lockstep`` (``redundancy.replicated_transition`` is shared),
+so trajectories and events are bitwise the ``lockstep`` back-end's.  As
+in the JAX package, mismatch counters are u32-word-granular (the kernels
+compare the packed word stream): equal to element counts for 32-bit
+dtypes, coarser for packed bf16, int8 or bool leaves.  So this back-end
+equals JAX's ``lockstep_pallas``, and its counts can differ from this
+package's ``lockstep``; events never do.
+
+On a CUDA executor the kernels run; on the CPU their plain versions do
+(``metrics()["interpret"]`` is True), which the CPU tests hold bitwise
+against ``lockstep_pallas`` in Pallas interpret mode.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import ops
+from ..kernels.fused_step import dmr_compare, pick_block, tmr_step
+from ..tree import tree_leaves, tree_map
+from .executor import LockstepExecutor, register_backend
+from .program import MisoProgram
+from .redundancy import replicate_state, replicated_transition, run_transition, zero_report
+
+
+def fused_transition(cell, prevs, levels, *, cell_id, step, fault, compare_now: bool = True):
+    """One replicated cell transition with the fused epilogue.
+
+    Mirrors ``redundancy.run_transition`` for R > 1 cells: the same
+    replicated transition and injection, then one kernel instead of the
+    element-wise compare or vote.  Steps without a compare skip the DMR
+    kernel entirely and zero the TMR counters (the vote still runs and
+    re-synchronizes the replicas every step, as in ``lockstep``)."""
+    policy = cell.redundancy
+    R = policy.level
+    new = replicated_transition(cell, prevs, levels, cell_id=cell_id, step=step, fault=fault)
+    layout = ops.word_layout(new, lead=1)
+    blk = pick_block(layout.total)
+    device = tree_leaves(new)[0].device
+    report = {k: v.to(device) for k, v in zero_report().items()}
+
+    if R == 2:
+        if not compare_now:
+            return new, report
+        flats = ops.flatten_replicas(new, 2, multiple=blk, layout=layout)
+        diff_words, fps = dmr_compare(flats[0], flats[1])
+        if policy.compare == "hash":
+            # what a spatial deployment ships between devices: 2 x 16 bytes
+            diff = (fps[0] != fps[1]).sum(dtype=torch.float32)
+        else:
+            diff = diff_words.to(torch.float32)
+        report["mismatch_elems"] = diff
+        report["events"] = (diff > 0).to(torch.float32)
+        return new, report
+
+    # R == 3: correction by vote
+    flats = ops.flatten_replicas(new, 3, multiple=blk, layout=layout)
+    voted_flat, counts, _fp = tmr_step(flats[0], flats[1], flats[2])
+    voted = ops.unflatten_from_u32(voted_flat, tree_map(lambda x: x[0], new), layout=layout)
+    per = counts.to(torch.float32)
+    if policy.compare == "hash":
+        per = (per > 0).to(torch.float32)  # indicators, as lockstep's hash mode
+    if not compare_now:
+        per = torch.zeros_like(per)
+    report["per_replica"] = (per > 0).to(torch.float32) * torch.clamp(per, min=1.0)
+    report["mismatch_elems"] = per.sum()
+    report["events"] = (per.sum() > 0).to(torch.float32)
+    # re-synchronize replicas to the voted value (prevents divergence)
+    return replicate_state(voted, R), report
+
+
+def compile_step_cuda(program: MisoProgram, *, with_compare: bool = True):
+    """program -> step(states, step_idx, fault) with the fused epilogue.
+    Unreplicated cells, and cells with an empty state, take the plain
+    ``run_transition``; each other replicated cell gets one kernel."""
+    levels = program.levels()
+    names = list(program.cells)
+
+    def step(states: dict, step_idx: int, fault):
+        new_states, reports = {}, {}
+        for cid, name in enumerate(names):
+            cell = program.cells[name]
+            fused = cell.redundancy.level > 1 and ops.word_layout(states[name]).total > 0
+            run = fused_transition if fused else run_transition
+            new_states[name], reports[name] = run(
+                cell, states, levels, cell_id=cid, step=step_idx, fault=fault,
+                compare_now=with_compare,
+            )
+        return new_states, reports
+
+    return step
+
+
+@register_backend("lockstep_cuda")
+class LockstepCudaExecutor(LockstepExecutor):
+    """Lock-step schedule with the fused redundancy epilogue.  ``run``,
+    ``stream``, ``compare_every``, fault threading and ledger attribution
+    are the lockstep back-end's; only the per-cell step differs."""
+
+    def _compile_step(self, *, with_compare: bool):
+        return compile_step_cuda(self.program, with_compare=with_compare)
+
+    def metrics(self) -> dict:
+        m = super().metrics()
+        m["interpret"] = self.device.type == "cpu"  # the plain versions run
+        return m

@@ -13,9 +13,11 @@ Every executor speaks the same protocol as the JAX package's:
     stream(states[, n_steps])    -> generator of (states', reports)
     metrics()                    -> dict (FaultLedger / compare statistics)
 
-This package registers one back-end so far, ``lockstep``: every cell's
-transition computed from the previous program state (double-buffered),
-one Python-level step after another.
+Back-ends: ``lockstep`` (every cell's transition computed from the
+previous program state, double-buffered, one Python-level step after
+another) and ``lockstep_cuda`` (``core/backend_cuda.py``: the same
+schedule with each replicated cell's compare or vote fused into one
+kernel).  ``backend="auto"`` picks between them by device.
 """
 
 from __future__ import annotations
@@ -313,10 +315,16 @@ class LockstepExecutor(Executor):
     after another.  With ``compare_every=k`` one ``step`` advances k
     transitions with replica comparison only on the last."""
 
+    def _compile_step(self, *, with_compare: bool):
+        """Step-function factory hook.  Subclasses (the fused
+        ``lockstep_cuda`` back-end) swap the per-cell transition/compare
+        here; windows, fault threading and ledger attribution are shared."""
+        return compile_step(self.program, with_compare=with_compare)
+
     def __init__(self, program, **kw):
         super().__init__(program, **kw)
-        self._step_cmp = compile_step(program, with_compare=True)
-        self._step_plain = compile_step(program, with_compare=False)
+        self._step_cmp = self._compile_step(with_compare=True)
+        self._step_plain = self._compile_step(with_compare=False)
 
     def _window(self, states, step_idx: int, fault, compare: bool):
         k = self.compare_every
@@ -343,6 +351,26 @@ class LockstepExecutor(Executor):
 # --------------------------------------------------------------------------
 # the front door
 # --------------------------------------------------------------------------
+def _auto_backend(program: MisoProgram, device: torch.device, compare_every) -> str:
+    """The JAX package's ``auto`` rule: wavefront when the read graph has
+    more than one independent unit (unless ``compare_every > 1``, which
+    only the lock-step back-ends amortize), else the lock-step flavor of
+    the device: the fused ``lockstep_cuda`` on a card, ``lockstep`` on
+    the CPU (JAX picks ``lockstep`` off the TPU).  The wavefront back-end
+    is not ported, so that case raises rather than run another schedule.
+    (JAX resolves to its spatial back-end only when given a device mesh
+    with a pod axis; this package's ``compile`` takes none, as JAX
+    without a mesh.)"""
+    units = len(program.graph().independent_groups())
+    if units > 1 and not (compare_every and compare_every > 1):
+        raise NotImplementedError(
+            f"backend='auto' resolves to 'wavefront' for a program of {units} "
+            "independent units, and the wavefront back-end is not ported yet "
+            "(ROADMAP P13); name a lock-step back-end explicitly"
+        )
+    return "lockstep_cuda" if device.type == "cuda" else "lockstep"
+
+
 def compile(
     program: MisoProgram,
     *,
@@ -355,7 +383,8 @@ def compile(
 ) -> Executor:
     """Compile a MisoProgram into an Executor — the single front door.
 
-    backend       -- a name registered through ``register_backend``.
+    backend       -- a name registered through ``register_backend``
+                     ("lockstep", "lockstep_cuda"), or "auto".
     device        -- "cuda" (default) or "cpu"; CUDA that is not there
                      raises.
     policies      -- optional {cell_name: RedundancyPolicy}: selective
@@ -366,6 +395,9 @@ def compile(
     """
     if policies:
         program = program.with_policies(policies)
+    device = resolve_device(device)
+    if backend == "auto":
+        backend = _auto_backend(program, device, compare_every)
     try:
         cls = BACKENDS[backend]
     except KeyError:

@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from ..kernels.state_hash import M32, MIX, PHI, mul32
 from ..tree import tree_leaves, tree_map
 from .cell import CellType, restrict_reads, undeclared_read_error
 from .fault import FaultSpec, bitcast_back, bitcast_int, inject
@@ -57,16 +58,7 @@ def majority_vote(a: Tree, b: Tree, c: Tree) -> Tree:
     return tree_map(vote, a, b, c)
 
 
-_M = 0xFFFFFFFF
-_PHI = 0x9E3779B9
-_MIX = 2654435761
 _FNV = 16777619
-
-
-def _mul32(a, b):
-    """``a * b mod 2**32`` for int64 operands in [0, 2**32): split ``a``
-    into 16-bit halves so no partial product leaves int64."""
-    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M
 
 
 def _words(leaf: torch.Tensor, rows: int) -> torch.Tensor:
@@ -75,7 +67,7 @@ def _words(leaf: torch.Tensor, rows: int) -> torch.Tensor:
     package's ``bitcast_uint(x).astype(uint32)``)."""
     s = bitcast_int(leaf)
     nbytes = s.element_size()
-    mask = _M if nbytes >= 4 else (1 << (8 * nbytes)) - 1
+    mask = M32 if nbytes >= 4 else (1 << (8 * nbytes)) - 1
     return s.reshape(rows, -1).to(torch.int64) & mask
 
 
@@ -87,17 +79,17 @@ def fingerprint_rows(state: Tree, rows: int) -> torch.Tensor:
     h = None
     for k, leaf in enumerate(tree_leaves(state)):
         v = _words(leaf, rows)
-        idx = torch.arange(v.shape[1], dtype=torch.int64, device=v.device) & _M
-        w = (_mul32(idx, _MIX) + _PHI) & _M
-        wphi = _mul32(w, _PHI)
-        h1 = _mul32(v, w).sum(dim=1)
-        h2 = _mul32(v ^ w, _MIX).sum(dim=1)
-        h3 = _mul32(v ^ wphi, _FNV).sum(dim=1)
-        h4 = (((v + w) & _M) ^ (v >> 7)).sum(dim=1)
-        leaf_h = torch.stack([h1, h2, h3, h4], dim=1) & _M
+        idx = torch.arange(v.shape[1], dtype=torch.int64, device=v.device) & M32
+        w = (mul32(idx, MIX) + PHI) & M32
+        wphi = mul32(w, PHI)
+        h1 = mul32(v, w).sum(dim=1)
+        h2 = mul32(v ^ w, MIX).sum(dim=1)
+        h3 = mul32(v ^ wphi, _FNV).sum(dim=1)
+        h4 = (((v + w) & M32) ^ (v >> 7)).sum(dim=1)
+        leaf_h = torch.stack([h1, h2, h3, h4], dim=1) & M32
         if h is None:
             h = torch.zeros_like(leaf_h)
-        h = _mul32(h, _FNV) ^ ((leaf_h + (k + 1)) & _M)
+        h = mul32(h, _FNV) ^ ((leaf_h + (k + 1)) & M32)
     if h is None:
         return torch.zeros((rows, 4), dtype=torch.int64)
     return h

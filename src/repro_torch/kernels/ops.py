@@ -1,0 +1,157 @@
+"""State trees <-> flat u32 word streams, and the vote and fingerprint of
+whole state trees through the kernels.
+
+The word layer of ``repro/kernels/ops.py`` (JAX): a state tree is packed
+into one stream of u32 words, held in an ``int32`` tensor:
+
+  * leaves in JAX order (``repro_torch.tree``: dict keys sorted);
+  * ``bool`` as ``uint8`` 0/1;
+  * 8- and 16-bit leaves packed 4 or 2 to a word, element 0 in the low
+    bits, an odd tail zero-padded to a whole word;
+  * 32-bit leaves one word per element, 64-bit leaves as (low, high);
+  * the whole stream zero-padded to a ``multiple`` of words.
+
+That is the bytes of each leaf laid end to end, little-endian, which is
+what a byte-level ``.view()`` of a contiguous tensor gives on both the
+CPU and the card.  The stream is bitwise the JAX package's
+``flatten_to_u32``, so the kernels' counts and fingerprints over it are
+the JAX kernels'.  (The padding matters: pad words are 0, but their
+position weights are not, so they enter the fingerprint.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Optional
+
+import torch
+
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from .state_hash import state_hash
+from .tmr_vote import tmr_vote
+
+Tree = Any
+
+#: words per block of the JAX package's vote and hash wrappers; the stream
+#: is padded to a multiple of it
+VOTE_BLOCK = 64 * 1024
+HASH_BLOCK = 128 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class WordLayout:
+    """Static u32-word layout of a flattened state tree, computed once per
+    (shapes, dtypes) signature: it depends on leaf specs, never values."""
+
+    n_words: tuple[int, ...]  # u32 words per leaf (after sub-word packing)
+    offsets: tuple[int, ...]  # word offset of each leaf in the flat stream
+    total: int  # unpadded total words
+
+    def padded(self, multiple: int) -> int:
+        if multiple <= 1:
+            return self.total
+        return self.total + (-self.total) % multiple
+
+
+def _leaf_bits(dtype: torch.dtype) -> int:
+    return 8 if dtype == torch.bool else dtype.itemsize * 8
+
+
+@functools.lru_cache(maxsize=512)
+def _word_layout(specs: tuple) -> WordLayout:
+    n_words, offsets, off = [], [], 0
+    for shape, dtype in specs:
+        size = 1
+        for d in shape:
+            size *= d
+        w = -(-size * _leaf_bits(dtype) // 32)
+        offsets.append(off)
+        n_words.append(w)
+        off += w
+    return WordLayout(tuple(n_words), tuple(offsets), off)
+
+
+def word_layout(tree: Tree, *, lead: int = 0) -> WordLayout:
+    """Cached u32-word layout of a tree of tensors; ``lead`` leading axes
+    of every leaf (a replica axis) are left out of the layout."""
+    return _word_layout(tuple((tuple(x.shape[lead:]), x.dtype) for x in tree_leaves(tree)))
+
+
+def _pack(leaves: list, rows: int, layout: WordLayout, padded: int, device) -> torch.Tensor:
+    """(rows, padded) int32 stream: row r holds row r of every leaf."""
+    out = torch.empty((rows, padded), dtype=torch.int32, device=device)
+    ob = out.view(torch.uint8)
+    for x, off, nw in zip(leaves, layout.offsets, layout.n_words):
+        if x.element_size() >= 4:  # whole words: copy 4 bytes per element
+            out[:, off : off + nw].copy_(x.reshape(rows, -1).contiguous().view(torch.int32))
+            continue
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        b = x.reshape(rows, -1).contiguous().view(torch.uint8)
+        lo = 4 * off
+        ob[:, lo : lo + b.shape[1]].copy_(b)
+        ob[:, lo + b.shape[1] : 4 * (off + nw)].zero_()  # sub-word tail
+    ob[:, 4 * layout.total :].zero_()  # the stream's padding
+    return out
+
+
+def flatten_to_u32(
+    tree: Tree, *, multiple: int = 1, layout: Optional[WordLayout] = None
+) -> torch.Tensor:
+    """One int32 word stream holding the tree's bits, zero-padded to a
+    multiple of ``multiple`` words (``repro/kernels/ops.py::flatten_to_u32``)."""
+    layout = word_layout(tree) if layout is None else layout
+    leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    return _pack(leaves, 1, layout, layout.padded(multiple), device)[0]
+
+
+def flatten_replicas(
+    tree: Tree, rows: int, *, multiple: int = 1, layout: Optional[WordLayout] = None
+) -> torch.Tensor:
+    """(rows, padded) int32: row r is ``flatten_to_u32`` of the tree's
+    replica r, for a tree whose leaves lead with a ``rows`` axis.  One
+    copy per leaf for all replicas; ``layout`` is one replica's."""
+    layout = word_layout(tree, lead=1) if layout is None else layout
+    leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    return _pack(leaves, rows, layout, layout.padded(multiple), device)
+
+
+def unflatten_from_u32(
+    flat: torch.Tensor, like: Tree, *, layout: Optional[WordLayout] = None
+) -> Tree:
+    """Inverse of ``flatten_to_u32`` (trailing padding words are ignored):
+    the leaves of ``like``'s shapes and dtypes, read from the stream.
+    Leaves are views of ``flat`` where the alignment allows."""
+    layout = word_layout(like) if layout is None else layout
+    leaves, treedef = tree_flatten(like)
+    out = []
+    for x, off, nw in zip(leaves, layout.offsets, layout.n_words):
+        nbytes = x.numel() * (1 if x.dtype == torch.bool else x.element_size())
+        u8 = flat[off : off + nw].view(torch.uint8)[:nbytes]
+        if x.dtype == torch.bool:
+            out.append(u8.to(torch.bool).reshape(x.shape))
+            continue
+        if u8.storage_offset() % x.element_size():  # a 64-bit leaf at an odd word
+            u8 = u8.clone()
+        out.append(u8.view(x.dtype).reshape(x.shape))
+    return tree_unflatten(treedef, out)
+
+
+def tmr_vote_pytree(replicated: Tree):
+    """Vote a 3-replicated state tree (leaves lead with a replica axis of
+    3) through K4.  Returns (voted tree, counts (3,) int32): each
+    replica's count of u32 words that differ from the vote."""
+    layout = word_layout(replicated, lead=1)
+    flats = flatten_replicas(replicated, 3, multiple=VOTE_BLOCK, layout=layout)
+    voted, counts = tmr_vote(flats[0], flats[1], flats[2])
+    like = tree_map(lambda x: x[0], replicated)
+    return unflatten_from_u32(voted, like, layout=layout), counts
+
+
+def fingerprint_fused(state: Tree) -> torch.Tensor:
+    """(4,) int32 (u32 bits) fingerprint of a whole state tree in one
+    fused pass through K3."""
+    return state_hash(flatten_to_u32(state, multiple=HASH_BLOCK))
