@@ -27,6 +27,16 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  the port's ``lockstep`` (DMR) or the unstruck run (TMR),
                  K1/K2 launches equal to the compared steps; then K3 and
                  K4 through ``kernels.ops`` on the final state.
+  2d. ssd     -- K8 (the Mamba2 SSD chunked scan) against its plain
+                 version at mamba2-2.7b's shapes (80 heads of 64, state
+                 128, one group, bf16), L = 256 and a ragged L = 300, each
+                 with and without an initial state, plus one f32 case;
+                 device times beside the bound.
+  2e. attention -- K7 (flash attention) through ``kernels.ops.attention``
+                 at internlm2's head layout (16 query / 8 KV heads of 128,
+                 bf16): causal at 512 and 4096, windowed, and with a
+                 q_offset; then against its plain version, with SDPA
+                 timed as the library yardstick.
   3. engine   -- the main path: ``repro_torch.api.serve`` on full-width,
                  full-depth internlm2-1.8b (bf16, random weights from a
                  seed) with paged KV: 8 staggered requests, policies
@@ -34,10 +44,18 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  replica slot.  Every request must finish, the strike must
                  be detected, attributed and repaired, and every kernel's
                  launch count must match the decoder steps the run took.
-  4. check    -- a reduced f32 model served the same way must emit the
-                 tokens a full-sequence forward pass predicts.
+  3b. mamba2  -- the new path: ``repro_torch.api.serve`` on full-width,
+                 full-depth mamba2-2.7b (bf16, random weights from a
+                 seed) on the dense slot state: 8 staggered requests with
+                 prompts of 16-320 tokens (whole, ragged and multi-chunk
+                 prefills), policies cycling none/dmr/tmr, one bit flip
+                 into a DMR replica slot; K8 launches must equal
+                 64 layers x prefills.
+  4. check    -- reduced f32 models (internlm2 with paged KV, then
+                 mamba2) served the same way must emit the tokens a
+                 full-sequence forward pass predicts.
 
-The last lines are the loop's, the engine's and the kernels' JSON
+The last lines are the loop's, the two engines' and the kernels' JSON
 records, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -45,6 +63,7 @@ records, the card's name and power limit, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -59,8 +78,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 SEED = 0
-KERNELS = ["paged_gqa_decode", "redundancy_epilogue"]
+KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention"]
 
 
 def log(msg: str) -> None:
@@ -528,12 +548,256 @@ def loop_phase(epi: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 3: the main path
+# phase 2d: K8 against its plain version
+# --------------------------------------------------------------------------
+#: mamba2-2.7b's scan shapes: 80 heads of 64, state 128, one B/C group
+SSD_SHAPE = dict(H=80, P=64, G=1, N=128)
+SSD_CHUNK = 128
+NO_SSD_LIBRARY = "none, no one PyTorch call computes the SSD scan"
+
+
+def ssd_inputs(L, gen, dtype=torch.bfloat16, with_h0=False, B=1, H=80, P=64, G=1, N=128):
+    """Scan inputs as a mamba2 layer makes them: dt = softplus of a
+    normal shifted by -2 (0.01-1), a = -(1..16) as ``a_log`` is
+    initialised, x / B / C of O(1)."""
+    dev = "cuda"
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = rn(B, L, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, L, H) - 2.0)
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+    bm, cm = rn(B, L, G, N).to(dtype), rn(B, L, G, N).to(dtype)
+    h0 = rn(B, H, N, P) if with_h0 else None
+    return x, dt, a, bm, cm, h0
+
+
+def ssd_bound(x, bm, h0, chunk=SSD_CHUNK) -> tuple[float, str, float, int, int]:
+    """Least time for one scan: x, dt, a, B, C (and h0) read once, y and
+    the f32 state written once, over HBM bandwidth — or the products this
+    run's chunks need (the causal half of C.B^T and W.X, C.S and the
+    state update, counted per real row) over the bf16 tensor-core rate,
+    whichever is larger.  Also the same FLOPs over the f32 CUDA-core
+    rate, the rate the kernel computes at."""
+    B, L, H, P = x.shape
+    G, N = bm.shape[2], bm.shape[3]
+    item = x.element_size()
+    nbytes = 2 * x.numel() * item + B * L * H * 4 + H * 4 + 2 * bm.numel() * item
+    nbytes += B * H * N * P * 4 * (2 if h0 is not None else 1)
+    Q = min(chunk, L)
+    flops = 0
+    for c0 in range(0, L, Q):
+        q = min(Q, L - c0)
+        flops += q * (q + 1) * N + q * (q + 1) * P + 2 * q * N * P + 2 * q * N * P
+    flops *= B * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    return bound, "bytes" if t_bytes >= t_ops else "operations", flops / F32_FLOP_PER_S * 1e3, nbytes, flops
+
+
+def ssd_phase() -> dict:
+    from repro_torch.kernels import ssd_scan as ks
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # y: both sides sum in f32 and round to bf16, so one rounding may flip
+    # by a bf16 ulp (2**-8 relative); the state: f32, its decays exp(cum)
+    # come from cumsums of up to 128 terms of |cum| <= 10**2, whose f32
+    # rounding (~1e-5) exp turns into ~1e-5 relative
+    tol = {"y_bf16": 2e-2, "y_f32": 1e-3, "state": 1e-3}  # atol = rtol
+    errs = {}
+    launches0 = ks.ssd_scan.launches
+    cases = [(256, torch.bfloat16, False), (256, torch.bfloat16, True),
+             (300, torch.bfloat16, False), (300, torch.bfloat16, True), (300, torch.float32, True)]
+    for L, dtype, with_h0 in cases:
+        x, dt, a, bm, cm, h0 = ssd_inputs(L, gen, dtype, with_h0)
+        y, ht = ks.ssd_scan(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
+        torch.cuda.synchronize()
+        ry, rht = ks.ssd_scan_plain(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
+        label = f"L={L} {str(dtype).removeprefix('torch.')}{' h0' if with_h0 else ''}"
+        assert y.dtype == dtype and y.shape == x.shape and ht.shape == rht.shape
+        for name, got, ref, t in (("y", y, ry, tol["y_bf16" if dtype == torch.bfloat16 else "y_f32"]),
+                                  ("state", ht, rht, tol["state"])):
+            if not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"ssd_scan {label}: {name} not finite")
+            err = (got.float() - ref.float()).abs()
+            errs[f"{label} {name}"] = float(err.max())
+            if not bool((err <= t + t * ref.float().abs()).all()):
+                raise AssertionError(f"ssd_scan {label} {name}: max abs err {float(err.max())}")
+        log(f"ssd: {label}: y max_abs_err {errs[label + ' y']:.3e}, state max_abs_err "
+            f"{errs[label + ' state']:.3e} (atol=rtol: y {tol['y_bf16' if dtype == torch.bfloat16 else 'y_f32']}, "
+            f"state {tol['state']})")
+    # times at the prefill's own call: no h0, bf16; 4 input sets so a call
+    # does not find its 8 MB in L2 from the one before
+    timings = {}
+    for L in (256, 300):
+        sets = [ssd_inputs(L, gen) for _ in range(4)]
+        it = iter(range(10**9))
+
+        def nxt():
+            return sets[next(it) % len(sets)]
+
+        ms = graph_ms(lambda: ks.ssd_scan(*nxt()[:5], chunk=SSD_CHUNK), reps=10, iters=5)
+        eager_ms = events_ms(lambda: ks.ssd_scan(*nxt()[:5], chunk=SSD_CHUNK), iters=10)
+        plain_ms = graph_ms(lambda: ks.ssd_scan_plain(*nxt()[:5], chunk=SSD_CHUNK), reps=2, iters=3)
+        x, _, _, bm, _, _ = sets[0]
+        bound_ms, bound_by, f32_ms, nbytes, flops = ssd_bound(x, bm, None)
+        timings[L] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, f32_cuda_core_ms=f32_ms, bytes=nbytes, flops=flops)
+        log(f"ssd: L={L} B=1 H=80 P=64 N=128 bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores {f32_ms:.4f} ms); "
+            f"library: {NO_SSD_LIBRARY}; 80 blocks on 132 SMs")
+    ks.ssd_scan.launches = launches0  # comparison launches do not count
+    t = timings[256]
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:103",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "tolerance": tol,
+        "ms": t["ms"],
+        "eager_ms": t["eager_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "f32_cuda_core_ms": t["f32_cuda_core_ms"],
+        "library_ms": None,
+        "library_why": NO_SSD_LIBRARY,
+        "shape": "B=1 L=256 H=80 P=64 G=1 N=128 bf16, chunk 128",
+        "L300": timings[300],
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 2e: K7 through kernels.ops.attention, against its plain version
+# --------------------------------------------------------------------------
+#: (label, Sq, Sk, window, q_offset) at internlm2's head layout
+ATTN_CASES = [("causal 512", 512, 512, None, 0), ("causal 4096", 4096, 4096, None, 0),
+              ("window 128 at 512", 512, 512, 128, 0), ("q_offset 384", 128, 512, None, 384)]
+
+
+def attn_inputs(Sq, Sk, gen, dtype=torch.bfloat16, B=1, Hq=16, Hkv=8, D=128):
+    dev = "cuda"
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def attn_bound(q, k, window, q_offset) -> tuple[float, str, float]:
+    """Least time for one call: q, k, v read once and the output written
+    once over HBM bandwidth, or 4 D flops per visible (query, key) pair
+    and query head over the bf16 tensor-core rate, whichever is larger;
+    and the FLOPs over the f32 CUDA-core rate."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    vis = kpos <= qpos
+    if window is not None:
+        vis &= kpos > qpos - window
+    pairs = int(vis.sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * D * pairs * Hq * B
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", flops / F32_FLOP_PER_S * 1e3
+
+
+def attention_phase() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    inputs = [attn_inputs(sq, sk, gen) for _, sq, sk, _, _ in ATTN_CASES]
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0  # counts start here
+    outs = [ops.attention(*qkv, causal=True, window=w, q_offset=off)
+            for qkv, (_, _, _, w, off) in zip(inputs, ATTN_CASES)]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches  # and are read here
+    if launches != len(ATTN_CASES):
+        raise AssertionError(f"K7 launches {launches} != {len(ATTN_CASES)} ops.attention calls")
+    # bf16 output of an average of O(1) values: f32 differences are far
+    # below one bf16 rounding (2**-8 relative); f32: reduction order only
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # atol = rtol
+    errs = {}
+    checks = list(zip(ATTN_CASES, inputs, outs))
+    q32 = [t.float() for t in inputs[0]]
+    checks.append((("causal 512 f32", 512, 512, None, 0), q32, fa.flash_attention(*q32)))
+    for (label, _, _, w, off), qkv, got in checks:
+        ref = fa.attention_plain(*qkv, causal=True, window=w, q_offset=off)
+        t = tol[got.dtype]
+        err = (got.float() - ref.float()).abs()
+        errs[label] = float(err.max())
+        if not bool(torch.isfinite(got.float()).all()) or got.shape != ref.shape:
+            raise AssertionError(f"flash_attention {label}: not finite or wrong shape")
+        if not bool((err <= t + t * ref.float().abs()).all()):
+            raise AssertionError(f"flash_attention {label}: max abs err {float(err.max())}")
+    log("attention: ops.attention -> flash_attention (K7) at B=1 Hq=16 Hkv=8 D=128 bf16: "
+        + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
+        + f" (atol=rtol bf16 {tol[torch.bfloat16]}, f32 {tol[torch.float32]}); launches {launches}")
+    timings = {}
+    for (label, sq, sk, w, off), qkv in zip(ATTN_CASES[:2], inputs[:2]):
+        sets = [qkv] + [attn_inputs(sq, sk, gen) for _ in range(3)]
+        it = iter(range(10**9))
+
+        def nxt():
+            return sets[next(it) % len(sets)]
+
+        heavy = sq >= 4096
+        ms = graph_ms(lambda: fa.flash_attention(*nxt()), reps=4 if heavy else 20, iters=5 if heavy else 10)
+        eager_ms = events_ms(lambda: fa.flash_attention(*nxt()), iters=5 if heavy else 20)
+        plain_ms = graph_ms(lambda: fa.attention_plain(*nxt()), reps=2, iters=3)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(*nxt(), is_causal=True,
+                                                                    enable_gqa=True)
+
+        library_ms = graph_ms(library, reps=4 if heavy else 20, iters=5 if heavy else 10)
+        bound_ms, bound_by, f32_ms = attn_bound(qkv[0], qkv[1], w, off)
+        timings[label] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, f32_cuda_core_ms=f32_ms)
+        log(f"attention: {label}: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the FLOPs on the f32 "
+            f"CUDA cores {f32_ms:.4f} ms)")
+    fa.flash_attention.launches = launches  # comparison launches do not count
+    t = timings["causal 512"]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:123",
+        "launches": launches,
+        "path": "repro_torch.kernels.ops.attention",
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "ms": t["ms"],
+        "eager_ms": t["eager_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "f32_cuda_core_ms": t["f32_cuda_core_ms"],
+        "library_ms": t["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
+        "shape": "B=1 Hq=16 Hkv=8 Sq=Sk=512 D=128 bf16 causal",
+        "causal_4096": timings["causal 4096"],
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 3: the main paths, served
 # --------------------------------------------------------------------------
 POLICIES = ("none", "dmr", "tmr")
+#: phase 3b's prompt lengths: one chunk short, ragged, whole chunks (128,
+#: 256) and multi-chunk ragged, up to 320 (K8 chunks are 128 steps)
+MAMBA_PROMPTS = (16, 320, 128, 77, 256, 300, 129, 190)
 
 
-def make_requests(vocab: int, n: int = 8, new: int = 32):
+def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None):
     from repro_torch.api import RedundancyPolicy
     from repro_torch.serving import Request
 
@@ -541,7 +805,8 @@ def make_requests(vocab: int, n: int = 8, new: int = 32):
     levels = {"none": 1, "dmr": 2, "tmr": 3}
     return [
         Request(
-            prompt=rng.integers(0, vocab, size=int(rng.integers(8, 65))).astype(np.int32),
+            prompt=rng.integers(0, vocab, size=int(rng.integers(8, 65)) if lengths is None
+                                else lengths[i]).astype(np.int32),
             max_new_tokens=new,
             policy=RedundancyPolicy(level=levels[POLICIES[i % 3]]),
         )
@@ -594,14 +859,13 @@ def serve_engine(cfg, scfg):
     return engine
 
 
-def engine_phase() -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.models.lm_cells import ServeConfig
+def serve_stream(cfg, scfg, wrappers, lengths=None) -> tuple:
+    """Build the engine on the card, warm it up with one request, set the
+    ``wrappers``' launch counts to 0, drive the 8-request stream with its
+    strike, read the counts, and check every request and the strike.
+    Returns (engine, run record, launch counts)."""
     from repro_torch.serving import DONE, Request
 
-    cfg = get_config("internlm2-1.8b")
-    scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
     t0 = time.perf_counter()
     engine = serve_engine(cfg, scfg)
     torch.cuda.synchronize()
@@ -616,18 +880,19 @@ def engine_phase() -> dict:
     engine.pump()
     assert engine.result(warm.id)["status"] == DONE
 
-    reqs = make_requests(cfg.vocab_size)
+    reqs = make_requests(cfg.vocab_size, lengths=lengths)
     R = engine.registry
     ticks0 = R["serving_ticks_total"].value
     replays0 = R["serving_replays_total"].value
     busy0 = R["serving_tick_seconds"].sum
     torch.cuda.synchronize()
-    pd.paged_gqa_attention.launches = 0  # counts start here
+    for w in wrappers:  # counts start here
+        w.launches = 0
     t0 = time.perf_counter()
     victim = drive(engine, reqs, strike=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pd.paged_gqa_attention.launches  # and are read here
+    launches = [w.launches for w in wrappers]  # and are read here
     ticks = int(R["serving_ticks_total"].value - ticks0)
     replays = int(R["serving_replays_total"].value - replays0)
     busy = R["serving_tick_seconds"].sum - busy0
@@ -646,19 +911,44 @@ def engine_phase() -> dict:
         raise AssertionError(f"strike not detected/attributed once to {victim.id}: {struck}")
     if m["fault_totals"][victim.id]["per_replica"][1] != 1.0 or replays < 1:
         raise AssertionError("strike not localized to replica 1 by a §IV replay")
-    n_sub = max(1, scfg.prefill_chunk)
-    expect = cfg.n_layers * (ticks + replays) * n_sub
-    if launches == 0 or launches != expect:
-        raise AssertionError(f"K5 launches {launches} != {cfg.n_layers} x {ticks + replays} steps")
     n_tok = sum(len(results[r.id]["tokens"]) for r in reqs)
     ttfts = sorted(results[r.id]["ttft_s"] for r in reqs)
-    log(f"engine: {len(reqs)} requests DONE, {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} tok/s; TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} ms "
-        f"max {ttfts[-1] * 1e3:.1f} ms; {ticks} ticks, {busy / ticks * 1e3:.2f} ms/tick; "
-        f"{replays} replay(s); strike on {victim.id} detected, attributed, repaired")
+    log(f"engine: {cfg.name}: {len(reqs)} requests DONE (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)} tokens), "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; TTFT p50 "
+        f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; {ticks} ticks, "
+        f"{busy / ticks * 1e3:.2f} ms/tick; {replays} replay(s); strike on {victim.id} "
+        f"detected, attributed, repaired")
+    run = {
+        "requests": len(reqs),
+        "tokens_per_s": n_tok / wall,
+        "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+        "ttft_max_ms": ttfts[-1] * 1e3,
+        "ms_per_tick": busy / ticks * 1e3,
+        "ticks": ticks,
+        "replays": replays,
+        "params_b": n_params / 1e9,
+    }
+    return engine, run, launches
+
+
+def engine_phase() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.lm_cells import ServeConfig
+
+    cfg = get_config("internlm2-1.8b")
+    scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
+    engine, run, (launches,) = serve_stream(cfg, scfg, [pd.paged_gqa_attention])
+    n_sub = max(1, scfg.prefill_chunk)
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if launches == 0 or launches != expect:
+        raise AssertionError(f"K5 launches {launches} != {cfg.n_layers} x "
+                             f"{run['ticks'] + run['replays']} steps")
+    m = engine.metrics()
     log(f"engine: paged_gqa_decode launches {launches} = {cfg.n_layers} layers x "
-        f"({ticks} ticks + {replays} replays); pages {m['pages_free']}/{m['pages_total']} "
-        f"free, {m['page_faults']} page faults")
+        f"({run['ticks']} ticks + {run['replays']} replays); pages {m['pages_free']}/"
+        f"{m['pages_total']} free, {m['page_faults']} page faults")
 
     # where one tick's time goes: the decode transition alone, the slot
     # fingerprints of the replica check, and the out-of-place pool copy
@@ -673,16 +963,63 @@ def engine_phase() -> dict:
         f"{2 * pool_bytes / (copy_ms * 1e-3) / 1e12:.2f} TB/s)")
     return {
         "launches": launches,
-        "tokens_per_s": n_tok / wall,
-        "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
-        "ttft_max_ms": ttfts[-1] * 1e3,
-        "ms_per_tick": busy / ticks * 1e3,
-        "ticks": ticks,
-        "replays": replays,
+        **run,
         "decode_step_ms": step_ms,
         "fingerprints_ms": fp_ms,
         "pool_copy_ms": copy_ms,
         "pool_copy_gb": 2 * pool_bytes / 1e9,
+    }
+
+
+def mamba_engine_phase() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.lm_cells import ServeConfig
+
+    cfg = get_config("mamba2-2.7b")
+    scfg = ServeConfig(batch=8, max_len=512)
+    torch.cuda.reset_peak_memory_stats()
+    engine, run, (launches,) = serve_stream(cfg, scfg, [ks.ssd_scan], lengths=MAMBA_PROMPTS)
+    m = engine.metrics()
+    if m["paged"] or m["prefill_buckets"] is not None:
+        raise AssertionError(f"mamba2 must serve dense and unbucketed: {m['paged']}, "
+                             f"{m['prefill_buckets']}")
+    prefills = run["requests"]  # each request is prefilled once, at admission
+    if launches != cfg.n_layers * prefills:
+        raise AssertionError(f"K8 launches {launches} != {cfg.n_layers} layers x {prefills} prefills")
+    log(f"engine: ssd_scan launches {launches} = {cfg.n_layers} layers x {prefills} prefills; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # one tick: the decode transition, the slot fingerprints of the
+    # replica check, and a copy of the whole slot state (each tick writes
+    # the stacked new states, and the slot mask selects over them)
+    states = engine._states
+    seg = states["decoder"]["cache"]["segments"][0]
+    state_bytes = sum(x.numel() * x.element_size() for x in seg.values())
+    copy_ms = events_ms(lambda: {k: x.clone() for k, x in seg.items()})
+    step_ms = events_ms(lambda: engine.exe.pure_step(states, 0), iters=5)
+    fp_ms = events_ms(lambda: engine._ops.fingerprints(states["decoder"]), iters=3)
+    # one prefill at the longest prompt: 64 scans of L = 320
+    from repro_torch.models import transformer as T
+
+    prompt = torch.zeros((1, MAMBA_PROMPTS[1]), dtype=torch.int64, device="cuda")
+    params = states["weights"]["params"]
+    prefill_ms = events_ms(lambda: T.forward(cfg, params, prompt, fill_cache=True), iters=3)
+    ks.ssd_scan.launches = launches  # the prefill timing's launches do not count
+    log(f"engine: per tick: decode step {step_ms:.2f} ms, slot fingerprints {fp_ms:.2f} ms, "
+        f"state copy {copy_ms:.3f} ms ({2 * state_bytes / 1e9:.3f} GB moved, "
+        f"{2 * state_bytes / (copy_ms * 1e-3) / 1e12:.2f} TB/s); one prefill of "
+        f"{MAMBA_PROMPTS[1]} tokens {prefill_ms:.2f} ms")
+    return {
+        "launches": launches,
+        "prefills": prefills,
+        **run,
+        "decode_step_ms": step_ms,
+        "fingerprints_ms": fp_ms,
+        "state_copy_ms": copy_ms,
+        "state_copy_gb": 2 * state_bytes / 1e9,
+        "prefill_320_ms": prefill_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
 
 
@@ -693,15 +1030,15 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------------
-# phase 4: a small f32 model agrees with a full-sequence forward
+# phase 4: small f32 models agree with a full-sequence forward
 # --------------------------------------------------------------------------
-def check_phase() -> None:
+def check_phase(arch: str, **serve) -> None:
     from repro_torch.configs import get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.models.lm_cells import ServeConfig
 
-    cfg = dataclasses.replace(get_reduced("internlm2-1.8b"), dtype="float32")
-    engine = serve_engine(cfg, ServeConfig(batch=8, max_len=128, paged=True, page_size=16))
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    engine = serve_engine(cfg, ServeConfig(batch=8, max_len=128, **serve))
     reqs = make_requests(cfg.vocab_size, n=6, new=24)
     drive(engine, reqs, strike=False)
     params = engine._states["weights"]["params"]
@@ -717,9 +1054,10 @@ def check_phase() -> None:
         gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
         clear = gap > 1e-3  # near-ties may flip between decode and prefill order
         if not (pred[clear] == toks[clear]).all():
-            raise AssertionError(f"{r.id}: served tokens disagree with the forward pass")
+            raise AssertionError(f"{arch} {r.id}: served tokens disagree with the forward pass")
         checked += int(clear.sum())
-    log(f"check: reduced f32 paged serving matches the full forward on {checked} tokens")
+    log(f"check: reduced f32 {arch} serving ({'paged' if serve.get('paged') else 'dense'}) "
+        f"matches the full forward on {checked} tokens")
 
 
 def main() -> int:
@@ -748,12 +1086,23 @@ def main() -> int:
     epi = epilogue_phase()
     loop = loop_phase(epi)
     torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
+    ssd = ssd_phase()
+    attn = attention_phase()
+    torch.cuda.empty_cache()
     eng = engine_phase()
     record["launches"] = eng["launches"]
-    check_phase()
+    gc.collect()
+    torch.cuda.empty_cache()  # the internlm2 engine is gone: hand its memory back
+    mamba = mamba_engine_phase()
+    ssd["launches"] = mamba["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_phase("internlm2-1.8b", paged=True, page_size=16)
+    check_phase("mamba2-2.7b")
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)
-    print(json.dumps({"kernels": [record, *epi.values()]}), flush=True)
+    print(json.dumps({"engine_mamba2": mamba}), flush=True)
+    print(json.dumps({"kernels": [record, *epi.values(), attn, ssd]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -16,7 +16,7 @@ import torch
 
 from .core.executor import resolve_device
 from .models.config import ModelConfig
-from .tree import tree_map
+from .tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -47,10 +47,15 @@ def tree_to_numpy(tree):
     return tree_map(conv, tree)
 
 
+#: parameter leaves the models keep in f32 whatever the compute dtype
+#: (the Mamba2 decay, step bias and skip, as in the JAX package)
+F32_PARAMS = ("a_log", "dt_bias", "d_skip")
+
+
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
     """The JAX params tree (numpy leaves) as this package's params, every
-    floating leaf in ``cfg.compute_dtype``.  Checks the tree has the
-    layout this package's model reads."""
+    floating leaf in ``cfg.compute_dtype`` except ``F32_PARAMS``, which
+    stay f32.  Checks the tree has the layout this package's model reads."""
     params = states_from_numpy(tree, device)
     want = {"embed", "final_norm", "segments"} | (set() if cfg.tie_embeddings else {"lm_head"})
     if set(params) != want:
@@ -58,5 +63,11 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
     d, V = cfg.d_model, cfg.vocab_size
     if tuple(params["embed"].shape) != (V, d):
         raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(V, d)}")
+    paths = tree_paths(params)
+    leaves, treedef = tree_flatten(params)
     dt = cfg.compute_dtype
-    return tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, params)
+    out = [
+        t if not t.is_floating_point() else t.float() if path[-1] in F32_PARAMS else t.to(dt)
+        for path, t in zip(paths, leaves)
+    ]
+    return tree_unflatten(treedef, out)

@@ -2,15 +2,16 @@
 
 Each module defines ``CONFIG`` (the published configuration, identical to
 the JAX package's) and ``reduced()`` (a tiny same-family config for CPU
-tests).  Only the GQA/MLP decoder internlm2-1.8b is ported in this slice.
+tests).  Ported so far: the GQA/MLP decoder internlm2-1.8b and the
+attention-free Mamba2 (SSD) model mamba2-2.7b.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["internlm2_1_8b"]
-CANONICAL = ["internlm2-1.8b"]
+ARCHS = ["internlm2_1_8b", "mamba2_2_7b"]
+CANONICAL = ["internlm2-1.8b", "mamba2-2.7b"]
 
 
 def _key(name: str) -> str:

@@ -1,5 +1,10 @@
-"""State trees <-> flat u32 word streams, and the vote and fingerprint of
-whole state trees through the kernels.
+"""The kernels' public entry points: attention and the SSD scan, and
+state trees <-> flat u32 word streams with the vote and fingerprint of
+whole state trees.
+
+``attention`` and ``ssd`` are the counterparts of ``repro/kernels/ops.py``'s:
+the tensor's device picks the route (CUDA -> the hand-written kernel, CPU
+-> its plain version); there is no ``pallas=`` switch and no fallback.
 
 The word layer of ``repro/kernels/ops.py`` (JAX): a state tree is packed
 into one stream of u32 words, held in an ``int32`` tensor:
@@ -28,6 +33,8 @@ from typing import Any, Optional
 import torch
 
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 from .state_hash import state_hash
 from .tmr_vote import tmr_vote
 
@@ -37,6 +44,18 @@ Tree = Any
 #: is padded to a multiple of it
 VOTE_BLOCK = 64 * 1024
 HASH_BLOCK = 128 * 1024
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):
+    """Blocked attention, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), through K7
+    (``flash_attention``)."""
+    return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                           q_offset=q_offset)
+
+
+def ssd(x, dt, a, b, c, *, h0=None, chunk=128):
+    """The Mamba2 SSD scan through K8 (``ssd_scan``): (y, final state)."""
+    return ssd_scan(x, dt, a, b, c, h0=h0, chunk=chunk)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,13 @@
-"""The decoder-only LM, GQA/MLP segments (a port of the matching subset of
-``repro/models/transformer.py``).
+"""The decoder-only LM, GQA/MLP and Mamba2 segments (a port of the
+matching subset of ``repro/models/transformer.py``).
 
 Parameters are the JAX package's tree: ``{"embed", "final_norm",
 "segments": [stacked per-layer dicts]}``, each segment's leaves carrying
 a leading layer axis.  Layers run as a Python loop over that axis.
+Segment kinds:
+
+  attn_mlp  -- [norm -> attention -> residual] [norm -> MLP -> residual]
+  mamba     -- [norm -> mamba2 block -> residual]
 
 Entry points:
   forward(...)      logits (prefill; optional cache fill with prompt_len)
@@ -20,6 +24,7 @@ import torch
 from ..tree import tree_map
 from . import layers as L
 from .config import ModelConfig
+from .ssm import mamba_block, mamba_cache_init, mamba_init
 
 Params = dict
 
@@ -29,24 +34,38 @@ Params = dict
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str  # attn_mlp (the only kind ported so far)
+    kind: str  # attn_mlp | mamba
     count: int  # layers in the segment
 
 
 def segment_plan(cfg: ModelConfig) -> list[Segment]:
+    if cfg.mixer_type == "mamba2" and cfg.n_codebooks == 1:
+        if cfg.shared_attn_every:
+            raise NotImplementedError(
+                f"{cfg.name}: zamba_unit segments (mamba layers with a shared "
+                "attention block) are not ported yet (P12)"
+            )
+        return [Segment("mamba", cfg.n_layers)]
     if cfg.mixer_type != "mlp" or cfg.attn_type != "gqa" or cfg.n_codebooks != 1:
         raise NotImplementedError(
-            f"{cfg.name}: only GQA/MLP text decoders are ported "
+            f"{cfg.name}: only GQA/MLP and Mamba2 text decoders are ported "
             f"(mixer={cfg.mixer_type}, attn={cfg.attn_type})"
         )
     return [Segment("attn_mlp", cfg.n_layers)]
 
 
+def _recurrent(cfg: ModelConfig) -> bool:
+    return any(seg.kind == "mamba" for seg in segment_plan(cfg))
+
+
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _layer_init(gen, cfg: ModelConfig, device) -> Params:
+def _layer_init(gen, cfg: ModelConfig, kind: str, device) -> Params:
     d, dt = cfg.d_model, cfg.compute_dtype
+    if kind == "mamba":
+        return {"norm": torch.ones((d,), dtype=dt, device=device),
+                "mamba": mamba_init(gen, cfg, device)}
     return {
         "ln1": torch.ones((d,), dtype=dt, device=device),
         "ln2": torch.ones((d,), dtype=dt, device=device),
@@ -64,7 +83,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     params: Params = {"embed": embed.to(dt), "final_norm": torch.ones((d,), dtype=dt, device=device)}
     segs = []
     for seg in segment_plan(cfg):
-        layers = [_layer_init(gen, cfg, device) for _ in range(seg.count)]
+        layers = [_layer_init(gen, cfg, seg.kind, device) for _ in range(seg.count)]
         segs.append(tree_map(lambda *xs: torch.stack(xs), *layers))
     params["segments"] = segs
     if not cfg.tie_embeddings:
@@ -123,10 +142,14 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
     return out, {"k": kc, "v": vc, "slot_pos": sp}
 
 
-def _layer_apply(p: Params, h, cfg: ModelConfig, positions, cache, fill_cache,
+def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fill_cache,
                  active=None, prompt_len=None, pages=None, rows_lanes=None):
-    """One layer: [norm -> attention -> residual] [norm -> MLP -> residual].
-    Returns (h, cache_out)."""
+    """One layer: [norm -> attention -> residual] [norm -> MLP -> residual],
+    or [norm -> mamba2 block -> residual].  Returns (h, cache_out)."""
+    if kind == "mamba":
+        y, cout = mamba_block(p["mamba"], L.rmsnorm(h, p["norm"], cfg.rms_eps), cfg,
+                              cache=cache, fill_cache=fill_cache)
+        return h + y, cout
     a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
                          positions, cache, fill_cache, active, prompt_len,
                          pages, rows_lanes)
@@ -151,10 +174,15 @@ def forward(
 
     ``prompt_len`` (serving's bucketed prefill): the true prompt length
     when ``tokens`` is right-padded to a bucket; the filled caches are
-    scrubbed past it and logits at real positions are untouched."""
+    scrubbed past it and logits at real positions are untouched.  Not for
+    recurrent (mamba) segments: their state folds the padding in."""
     B, S = tokens.shape[:2]
-    if prompt_len is not None and cfg.window:
-        raise ValueError("prompt_len (bucket-padded prefill) requires full-attention models")
+    if prompt_len is not None and (cfg.window or _recurrent(cfg)):
+        raise ValueError(
+            "prompt_len (bucket-padded prefill) requires full-attention models: "
+            "recurrent mamba state folds padding in, a sliding-window fill keeps "
+            "trailing padded positions"
+        )
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
     h = embed_tokens(params, tokens, cfg)
@@ -163,7 +191,7 @@ def forward(
         couts = []
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
-            h, cout = _layer_apply(lp, h, cfg, positions, None, fill_cache,
+            h, cout = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
                                    prompt_len=prompt_len)
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
@@ -181,7 +209,10 @@ def forward(
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     out = []
     for seg in segment_plan(cfg):
-        one = L.gqa_cache_init(cfg, batch, max_len, device)
+        if seg.kind == "mamba":
+            one = mamba_cache_init(cfg, batch, device)
+        else:
+            one = L.gqa_cache_init(cfg, batch, max_len, device)
         out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
     return {"segments": out, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -190,7 +221,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, page_size: int,
                      device) -> dict:
     """Paged serving cache: per-layer page POOLS shared by every slot (the
     page axis replaces the batch axis of the dense cache), plus the
-    per-slot ``pos``."""
+    per-slot ``pos``.  Attention-only: recurrent (mamba) state is not
+    pageable, and callers fall back to ``init_cache``."""
+    if _recurrent(cfg):
+        raise ValueError("paged cache requires attention-only models")
     if cfg.window:
         raise ValueError("paged cache excludes sliding-window archs")
     out = []
@@ -215,10 +249,11 @@ def decode_step(
     slots keep their cache bytes and position.  ``pages`` (B, P) switches
     to the paged pools (one paged-attention kernel launch per layer).
 
-    The cache is written out of place: every stacked cache leaf is copied
-    once, and the layers write their new lane into the copy.  The input
-    ``cache`` is left untouched — the serving engine keeps it as the
-    immutable previous buffer of the §IV replay."""
+    The cache is written out of place, and the input ``cache`` is left
+    untouched — the serving engine keeps it as the immutable previous
+    buffer of the §IV replay.  Attention segments copy every stacked
+    cache leaf once and write their new lane into the copy; mamba
+    segments stack the new per-layer states the recurrence returns."""
     pos = cache["pos"]
     positions = pos[:, None]
     h = embed_tokens(params, tokens, cfg)
@@ -228,11 +263,20 @@ def decode_step(
         rows_lanes = L.paged_write_rows(pages, pos, active, pool_shape)
     new_segs = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
+        if seg.kind == "mamba":
+            couts = []
+            for i in range(seg.count):
+                lp = tree_map(lambda x, i=i: x[i], sp)
+                lc = tree_map(lambda x, i=i: x[i], sc)
+                h, cout = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False)
+                couts.append(cout)
+            new_segs.append(tree_map(lambda *xs: torch.stack(xs), *couts))
+            continue
         new_c = {k: v.clone() for k, v in sc.items()}
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
             lc = {k: v[i] for k, v in new_c.items()}  # views into the copy
-            h, _ = _layer_apply(lp, h, cfg, positions, lc, False, active, None,
+            h, _ = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False, active, None,
                                 pages, rows_lanes)
         new_segs.append(new_c)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)

@@ -85,5 +85,14 @@ def test_module_imports_with_jax_and_repro_blocked(blocked_imports, mod):
     assert blocked_imports[mod] == "ok"
 
 
+def test_every_kernel_and_model_module_is_checked():
+    """The module list is found by globbing the package: the kernel
+    wrappers, entry points and models of every slice are in it."""
+    for mod in ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+                "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode",
+                "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b"):
+        assert mod in MODULES
+
+
 def test_nothing_forbidden_reached_sys_modules(blocked_imports):
     assert blocked_imports["_leaked"] == []

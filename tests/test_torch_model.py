@@ -43,7 +43,7 @@ def test_configs_match_the_jax_package():
     assert dc.asdict(tget_config("internlm2-1.8b")) == dc.asdict(get_config("internlm2-1.8b"))
     assert tget_config("internlm2-1.8b").n_params() == get_config("internlm2-1.8b").n_params()
     with pytest.raises(ValueError, match="not ported"):
-        tget("mamba2-2.7b")
+        tget("deepseek-v3-671b")
 
 
 def test_forward_logits_within_1e4_of_jax(f32_pair):
