@@ -37,6 +37,13 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  bf16): causal at 512 and 4096, windowed, and with a
                  q_offset; then against its plain version, with SDPA
                  timed as the library yardstick.
+  2f. mla     -- K6 (absorbed-MLA paged decode) against its plain version
+                 at deepseek-v3-671b's served shape (8 slots, 128 heads,
+                 lora 512, rope 64, pages of 16, 512 lanes, ragged pos) in
+                 f32 and bf16, at 4096 lanes, and on an edge case (an
+                 unmapped page in the middle, a slot with nothing mapped,
+                 a row past the pool); device times beside the bound, with
+                 gather + SDPA as the library yardstick.
   3. engine   -- the main path: ``repro_torch.api.serve`` on full-width,
                  full-depth internlm2-1.8b (bf16, random weights from a
                  seed) with paged KV: 8 staggered requests, policies
@@ -51,11 +58,17 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  prefills), policies cycling none/dmr/tmr, one bit flip
                  into a DMR replica slot; K8 launches must equal
                  64 layers x prefills.
-  4. check    -- reduced f32 models (internlm2 with paged KV, then
-                 mamba2) served the same way must emit the tokens a
-                 full-sequence forward pass predicts.
+  3c. deepseek -- ``repro_torch.api.serve`` on deepseek-v3-671b's three
+                 dense MLA layers at full width (bf16, random weights from
+                 a seed, the MTP head built) with paged latent KV: the
+                 stream and strike of phase 3; K6 launches must equal
+                 3 layers x (ticks + replays), K5 none.
+  4. check    -- reduced f32 models (internlm2 with paged KV, mamba2, and
+                 deepseek's dense prefix with paged latent KV) served the
+                 same way must emit the tokens a full-sequence forward pass
+                 predicts.
 
-The last lines are the loop's, the two engines' and the kernels' JSON
+The last lines are the loop's, the three engines' and the kernels' JSON
 records, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -80,7 +93,8 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 SEED = 0
-KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention"]
+KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention",
+           "paged_mla_decode"]
 
 
 def log(msg: str) -> None:
@@ -153,10 +167,10 @@ def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     q, the page table, pos and the output, over HBM bandwidth — or its
     flops over the f32 rate, whichever is larger."""
     B, Hq, Dk = q.shape
+    from repro_torch.kernels.paged_decode import paged_valid
+
     Hkv, ps = k.shape[1], k.shape[2]
-    lane = torch.arange(pages.shape[1] * ps, device=q.device)
-    valid = (pages >= 0).repeat_interleave(ps, 1) & (lane[None] <= pos[:, None])
-    n_valid = int(valid.sum())
+    n_valid = int(paged_valid(pages, pos, ps).sum())
     item = q.element_size()
     nbytes = 2 * q.numel() * item + pages.numel() * 4 + pos.numel() * 4
     nbytes += 2 * n_valid * Hkv * Dk * item
@@ -196,9 +210,7 @@ def kernel_phase() -> dict:
     def library():
         q, k, v, pages, pos = nxt()
         kg, vg = pd.paged_gather(k, pages), pd.paged_gather(v, pages)
-        ps = k.shape[2]
-        lane = torch.arange(pages.shape[1] * ps, device=q.device)
-        mask = (pages >= 0).repeat_interleave(ps, 1) & (lane[None] <= pos[:, None])
+        mask = pd.paged_valid(pages, pos, k.shape[2])
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None], kg, vg, attn_mask=mask[:, None, None], enable_gqa=True)
 
@@ -357,8 +369,6 @@ def epilogue_phase() -> dict:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "int_ops_per_word": ops_pw,
-            "bytes_per_word": bytes_pw,
             "library_ms": None,
             "library_why": NO_LIBRARY,
         }
@@ -643,7 +653,7 @@ def ssd_phase() -> dict:
         x, _, _, bm, _, _ = sets[0]
         bound_ms, bound_by, f32_ms, nbytes, flops = ssd_bound(x, bm, None)
         timings[L] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, f32_cuda_core_ms=f32_ms, bytes=nbytes, flops=flops)
+                          bound_by=bound_by)
         log(f"ssd: L={L} B=1 H=80 P=64 N=128 bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores {f32_ms:.4f} ms); "
@@ -664,7 +674,6 @@ def ssd_phase() -> dict:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
-        "f32_cuda_core_ms": t["f32_cuda_core_ms"],
         "library_ms": None,
         "library_why": NO_SSD_LIBRARY,
         "shape": "B=1 L=256 H=80 P=64 G=1 N=128 bf16, chunk 128",
@@ -760,7 +769,7 @@ def attention_phase() -> dict:
         library_ms = graph_ms(library, reps=4 if heavy else 20, iters=5 if heavy else 10)
         bound_ms, bound_by, f32_ms = attn_bound(qkv[0], qkv[1], w, off)
         timings[label] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, f32_cuda_core_ms=f32_ms)
+                              bound_ms=bound_ms, bound_by=bound_by)
         log(f"attention: {label}: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the FLOPs on the f32 "
             f"CUDA cores {f32_ms:.4f} ms)")
@@ -780,11 +789,203 @@ def attention_phase() -> dict:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
-        "f32_cuda_core_ms": t["f32_cuda_core_ms"],
         "library_ms": t["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
         "shape": "B=1 Hq=16 Hkv=8 Sq=Sk=512 D=128 bf16 causal",
         "causal_4096": timings["causal 4096"],
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 2f: K6 against its plain version
+# --------------------------------------------------------------------------
+MLA_SCALE = (128 + 64) ** -0.5  # (qk_nope + qk_rope) ** -0.5
+
+
+def mla_inputs(dtype, gen, B=8, h=128, lora=512, rope=64, ps=16, max_len=512, edge=False,
+               full=False):
+    """K6's inputs, by default at the served shape: every page of every
+    slot mapped, ``pos`` ragged (``full``: every lane valid); ``edge``
+    adds an unmapped page in the middle of a slot, a slot with nothing
+    mapped and a row past the pool's end."""
+    P = max_len // ps
+    N = B * P
+    dev = "cuda"
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q_lat, q_rope, ckv, krope = rn(B, h, lora), rn(B, h, rope), rn(N, ps, lora), rn(N, ps, rope)
+    pages = torch.randperm(N, generator=gen, device=dev).reshape(B, P).to(torch.int32)
+    if full:
+        pos = torch.full((B,), max_len - 1, dtype=torch.int32, device=dev)
+    else:
+        pos = torch.linspace(ps - 1, max_len - 1, B, device=dev).to(torch.int32)
+        pos[1] = ps * (P // 2)  # the first lane of a page
+    if edge:
+        pages[2, P // 2 - 1] = -1  # a hole in the middle of the valid lanes
+        pos[2] = max_len - 1
+        pages[4, :] = -1  # nothing mapped: the output is 0
+        pages[6, 3] = N + 9  # past the pool's end: reads the last row
+        pos[7] = -1  # mapped, no valid lane: the mean of its lanes
+    return q_lat, q_rope, ckv, krope, pages, pos
+
+
+def k6_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str, float, int, float]:
+    """Least time for this call's work: q read once, the valid latent and
+    RoPE lanes read once, the page table and pos, and the f32 output
+    written once, over HBM bandwidth; or the two products over the valid
+    lanes, 2 (lora + rope) flops a lane and head for the scores and 2 lora
+    for the context, over the tensor-core rate of the input type (the f32
+    CUDA-core rate for f32), whichever is larger.  Also the FLOPs over the
+    f32 CUDA-core rate, the rate the kernel computes at."""
+    from repro_torch.kernels.paged_decode import paged_valid
+
+    B, h, lora = q_lat.shape
+    rope = q_rope.shape[-1]
+    n_valid = int(paged_valid(pages, pos, ckv.shape[1]).sum())
+    item = q_lat.element_size()
+    nbytes = (q_lat.numel() + q_rope.numel() + n_valid * (lora + rope)) * item
+    nbytes += pages.numel() * 4 + pos.numel() * 4 + B * h * lora * 4
+    flops = n_valid * h * (2 * (lora + rope) + 2 * lora)
+    rate = BF16_FLOP_PER_S if q_lat.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            flops / F32_FLOP_PER_S * 1e3, nbytes, flops)
+
+
+def sdpa_backend(fn):
+    """The first SDPA backend, in torch's order, that accepts ``fn``'s
+    call, and a function that runs the call under it."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusing backend says why
+                fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def run(be=be):
+            with sdpa_kernel([be]):
+                return fn()
+
+        return be.name, run
+    raise AssertionError("no SDPA backend takes the MLA yardstick")
+
+
+def mla_kernel_phase(build_log: Path) -> dict:
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    # f32: reduction order only; bf16 inputs: both sides read the same bf16
+    # values and sum in f32, the output is f32
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # atol = rtol
+    # the served shape takes G = 16 and 4096 lanes G = 8; fewer heads give
+    # the wrapper's other groups (h = 12: 4, 6: 2, 3: 1), so every
+    # template instance is held against the plain version
+    cases = [("served 512", torch.bfloat16, {}), ("served 512", torch.float32, {}),
+             ("all lanes valid 512", torch.bfloat16, {"full": True}),
+             ("4096", torch.bfloat16, {"max_len": 4096}), ("4096", torch.float32, {"max_len": 4096}),
+             ("edge 512", torch.bfloat16, {"edge": True}), ("edge 512", torch.float32, {"edge": True})]
+    cases += [(f"h={h} B=3 512", dtype, {"h": h, "B": 3}) for h in (12, 6, 3)
+              for dtype in (torch.bfloat16, torch.float32)]
+    launches0 = pd.paged_mla_attention.launches
+    errs = {}
+    groups = set()
+    for label, dtype, kw in cases:
+        args = mla_inputs(dtype, gen, **kw)
+        G = pd.mla_group(kw.get("h", 128), 512, 64, kw.get("max_len", 512),
+                         kw.get("max_len", 512) // 16)
+        groups.add((G, dtype))
+        label = f"{label} G={G}"
+        got = pd.paged_mla_attention(*args, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        ref = pd.paged_mla_plain(*args, scale=MLA_SCALE)
+        name = f"{label} {str(dtype).removeprefix('torch.')}"
+        if got.dtype != torch.float32 or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"paged_mla_decode {name}: wrong type/shape or not finite")
+        err = (got - ref).abs()
+        errs[name] = float(err.max())
+        if not bool((err <= tol[dtype] + tol[dtype] * ref.abs()).all()):
+            raise AssertionError(f"paged_mla_decode {name}: max abs err {errs[name]}")
+        if kw.get("edge") and not (bool((got[4] == 0).all()) and bool((ref[4] == 0).all())):
+            raise AssertionError(f"paged_mla_decode {name}: the slot with nothing mapped is not 0")
+    if groups != {(g, d) for g in (1, 2, 4, 8, 16) for d in (torch.float32, torch.bfloat16)}:
+        raise AssertionError(f"paged_mla_decode: not every (G, dtype) instance compared: {groups}")
+    log("mla: paged_mla_decode (K6) vs paged_mla_plain at B=8 h=128 lora=512 rope=64 ps=16: "
+        + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
+        + f" (atol=rtol f32 {tol[torch.float32]}, bf16 inputs {tol[torch.bfloat16]}); every "
+        "G in 1..16 in both dtypes")
+    ptxas = [ln.strip() for ln in build_log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(f"mla: ptxas for the 10 instances (G = 1..16, f32 / bf16): {'; '.join(ptxas)}")
+
+    # device times in the serving dtype; enough input sets that the sets
+    # together exceed the 50 MB L2, so every call reads its pages from HBM
+    timings, backends = {}, {}
+    for label, kw, n_sets in (("served 512", {}, 16), ("all lanes valid 512", {"full": True}, 16),
+                              ("4096", {"max_len": 4096}, 4)):
+        sets = [mla_inputs(torch.bfloat16, gen, **kw) for _ in range(n_sets)]
+        it = iter(range(10**9))
+
+        def nxt():
+            return sets[next(it) % len(sets)]
+
+        def sdpa_call():
+            q_lat, q_rope, ckv, krope, pages, pos = nxt()
+            B, h, _ = q_lat.shape
+            kg, rg = pd.paged_gather_lanes(ckv, pages), pd.paged_gather_lanes(krope, pages)
+            mask = pd.paged_valid(pages, pos, ckv.shape[1])
+            q = torch.cat([q_lat, q_rope], -1)[:, :, None]  # (B, h, 1, 576)
+            k = torch.cat([kg, rg], -1)[:, None].expand(B, h, -1, -1)
+            v = kg[:, None].expand(B, h, -1, -1)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None, None], scale=MLA_SCALE)
+
+        heavy = "4096" in label
+        ms = graph_ms(lambda: pd.paged_mla_attention(*nxt(), scale=MLA_SCALE),
+                      reps=10 if heavy else 20, iters=5 if heavy else 10)
+        eager_ms = events_ms(lambda: pd.paged_mla_attention(*nxt(), scale=MLA_SCALE))
+        plain_ms = graph_ms(lambda: pd.paged_mla_plain(*nxt(), scale=MLA_SCALE), reps=4, iters=5)
+        backend, sdpa_run = sdpa_backend(sdpa_call)
+        backends[label] = backend
+        library_ms = graph_ms(sdpa_run, reps=4 if heavy else 10, iters=5)
+        bound_ms, bound_by, f32_ms, nbytes, flops = k6_bound(*[sets[0][i] for i in (0, 1, 2, 4, 5)])
+        timings[label] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        log(f"mla: {label} bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, gather + sdpa ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores "
+            f"{f32_ms:.4f} ms)")
+    pd.paged_mla_attention.launches = launches0  # comparison launches do not count
+    t = timings["served 512"]
+    return {
+        "name": "paged_mla_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_mla_decode.cu",
+        "replaces": "src/repro/kernels/paged_decode.py:250",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "tolerance": {"f32": tol[torch.float32], "bf16_inputs": tol[torch.bfloat16]},
+        "ms": t["ms"],
+        "eager_ms": t["eager_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "library": f"page gather + torch.nn.functional.scaled_dot_product_attention "
+                   f"({backends['served 512']}; yardstick only)",
+        "shape": "B=8 h=128 lora=512 rope=64 ps=16 max_len=512 bf16, pos ragged",
+        "all_lanes_valid_512": timings["all lanes valid 512"],
+        "max_len_4096": timings["4096"],
+        "ptxas": ptxas,
     }
 
 
@@ -1023,6 +1224,58 @@ def mamba_engine_phase() -> dict:
     }
 
 
+def mla_engine_phase() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_prefix
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.lm_cells import ServeConfig
+
+    cfg = dense_prefix(get_config("deepseek-v3-671b"))
+    scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    engine, run, (k6, k5) = serve_stream(cfg, scfg, [pd.paged_mla_attention,
+                                                     pd.paged_gqa_attention])
+    m = engine.metrics()
+    if not m["paged"]:
+        raise AssertionError("deepseek's MLA layers must serve from paged latent pools")
+    n_sub = max(1, scfg.prefill_chunk)
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if k6 == 0 or k6 != expect or k5 != 0:
+        raise AssertionError(f"K6 launches {k6} != {cfg.n_layers} x {run['ticks'] + run['replays']} "
+                             f"steps x {n_sub}, or K5 launches {k5} != 0")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"engine: paged_mla_decode launches {k6} = {cfg.n_layers} layers x ({run['ticks']} ticks + "
+        f"{run['replays']} replays) x {n_sub}; paged_gqa_decode launches {k5}; pages "
+        f"{m['pages_free']}/{m['pages_total']} free, {m['page_faults']} page faults; device memory: "
+        f"{mem_start:.2f} GB in use before the engine, {held:.2f} GB after the stream, peak {peak:.2f} GB")
+
+    # one tick: the decode transition, the slot fingerprints of the replica
+    # check, and the out-of-place copy of the latent pools
+    states = engine._states
+    seg = states["decoder"]["cache"]["segments"][0]
+    pool_bytes = sum(x.numel() * x.element_size() for x in seg.values())
+    copy_ms = events_ms(lambda: {k: x.clone() for k, x in seg.items()})
+    step_ms = events_ms(lambda: engine.exe.pure_step(states, 0), iters=5)
+    fp_ms = events_ms(lambda: engine._ops.fingerprints(states["decoder"]), iters=5)
+    pd.paged_mla_attention.launches = k6  # the timing steps' launches do not count
+    log(f"engine: per tick: decode step {step_ms:.2f} ms, slot fingerprints {fp_ms:.2f} ms, "
+        f"latent pool copy {copy_ms:.3f} ms ({2 * pool_bytes / 1e9:.4f} GB moved)")
+    return {
+        "launches": k6,
+        "paged_gqa_launches": k5,
+        **run,
+        "decode_step_ms": step_ms,
+        "fingerprints_ms": fp_ms,
+        "pool_copy_ms": copy_ms,
+        "pool_copy_gb": 2 * pool_bytes / 1e9,
+        "peak_memory_gb": peak,
+        "memory_before_gb": mem_start,
+        "memory_after_gb": held,
+    }
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
 
@@ -1032,12 +1285,12 @@ def _leaves(tree):
 # --------------------------------------------------------------------------
 # phase 4: small f32 models agree with a full-sequence forward
 # --------------------------------------------------------------------------
-def check_phase(arch: str, **serve) -> None:
+def check_phase(arch: str, cfg=None, **serve) -> None:
     from repro_torch.configs import get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.models.lm_cells import ServeConfig
 
-    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cfg = dataclasses.replace(cfg or get_reduced(arch), dtype="float32")
     engine = serve_engine(cfg, ServeConfig(batch=8, max_len=128, **serve))
     reqs = make_requests(cfg.vocab_size, n=6, new=24)
     drive(engine, reqs, strike=False)
@@ -1088,6 +1341,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
     ssd = ssd_phase()
     attn = attention_phase()
+    mla = mla_kernel_phase(paths["paged_mla_decode"].with_suffix(".log"))
     torch.cuda.empty_cache()
     eng = engine_phase()
     record["launches"] = eng["launches"]
@@ -1096,13 +1350,22 @@ def main() -> int:
     mamba = mamba_engine_phase()
     ssd["launches"] = mamba["launches"]
     gc.collect()
+    torch.cuda.empty_cache()  # the mamba2 engine is gone: hand its memory back
+    deepseek = mla_engine_phase()
+    mla["launches"] = deepseek["launches"]
+    gc.collect()
     torch.cuda.empty_cache()
     check_phase("internlm2-1.8b", paged=True, page_size=16)
     check_phase("mamba2-2.7b")
+    from repro_torch.configs import deepseek_v3_671b as ds
+
+    check_phase("deepseek-v3-671b", dataclasses.replace(ds.dense_prefix(ds.reduced()), n_layers=2),
+                paged=True, page_size=16)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)
     print(json.dumps({"engine_mamba2": mamba}), flush=True)
-    print(json.dumps({"kernels": [record, *epi.values(), attn, ssd]}), flush=True)
+    print(json.dumps({"engine_deepseek_mla": deepseek}), flush=True)
+    print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

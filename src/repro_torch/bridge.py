@@ -58,6 +58,8 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
     stay f32.  Checks the tree has the layout this package's model reads."""
     params = states_from_numpy(tree, device)
     want = {"embed", "final_norm", "segments"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    if cfg.mtp:
+        want |= {"mtp_proj", "mtp_norm"}
     if set(params) != want:
         raise ValueError(f"params keys {sorted(params)} != {sorted(want)}")
     d, V = cfg.d_model, cfg.vocab_size

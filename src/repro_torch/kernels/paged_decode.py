@@ -1,10 +1,12 @@
-"""Paged single-query GQA decode attention: the wrapper of the CUDA kernel
-``csrc/paged_gqa_decode.cu`` and its plain PyTorch version.
+"""Paged single-query decode attention: the wrappers of the CUDA kernels
+``csrc/paged_gqa_decode.cu`` (GQA) and ``csrc/paged_mla_decode.cu``
+(absorbed MLA), and their plain PyTorch versions.
 
-Replaces the Pallas kernel ``repro/kernels/paged_decode.py::
-paged_gqa_attention`` (TPU).  Each slot's K/V bytes live in fixed-size
-pages of one shared pool; the per-slot page table maps logical page ->
-pool row (-1 = unmapped).  Semantics, shared by kernel and plain version:
+Replace the Pallas kernels ``repro/kernels/paged_decode.py::
+paged_gqa_attention`` and ``::paged_mla_attention`` (TPU).  Each slot's
+K/V bytes live in fixed-size pages of one shared pool; the per-slot page
+table maps logical page -> pool row (-1 = unmapped).  GQA semantics,
+shared by kernel and plain version:
 
   * unmapped pages read as zero lanes and are masked; a page row past
     the pool's end reads the pool's last row (the gather clamps, as the
@@ -16,9 +18,16 @@ pool row (-1 = unmapped).  Semantics, shared by kernel and plain version:
     the mean of its gathered V lanes, 0 when no page is mapped), then
     P.V in f32, cast to ``q.dtype``.
 
-``paged_gqa_attention`` takes the plain version for CPU tensors only; a
-CUDA tensor reaches the kernel or an exception.  ``launches`` on the
-wrapper counts kernel launches.
+MLA (``paged_mla_attention``) keeps one latent row per token, shared
+by every head: ``ckv`` (N, ps, lora) and its RoPE key ``krope`` (N, ps,
+rope).  The page and lane masks, the clamp and the full f32 softmax are
+the GQA kernel's; scores are ``(q_lat . ckv + q_rope . krope) * scale``,
+the scale applied after the sum, and the output is the f32 latent
+context ``p . ckv`` (B, h, lora), cast by the caller before ``w_uv``.
+
+Each wrapper takes its plain version for CPU tensors only; a CUDA tensor
+reaches the kernel or an exception.  ``launches`` on a wrapper counts
+its kernel launches.
 """
 
 from __future__ import annotations
@@ -62,14 +71,18 @@ def paged_gather(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, P * ps, D)
 
 
+def paged_valid(pages: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(B, P*ps) mask of the lanes a decode attends to: on a mapped page
+    and at or before ``pos``."""
+    lane = torch.arange(pages.shape[1] * page_size, device=pages.device)
+    return (pages >= 0).repeat_interleave(page_size, dim=1) & (lane[None, :] <= pos[:, None])
+
+
 def paged_gqa_plain(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.Tensor:
     """The plain version: gather pages in logical order, then ``attend``
     (``repro/kernels/ref.py::paged_gqa_ref``)."""
-    Dk, ps = q.shape[-1], k_pool.shape[2]
-    scale = (Dk**-0.5) if scale is None else scale
-    lane = torch.arange(pages.shape[1] * ps, device=q.device)
-    mapped = (pages >= 0).repeat_interleave(ps, dim=1)
-    valid = mapped & (lane[None, :] <= pos[:, None])
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    valid = paged_valid(pages, pos, k_pool.shape[2])
     return attend(q, paged_gather(k_pool, pages), paged_gather(v_pool, pages), valid, scale)
 
 
@@ -171,3 +184,165 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
 
 
 paged_gqa_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# MLA: absorbed latent attention through a page table
+# --------------------------------------------------------------------------
+#: query heads one block of the MLA kernel may take (its register tiles)
+MLA_MAX_GROUP = 16
+#: threads of one MLA block (the kernel's kThreads)
+MLA_THREADS = 256
+
+
+def attend_mla(q_lat, q_rope, ckv, krope, valid, scale: float) -> torch.Tensor:
+    """Absorbed-MLA single-query attention over a dense view: q_lat (B, h,
+    lora), q_rope (B, h, rope), ckv (B, S, lora), krope (B, S, rope),
+    valid (B, S) -> the f32 latent context (B, h, lora).  The math of the
+    JAX package's dense absorbed decode (``layers.mla_attention``); the
+    dense decode path and the paged plain version both run it, so within
+    this package a paged MLA decode reduces in the same order as a dense
+    one."""
+    ckv = ckv.float().contiguous()
+    s_lat = torch.einsum("bhl,btl->bht", q_lat.float(), ckv)
+    s_rope = torch.einsum("bhr,btr->bht", q_rope.float(), krope.float().contiguous())
+    s = torch.where(valid[:, None, :], (s_lat + s_rope) * scale, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bht,btl->bhl", p, ckv)
+
+
+def paged_gather_lanes(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """Dense view (B, P*ps, d) of a latent pool (N, ps, d) through the
+    page table (B, P); unmapped pages read as zeros.  ``paged_gather``
+    over a pool of one head."""
+    return paged_gather(pool[:, None], pages)[:, 0]
+
+
+def paged_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: float) -> torch.Tensor:
+    """The plain version: gather pages in logical order, then
+    ``attend_mla`` (``repro/kernels/ref.py::paged_mla_ref``)."""
+    valid = paged_valid(pages, pos, ckv_pool.shape[1])
+    return attend_mla(q_lat, q_rope, paged_gather_lanes(ckv_pool, pages),
+                      paged_gather_lanes(krope_pool, pages), valid, scale)
+
+
+def mla_smem_bytes(group: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
+    """Dynamic shared memory of one MLA block: the per-warp reduction
+    scratch, the group's f32 query rows [q_lat | q_rope], the (seq, group)
+    f32 scores and the slot's page row."""
+    return 4 * (MLA_THREADS // 32 * MLA_MAX_GROUP + group * (lora + rope) + seq * group + n_pages)
+
+
+def mla_group(h: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
+    """Query heads per block: the largest power of two up to
+    ``MLA_MAX_GROUP`` that divides ``h`` and whose block fits in shared
+    memory (16 at h = 128 and 512 lanes, 8 at 4096).  0 when not even
+    one head fits."""
+    fits = [g for g in (16, 8, 4, 2, 1)
+            if h % g == 0 and mla_smem_bytes(g, lora, rope, seq, n_pages) <= SMEM_LIMIT]
+    return fits[0] if fits else 0
+
+
+@functools.cache
+def _mla_lib() -> ctypes.CDLL:
+    from . import build
+
+    lib = build.load("paged_mla_decode")
+    for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float,
+            ctypes.c_size_t,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos) -> None:
+    if q_lat.dim() != 3 or q_rope.dim() != 3 or ckv_pool.dim() != 3 or krope_pool.dim() != 3:
+        raise ValueError(
+            "q_lat / q_rope must be (B,h,lora) / (B,h,rope) and the pools (N,ps,lora) / "
+            f"(N,ps,rope); got {tuple(q_lat.shape)}, {tuple(q_rope.shape)}, "
+            f"{tuple(ckv_pool.shape)}, {tuple(krope_pool.shape)}")
+    B, h, lora = q_lat.shape
+    N, ps, lora2 = ckv_pool.shape
+    rope = q_rope.shape[-1]
+    if q_rope.shape[:2] != (B, h) or lora2 != lora or krope_pool.shape != (N, ps, rope):
+        raise ValueError(
+            f"shapes do not match: q_lat {tuple(q_lat.shape)}, q_rope {tuple(q_rope.shape)}, "
+            f"ckv {tuple(ckv_pool.shape)}, krope {tuple(krope_pool.shape)}")
+    if pages.dim() != 2 or pages.shape[0] != B or tuple(pos.shape) != (B,):
+        raise ValueError(f"pages must be (B,P) and pos (B,) for B={B}")
+    if min(B, h, N, ps, lora, rope, pages.shape[1]) < 1:
+        raise ValueError("empty input")
+    if lora % 8 or rope % 8:
+        raise ValueError(f"lora {lora} and rope {rope} must be multiples of 8 (16-byte row loads)")
+    if q_lat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q_lat dtype {q_lat.dtype}: the kernel takes float32 or bfloat16")
+    if any(t.dtype != q_lat.dtype for t in (q_rope, ckv_pool, krope_pool)):
+        raise TypeError("the queries and the pools must share one dtype")
+    if pages.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError("pages and pos must be int32")
+    tensors = (q_lat, q_rope, ckv_pool, krope_pool, pages, pos)
+    if any(t.device != q_lat.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors[:4]):
+        raise ValueError("the kernel reads 16-byte rows: the queries and pools must be 16-byte aligned")
+    smem = mla_smem_bytes(1, lora, rope, pages.shape[1] * ps, pages.shape[1])
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{smem} bytes of shared memory for one head (max_len {pages.shape[1] * ps}) exceed "
+            f"the {SMEM_LIMIT} a Hopper block can use")
+
+
+def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: float) -> torch.Tensor:
+    """Absorbed-MLA single-query attention reading the latent cache
+    through a page table.
+
+    q_lat (B, h, lora) latent-absorbed query; q_rope (B, h, rope); pools
+    (N, ps, lora) / (N, ps, rope); pages (B, P) int32, -1 = unmapped; pos
+    (B,) int32.  Returns the f32 latent context (B, h, lora).  CPU
+    tensors take ``paged_mla_plain``; CUDA tensors launch the kernel on
+    the current stream."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_attention runs on cuda or cpu, not {q_lat.device}")
+    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos)
+    B, h, lora = q_lat.shape
+    N, ps, _ = ckv_pool.shape
+    rope, P = q_rope.shape[-1], pages.shape[1]
+    G = mla_group(h, lora, rope, P * ps, P)
+    lib = _mla_lib()
+    fn = lib.paged_mla_decode_f32 if q_lat.dtype == torch.float32 else lib.paged_mla_decode_bf16
+    out = torch.empty((B, h, lora), dtype=torch.float32, device=q_lat.device)
+    with torch.cuda.device(q_lat.device):  # the C launch uses the current device
+        err = fn(
+            q_lat.data_ptr(),
+            q_rope.data_ptr(),
+            ckv_pool.data_ptr(),
+            krope_pool.data_ptr(),
+            pages.data_ptr(),
+            pos.data_ptr(),
+            out.data_ptr(),
+            B,
+            h,
+            lora,
+            rope,
+            ps,
+            P,
+            N,
+            G,
+            float(scale),
+            mla_smem_bytes(G, lora, rope, P * ps, P),
+            torch.cuda.current_stream(q_lat.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"paged_mla_decode launch failed: cudaError {err}")
+    paged_mla_attention.launches += 1
+    return out
+
+
+paged_mla_attention.launches = 0

@@ -1,16 +1,17 @@
-"""Model building blocks: norms, RoPE, GQA attention, MLPs.
+"""Model building blocks: norms, RoPE, GQA and MLA attention, MLPs.
 
-A port of the GQA/MLP subset of ``repro/models/layers.py``: plain
+A port of the GQA/MLA/MLP subset of ``repro/models/layers.py``: plain
 functions on tensors, parameters in plain dicts with the JAX package's
 keys and layouts.  Attention has three execution paths:
 
   * ``blockwise_attention`` — online-softmax attention over KV blocks
-    (prefill), plain torch as in the JAX package;
-  * ``decode_attention`` — single-query attention over a dense cache,
-    plain torch as in the JAX package;
-  * the paged branch of ``gqa_attention`` — single-query attention
-    through a page table, the hand-written CUDA kernel
-    ``kernels.paged_decode.paged_gqa_attention``.
+    (prefill; MLA's expanded path too), plain torch as in the JAX package;
+  * ``decode_attention`` / ``attend_mla`` — single-query attention over a
+    dense cache, plain torch as in the JAX package;
+  * the paged branches of ``gqa_attention`` and ``mla_attention`` —
+    single-query attention through a page table, the hand-written CUDA
+    kernels ``kernels.paged_decode.paged_gqa_attention`` and
+    ``paged_mla_attention``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.paged_decode import NEG_INF, attend, paged_gqa_attention
-from .config import ModelConfig
+from ..kernels.paged_decode import NEG_INF, attend, attend_mla, paged_gqa_attention, paged_mla_attention
+from .config import MLAConfig, ModelConfig
 
 Params = dict
 
@@ -217,7 +218,7 @@ def gqa_attention(
         # the scatter to an out-of-range row for inactive slots and
         # unmapped pages; torch would raise, so those rows are left out
         if rows_lanes is None:
-            rows_lanes = paged_write_rows(pages, pos, active, cache["k"].shape)
+            rows_lanes = paged_write_rows(pages, pos, active, cache["k"].shape[0], cache["k"].shape[2])
         rows, lanes, sel = rows_lanes
         cache["k"][rows, :, lanes] = k[sel, :, 0].to(cache["k"].dtype)
         cache["v"][rows, :, lanes] = v[sel, :, 0].to(cache["v"].dtype)
@@ -228,35 +229,150 @@ def gqa_attention(
     Sc = cache["k"].shape[2]
     slot = pos % Sc
     bidx = torch.arange(B, device=x.device)
-
-    def gate(new, old):
-        # serving slot mask: an inactive slot keeps its old bytes
-        if active is None:
-            return new
-        return torch.where(active.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
-
-    cache["k"][bidx, :, slot] = gate(k[:, :, 0].to(cache["k"].dtype), cache["k"][bidx, :, slot])
-    cache["v"][bidx, :, slot] = gate(v[:, :, 0].to(cache["v"].dtype), cache["v"][bidx, :, slot])
-    cache["slot_pos"][bidx, slot] = gate(pos.to(torch.int32), cache["slot_pos"][bidx, slot])
+    cache["k"][bidx, :, slot] = _gate(active, k[:, :, 0].to(cache["k"].dtype), cache["k"][bidx, :, slot])
+    cache["v"][bidx, :, slot] = _gate(active, v[:, :, 0].to(cache["v"].dtype), cache["v"][bidx, :, slot])
+    cache["slot_pos"][bidx, slot] = _gate(active, pos.to(torch.int32), cache["slot_pos"][bidx, slot])
     out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=cfg.window)
     return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], cache
 
 
-def paged_write_rows(pages, pos, active, pool_shape):
-    """``(rows, lanes, sel)`` of one decode step's paged K/V write into a
-    pool of ``pool_shape`` (N, Hkv, ps, D): the slots ``sel`` that write
-    (active, with a pool row in [0, N) — the rows JAX's scatter does not
-    drop) and their row and lane.  The same for every layer, so
-    ``decode_step`` computes it once (the selection is a host round trip)."""
-    N, page_size = pool_shape[0], pool_shape[2]
+def _gate(active, new, old):
+    """The serving slot mask on a decode write: an inactive slot (``active``
+    False) keeps its old bytes."""
+    if active is None:
+        return new
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def paged_write_rows(pages, pos, active, n_pages: int, page_size: int):
+    """``(rows, lanes, sel)`` of one decode step's paged write into a pool
+    of ``n_pages`` pages of ``page_size`` lanes (GQA's (N, Hkv, ps, D) or
+    MLA's (N, ps, d)): the slots ``sel`` that write (active, with a pool
+    row in [0, N) — the rows JAX's scatter does not drop) and their row
+    and lane.  The same for every layer, so ``decode_step`` computes it
+    once (the selection is a host round trip)."""
     P = pages.shape[1]
     pidx = torch.div(pos, page_size, rounding_mode="floor").long()
     row = pages.gather(1, pidx.clamp(0, P - 1)[:, None])[:, 0]
-    ok = (row >= 0) & (row < N) & (pidx < P)
+    ok = (row >= 0) & (row < n_pages) & (pidx < P)
     if active is not None:
         ok = ok & active
     sel = ok.nonzero()[:, 0]
     return row[sel].long(), (pos[sel] % page_size).long(), sel
+
+
+# --------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V3)
+# --------------------------------------------------------------------------
+def mla_init(gen, cfg: ModelConfig, device) -> Params:
+    m = cfg.mla or MLAConfig()
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.compute_dtype
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, dt, device),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dt, device=device),
+        "wq_b": dense_init(gen, m.q_lora_rank, h * (m.qk_nope_dim + m.qk_rope_dim), dt, device),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, dt, device),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt, device=device),
+        "wkv_b": dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_dim + m.v_head_dim), dt, device),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dt, device),
+    }
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Dense latent cache for one layer: one ``ckv``/``krope`` row per
+    token, shared by every head."""
+    m = cfg.mla or MLAConfig()
+    dt = cfg.compute_dtype
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt, device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dt, device=device),
+        "slot_pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, device) -> dict:
+    """Paged latent pool for one layer (see ``gqa_paged_cache_init``)."""
+    m = cfg.mla or MLAConfig()
+    dt = cfg.compute_dtype
+    return {
+        "ckv": torch.zeros((n_pages, page_size, m.kv_lora_rank), dtype=dt, device=device),
+        "krope": torch.zeros((n_pages, page_size, m.qk_rope_dim), dtype=dt, device=device),
+    }
+
+
+def mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The latent cache rows of ``x``: the normalised ``ckv`` (B, S, lora)
+    and the RoPE'd shared key ``krope`` (B, S, rope)."""
+    m = cfg.mla or MLAConfig()
+    ckv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    cos, sin = rope_cos_sin(positions, m.qk_rope_dim, cfg.rope_theta)
+    return rmsnorm(ckv, p["kv_norm"], cfg.rms_eps), apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+
+
+def mla_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (B, S)
+    cache: Optional[dict] = None,  # decode when present
+    block_k: int = 1024,
+    active: Optional[torch.Tensor] = None,  # (B,) serving slot mask (decode)
+    pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
+    rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """MLA.  Prefill (no cache) expands per-head keys (width qk_nope +
+    qk_rope) and values (width v_head) from the latent and runs
+    ``blockwise_attention``.  Decode absorbs ``w_uk`` into the query and
+    attends in the latent space, writing the new ``ckv``/``krope`` lane
+    INTO ``cache`` in place (views of ``decode_step``'s copy, as in
+    ``gqa_attention``); ``w_uv`` is applied to the f32 latent context
+    after it is cast to the compute dtype."""
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, lora, dv = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank, m.v_head_dim
+    scale = (nope + rope) ** -0.5
+
+    q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps) @ p["wq_b"]
+    q_nope, q_rope = q.reshape(B, S, h, nope + rope).split([nope, rope], dim=-1)
+    cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    ckv, k_rope = mla_latent(p, x, cfg, positions)  # (B, S, lora) / (B, S, rope)
+    wkv_b = p["wkv_b"].reshape(lora, h, nope + dv)
+    w_uk, w_uv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]  # (lora, h, nope) / (lora, h, v)
+
+    if cache is None:
+        # expanded path (prefill): per-head k, v from the latent
+        k_nope = torch.einsum("bsl,lhn->bshn", ckv, w_uk)
+        v = torch.einsum("bsl,lhv->bshv", ckv, w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rope)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = blockwise_attention(qfull.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=True, scale=scale, block_k=block_k)  # (B, h, S, v)
+        return out.transpose(1, 2).reshape(B, S, h * dv) @ p["wo"], None
+    if S != 1:
+        raise ValueError("decode path handles one token at a time")
+    # absorbed path (decode): attend in the latent space
+    pos = positions[:, 0]
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_uk)  # (B, h, lora)
+    if pages is not None:
+        if rows_lanes is None:
+            rows_lanes = paged_write_rows(pages, pos, active, cache["ckv"].shape[0], cache["ckv"].shape[1])
+        rows, lanes, sel = rows_lanes
+        cache["ckv"][rows, lanes] = ckv[sel, 0].to(cache["ckv"].dtype)
+        cache["krope"][rows, lanes] = k_rope[sel, 0].to(cache["krope"].dtype)
+        ctx = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["ckv"],
+                                  cache["krope"], pages, pos.contiguous(), scale=scale)
+    else:
+        slot = pos % cache["ckv"].shape[1]
+        bidx = torch.arange(B, device=x.device)
+        for key, new in (("ckv", ckv[:, 0]), ("krope", k_rope[:, 0]), ("slot_pos", pos)):
+            cache[key][bidx, slot] = _gate(active, new.to(cache[key].dtype), cache[key][bidx, slot])
+        valid = (cache["slot_pos"] >= 0) & (cache["slot_pos"] <= pos[:, None])
+        ctx = attend_mla(q_lat, q_rope[:, 0], cache["ckv"], cache["krope"], valid, scale)
+    out = torch.einsum("bhl,lhv->bhv", ctx.to(x.dtype), w_uv)
+    return out.reshape(B, S, h * dv) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------

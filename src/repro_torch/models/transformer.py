@@ -1,12 +1,14 @@
-"""The decoder-only LM, GQA/MLP and Mamba2 segments (a port of the
+"""The decoder-only LM, GQA/MLA + MLP and Mamba2 segments (a port of the
 matching subset of ``repro/models/transformer.py``).
 
 Parameters are the JAX package's tree: ``{"embed", "final_norm",
-"segments": [stacked per-layer dicts]}``, each segment's leaves carrying
-a leading layer axis.  Layers run as a Python loop over that axis.
-Segment kinds:
+"segments": [stacked per-layer dicts]}`` (plus ``lm_head`` when untied
+and ``mtp_proj``/``mtp_norm`` for a multi-token-prediction head), each
+segment's leaves carrying a leading layer axis.  Layers run as a Python
+loop over that axis.  Segment kinds:
 
-  attn_mlp  -- [norm -> attention -> residual] [norm -> MLP -> residual]
+  attn_mlp  -- [norm -> attention (GQA or MLA) -> residual]
+               [norm -> MLP -> residual]
   mamba     -- [norm -> mamba2 block -> residual]
 
 Entry points:
@@ -46,9 +48,14 @@ def segment_plan(cfg: ModelConfig) -> list[Segment]:
                 "attention block) are not ported yet (P12)"
             )
         return [Segment("mamba", cfg.n_layers)]
-    if cfg.mixer_type != "mlp" or cfg.attn_type != "gqa" or cfg.n_codebooks != 1:
+    if cfg.mixer_type == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: only GQA/MLP and Mamba2 text decoders are ported "
+            f"{cfg.name}: MoE layers are not ported yet (P12's MoE item); serve the "
+            "dense layers alone (configs.deepseek_v3_671b.dense_prefix)"
+        )
+    if cfg.mixer_type != "mlp" or cfg.attn_type not in ("gqa", "mla") or cfg.n_codebooks != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: only GQA/MLA + MLP and Mamba2 text decoders are ported "
             f"(mixer={cfg.mixer_type}, attn={cfg.attn_type})"
         )
     return [Segment("attn_mlp", cfg.n_layers)]
@@ -69,7 +76,7 @@ def _layer_init(gen, cfg: ModelConfig, kind: str, device) -> Params:
     return {
         "ln1": torch.ones((d,), dtype=dt, device=device),
         "ln2": torch.ones((d,), dtype=dt, device=device),
-        "attn": L.gqa_init(gen, cfg, device),
+        "attn": L.mla_init(gen, cfg, device) if cfg.attn_type == "mla" else L.gqa_init(gen, cfg, device),
         "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device),
     }
 
@@ -88,6 +95,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     params["segments"] = segs
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, d, V, dt, device)
+    if cfg.mtp:
+        # the multi-token-prediction head: built as JAX builds it (the
+        # trees match), read only by training, which is not ported
+        params["mtp_proj"] = L.dense_init(gen, 2 * d, d, dt, device)
+        params["mtp_norm"] = torch.ones((d,), dtype=dt, device=device)
     return params
 
 
@@ -114,14 +126,24 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
     bucket-padded prefill: entries at positions >= prompt_len are
     scrubbed (slot_pos = -1, zero K/V), so the filled cache equals an
     exact-length prefill's."""
+    fn = L.mla_attention if cfg.attn_type == "mla" else L.gqa_attention
     if cache is not None:
-        return L.gqa_attention(p, x, cfg, positions=positions, cache=cache,
-                               active=active, pages=pages, rows_lanes=rows_lanes)
-    out, _ = L.gqa_attention(p, x, cfg, positions=positions, cache=None)
+        return fn(p, x, cfg, positions=positions, cache=cache, active=active, pages=pages,
+                  rows_lanes=rows_lanes)
+    out, _ = fn(p, x, cfg, positions=positions, cache=None)
     if not fill_cache:
         return out, None
     # re-derive the kv projections to populate a decode cache
     B, S, _ = x.shape
+    if cfg.attn_type == "mla":
+        ckv, k_rope = L.mla_latent(p, x, cfg, positions)
+        sp = torch.broadcast_to(positions, (B, S)).to(torch.int32)
+        if prompt_len is not None:
+            keep = (sp >= 0) & (sp < prompt_len)
+            ckv = torch.where(keep[..., None], ckv, torch.zeros_like(ckv))
+            k_rope = torch.where(keep[..., None], k_rope, torch.zeros_like(k_rope))
+            sp = torch.where(keep, sp, -1)
+        return out, {"ckv": ckv, "krope": k_rope, "slot_pos": sp}
     dh = cfg.head_dim
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
@@ -211,6 +233,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     for seg in segment_plan(cfg):
         if seg.kind == "mamba":
             one = mamba_cache_init(cfg, batch, device)
+        elif cfg.attn_type == "mla":
+            one = L.mla_cache_init(cfg, batch, max_len, device)
         else:
             one = L.gqa_cache_init(cfg, batch, max_len, device)
         out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
@@ -229,7 +253,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, page_size: int,
         raise ValueError("paged cache excludes sliding-window archs")
     out = []
     for seg in segment_plan(cfg):
-        one = L.gqa_paged_cache_init(cfg, n_pages, page_size, device)
+        if cfg.attn_type == "mla":
+            one = L.mla_paged_cache_init(cfg, n_pages, page_size, device)
+        else:
+            one = L.gqa_paged_cache_init(cfg, n_pages, page_size, device)
         out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
     return {"segments": out, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -259,8 +286,9 @@ def decode_step(
     h = embed_tokens(params, tokens, cfg)
     rows_lanes = None
     if pages is not None:
-        pool_shape = cache["segments"][0]["k"].shape[1:]  # one layer's pool
-        rows_lanes = L.paged_write_rows(pages, pos, active, pool_shape)
+        # the stacked pool: (L, N, Hkv, ps, D) for GQA, (L, N, ps, lora) for MLA
+        pool = cache["segments"][0]["ckv" if cfg.attn_type == "mla" else "k"]
+        rows_lanes = L.paged_write_rows(pages, pos, active, pool.shape[1], pool.shape[-2])
     new_segs = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
         if seg.kind == "mamba":

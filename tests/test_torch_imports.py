@@ -90,7 +90,8 @@ def test_every_kernel_and_model_module_is_checked():
     wrappers, entry points and models of every slice are in it."""
     for mod in ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
                 "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode",
-                "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b"):
+                "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b",
+                "repro_torch.configs.deepseek_v3_671b"):
         assert mod in MODULES
 
 

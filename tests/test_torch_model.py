@@ -40,10 +40,12 @@ def prompts(vocab, B=2, S=12, seed=0):
 def test_configs_match_the_jax_package():
     from repro.configs import get_config
 
-    assert dc.asdict(tget_config("internlm2-1.8b")) == dc.asdict(get_config("internlm2-1.8b"))
-    assert tget_config("internlm2-1.8b").n_params() == get_config("internlm2-1.8b").n_params()
+    for arch in ("internlm2-1.8b", "deepseek-v3-671b"):
+        assert dc.asdict(tget_config(arch)) == dc.asdict(get_config(arch))
+        assert tget_config(arch).n_params() == get_config(arch).n_params()
+        assert dc.asdict(tget(arch)) == dc.asdict(get_reduced(arch))
     with pytest.raises(ValueError, match="not ported"):
-        tget("deepseek-v3-671b")
+        tget("qwen2-vl-7b")
 
 
 def test_forward_logits_within_1e4_of_jax(f32_pair):
