@@ -9,10 +9,17 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   1. build    -- every CUDA kernel of the port's paths, from
                  ``src/repro_torch/csrc``, one nvcc per source in parallel.
   2. kernels  -- K5 against its plain PyTorch version on the card at the
-                 serving path's shapes, with its tolerance; device times
+                 serving path's shapes, with its tolerance, also with a
+                 slot whose pages are mapped but which has no valid lane,
+                 and at every split count of the sweep (1, 2, 3, 4, 8,
+                 16; 3 splits 32 pages unevenly) at the served, the
+                 engine-like and the edge inputs; ptxas registers and
+                 spills per instance; device times
                  (CUDA-graph replays, so host overhead is excluded) of the
-                 kernel, the plain version and a library yardstick, beside
-                 the bound computed from this run's inputs.
+                 kernel, the plain version and a library yardstick (page
+                 gather + SDPA), beside the bound computed from this run's
+                 inputs, at the serving shape, with every lane valid and
+                 at the engine's own inputs (pos at 40-100 lanes).
   2b. epilogue -- K1-K4 (the DMR/TMR compare, vote and fingerprint
                  kernels) BITWISE against their plain versions, each run
                  twice, on the 4K blend's padded word stream and on odd
@@ -35,8 +42,15 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   2e. attention -- K7 (flash attention) through ``kernels.ops.attention``
                  at internlm2's head layout (16 query / 8 KV heads of 128,
                  bf16): causal at 512 and 4096, windowed, and with a
-                 q_offset; then against its plain version, with SDPA
-                 timed as the library yardstick.
+                 q_offset; then against its plain version, also in f32
+                 and at head dims 64, 120 (zero-padded) and 256 with one
+                 and with two warpgroups a block, so every bf16 instance
+                 is compared; each element within its tolerance and each
+                 row within a relative L2 limit, a limit that two planted
+                 faults at causal 4096 (a K/V tile skipped, a stale
+                 stage) must fail; ptxas registers and spills per
+                 instance; causal 512 and 4096 timed with SDPA as the
+                 library yardstick.
   2f. mla     -- K6 (absorbed-MLA paged decode) against its plain version
                  at deepseek-v3-671b's served shape (8 slots, 128 heads,
                  lora 512, rope 64, pages of 16, 512 lanes, ragged pos) in
@@ -78,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -141,9 +156,11 @@ def events_ms(fn, iters: int = 20) -> float:
 # --------------------------------------------------------------------------
 # phase 2: K5 against its plain version
 # --------------------------------------------------------------------------
-def paged_inputs(dtype, gen, B=8, Hq=16, Hkv=8, Dk=128, ps=16, max_len=512):
+def paged_inputs(dtype, gen, B=8, Hq=16, Hkv=8, Dk=128, ps=16, max_len=512, no_valid_lane=False):
     """The serving path's K5 shapes, with unmapped pages, ``pos`` at page
-    edges, one slot with nothing mapped and one row past the pool."""
+    edges, one slot with nothing mapped and one row past the pool;
+    ``no_valid_lane`` also unmaps slot 6's first page and sets its pos
+    inside it: mapped pages, no valid lane (the uniform mean)."""
     P = max_len // ps
     N = B * P
     dev = "cuda"
@@ -159,7 +176,50 @@ def paged_inputs(dtype, gen, B=8, Hq=16, Hkv=8, Dk=128, ps=16, max_len=512):
         [max_len - 1, ps * 5 - 1, ps * 5, ps * 12, ps * 31 - 1, ps * 31, 47, 200],
         dtype=torch.int32, device=dev,
     )
+    if no_valid_lane:
+        pages[6, 0] = -1
+        pos[6] = ps - 2
     return q, k, v, pages, pos
+
+
+def engine_like_inputs(gen, B=8, Hq=16, Hkv=8, Dk=128, ps=16, max_len=512):
+    """K5's inputs as a short serving run gives them (phase 3: prompts of
+    8-64 tokens, 32 new): each slot's pos at 40-100 lanes, its first 7
+    pages mapped (the admission reservation), the rest unmapped."""
+    q, k, v, pages, _ = paged_inputs(torch.bfloat16, gen, B, Hq, Hkv, Dk, ps, max_len)
+    pages = torch.randperm(pages.numel(), generator=gen, device="cuda").reshape(pages.shape)
+    pages = pages.to(torch.int32)
+    pages[:, 7:] = -1
+    pos = torch.linspace(40, 100, B, device="cuda").to(torch.int32)
+    return q, k, v, pages, pos
+
+
+def ptxas_lines(build_log: Path) -> list[str]:
+    """ptxas' report of one library's build log, one line per kernel
+    instance: ``name<template args>: R registers, S B spill stores, L B
+    spill loads`` (names demangled by c++filt where it is installed)."""
+    text = build_log.read_text()
+    names = re.findall(r"Compiling entry function '([^']+)'", text)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = []
+    short = {}
+    for mangled, d in zip(names, plain if len(plain) == len(names) else names):
+        m = re.search(r"(\w+(?:<[^()]*>)?)\(", d.replace("(anonymous namespace)::", ""))
+        short[mangled] = m[1] if m else d
+    rows, cur = [], None
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            cur = {"name": short[m[1]]}
+            rows.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            cur["spill"] = f"{m[1]} B spill stores, {m[2]} B spill loads"
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur["regs"] = f"{m[1]} registers"
+    return [f"{r['name']}: {r.get('regs', '? registers')}, {r.get('spill', 'spills not reported')}"
+            for r in rows]
 
 
 def k5_bound(q, k, pages, pos) -> tuple[float, str]:
@@ -179,26 +239,40 @@ def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_phase() -> dict:
+def kernel_phase(build_log: Path) -> dict:
     from repro_torch.kernels import paged_decode as pd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # atol = rtol
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        args = paged_inputs(dtype, gen)
+
+    def compare(label, args) -> float:
         got = pd.paged_gqa_attention(*args)
         torch.cuda.synchronize()
         ref = pd.paged_gqa_plain(*args)
+        dtype = args[0].dtype
         assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got.float()).all()
         err = (got.float() - ref.float()).abs()
-        lim = tol[dtype] + tol[dtype] * ref.float().abs()
-        errs[str(dtype)] = float(err.max())
-        if not bool((err <= lim).all()):
-            raise AssertionError(f"paged_gqa_decode {dtype}: max abs err {float(err.max())}")
-        log(f"kernels: paged_gqa_decode {dtype} max_abs_err={float(err.max()):.3e} "
-            f"(tolerance atol=rtol={tol[dtype]})")
+        if not bool((err <= tol[dtype] + tol[dtype] * ref.float().abs()).all()):
+            raise AssertionError(f"paged_gqa_decode {label}: max abs err {float(err.max())}")
+        return float(err.max())
+
+    errs, edges = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for edge in (False, True):
+            args = paged_inputs(dtype, gen, no_valid_lane=edge)
+            label = f"{dtype}{' mapped, no valid lane' if edge else ''}"
+            errs[label] = compare(label, args)
+            if edge:
+                edges[dtype] = args
+                if not bool((pd.paged_gqa_plain(*args)[6] != 0).any()):
+                    raise AssertionError("paged_gqa_decode: the no-valid-lane slot's mean is 0")
+            log(f"kernels: paged_gqa_decode {label} max_abs_err={errs[label]:.3e} "
+                f"(tolerance atol=rtol={tol[dtype]})")
+    n_split = pd.gqa_splits(8, 8, 32, torch.cuda.get_device_properties(0).multi_processor_count)
+    ptxas = ptxas_lines(build_log)
+    log(f"kernels: paged_gqa_decode {n_split} splits at the serving shape; ptxas per instance "
+        f"(split_kernel<dtype, G bound>, merge_kernel<dtype>): {'; '.join(ptxas)}")
     # times in the serving dtype, on 4 input sets (67 MB of pools, more
     # than the 50 MB L2) so every call reads its K/V from HBM as in serving
     sets = [paged_inputs(torch.bfloat16, gen) for _ in range(4)]
@@ -207,8 +281,7 @@ def kernel_phase() -> dict:
     def nxt():
         return sets[next(it) % len(sets)]
 
-    def library():
-        q, k, v, pages, pos = nxt()
+    def library(q, k, v, pages, pos):
         kg, vg = pd.paged_gather(k, pages), pd.paged_gather(v, pages)
         mask = pd.paged_valid(pages, pos, k.shape[2])
         return torch.nn.functional.scaled_dot_product_attention(
@@ -228,22 +301,53 @@ def kernel_phase() -> dict:
     ms = graph_ms(lambda: pd.paged_gqa_attention(*nxt()))
     eager_ms = events_ms(lambda: pd.paged_gqa_attention(*nxt()))
     plain_ms = graph_ms(lambda: pd.paged_gqa_plain(*nxt()))
-    library_ms = graph_ms(library)
+    library_ms = graph_ms(lambda: library(*nxt()))
+    # the engine's own inputs: 40-100 valid lanes a slot
+    eng_sets = [engine_like_inputs(gen) for _ in range(4)]
+    it_eng = iter(range(10**9))
+
+    def eng():
+        return eng_sets[next(it_eng) % len(eng_sets)]
+
+    eng_ms = graph_ms(lambda: pd.paged_gqa_attention(*eng()))
+    eng_plain_ms = graph_ms(lambda: pd.paged_gqa_plain(*eng()))
+    eng_library_ms = graph_ms(lambda: library(*eng()))
+    # the split rule's evidence: the kernel at every split count, both
+    # inputs, each count also held against the plain version (3 splits
+    # take 32 pages unevenly: 11, 11, 10)
+    rule, sweep, sweep_err = pd.gqa_splits, {}, {}
+    held = [("served", sets[0]), ("engine-like", eng_sets[0]),
+            ("edge f32", edges[torch.float32]), ("edge bf16", edges[torch.bfloat16])]
+    try:
+        for n in (1, 2, 3, 4, 8, 16):
+            pd.gqa_splits = lambda B, Hkv, P, sms, n=n: n
+            sweep_err[n] = max(compare(f"{label} at {n} splits", args) for label, args in held)
+            sweep[n] = (graph_ms(lambda: pd.paged_gqa_attention(*nxt())),
+                        graph_ms(lambda: pd.paged_gqa_attention(*eng())))
+    finally:
+        pd.gqa_splits = rule
     pd.paged_gqa_attention.launches = launches0  # comparison launches do not count
+    log("kernels: paged_gqa_decode by split count (served / engine-like ms; max abs err over "
+        f"the {len(held)} held inputs): "
+        + ", ".join(f"{n}: {a:.4f} / {b:.4f} ({sweep_err[n]:.3e})" for n, (a, b) in sweep.items()))
     bound_ms, bound_by = k5_bound(*[sets[0][i] for i in (0, 1, 3, 4)])
     bound_full, _ = k5_bound(*[full[0][i] for i in (0, 1, 3, 4)])
+    eng_bound, eng_by = k5_bound(*[eng_sets[0][i] for i in (0, 1, 3, 4)])
     log(f"kernels: paged_gqa_decode bf16 B=8 max_len=512: kernel {ms:.4f} ms "
         f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, gather+sdpa "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); all 512 lanes "
-        f"valid: kernel {ms_full:.4f} ms, bound {bound_full:.4f} ms")
+        f"valid: kernel {ms_full:.4f} ms, bound {bound_full:.4f} ms; engine-like (pos "
+        f"40-100): kernel {eng_ms:.4f} ms, plain {eng_plain_ms:.4f} ms, gather+sdpa "
+        f"{eng_library_ms:.4f} ms, bound {eng_bound:.4f} ms ({eng_by})")
     return {
         "name": "paged_gqa_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/paged_gqa_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:144",
         "launches": None,
-        "max_abs_err": max(errs.values()),
+        "max_abs_err": max(max(errs.values()), max(sweep_err.values())),
         "max_abs_err_by_dtype": errs,
+        "max_abs_err_by_splits": sweep_err,
         "ms": ms,
         "eager_ms": eager_ms,
         "plain_ms": plain_ms,
@@ -252,6 +356,11 @@ def kernel_phase() -> dict:
         "library_ms": library_ms,
         "ms_all_lanes_valid": ms_full,
         "bound_ms_all_lanes_valid": bound_full,
+        "splits": n_split,
+        "ms_by_splits": {n: {"served": a, "engine_like": b} for n, (a, b) in sweep.items()},
+        "engine_like": {"ms": eng_ms, "plain_ms": eng_plain_ms, "library_ms": eng_library_ms,
+                        "bound_ms": eng_bound, "bound_by": eng_by},
+        "ptxas": ptxas,
     }
 
 
@@ -716,7 +825,56 @@ def attn_bound(q, k, window, q_offset) -> tuple[float, str, float]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", flops / F32_FLOP_PER_S * 1e3
 
 
-def attention_phase() -> dict:
+#: (label, S, head dim) of the extra bf16 cases: the other head-dim
+#: instances with one warpgroup a block (512) and with two (2048)
+ATTN_HEAD_DIMS = [("causal 512 D=64", 512, 64), ("causal 512 D=120 (padded to 128)", 512, 120),
+                  ("causal 512 D=256", 512, 256), ("causal 2048 D=64", 2048, 64),
+                  ("causal 2048 D=256", 2048, 256)]
+#: each element within atol = rtol; bf16: one rounding of an O(1) output
+#: of the first rows is 2**-8 relative, f32: reduction order only
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: each row's relative L2 error.  bf16: P and the output rounded to bf16
+#: cost about 2**-9 relative each; at 4096 keys an output is ~0.03, so
+#: the elementwise atol alone could not see a tile skipped or read stale
+ATTN_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+#: the key tile of the D=128 bf16 instance: the planted faults' unit
+ATTN_BLOCK_K = 128
+
+
+def attn_verdict(got, ref) -> tuple[bool, float, float, int]:
+    """(passes, max abs err, max row relative L2 err, elements over the
+    elementwise limit) of K7's output against its plain version."""
+    t, r = ATTN_TOL[ref.dtype], ATTN_ROW_TOL[ref.dtype]
+    g, f = got.float(), ref.float()
+    err = (g - f).abs()
+    over = int((err > t + t * f.abs()).sum())
+    row = float(((g - f).norm(dim=-1) / f.norm(dim=-1).clamp_min(1e-30)).max())
+    return over == 0 and row <= r, float(err.max()), row, over
+
+
+def planted_faults(q, k, v) -> dict:
+    """Outputs of two faults a TMA ring could make, computed plainly, at
+    causal attention: the query rows of the last quarter skip key tile 10,
+    and key tile 10 is read from the stage of tile 8 (stale)."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    Sq, Sk, G = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
+    t0, t1, back = 10 * ATTN_BLOCK_K, 11 * ATTN_BLOCK_K, 2 * ATTN_BLOCK_K
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
+    keep[3 * Sq // 4:, t0:t1] = False
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * q.shape[-1] ** -0.5,
+                     k.float().repeat_interleave(G, 1))
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    del s
+    skipped = torch.einsum("bhqk,bhkd->bhqd", p, v.float().repeat_interleave(G, 1)).to(q.dtype)
+    del p
+    ks, vs = k.clone(), v.clone()
+    ks[:, :, t0:t1], vs[:, :, t0:t1] = k[:, :, t0 - back:t1 - back], v[:, :, t0 - back:t1 - back]
+    return {"key tile 10 skipped by the last quarter's rows": skipped,
+            "key tile 10 read from tile 8's stage": attention_plain(q, ks, vs, causal=True)}
+
+
+def attention_phase(build_log: Path) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -730,25 +888,51 @@ def attention_phase() -> dict:
     launches = fa.flash_attention.launches  # and are read here
     if launches != len(ATTN_CASES):
         raise AssertionError(f"K7 launches {launches} != {len(ATTN_CASES)} ops.attention calls")
-    # bf16 output of an average of O(1) values: f32 differences are far
-    # below one bf16 rounding (2**-8 relative); f32: reduction order only
-    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # atol = rtol
-    errs = {}
+    errs, row_errs = {}, {}
     checks = list(zip(ATTN_CASES, inputs, outs))
     q32 = [t.float() for t in inputs[0]]
     checks.append((("causal 512 f32", 512, 512, None, 0), q32, fa.flash_attention(*q32)))
+    for label, n, d in ATTN_HEAD_DIMS:
+        qkv = attn_inputs(n, n, gen, D=d)
+        checks.append(((label, n, n, None, 0), qkv, fa.flash_attention(*qkv)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instances = set()
     for (label, _, _, w, off), qkv, got in checks:
         ref = fa.attention_plain(*qkv, causal=True, window=w, q_offset=off)
-        t = tol[got.dtype]
-        err = (got.float() - ref.float()).abs()
-        errs[label] = float(err.max())
         if not bool(torch.isfinite(got.float()).all()) or got.shape != ref.shape:
             raise AssertionError(f"flash_attention {label}: not finite or wrong shape")
-        if not bool((err <= t + t * ref.float().abs()).all()):
-            raise AssertionError(f"flash_attention {label}: max abs err {float(err.max())}")
-    log("attention: ops.attention -> flash_attention (K7) at B=1 Hq=16 Hkv=8 D=128 bf16: "
-        + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
-        + f" (atol=rtol bf16 {tol[torch.bfloat16]}, f32 {tol[torch.float32]}); launches {launches}")
+        ok, errs[label], row_errs[label], over = attn_verdict(got, ref)
+        if not ok:
+            raise AssertionError(f"flash_attention {label}: max abs err {errs[label]}, max row "
+                                 f"relative L2 err {row_errs[label]}, {over} elements over the limit")
+        if got.dtype == torch.bfloat16:
+            B, Hq, Sq, D = qkv[0].shape
+            instances.add(fa.plan(B, Hq, Sq, D, sms))
+    want = {(d, w) for d in fa.BF16_HEAD_DIMS for w in (1, 2)}
+    if instances != want:
+        raise AssertionError(f"bf16 instances compared {sorted(instances)}, not all of {sorted(want)}")
+    log("attention: ops.attention -> flash_attention (K7), B=1 Hq=16 Hkv=8, D=128 bf16 unless "
+        "named: " + ", ".join(f"{k} max_abs_err {v:.3e} row_rel_l2 {row_errs[k]:.3e}"
+                              for k, v in errs.items())
+        + f" (atol=rtol bf16 {ATTN_TOL[torch.bfloat16]}, f32 {ATTN_TOL[torch.float32]}; row "
+        f"relative L2 bf16 {ATTN_ROW_TOL[torch.bfloat16]}, f32 {ATTN_ROW_TOL[torch.float32]}); "
+        f"bf16 (instance, warpgroups) compared: {sorted(instances)}; launches {launches}")
+    # the check must be sharp enough to see a ring fault at 4096
+    ref4k = fa.attention_plain(*inputs[1], causal=True)
+    planted = {}
+    for label, bad in planted_faults(*inputs[1]).items():
+        ok, err, row, over = attn_verdict(bad, ref4k)
+        planted[label] = {"max_abs_err": err, "row_rel_l2": row, "elements_over": over}
+        log(f"attention: planted fault at causal 4096, {label}: max abs err {err:.3e}, row "
+            f"relative L2 {row:.3e}, {over} elements over the elementwise limit -> "
+            f"{'PASSES (check too loose)' if ok else 'rejected'}")
+        if ok:
+            raise AssertionError(f"flash_attention check does not reject the planted fault: {label}")
+    del ref4k
+    ptxas = ptxas_lines(build_log)
+    log(f"attention: bf16 plan (head-dim instance, warpgroups) at 512 {fa.plan(1, 16, 512, 128, sms)}, "
+        f"at 4096 {fa.plan(1, 16, 4096, 128, sms)}; ptxas per instance (f32_kernel, "
+        f"bf16_kernel<D, key tile, warpgroups>): {'; '.join(ptxas)}")
     timings = {}
     for (label, sq, sk, w, off), qkv in zip(ATTN_CASES[:2], inputs[:2]):
         sets = [qkv] + [attn_inputs(sq, sk, gen) for _ in range(3)]
@@ -784,6 +968,8 @@ def attention_phase() -> dict:
         "path": "repro_torch.kernels.ops.attention",
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_case": errs,
+        "row_rel_l2_by_case": row_errs,
+        "planted_faults_at_4096": planted,
         "ms": t["ms"],
         "eager_ms": t["eager_ms"],
         "plain_ms": t["plain_ms"],
@@ -793,6 +979,7 @@ def attention_phase() -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
         "shape": "B=1 Hq=16 Hkv=8 Sq=Sk=512 D=128 bf16 causal",
         "causal_4096": timings["causal 4096"],
+        "ptxas": ptxas,
     }
 
 
@@ -922,8 +1109,7 @@ def mla_kernel_phase(build_log: Path) -> dict:
         + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
         + f" (atol=rtol f32 {tol[torch.float32]}, bf16 inputs {tol[torch.bfloat16]}); every "
         "G in 1..16 in both dtypes")
-    ptxas = [ln.strip() for ln in build_log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_lines(build_log)
     log(f"mla: ptxas for the 10 instances (G = 1..16, f32 / bf16): {'; '.join(ptxas)}")
 
     # device times in the serving dtype; enough input sets that the sets
@@ -1332,15 +1518,13 @@ def main() -> int:
     paths = build.build(KERNELS)
     log(f"build: {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
-        log_path = path.with_suffix(".log")
-        regs = [ln.strip() for ln in log_path.read_text().splitlines() if "registers" in ln]
-        log(f"build: {name}: {'; '.join(regs)}")
-    record = kernel_phase()
+        log(f"build: {name}: {'; '.join(ptxas_lines(path.with_suffix('.log')))}")
+    record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
     epi = epilogue_phase()
     loop = loop_phase(epi)
     torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
     ssd = ssd_phase()
-    attn = attention_phase()
+    attn = attention_phase(paths["flash_attention"].with_suffix(".log"))
     mla = mla_kernel_phase(paths["paged_mla_decode"].with_suffix(".log"))
     torch.cuda.empty_cache()
     eng = engine_phase()

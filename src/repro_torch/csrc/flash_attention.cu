@@ -1,53 +1,79 @@
 // Blocked (flash) attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:30-149
-// (flash_attention / _attn_kernel).  Same function: for batch row b and
-// query head h (kv head h / (Hq / Hkv)), online-softmax attention over K
-// tiles with f32 scores (q * scale) . k, causal and sliding-window masks
-// on absolute positions (query row i sits at i + q_offset), masked scores
-// at NEG_INF = -1e30, p = 0 where masked, f32 accumulators, and rows with
-// no visible key written as 0; output in q's type.  Ragged Sq / Sk are
-// masked here instead of asserted (the Pallas wrapper asserts
-// divisibility by its blocks).
+// (flash_attention / _attn_kernel, pallas_call at :123).  Same function:
+// for batch row b and query head h (kv head h / (Hq / Hkv)), online-softmax
+// attention over K tiles with f32 scores (q . k) * scale, causal and
+// sliding-window masks on absolute positions (query row i sits at i +
+// q_offset), p = 0 where masked, f32 accumulators, and rows with no
+// visible key written as 0; output in q's type.  Ragged Sq / Sk are masked
+// here instead of asserted (the Pallas wrapper asserts divisibility by its
+// blocks).
 //
-// What bounds it: at internlm2's head layout (Hq = 16, Hkv = 8, D = 128,
-// bf16) and Sq = Sk = 512, causal, the bytes (q, k, v, out: 6.3 MB) take
-// 1.9 us at 3.35 TB/s and the 4 * D * (visible pairs) = 1.1 GFLOP take
-// 1.1 us on the bf16 tensor cores; at 4096 the FLOPs rule (70 us).  This
-// simple version computes on the f32 CUDA cores out of shared memory
-// (about two shared loads per FMA), so it is bound by that arithmetic,
-// well above either bound.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): at
+// internlm2's head layout (Hq = 16, Hkv = 8, D = 128, bf16), causal,
+// Sq = Sk = 4096 needs 4 * D * (visible pairs) * Hq = 68.7 GFLOP, 70 us on
+// the bf16 tensor cores (989 TFLOP/s) and 1.03 ms on the f32 CUDA cores
+// (67 TFLOP/s): only the tensor cores can come near it.  At 512 the bytes
+// (q, k, v, out: 6.3 MB, 1.9 us) and the launch bound it.
 //
-// Design (right and simple first): one block per (q tile of BQ rows, q
-// head, batch row); the sequential K axis of the Pallas grid is a loop in
-// the block.  The scaled Q tile, the K and V tiles, the BQ x BK scores and
-// the BQ x D accumulator live in shared memory as f32 (107 KB at D = 128,
-// two blocks per SM); one warp per row does the online max / exp / sum.
-// K tiles wholly past the causal edge end the loop, and tiles wholly
-// outside the window are skipped, as the Pallas kernel's pl.when does.  K
-// rows are stored with a stride of D + 1 so the lanes of a warp, which
-// walk keys, hit distinct banks.
+// bf16 design (FA3's structure):
+//   * one block per (query head, tile of 64 * W query rows, batch row):
+//     W = 1 or 2 consumer warpgroups of 64 rows, plus a producer; the
+//     wrapper takes W = 1 when W = 2 would leave SMs idle.  Heads vary
+//     fastest and tiles run last-first, so the longest causal tiles start
+//     first;
+//   * warp specialisation: one producer thread copies the Q tile once and
+//     the K and V tiles of every key tile with TMA (3-d tensor maps, 64-
+//     column boxes, 128-byte swizzle; rows past Sq / Sk and columns past
+//     D read as zeros, so any D <= 256 is zero-padded up to the instance,
+//     64, 128 or 256) into two stages each, signalling "full" mbarriers;
+//     consumers release a stage through "empty" mbarriers, and no block
+//     barrier couples the warpgroups.  With W = 2 the producer is a whole
+//     warpgroup that gives its registers to the consumers (setmaxnreg);
+//   * S = Q K^T with wgmma.m64nBKk16 (A = the Q tile, B = the K tile, both
+//     K-major in shared memory in the swizzle TMA wrote and the
+//     descriptors declare), f32 accumulators in registers;
+//   * the online softmax in registers: each row's max and sum over the 4
+//     threads that hold it (quad shuffles); scores never touch shared
+//     memory; masks, two integer compares a score, only on tiles that
+//     cross the causal, window or Sk edge; exponentials are single
+//     ex2.approx.ftz;
+//   * O += P V with wgmma, A = P from registers (the f32 score fragment
+//     rounded to bf16 pairs, FA3's register-A trick: the accumulator
+//     layout of S is the A-fragment layout of P), B = the V tile, stored
+//     keys x D with D contiguous, i.e. MN-major: the transpose-B
+//     immediate; O in f32 registers;
+//   * within a warpgroup, S of tile j and P V of tile j - 1 are issued
+//     together, and the softmax of tile j runs while P V still occupies
+//     the tensor cores (FA3's intra-warpgroup overlap); O is rescaled once
+//     P V has landed.  The first tile is peeled off the loop, so the order
+//     of the wgmma groups is fixed and ptxas keeps them asynchronous.
+// P is rounded to bf16 before P V (relative error 2^-9 on weights that sum
+// to 1), as SDPA does; the tolerance stays 2e-2.
+//
+// f32 inputs keep the simple CUDA-core kernel below (f32_kernel): one
+// block per (32-row q tile, head, batch row), Q/K/V, scores and the
+// accumulator in shared memory as f32, one warp per row for the softmax.
+// TF32 tensor cores would break f32's 1e-4 tolerance, and no served config
+// runs this kernel in f32.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
+// --------------------------------------------------------------------------
+// f32: CUDA cores, out of shared memory
+// --------------------------------------------------------------------------
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 32;
 constexpr int kBlockK = 64;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -64,12 +90,13 @@ __device__ __forceinline__ bool visible(int qp, int kp, int Sk, int causal, int 
   return kp < Sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
-template <typename T>
+// K rows are stored with a stride of D + 1 so the lanes of a warp, which
+// walk keys, hit distinct banks.  K tiles wholly past the causal edge end
+// the loop, and tiles wholly outside the window are skipped.
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-                           int Sq, int Sk, int D, float scale, int causal, int window,
-                           int q_offset) {
+    f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out, int Hq, int Hkv, int Sq,
+               int Sk, int D, float scale, int causal, int window, int q_offset) {
   extern __shared__ float smem[];
   const int DS = D + 1;  // padded row stride of K
   float* qs = smem;                   // BQ * D, scaled
@@ -90,13 +117,13 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nt >> 5;
-  const T* qb = q + ((size_t)b * Hq + h) * Sq * D;
-  const T* kb = k + ((size_t)b * Hkv + kvh) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + kvh) * Sk * D;
+  const float* qb = q + ((size_t)b * Hq + h) * Sq * D;
+  const float* kb = k + ((size_t)b * Hkv + kvh) * Sk * D;
+  const float* vb = v + ((size_t)b * Hkv + kvh) * Sk * D;
 
   for (int i = tid; i < kBlockQ * D; i += nt) {
     const int r = i / D;
-    qs[i] = q0 + r < Sq ? load_f32(qb + (size_t)q0 * D + i) * scale : 0.f;
+    qs[i] = q0 + r < Sq ? qb[(size_t)q0 * D + i] * scale : 0.f;
     acc[i] = 0.f;
   }
   for (int r = tid; r < kBlockQ; r += nt) {
@@ -115,8 +142,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBlockK * D; i += nt) {
       const int r = i / D, d = i - r * D;
       const bool in = k0 + r < Sk;
-      ks[r * DS + d] = in ? load_f32(kb + (size_t)k0 * D + i) : 0.f;
-      vs[i] = in ? load_f32(vb + (size_t)k0 * D + i) : 0.f;
+      ks[r * DS + d] = in ? kb[(size_t)k0 * D + i] : 0.f;
+      vs[i] = in ? vb[(size_t)k0 * D + i] : 0.f;
     }
     __syncthreads();
     for (int i = tid; i < kBlockQ * kBlockK; i += nt) {
@@ -158,32 +185,523 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  T* ob = out + ((size_t)b * Hq + h) * Sq * D;
+  float* ob = out + ((size_t)b * Hq + h) * Sq * D;
   for (int i = tid; i < kBlockQ * D; i += nt) {
     const int r = i / D;
     if (q0 + r >= Sq) continue;
     const float lr = l[r];
-    store_from_f32(ob + (size_t)q0 * D + i, lr > 0.f ? acc[i] / lr : 0.f);
+    ob[(size_t)q0 * D + i] = lr > 0.f ? acc[i] / lr : 0.f;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-           int Sq, int Sk, int D, float scale, int causal, int window, int q_offset,
-           size_t smem, void* stream) {
-  // Raise the block's dynamic shared memory limit once per size, on the
-  // first (eager) launch: not again inside a CUDA-graph capture.
-  static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+// --------------------------------------------------------------------------
+// bf16: TMA copies from a producer, wgmma products on the tensor cores
+// --------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Tiles in shared memory: 64-column blocks of rows x 128 B one after
+// another, each row's eight 16-byte chunks permuted by XOR with row % 8.
+// That is what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B (one box per
+// 64-column block) and what desc() declares (layout type 1); every block
+// starts on a 1024-byte boundary, so the hardware's address bits 7-9 are
+// row % 8 on both sides.
+//
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (>> 4), layout type 1 at bits 62-63.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// The producer's arrival on a full barrier, announcing the bytes its
+// copies will complete.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the barrier has completed the phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// One 64-column box of a 3-d tensor map (columns, rows, head) into shared
+// memory, completing on `bar`; rows and columns past the tensor are zero.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                         int head, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are
+// pending (groups complete in commit order).
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving register reads or writes across an
+// in-flight wgmma: each register is "rewritten" here, in program order.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 2^x on the special function unit (relative error 2^-22; results below
+// 2^-126 flush to 0, which no softmax weight next to the row maximum's 1
+// can feel).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The m64nNk16 products, bf16 in, f32 accumulators d (N / 2 a thread):
+// wgmma_ss reads A and B from shared memory, both K-major; wgmma_rs takes
+// A from registers and B MN-major (transpose-B).  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+// Producer threads of a block: with one consumer warpgroup a warp (five
+// warps: at most two on each SM sub-partition, 255 registers a thread);
+// with two a whole warpgroup, which hands its registers to the consumers
+// with setmaxnreg (24 + 2 x 240 a sub-partition), since nine warps would
+// cap every thread at 168 and make ptxas serialise the wgmmas.
+template <int kW>
+constexpr int producer_threads() {
+  return kW == 1 ? 32 : 128;
+}
+
+// kD: the head-dim instance (D zero-padded up to it by the tensor maps);
+// kBK: keys per tile; kW: consumer warpgroups (64 query rows each) per
+// block.  Threads: the kW consumer warpgroups, then the producer.
+// Shared memory: Q, K[2], V[2], then the barriers.
+template <int kD, int kBK, int kW>
+__global__ void __launch_bounds__(128 * kW + producer_threads<kW>(), 1)
+    bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Hq,
+                int Hkv, int Sq, int Sk, int D, float scale_log2, int causal, int window,
+                int q_offset) {
+  constexpr int kBQ = 64 * kW;
+  constexpr int kNW = kD < 128 ? kD : 128;  // columns of O one P.V wgmma covers
+  constexpr int kNO = kD / kNW;             // P.V wgmmas per 16 keys
+  constexpr uint32_t kQBytes = kBQ * kD * 2, kKVBytes = kBK * kD * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kvs = qs + kQBytes;  // K[0], K[1], V[0], V[1]
+  // barriers: Q full; K full[2], V full[2] (the producer's copies landed);
+  // K empty[2], V empty[2] (every consumer thread is done with the stage)
+  const uint32_t bars = kvs + 4 * kKVBytes;
+  const uint32_t qfull = bars;
+  auto kfull = [&](int st) { return bars + 8 * (1 + st); };
+  auto vfull = [&](int st) { return bars + 8 * (3 + st); };
+  auto kempty = [&](int st) { return bars + 8 * (5 + st); };
+  auto vempty = [&](int st) { return bars + 8 * (7 + st); };
+  auto kstage = [&](int st) { return kvs + st * kKVBytes; };
+  auto vstage = [&](int st) { return kvs + (2 + st) * kKVBytes; };
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // the longest causal tiles first
+  const int b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+
+  // the keys any row of the block sees: tiles [kt_lo, kt_hi)
+  const int qhi_blk = min(q0 + kBQ, Sq) - 1 + q_offset;
+  const int kbeg = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int kend = causal ? min(Sk, qhi_blk + 1) : Sk;
+  const int kt_lo = kbeg / kBK;
+  const int n_tiles = kend > kbeg ? (kend + kBK - 1) / kBK - kt_lo : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(kfull(st), 1);
+      mbar_init(vfull(st), 1);
+      mbar_init(kempty(st), 128 * kW);
+      mbar_init(vempty(st), 128 * kW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Hq, Hkv, Sq, Sk, D, scale, causal, window, q_offset);
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kW) {
+    // the producer: one lane copies Q once, then K and V of tile j into
+    // stage j & 1 once every consumer has released the stage's previous
+    // tile (the round j / 2 - 1 of its empty barrier)
+    if constexpr (kW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 128 * kW && n_tiles > 0) {
+      mbar_expect_tx(qfull, kQBytes);
+      for (int cb = 0; cb < kD / 64; ++cb)
+        tma_load(qs + cb * (kBQ * 128), &tq, cb * 64, q0, b * Hq + h, qfull);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j & 1, row = (kt_lo + j) * kBK;
+        if (j >= 2) mbar_wait(kempty(st), ((j >> 1) - 1) & 1);
+        mbar_expect_tx(kfull(st), kKVBytes);
+        for (int cb = 0; cb < kD / 64; ++cb)
+          tma_load(kstage(st) + cb * (kBK * 128), &tk, cb * 64, row, b * Hkv + kvh, kfull(st));
+        if (j >= 2) mbar_wait(vempty(st), ((j >> 1) - 1) & 1);
+        mbar_expect_tx(vfull(st), kKVBytes);
+        for (int cb = 0; cb < kD / 64; ++cb)
+          tma_load(vstage(st) + cb * (kBK * 128), &tv, cb * 64, row, b * Hkv + kvh, vfull(st));
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg, its rows, and this thread's two (r and r + 8
+  // of the 64)
+  if constexpr (kW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int wq0 = q0 + 64 * wg;
+  const int wlo = wq0 + q_offset;
+  const int whi = min(wq0 + 64, Sq) - 1 + q_offset;  // < wlo: no row of the warpgroup is real
+  const int r0 = 16 * warp + (lane >> 2);
+  const int qp0 = wlo + r0, qp1 = qp0 + 8;
+  const int c0 = 2 * (lane & 3);
+
+  float o[kNO][kNW / 2];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i)
+#pragma unroll
+    for (int j = 0; j < kNW / 2; ++j) o[i][j] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  // S = Q K^T: kD / 16 steps of 16 columns; a step inside a 64-column
+  // block moves the start address by 32 bytes within the swizzle atom
+  auto scores = [&](float (&s)[kBK / 2], uint32_t ks) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t a = qs + (kk >> 2) * (kBQ * 128) + wg * (64 * 128) + (kk & 3) * 32;
+      const uint32_t bk = ks + (kk >> 2) * (kBK * 128) + (kk & 3) * 32;
+      wgmma_ss(s, desc(a, 16, 1024), desc(bk, 16, 1024), kk > 0);
+    }
+  };
+  // O += P V: 16 keys a step; V's 64-column blocks are kBK * 128 bytes
+  // apart (the leading byte offset), 8-key groups 1024 (the stride)
+  auto pv = [&](const uint32_t (&p)[kBK / 16][4], uint32_t vs) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < kNO; ++i) {
+        const uint32_t bv = vs + kk * (16 * 128) + i * 2 * (kBK * 128);
+        wgmma_rs(o[i], p[kk], desc(bv, kBK * 128, 1024), 1);
+      }
+  };
+  // The online softmax of tile kt in registers: s[4j + e] is row
+  // r0 + 8 (e >> 1), key k0 + 8j + c0 + (e & 1).  Updates m, l; gives P
+  // rounded to bf16 pairs (the A fragment of P.V) and the rescale factors
+  // of O.
+  auto softmax = [&](float (&s)[kBK / 2], int kt, uint32_t (&p)[kBK / 16][4], float& al0,
+                     float& al1) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) s[j] *= scale_log2;
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > wlo) || (window > 0 && k0 <= whi - window)) {
+      // a tile across an edge: row r sees tile columns [lo, hi), as
+      // offsets from this thread's c0
+      const int hi0 = min(Sk, causal ? qp0 + 1 : Sk) - k0 - c0;
+      const int hi1 = min(Sk, causal ? qp1 + 1 : Sk) - k0 - c0;
+      const int lo0 = window > 0 ? qp0 - window + 1 - k0 - c0 : -kBK;
+      const int lo1 = window > 0 ? qp1 - window + 1 - k0 - c0 : -kBK;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + (e & 1);
+          if (col < (e & 2 ? lo1 : lo0) || col >= (e & 2 ? hi1 : hi0)) s[4 * j + e] = -INFINITY;
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;  // a row that saw nothing yet
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    al0 = ex2(m0 - mu0);
+    al1 = ex2(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const float p0 = ex2(s[4 * j] - mu0), p1 = ex2(s[4 * j + 1] - mu0);
+      const float p2 = ex2(s[4 * j + 2] - mu1), p3 = ex2(s[4 * j + 3] - mu1);
+      ls0 += p0 + p1;
+      ls1 += p2 + p3;
+      p[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * al0 + ls0;  // this thread's share of the row sum
+    l1 = l1 * al1 + ls1;
+  };
+
+  if (n_tiles > 0) {
+    mbar_wait(qfull, 0);
+    // the first tile, alone: O is still 0
+    uint32_t pc[kBK / 16][4];  // P of the previous tile: the A of its P.V
+    {
+      float s[kBK / 2], al0, al1;
+      mbar_wait(kfull(0), 0);
+      wg_fence();
+      scores(s, kstage(0));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      mbar_arrive(kempty(0));
+      softmax(s, kt_lo, pc, al0, al1);
+    }
+    // then S of tile j and, behind it on the tensor cores, P.V of tile
+    // j - 1; the softmax of tile j runs while P.V does
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j & 1;
+      float s[kBK / 2], al0, al1;
+      uint32_t pn[kBK / 16][4];
+      mbar_wait(kfull(st), (j >> 1) & 1);
+      mbar_wait(vfull(st ^ 1), ((j - 1) >> 1) & 1);
+      wg_fence();
+      scores(s, kstage(st));
+      wg_commit();
+      pv(pc, vstage(st ^ 1));
+      wg_commit();
+      wg_wait<1>();  // S has landed
+      fence_regs(s);
+      mbar_arrive(kempty(st));
+      softmax(s, kt_lo + j, pn, al0, al1);
+      wg_wait<0>();  // P.V has landed: O holds tiles up to j - 1 at the old maxima
+#pragma unroll
+      for (int i = 0; i < kNO; ++i) fence_regs(o[i]);
+      fence_regs(pc);
+      mbar_arrive(vempty(st ^ 1));
+#pragma unroll
+      for (int i = 0; i < kNO; ++i)
+#pragma unroll
+        for (int jj = 0; jj < kNW / 8; ++jj) {
+          o[i][4 * jj] *= al0;
+          o[i][4 * jj + 1] *= al0;
+          o[i][4 * jj + 2] *= al1;
+          o[i][4 * jj + 3] *= al1;
+        }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
+    }
+    // P.V of the last tile
+    const int jl = n_tiles - 1;
+    mbar_wait(vfull(jl & 1), (jl >> 1) & 1);
+    wg_fence();
+    pv(pc, vstage(jl & 1));
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) fence_regs(o[i]);
+    fence_regs(pc);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int row0 = wq0 + r0, row1 = row0 + 8;
+  __nv_bfloat16* ob = out + ((size_t)b * Hq + h) * Sq * D;
+#pragma unroll
+  for (int i = 0; i < kNO; ++i)
+#pragma unroll
+    for (int j = 0; j < kNW / 8; ++j) {
+      const int col = i * kNW + 8 * j + c0;  // D % 8 == 0: col < D means col + 1 < D
+      if (col >= D) continue;
+      if (row0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * D + col) =
+            __floats2bfloat162_rn(o[i][4 * j] * inv0, o[i][4 * j + 1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * D + col) =
+            __floats2bfloat162_rn(o[i][4 * j + 2] * inv1, o[i][4 * j + 3] * inv1);
+    }
+}
+
+// Raise a kernel's dynamic shared memory limit once per size, on the first
+// (eager) launch that needs it: not again inside a CUDA-graph capture.
+// `raised` is the kernel's current limit.
+template <typename Kernel>
+int raise_smem(Kernel kernel, size_t smem, size_t& raised) {
+  if (smem <= raised) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  raised = smem;
+  return 0;
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime, so
+// the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (heads, rows, D) bf16 tensor as a 3-d tensor map of 64-column boxes of
+// `rows_box` rows, 128-byte swizzled; reads past it return zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int heads, int rows, int D, int rows_box) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows_box, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD, int kBK, int kW>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+                int Sq, int Sk, int D, float scale, int causal, int window, int q_offset,
+                cudaStream_t stream) {
+  // Q, K[2], V[2], 9 barriers, and the slack to align the tiles to 1024
+  constexpr size_t smem = 2 * (64 * kW * kD + 4 * kBK * kD) + 128 + 1024;
+  static size_t raised = 48 * 1024;
+  if (const int e = raise_smem(bf16_kernel<kD, kBK, kW>, smem, raised)) return e;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B * Hq, Sq, D, 64 * kW) || !tensor_map(&tk, k, B * Hkv, Sk, D, kBK) ||
+      !tensor_map(&tv, v, B * Hkv, Sk, D, kBK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hq, (Sq + 64 * kW - 1) / (64 * kW), B);
+  bf16_kernel<kD, kBK, kW><<<grid, 128 * kW + producer_threads<kW>(), smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Sk, D, scale * kLog2e, causal,
+      window, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -192,21 +710,48 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 = ok.
 // Device pointers of contiguous tensors: q / out (B,Hq,Sq,D), k / v
 // (B,Hkv,Sk,D), all of the entry point's type.  window <= 0 means no
-// window.  `smem` is the block's dynamic shared memory in bytes, computed
-// by the wrapper: 4 * (BQ*D + BK*(D+1) + BK*D + BQ*BK + BQ*D + 3*BQ) with
+// window.
+//
+// f32: `smem` is the block's dynamic shared memory in bytes, computed by
+// the wrapper: 4 * (BQ*D + BK*(D+1) + BK*D + BQ*BK + BQ*D + 3*BQ) with
 // BQ = 32, BK = 64.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                                    int B, int Hq, int Hkv, int Sq, int Sk, int D, float scale,
                                    int causal, int window, int q_offset, size_t smem,
                                    void* stream) {
-  return launch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, window, q_offset,
-                       smem, stream);
+  static size_t raised = 48 * 1024;
+  if (const int e = raise_smem(f32_kernel, smem, raised)) return e;
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
+  f32_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Hq, Hkv, Sq, Sk, D, scale, causal, window, q_offset);
+  return (int)cudaGetLastError();
 }
 
+// bf16: `head_dim` is the instance (64, 128 or 256; D <= head_dim) and
+// `warpgroups` the query warpgroups per block (1 or 2), both chosen by the
+// wrapper.  D must be a multiple of 8 and the pointers 16-byte aligned
+// (the tensor maps' strides and base); the wrapper pads D otherwise.
+// Keys per tile: 128, or 64 at head_dim 256 (registers).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                     float scale, int causal, int window, int q_offset,
-                                    size_t smem, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, window,
-                               q_offset, smem, stream);
+                                    int head_dim, int warpgroups, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FA_LAUNCH(HD, BK, W) \
+  launch_bf16<HD, BK, W>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, scale, causal, window, q_offset, s)
+  if (D > head_dim || D % 8 || (warpgroups != 1 && warpgroups != 2) ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15))
+    return (int)cudaErrorInvalidValue;
+  switch (head_dim * 2 + warpgroups) {
+    case 64 * 2 + 1: return FA_LAUNCH(64, 128, 1);
+    case 64 * 2 + 2: return FA_LAUNCH(64, 128, 2);
+    case 128 * 2 + 1: return FA_LAUNCH(128, 128, 1);
+    case 128 * 2 + 2: return FA_LAUNCH(128, 128, 2);
+    case 256 * 2 + 1: return FA_LAUNCH(256, 64, 1);
+    case 256 * 2 + 2: return FA_LAUNCH(256, 64, 2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FA_LAUNCH
 }

@@ -11,6 +11,7 @@ flags, so an edited kernel rebuilds and a stale library is never loaded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,6 +80,14 @@ def build(names) -> dict[str, Path]:
                 proc.wait()
             tmp.unlink(missing_ok=True)
     return paths
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device; wrappers size grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,7 +13,10 @@ wrapper asserts divisibility by its blocks).
 
 ``flash_attention`` takes the plain version for CPU tensors only; a CUDA
 tensor reaches the kernel or an exception.  ``launches`` on the wrapper
-counts kernel launches.
+counts kernel launches.  bf16 runs on the tensor cores (TMA copies,
+``wgmma`` products) at a head-dim instance of 64, 128 or 256 (D
+zero-padded up to it) with 1 or 2 warpgroups of 64 query rows a block
+(``plan``); f32 keeps the CUDA-core kernel, whose shared memory bounds D.
 """
 
 from __future__ import annotations
@@ -23,10 +26,14 @@ import functools
 
 import torch
 
+from . import build
+
 #: dynamic shared memory one block of the kernel may use on Hopper
 SMEM_LIMIT = 232448
-#: query rows and key rows per tile of the kernel
+#: query rows and key rows per tile of the f32 kernel
 BLOCK_Q, BLOCK_K = 32, 64
+#: head-dim instances of the bf16 (tensor-core) kernel
+BF16_HEAD_DIMS = (64, 128, 256)
 
 
 def attention_plain(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):
@@ -54,21 +61,30 @@ def attention_plain(q, k, v, *, causal=True, window=None, scale=None, q_offset=0
 
 
 def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block: the scaled Q tile, the K tile
-    (row stride D + 1), the V tile, the scores, the accumulator, and the
-    running max, sum and rescale of each row."""
+    """Dynamic shared memory of one block of the f32 kernel: the scaled Q
+    tile, the K tile (row stride D + 1), the V tile, the scores, the
+    accumulator, and the running max, sum and rescale of each row."""
     return 4 * (BLOCK_Q * D + BLOCK_K * (D + 1) + BLOCK_K * D + BLOCK_Q * BLOCK_K
                 + BLOCK_Q * D + 3 * BLOCK_Q)
 
 
+def plan(B: int, Hq: int, Sq: int, D: int, sms: int) -> tuple[int, int]:
+    """The bf16 kernel's (head-dim instance, warpgroups per block): the
+    smallest instance that holds D, and 2 warpgroups (128 query rows a
+    block) unless that would give fewer blocks than the card has SMs."""
+    inst = next((d for d in BF16_HEAD_DIMS if D <= d), None)
+    if inst is None:
+        raise ValueError(f"head dimension {D}: the bf16 kernel takes at most {BF16_HEAD_DIMS[-1]}")
+    return inst, 2 if B * Hq * -(-Sq // 128) >= sms else 1
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from . import build
-
     lib = build.load("flash_attention")
+    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
+    lib.flash_attention_f32.argtypes = head + [ctypes.c_size_t, ctypes.c_void_p]
+    lib.flash_attention_bf16.argtypes = head + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [
-            ctypes.c_int] * 3 + [ctypes.c_size_t, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -84,15 +100,17 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if min(B, Hq, Sq, Sk, D) < 1:
         raise ValueError("empty input")
-    if smem_bytes(D) > SMEM_LIMIT:
-        raise ValueError(f"head dimension {D}: {smem_bytes(D)} bytes of shared memory exceed "
-                         f"the {SMEM_LIMIT} a Hopper block can use")
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or bfloat16")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
+    if q.dtype == torch.bfloat16 and D > BF16_HEAD_DIMS[-1]:
+        raise ValueError(f"head dimension {D}: the bf16 kernel takes at most {BF16_HEAD_DIMS[-1]}")
+    if q.dtype == torch.float32 and smem_bytes(D) > SMEM_LIMIT:
+        raise ValueError(f"head dimension {D}: {smem_bytes(D)} bytes of shared memory exceed "
+                         f"the {SMEM_LIMIT} a Hopper block can use")
     if k.device != q.device or v.device != q.device:
         raise ValueError("all inputs must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -114,19 +132,25 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = (D**-0.5) if scale is None else scale
     lib = _lib()
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    if q.dtype == torch.bfloat16 and (D % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
+        # the kernel's tensor maps need rows of whole 16 bytes and 16-byte
+        # aligned bases: zero-padded copies (the zeros add nothing to q . k)
+        q, k, v = (torch.nn.functional.pad(t, (0, -D % 8)) for t in (q, k, v))
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Sk,
+            q.shape[-1], float(scale), int(causal), 0 if window is None else int(window),
+            int(q_offset))
     with torch.cuda.device(q.device):  # the C launch uses the current device
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Sk, D, float(scale), int(causal),
-            0 if window is None else int(window), int(q_offset), smem_bytes(D),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == torch.float32:
+            err = lib.flash_attention_f32(*args, smem_bytes(D), stream)
+        else:
+            head_dim, warpgroups = plan(B, Hq, Sq, D, build.sm_count(q.device.index))
+            err = lib.flash_attention_bf16(*args, head_dim, warpgroups, stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
 flash_attention.launches = 0

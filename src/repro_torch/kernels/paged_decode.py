@@ -27,7 +27,8 @@ context ``p . ckv`` (B, h, lora), cast by the caller before ``w_uv``.
 
 Each wrapper takes its plain version for CPU tensors only; a CUDA tensor
 reaches the kernel or an exception.  ``launches`` on a wrapper counts
-its kernel launches.
+its kernel launches: one a call (the GQA kernel's split pass and merge
+pass are one launch of its entry point).
 """
 
 from __future__ import annotations
@@ -37,12 +38,18 @@ import functools
 
 import torch
 
+from . import build
+
 NEG_INF = -1e30
 
 #: dynamic shared memory one block of the kernel may use on Hopper
 SMEM_LIMIT = 232448
 #: largest query-group size (Hq / Hkv) the kernel's register tiles hold
 MAX_GROUP = 8
+#: largest head dim of the GQA kernel (ceil(Dk / 8) threads a row, one warp)
+MAX_HEAD_DIM = 256
+#: most pages one split of the GQA kernel takes (its page rows in shared memory)
+MAX_SPLIT_PAGES = 1024
 
 
 def attend(q, k, v, valid, scale: float) -> torch.Tensor:
@@ -86,23 +93,24 @@ def paged_gqa_plain(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.Tenso
     return attend(q, paged_gather(k_pool, pages), paged_gather(v_pool, pages), valid, scale)
 
 
-def smem_bytes(group: int, head_dim: int, seq: int, n_pages: int) -> int:
-    """Dynamic shared memory of one block: reduction scratch, the scaled
-    query group, the (group, seq) f32 scores and the slot's page row."""
-    return 4 * (32 + group * head_dim + group * seq + n_pages)
+def gqa_splits(B: int, Hkv: int, P: int, sms: int) -> int:
+    """Splits of a slot's pages the GQA kernel's grid (B, Hkv, splits)
+    takes: the fewest, a power of two up to P, that give the grid at least
+    two blocks an SM (8 of 4 pages at B = 8, Hkv = 8, P = 32 on 132 SMs),
+    and at least enough that no split holds more than
+    ``MAX_SPLIT_PAGES``; then as many as ceil(P / pages a split) covers."""
+    n = 1
+    while n * 2 <= P and B * Hkv * n < 2 * sms:
+        n *= 2
+    n = max(n, -(-P // MAX_SPLIT_PAGES))
+    return -(-P // -(-P // n))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from . import build
-
     lib = build.load("paged_gqa_decode")
     for fn in (lib.paged_gqa_decode_f32, lib.paged_gqa_decode_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float,
-            ctypes.c_size_t,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -131,12 +139,11 @@ def _check(q, k_pool, v_pool, pages, pos) -> None:
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
-    smem = smem_bytes(Hq // Hkv, Dk, pages.shape[1] * ps, pages.shape[1])
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{smem} bytes of shared memory (max_len {pages.shape[1] * ps}) "
-            f"exceed the {SMEM_LIMIT} a Hopper block can use"
-        )
+    if Dk % 8 or Dk > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dk} must be a multiple of 8 (16-byte row loads) and at most "
+                         f"{MAX_HEAD_DIM}")
+    if any(t.data_ptr() % 16 for t in tensors[:3]):
+        raise ValueError("the kernel reads 16-byte rows: q and the pools must be 16-byte aligned")
 
 
 def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.Tensor:
@@ -157,7 +164,10 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
     scale = (Dk**-0.5) if scale is None else scale
     lib = _lib()
     fn = lib.paged_gqa_decode_f32 if q.dtype == torch.float32 else lib.paged_gqa_decode_bf16
+    n_split = gqa_splits(B, Hkv, P, build.sm_count(q.device.index))
     out = torch.empty_like(q)
+    # per split and query head: the unnormalised f32 context, then (m, l)
+    part = torch.empty(B * Hq * n_split * (Dk + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # the C launch uses the current device
         err = fn(
             q.data_ptr(),
@@ -166,6 +176,7 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
             pages.data_ptr(),
             pos.data_ptr(),
             out.data_ptr(),
+            part.data_ptr(),
             B,
             Hq,
             Hkv,
@@ -173,8 +184,8 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
             ps,
             P,
             N,
+            n_split,
             float(scale),
-            smem_bytes(Hq // Hkv, Dk, P * ps, P),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
@@ -245,8 +256,6 @@ def mla_group(h: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
 
 @functools.cache
 def _mla_lib() -> ctypes.CDLL:
-    from . import build
-
     lib = build.load("paged_mla_decode")
     for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [

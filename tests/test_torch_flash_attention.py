@@ -7,7 +7,11 @@ a few ulps at O(1) values).
 
 The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to this
 plain version at internlm2's head layout); ``test_kernel_matches_plain_on_the_card``
-does the same here when a card is present.
+does the same here when a card is present.  Here also: a torch model of
+the bf16 kernel's algorithm (D zero-padded to its instance, online softmax
+over key tiles, P rounded to bf16 before P.V) within the bf16 tolerance
+of the plain version, and the wrapper's choice of instance and
+warpgroups.
 """
 
 import jax.numpy as jnp
@@ -118,9 +122,12 @@ def good_args():
         (lambda a: a.update(q=torch.zeros((1, 4, 4, 512)), k=torch.zeros((1, 2, 4, 512)),
                             v=torch.zeros((1, 2, 4, 512))), ValueError),
         (lambda a: a.update(window=0), ValueError),
+        (lambda a: a.update(q=torch.zeros((1, 4, 4, 512), dtype=torch.bfloat16),
+                            k=torch.zeros((1, 2, 4, 512), dtype=torch.bfloat16),
+                            v=torch.zeros((1, 2, 4, 512), dtype=torch.bfloat16)), ValueError),
     ],
     ids=["f64", "v_dtype", "kv_shape", "heads_not_grouped", "noncontiguous", "smem_over_227k",
-         "window_0"],
+         "window_0", "bf16_head_dim_over_256"],
 )
 def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     a = good_args()
@@ -128,6 +135,115 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     mutate(a)
     with pytest.raises(err):
         fa._check(**a)
+
+
+LOG2E = 1.4426950408889634
+
+
+def wgmma_model(q, k, v, *, causal=True, window=None, q_offset=0):
+    """K7's bf16 algorithm (csrc/flash_attention.cu, bf16_kernel) in torch:
+    D zero-padded to the kernel's instance, f32 scores of the bf16 inputs
+    in log2 units, an online softmax over key tiles (128 keys, 64 at the
+    256 instance), P rounded to bf16 before P.V, f32 accumulators, rows
+    with no visible key 0."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    inst, _ = fa.plan(B, Hq, Sq, D, sms=1)
+    block_k = 64 if inst == 256 else 128
+
+    def pad(x):
+        return torch.nn.functional.pad(x.float(), (0, inst - D))
+
+    qf = pad(q) * (D**-0.5 * LOG2E)
+    kf, vf = (pad(x).repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, Hq, Sq), -torch.inf)
+    l = torch.zeros((B, Hq, Sq))
+    acc = torch.zeros((B, Hq, Sq, inst))
+    for k0 in range(0, Sk, block_k):
+        kpos = torch.arange(k0, min(Sk, k0 + block_k))[None, :]
+        vis = torch.ones((Sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= kpos <= qpos
+        if window is not None:
+            vis &= kpos > qpos - window
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k])
+        s = s.masked_fill(~vis, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        mu = torch.where(mx == -torch.inf, 0.0, mx)
+        al = torch.exp2(m - mu)
+        p = torch.exp2(s - mu[..., None])
+        l = l * al + p.sum(-1)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vf[:, :, k0:k0 + block_k])
+        acc = acc * al[..., None] + pv
+        m = mx
+    out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None], 0.0)
+    return out[..., :D].to(q.dtype)
+
+
+@pytest.mark.parametrize("D", [128, 120])
+def test_bf16_kernel_model_within_tolerance_of_plain(D):
+    """P rounded to bf16 before P.V costs 2**-9 relative on weights that
+    sum to 1: within the bf16 tolerance, 2e-2, at internlm2's head layout
+    and at a D the kernel zero-pads (120 -> 128)."""
+    q, k, v = (tt(x) for x in qkv(1, 16, 8, 512, 512, D, ml_dtypes.bfloat16, seed=D))
+    got = wgmma_model(q, k, v)
+    want = fa.attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def row_rel_l2(got, want):
+    return float(((got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)).max())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_bf16_kernel_model_rows_within_limit_and_a_skipped_tile_is_not(D):
+    """The row limit chip_smoke.py holds K7's bf16 output to, 1e-2 relative
+    L2: the algorithm's roundings (P and the output to bf16, about 2**-9
+    each) stay far inside it at 1024 keys, while the same rows with one
+    key tile skipped by the last quarter's queries fall outside it, though
+    their elements are ~0.03 and within the elementwise 2e-2."""
+    q, k, v = (tt(x) for x in qkv(1, 4, 2, 1024, 1024, D, ml_dtypes.bfloat16, seed=D + 1))
+    want = fa.attention_plain(q, k, v)
+    assert row_rel_l2(wgmma_model(q, k, v), want) < 1e-2
+    t0, t1 = 5 * 128, 6 * 128
+    keep = torch.ones(1024, 1024, dtype=torch.bool).tril()
+    keep[768:, t0:t1] = False
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * D**-0.5, k.float().repeat_interleave(2, 1))
+    p = torch.softmax(s.masked_fill(~keep, -torch.inf), -1)
+    skipped = torch.einsum("bhqk,bhkd->bhqd", p, v.float().repeat_interleave(2, 1)).bfloat16()
+    assert row_rel_l2(skipped, want) > 1e-2
+
+
+def test_bf16_kernel_model_masks_like_plain():
+    """Window, q_offset, ragged lengths and fully masked rows, in f32
+    inputs so only the bf16 rounding of P differs."""
+    q, k, v = (tt(x) for x in qkv(2, 4, 2, 37, 70, 24, seed=7))
+    for kw in (dict(window=9, q_offset=33), dict(window=4, q_offset=-8), dict(causal=False)):
+        got = wgmma_model(q, k, v, **kw)
+        want = fa.attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Sq,D,sms,want",
+    [
+        (1, 16, 512, 128, 132, (128, 1)),  # 64 blocks of 128 rows < 132 SMs
+        (1, 16, 4096, 128, 132, (128, 2)),  # 512 blocks of 128 rows
+        (1, 16, 4096, 120, 132, (128, 2)),  # zero-padded to 128
+        (1, 16, 512, 64, 1, (64, 2)),
+        (1, 16, 512, 256, 132, (256, 1)),
+        (2, 8, 100, 8, 16, (64, 2)),
+        (1, 4, 512, 200, 132, (256, 1)),
+    ],
+)
+def test_bf16_plan(B, Hq, Sq, D, sms, want):
+    assert fa.plan(B, Hq, Sq, D, sms) == want
+
+
+def test_bf16_plan_refuses_head_dim_over_256():
+    with pytest.raises(ValueError, match="at most 256"):
+        fa.plan(1, 16, 512, 257, 132)
 
 
 def test_non_cuda_non_cpu_tensor_raises():
@@ -140,10 +256,15 @@ def test_non_cuda_non_cpu_tensor_raises():
 def test_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for sq, sk, window, off in ((512, 512, None, 0), (100, 300, 64, 200)):
-        q, k, v = (tt(x).cuda() for x in qkv(1, 16, 8, sq, sk, 128, ml_dtypes.bfloat16))
+    # 2048 rows: two warpgroups a block at D = 64 and 256 (fa.plan)
+    for sq, sk, window, off, d in ((512, 512, None, 0, 128), (100, 300, 64, 200, 128),
+                                   (512, 512, None, 0, 64), (512, 512, None, 0, 120),
+                                   (512, 512, None, 0, 256), (2048, 2048, None, 0, 64),
+                                   (2048, 2048, None, 0, 256)):
+        q, k, v = (tt(x).cuda() for x in qkv(1, 16, 8, sq, sk, d, ml_dtypes.bfloat16))
         got = fa.flash_attention(q, k, v, window=window, q_offset=off)
         want = fa.attention_plain(q, k, v, window=window, q_offset=off)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert row_rel_l2(got, want) < 1e-2
     fa.flash_attention.launches = 0

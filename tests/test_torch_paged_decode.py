@@ -5,8 +5,11 @@ it) and to its reference ``paged_gqa_ref``, at atol = rtol = 1e-5 in f32
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there.  Here: the wrapper's dispatch (CPU
-tensors -> plain version) and its refusal of inputs the kernel does not
-take.
+tensors -> plain version), its refusal of inputs the kernel does not
+take, its choice of splits, and a torch model of the kernel's split-lane
+algorithm (per-split online softmax, cross-split merge, the explicit
+uniform mean of a slot with no valid lane) held to the plain version at
+1e-6 in f32.
 """
 
 import jax.numpy as jnp
@@ -40,6 +43,13 @@ CASES = {
         2, 8, 1, 32, 4, 6,
         [[5, 0, 3], [2, -1, 4]],
         [10, 11],
+    ),
+    # slot 0: pages mapped, but the only lanes at or before pos lie on the
+    # unmapped page 0 -> the uniform mean of the mapped V lanes
+    "mapped_no_valid_lane": (
+        2, 4, 2, 8, 4, 6,
+        [[-1, 3, 5], [2, 0, -1]],
+        [2, 5],
     ),
 }
 
@@ -88,6 +98,83 @@ def test_row_with_nothing_mapped_is_zero_and_masked_rows_average_v():
     assert np.isfinite(out2).all()
 
 
+LOG2E = 1.4426950408889634
+
+
+def split_model(q, k, v, pages, pos, n_split):
+    """K5's algorithm (csrc/paged_gqa_decode.cu) in torch, f32: each split
+    of ceil(P / n_split) pages keeps an online-softmax state (m, l, acc) in
+    log2 units over its valid lanes only; the splits merge by their maxima;
+    a slot with no valid lane scores every lane 0, unmapped lanes weighing
+    1 with V = 0 (the full softmax's uniform mean)."""
+    B, Hq, Dk = q.shape
+    Hkv, ps = k.shape[1], k.shape[2]
+    P, G = pages.shape[1], Hq // Hkv
+    pps = -(-P // n_split)
+    kg, vg = pd.paged_gather(k, pages).float(), pd.paged_gather(v, pages).float()
+    valid = pd.paged_valid(pages, pos, ps)
+    out = torch.zeros(B, Hq, Dk)
+    for b in range(B):
+        uniform = not bool(valid[b].any())
+        qb = q[b].float().reshape(Hkv, G, Dk) * (Dk**-0.5 * LOG2E)
+        parts = []
+        for s0 in range(0, P, pps):
+            lanes = torch.arange(s0 * ps, min(P, s0 + pps) * ps)
+            take = lanes if uniform else lanes[valid[b, lanes]]
+            if len(take) == 0:
+                continue  # the kernel's empty partial, l = 0: skipped
+            sc = (torch.zeros(Hkv, G, len(take)) if uniform
+                  else torch.einsum("hgd,hsd->hgs", qb, kg[b][:, take]))
+            m = sc.amax(-1)
+            p = torch.exp2(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgs,hsd->hgd", p, vg[b][:, take])))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L = sum(l * torch.exp2(m - M) for m, l, _ in parts)
+        A = sum(a * torch.exp2(m - M)[..., None] for m, _, a in parts)
+        out[b] = (A / L[..., None]).reshape(Hq, Dk)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_model_matches_plain(case):
+    """Every split count, from one split to one page a split, gives the
+    plain version's output within 1e-6 (f32, O(1) values)."""
+    q, k, v, pages, pos = torch_args(*make(case))
+    want = pd.paged_gqa_plain(q, k, v, pages, pos)
+    for n_split in sorted({1, 2, 3, pages.shape[1]}):
+        got = split_model(q, k, v, pages, pos, n_split)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_mapped_pages_without_a_valid_lane_average_the_mapped_lanes():
+    """The trap the kernel handles explicitly: mapped pages, no valid lane
+    -> the sum of the mapped V lanes over all P * ps lanes, not 0 / 0."""
+    q, k, v, pages, pos = torch_args(*make("mapped_no_valid_lane"))
+    out = pd.paged_gqa_attention(q, k, v, pages, pos)
+    vg = pd.paged_gather(v, pages)  # zeros on unmapped pages
+    mean = vg[0].float().sum(1) / vg.shape[2]  # (Hkv, Dk)
+    want = mean.repeat_interleave(q.shape[1] // k.shape[1], 0)
+    np.testing.assert_allclose(out[0].numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+    assert np.any(out[0].numpy() != 0.0)
+
+
+@pytest.mark.parametrize(
+    "B,Hkv,P,sms,want",
+    [
+        (8, 8, 32, 132, 8),  # the serving shape: 8 splits of 4 pages, 512 blocks
+        (8, 8, 32, 1, 1),  # the grid already fills the card
+        (8, 8, 32, 33, 2),  # 128 blocks >= 2 x 33 SMs
+        (1, 1, 4096, 132, 512),  # the fewest powers of two for two blocks an SM
+        (64, 8, 8192, 132, 8),  # no split holds more than MAX_SPLIT_PAGES
+        (1, 1, 5, 1000, 3),  # 8 wanted, at most P = 5: 4, and ceil(5 / 2) = 3 cover the row
+    ],
+)
+def test_split_count(B, Hkv, P, sms, want):
+    n = pd.gqa_splits(B, Hkv, P, sms)
+    assert n == want
+    assert -(-P // n) <= pd.MAX_SPLIT_PAGES
+
+
 def test_bf16_plain_within_tolerance_of_jax_ref():
     """bf16 inputs: f32 math, output rounded to bf16 — at most a couple of
     bf16 ulps (2**-8 relative) from the JAX reference."""
@@ -126,7 +213,10 @@ def good_cuda_like():
         (lambda a: a.update(v_pool=a["v_pool"][:, :, :4]), ValueError),
         (lambda a: a.update(q=a["q"].transpose(0, 1).contiguous().transpose(0, 1)), ValueError),
         (lambda a: a.update(pos=a["pos"][:2]), ValueError),
-        (lambda a: a.update(pages=torch.zeros((3, 8192), dtype=torch.int32)), ValueError),
+        # once the shared-memory limit of the first kernel; that limit is
+        # gone, and the case now holds the head-dim rule that replaced it
+        (lambda a: a.update(q=a["q"][..., :12].contiguous(), k_pool=a["k_pool"][..., :12].contiguous(),
+                            v_pool=a["v_pool"][..., :12].contiguous()), ValueError),
     ],
     ids=["f64", "i64_pages", "pool_shape", "noncontiguous", "pos_len", "smem_over_227k"],
 )
@@ -135,6 +225,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     pd._check(**a)  # the good inputs pass
     mutate(a)
     with pytest.raises(err):
+        pd._check(**a)
+
+
+def test_long_page_table_passes_check():
+    """The scores no longer live in shared memory: 8192 lanes a slot (the
+    inputs the old shared-memory limit refused) are taken."""
+    a = good_cuda_like()
+    a.update(pages=torch.zeros((3, 8192 // a["k_pool"].shape[2]), dtype=torch.int32))
+    pd._check(**a)
+
+
+def test_head_dim_over_256_is_refused():
+    a = good_cuda_like()
+    a.update(q=torch.zeros((3, 8, 264)), k_pool=torch.zeros((8, 2, 8, 264)),
+             v_pool=torch.zeros((8, 2, 8, 264)))
+    with pytest.raises(ValueError, match="at most 256"):
         pd._check(**a)
 
 
@@ -167,3 +273,22 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["paged_gqa_decode"])
     assert build.library_path("paged_gqa_decode").name.startswith("libpaged_gqa_decode-")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card(monkeypatch):
+    """Every case, the mapped-but-no-valid-lane slot included, in f32 (1e-4)
+    and bf16 (2e-2), at the wrapper's split count and at 1, 2 and 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rule = pd.gqa_splits
+    for n in (None, 1, 2, 3):
+        monkeypatch.setattr(pd, "gqa_splits", rule if n is None else lambda *a, n=n: min(n, a[2]))
+        for case in sorted(CASES):
+            for dtype, tol in ((np.float32, 1e-4), (ml_dtypes.bfloat16, 2e-2)):
+                args = [t.cuda() for t in torch_args(*make(case, dtype=dtype))]
+                got = pd.paged_gqa_attention(*args)
+                want = pd.paged_gqa_plain(*args)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    pd.paged_gqa_attention.launches = 0
