@@ -11,8 +11,11 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   2. kernels  -- K5 against its plain PyTorch version on the card at the
                  serving path's shapes, with its tolerance, also with a
                  slot whose pages are mapped but which has no valid lane,
-                 and at every split count of the sweep (1, 2, 3, 4, 8,
-                 16; 3 splits 32 pages unevenly) at the served, the
+                 at query groups 12 and 48 (chunks of 8 heads), on a
+                 dense cache read in place (bitwise equal to the same
+                 values through a shuffled page table), and at every
+                 split count of the sweep (1, 2, 3, 4, 8; 3 splits 512
+                 lanes unevenly) at the served, the
                  engine-like and the edge inputs; ptxas registers and
                  spills per instance; device times
                  (CUDA-graph replays, so host overhead is excluded) of the
@@ -22,18 +25,26 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  at the engine's own inputs (pos at 40-100 lanes).
   2b. epilogue -- K1-K4 (the DMR/TMR compare, vote and fingerprint
                  kernels) BITWISE against their plain versions, each run
-                 twice, on the 4K blend's padded word stream and on odd
-                 sizes (raw, padded as the wrappers pad, and unaligned),
-                 with one bit flip in one replica; device times beside the
-                 bound.
+                 twice, with one bit flip in one replica.  K1 and K2
+                 through their wrappers on replicated trees read in place
+                 (the 4K blend's, a tree of 43 leaves in three launches
+                 with sub-word, non-contiguous and unaligned leaves, and
+                 one-leaf streams of odd sizes), each padded three ways,
+                 against the flatten path (voted trees, counts and
+                 fingerprints); K3 and K4 on the 4K blend's padded word
+                 stream and on odd sizes (raw, padded as the wrappers pad,
+                 and unaligned); device times at 4K beside the bound.
   2c. loop    -- the paper's loop: Listing 1's image blend at 4K UHD
                  compiled with ``backend="auto"`` (must resolve to
                  ``lockstep_cuda``), 64 steps each of DMR (bitwise, hash,
                  compare_every=4) and TMR with a bit flip at step 20:
                  detected at step 20 / voted away, states bitwise equal to
                  the port's ``lockstep`` (DMR) or the unstruck run (TMR),
-                 K1/K2 launches equal to the compared steps; then K3 and
-                 K4 through ``kernels.ops`` on the final state.
+                 K1/K2 launches equal to the compared steps, reading the
+                 replicas in place (``flatten_replicas`` called 0 times);
+                 then K3 and K4 through ``kernels.ops`` on the final
+                 state; ms per step of ``lockstep`` and ``lockstep_cuda``
+                 in turns, DMR ``lockstep_cuda`` no slower.
   2d. ssd     -- K8 (the Mamba2 SSD chunked scan) against its plain
                  version at mamba2-2.7b's shapes (80 heads of 64, state
                  128, one group, bf16), L = 256 and a ragged L = 300, each
@@ -54,10 +65,18 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   2f. mla     -- K6 (absorbed-MLA paged decode) against its plain version
                  at deepseek-v3-671b's served shape (8 slots, 128 heads,
                  lora 512, rope 64, pages of 16, 512 lanes, ragged pos) in
-                 f32 and bf16, at 4096 lanes, and on an edge case (an
-                 unmapped page in the middle, a slot with nothing mapped,
-                 a row past the pool); device times beside the bound, with
-                 gather + SDPA as the library yardstick.
+                 f32 (every CUDA-core instance G = 1..16) and bf16 (the
+                 tensor-core kernel), at 4096 and 16384 lanes, and on an
+                 edge case (an unmapped page in the middle, a slot with
+                 nothing mapped, a row past the pool, mapped pages but no
+                 valid lane); the bf16 kernel at every split count (1-64);
+                 each element within its tolerance and each row within a
+                 relative L2 limit that two planted faults at 4096 lanes
+                 (a lane tile skipped, a stale tile) must fail; a dense
+                 latent cache bitwise equal to the same values through a
+                 shuffled page table; ptxas per instance; device times
+                 beside the bound, with gather + SDPA as the library
+                 yardstick, which the kernel must beat at the served shape.
   3. engine   -- the main path: ``repro_torch.api.serve`` on full-width,
                  full-depth internlm2-1.8b (bf16, random weights from a
                  seed) with paged KV: 8 staggered requests, policies
@@ -77,13 +96,15 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  a seed, the MTP head built) with paged latent KV: the
                  stream and strike of phase 3; K6 launches must equal
                  3 layers x (ticks + replays), K5 none.
-  4. check    -- reduced f32 models (internlm2 with paged KV, mamba2, and
-                 deepseek's dense prefix with paged latent KV) served the
-                 same way must emit the tokens a full-sequence forward pass
-                 predicts.
+  4. check    -- reduced f32 models (internlm2, mamba2, and deepseek's
+                 dense prefix) served the same way must emit the tokens a
+                 full-sequence forward pass predicts; internlm2 and
+                 deepseek are served paged and dense (through K5 / K6 over
+                 the dense cache), and the two token streams must be
+                 equal, none / DMR / TMR.
 
-The last lines are the loop's, the three engines' and the kernels' JSON
-records, the card's name and power limit, and ``{"ok": true, "device":
+The last lines are the paged-vs-dense parity, the loop's, the three
+engines' and the kernels' JSON records, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -194,6 +215,27 @@ def engine_like_inputs(gen, B=8, Hq=16, Hkv=8, Dk=128, ps=16, max_len=512):
     return q, k, v, pages, pos
 
 
+def dense_and_shuffled(dtype, gen, B=8, Hq=16, Hkv=8, S=512, D=128, ps=16):
+    """A dense GQA cache (B, Hkv, S, D), its in-place view for K5, and
+    the same values in a pool through a shuffled page table: (q, k, v,
+    pos, view, pools, pages); pos covers lane 0, page edges and the last
+    lane."""
+    P = S // ps
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    pos = torch.linspace(0, S - 1, B, device="cuda").to(torch.int32)
+    pos[1] = ps - 1
+    pages = torch.randperm(B * P, generator=gen, device="cuda").reshape(B, P).to(torch.int32)
+    pools = []
+    for x in (k, v):
+        pool = torch.empty((B * P, Hkv, ps, D), dtype=dtype, device="cuda")
+        pool[pages.long()] = x.reshape(B, Hkv, P, ps, D).permute(0, 2, 1, 3, 4)
+        pools.append(pool)
+    from repro_torch.kernels.paged_decode import dense_gqa_view
+
+    return q, k, v, pos, dense_gqa_view(k, v), pools, pages
+
+
 def ptxas_lines(build_log: Path) -> list[str]:
     """ptxas' report of one library's build log, one line per kernel
     instance: ``name<template args>: R registers, S B spill stores, L B
@@ -269,10 +311,38 @@ def kernel_phase(build_log: Path) -> dict:
                     raise AssertionError("paged_gqa_decode: the no-valid-lane slot's mean is 0")
             log(f"kernels: paged_gqa_decode {label} max_abs_err={errs[label]:.3e} "
                 f"(tolerance atol=rtol={tol[dtype]})")
-    n_split = pd.gqa_splits(8, 8, 32, torch.cuda.get_device_properties(0).multi_processor_count)
+    # F2: query groups above 8 (command-r-plus' 12, granite-20b's MQA 48)
+    for Hq, Hkv in ((96, 8), (48, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for edge in (False, True):
+                label = (f"group {Hq // Hkv} (Hq={Hq} Hkv={Hkv}) {dtype}"
+                         f"{' mapped, no valid lane' if edge else ''}")
+                errs[label] = compare(label, paged_inputs(dtype, gen, Hq=Hq, Hkv=Hkv,
+                                                          no_valid_lane=edge))
+        log(f"kernels: paged_gqa_decode group {Hq // Hkv}: max abs err "
+            + ", ".join(f"{v:.3e}" for k, v in errs.items() if k.startswith(f"group {Hq // Hkv} ")))
+    # F1: a dense cache read in place equals the same values through a
+    # shuffled page table, bit for bit
+    dense_bitwise = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, pos, view, pools, pages = dense_and_shuffled(dtype, gen)
+        got_dense = pd.paged_gqa_attention(q, *view, pos)
+        got_paged = pd.paged_gqa_attention(q, *pools, pages, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(got_dense, got_paged):
+            raise AssertionError(f"paged_gqa_decode {dtype}: dense view != shuffled pages")
+        errs[f"dense view {dtype}"] = compare(f"dense view {dtype}", (q, *view, pos))
+        dense_bitwise[str(dtype).removeprefix("torch.")] = True
+    log("kernels: paged_gqa_decode on a dense (8, 8, 512, 128) cache read in place equals the "
+        "same values through a shuffled page table bitwise, f32 and bf16; both within tolerance "
+        "of the plain version")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_lanes = pd.gqa_split_lanes(8, 8, 512, sms)
+    n_split = -(-512 // split_lanes)
     ptxas = ptxas_lines(build_log)
-    log(f"kernels: paged_gqa_decode {n_split} splits at the serving shape; ptxas per instance "
-        f"(split_kernel<dtype, G bound>, merge_kernel<dtype>): {'; '.join(ptxas)}")
+    log(f"kernels: paged_gqa_decode {n_split} splits of {split_lanes} lanes at the serving shape; "
+        f"ptxas per instance (split_kernel<dtype, chunk bound>, merge_kernel<dtype>): "
+        f"{'; '.join(ptxas)}")
     # times in the serving dtype, on 4 input sets (67 MB of pools, more
     # than the 50 MB L2) so every call reads its K/V from HBM as in serving
     sets = [paged_inputs(torch.bfloat16, gen) for _ in range(4)]
@@ -314,18 +384,18 @@ def kernel_phase(build_log: Path) -> dict:
     eng_library_ms = graph_ms(lambda: library(*eng()))
     # the split rule's evidence: the kernel at every split count, both
     # inputs, each count also held against the plain version (3 splits
-    # take 32 pages unevenly: 11, 11, 10)
-    rule, sweep, sweep_err = pd.gqa_splits, {}, {}
+    # of 192 lanes take 512 unevenly: 192, 192, 128)
+    rule, sweep, sweep_err = pd.gqa_split_lanes, {}, {}
     held = [("served", sets[0]), ("engine-like", eng_sets[0]),
             ("edge f32", edges[torch.float32]), ("edge bf16", edges[torch.bfloat16])]
     try:
-        for n in (1, 2, 3, 4, 8, 16):
-            pd.gqa_splits = lambda B, Hkv, P, sms, n=n: n
+        for n, lanes in ((1, 512), (2, 256), (3, 192), (4, 128), (8, 64)):
+            pd.gqa_split_lanes = lambda *a, lanes=lanes: lanes
             sweep_err[n] = max(compare(f"{label} at {n} splits", args) for label, args in held)
             sweep[n] = (graph_ms(lambda: pd.paged_gqa_attention(*nxt())),
                         graph_ms(lambda: pd.paged_gqa_attention(*eng())))
     finally:
-        pd.gqa_splits = rule
+        pd.gqa_split_lanes = rule
     pd.paged_gqa_attention.launches = launches0  # comparison launches do not count
     log("kernels: paged_gqa_decode by split count (served / engine-like ms; max abs err over "
         f"the {len(held)} held inputs): "
@@ -357,6 +427,8 @@ def kernel_phase(build_log: Path) -> dict:
         "ms_all_lanes_valid": ms_full,
         "bound_ms_all_lanes_valid": bound_full,
         "splits": n_split,
+        "split_lanes": split_lanes,
+        "dense_view_equals_shuffled_pages": dense_bitwise,
         "ms_by_splits": {n: {"served": a, "engine_like": b} for n, (a, b) in sweep.items()},
         "engine_like": {"ms": eng_ms, "plain_ms": eng_plain_ms, "library_ms": eng_library_ms,
                         "bound_ms": eng_bound, "bound_by": eng_by},
@@ -376,23 +448,34 @@ NO_LIBRARY = ("no single PyTorch call computes the vote with its counts, or the 
 
 
 def epilogue_specs():
-    """name -> (wrapper, plain version, streams read, words the wrappers pad
-    to, integer ops per word and bytes per word as counted in
-    csrc/redundancy_epilogue.cu, TPU kernel it replaces)."""
-    from repro_torch.kernels import fused_step as fs
+    """K3, K4 (flat streams): name -> (wrapper, plain version, streams
+    read, words the wrappers pad to, integer ops per word and bytes per
+    word as counted in csrc/redundancy_epilogue.cu, TPU kernel it
+    replaces)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import state_hash as sh
     from repro_torch.kernels import tmr_vote as tv
 
     return {
-        "dmr_compare": (fs.dmr_compare, fs.dmr_compare_plain, 2, fs.pick_block, 28, 8,
-                        "src/repro/kernels/fused_step.py:81"),
-        "tmr_step": (fs.tmr_step, fs.tmr_step_plain, 3, fs.pick_block, 25, 16,
-                     "src/repro/kernels/fused_step.py:134"),
         "state_hash": (sh.state_hash, sh.state_hash_plain, 1, lambda n: ops.HASH_BLOCK, 14, 4,
                        "src/repro/kernels/state_hash.py:85"),
         "tmr_vote": (tv.tmr_vote, tv.tmr_vote_plain, 3, lambda n: ops.VOTE_BLOCK, 11, 16,
                      "src/repro/kernels/tmr_vote.py:50"),
+    }
+
+
+def tree_specs():
+    """K1, K2 (replicated state trees read in place): name -> (wrapper,
+    plain version, replicas, integer ops per stream word, bytes per
+    state word, TPU kernel it replaces).  K2 reads 3 replicas and writes
+    the voted word into 3: 24 B a word."""
+    from repro_torch.kernels import fused_step as fs
+
+    return {
+        "dmr_compare": (fs.dmr_compare, fs.dmr_compare_tree_plain, 2, 28, 8,
+                        "src/repro/kernels/fused_step.py:81"),
+        "tmr_step": (fs.tmr_step, fs.tmr_step_tree_plain, 3, 25, 24,
+                     "src/repro/kernels/fused_step.py:134"),
     }
 
 
@@ -410,9 +493,64 @@ def replica_streams(n: int, gen, pad_to: int = 0, offset: int = 0):
     return reps
 
 
-def epilogue_bound(n: int, ops_per_word: int, bytes_per_word: int) -> tuple[float, str]:
-    t_bytes = n * bytes_per_word / HBM_BYTES_PER_S
-    t_ops = n * ops_per_word / INT32_OPS_PER_S
+def replicate(one: dict, R: int, struck: int = 1) -> dict:
+    """A replicated tree: each leaf of ``one`` repeated R times along a new
+    leading axis, then one bit of replica ``struck`` flipped in the leaf's
+    middle byte."""
+    tree = {}
+    for k, x in one.items():
+        y = x.unsqueeze(0).repeat(R, *([1] * x.dim()))
+        b = y[struck].reshape(-1).view(torch.uint8) if y.dtype != torch.bool else None
+        if b is None:
+            y[struck].view(-1)[x.numel() // 2] ^= True
+        else:
+            b[b.numel() // 2] ^= 1 << 6
+        tree[k] = y
+    return tree
+
+
+def odd_tree(R: int, gen) -> dict:
+    """A replicated tree of 40 leaves (three launches of 16 segments):
+    f32, f16, int64 and int8 leaves of odd sizes read in place, some of
+    whose replicas start off a 16-byte boundary (the scalar loop);
+    sub-word bf16 and bool leaves and non-contiguous f32 leaves (packed
+    copies); one leaf a contiguous view one word into a buffer; a bit of
+    replica 1 flipped in every leaf."""
+    dev = "cuda"
+    one = {}
+    for i in range(40):
+        kind, n = i % 8, (7, 129, 65537, 12, 5, 33, 3, 1024)[i % 8]
+        if kind in (0, 1, 2):
+            one[f"l{i:02d}_f32_{n}"] = torch.randn(n, generator=gen, device=dev)
+        elif kind == 3:
+            one[f"l{i:02d}_i8_{n}"] = torch.randint(-128, 127, (3, n // 3), generator=gen,
+                                                    device=dev).to(torch.int8)
+        elif kind == 4:
+            one[f"l{i:02d}_bf16_{n}"] = torch.randn(n, generator=gen, device=dev).bfloat16()
+        elif kind == 5:
+            one[f"l{i:02d}_f16_{n + 1}"] = torch.randn(n + 1, generator=gen, device=dev).half()
+        elif kind == 6:
+            one[f"l{i:02d}_bool_{n}"] = torch.rand(n, generator=gen, device=dev) > 0.5
+        else:
+            one[f"l{i:02d}_i64_{n}"] = torch.randint(-2**40, 2**40, (n,), generator=gen,
+                                                     device=dev)
+    tree = replicate(one, R)
+    for i in (4, 20):  # non-contiguous: transposed views
+        x = torch.randn(R, 6, 9, generator=gen, device=dev)
+        x[1:] = x[0]
+        x[1, 2, 3] = -x[1, 2, 3]
+        tree[f"l{i:02d}_f32_t"] = x.transpose(1, 2)
+    buf = torch.randn(1 + R * 257, generator=gen, device=dev)
+    view = buf[1:].view(R, 257)  # contiguous, 4 bytes past a 16-byte boundary
+    view[1:] = view[0]
+    view[1, 100] += 1.0
+    tree["l99_f32_offset"] = view
+    return tree
+
+
+def epilogue_bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -426,9 +564,104 @@ def bits_equal(t1, t2) -> bool:
         for a, b in zip(l1, l2))
 
 
+def epilogue_record(name, replaces, ms, eager_ms, plain_ms, bound_ms, bound_by) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/redundancy_epilogue.cu",
+        "replaces": replaces,
+        "launches": None,
+        "max_abs_err": 0.0,
+        "tolerance": "bitwise",
+        "ms": ms,
+        "eager_ms": eager_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "library_why": NO_LIBRARY,
+    }
+
+
+def blend_tree(R: int, gen) -> dict:
+    """The 4K blend's replicated state, {r, g, b} (R, W x H) f32 on the
+    device, a bit of replica 1 flipped in "g"."""
+    one = {c: torch.rand(W4K * H4K, generator=gen, device="cuda") * 255 for c in "rgb"}
+    tree = {c: x.unsqueeze(0).repeat(R, 1) for c, x in one.items()}
+    g = tree["g"][1].view(torch.int32)
+    g[g.numel() // 2] ^= 1 << 30
+    return tree
+
+
+def tree_epilogue_phase(records: dict) -> None:
+    """K1 and K2 through their wrappers, on replicated trees read in place,
+    bitwise against the plain flatten path; times at the 4K blend tree."""
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for name, (kernel, plain, R, ops_pw, bytes_pw, replaces) in tree_specs().items():
+        cases = []
+        for label, tree in (("4K blend", blend_tree(R, gen)), ("40 odd leaves", odd_tree(R, gen))):
+            total = ops.word_layout(tree, lead=1).total
+            for multiple in (fs.pick_block(total), 1, 1000):
+                cases.append((f"{label}, padded to a multiple of {multiple}", tree, multiple))
+        for n in ODD_SIZES:
+            words = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=gen,
+                                  device="cuda")
+            flat = replicate({"w": words}, R)
+            buf = torch.zeros(1 + R * n, dtype=torch.int32, device="cuda")
+            buf[1:].view(R, n).copy_(flat["w"])
+            cases += [(f"one leaf of {n} words", flat, 1),
+                      (f"one leaf of {n} words, padded", flat, fs.pick_block(n)),
+                      (f"one leaf of {n} words, unaligned", {"w": buf[1:].view(R, n)}, 1)]
+        for label, tree, multiple in cases:
+            got = kernel(tree, multiple)
+            again = kernel(tree, multiple)
+            torch.cuda.synchronize()
+            ref = plain(tree, multiple)
+            if not bits_equal(got, again):
+                raise AssertionError(f"{name} {label}: two runs disagree")
+            if not bits_equal(got, ref):
+                raise AssertionError(f"{name} {label}: kernel != plain version")
+            # every struck leaf has one struck word, in replica 1
+            struck = sum(not bits_equal(x[1], x[0]) for x in _leaves(tree))
+            if name == "dmr_compare" and int(got[0]) != struck:
+                raise AssertionError(f"{name} {label}: {int(got[0])} mismatching words, "
+                                     f"not {struck}")
+            if name == "tmr_step":
+                voted, counts = got[0], got[1].tolist()
+                if counts != [0, struck, 0]:
+                    raise AssertionError(f"{name} {label}: counts {counts}, not [0, {struck}, 0]")
+                for k, x in tree.items():
+                    if not all(bits_equal(voted[k][r], x[0]) for r in range(R)):
+                        raise AssertionError(f"{name} {label}: leaf {k} not voted to replica 0")
+        log(f"epilogue: {name} over replicated trees read in place bitwise equal to the plain "
+            f"flatten path, twice, on {len(cases)} cases ({'; '.join(c[0] for c in cases)})")
+        # times at the 4K blend tree: one replica set is 100-300 MB, above the 50 MB L2
+        tree = blend_tree(R, gen)
+        layout = ops.word_layout(tree, lead=1)
+        blk = fs.pick_block(layout.total)
+        launches0 = kernel.launches
+        ms = graph_ms(lambda: kernel(tree, blk, layout))
+        eager_ms = events_ms(lambda: kernel(tree, blk, layout))
+        plain_ms = graph_ms(lambda: plain(tree, blk, layout), reps=2, iters=3)
+        kernel.launches = launches0  # comparison launches do not count
+        padded = layout.padded(blk)
+        bound_ms, bound_by = epilogue_bound(layout.total * bytes_pw, padded * ops_pw)
+        log(f"epilogue: {name} at the 4K blend tree ({layout.total} words a replica, padded to "
+            f"{padded}): kernel {ms:.4f} ms (eager {eager_ms:.4f} ms, "
+            f"{layout.total * bytes_pw / (ms * 1e-3) / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_pw} B a word, {ops_pw} int ops a "
+            f"stream word)")
+        records[name] = epilogue_record(name, replaces, ms, eager_ms, plain_ms, bound_ms, bound_by)
+        del tree
+
+
 def epilogue_phase() -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     records = {}
+    tree_epilogue_phase(records)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for name, (kernel, plain, k, pad, ops_pw, bytes_pw, replaces) in epilogue_specs().items():
         cases = [("4K", STREAM_4K, 0, 0)]
         for n in ODD_SIZES:
@@ -446,9 +679,7 @@ def epilogue_phase() -> dict:
                 raise AssertionError(f"{name} {label}: two runs disagree")
             if not bits_equal(got, ref):
                 raise AssertionError(f"{name} {label}: kernel != plain version")
-            if name == "dmr_compare" and int(got[0]) != 1:
-                raise AssertionError(f"{name} {label}: {int(got[0])} mismatching words, not 1")
-            if name in ("tmr_step", "tmr_vote") and (
+            if name == "tmr_vote" and (
                     got[1].tolist() != [0, 1, 0] or not torch.equal(got[0], reps[0])):
                 raise AssertionError(f"{name} {label}: vote did not outvote the flip")
         log(f"epilogue: {name} bitwise equal to its plain version, twice, on "
@@ -461,26 +692,11 @@ def epilogue_phase() -> dict:
         eager_ms = events_ms(lambda: kernel(*ins))
         plain_ms = graph_ms(lambda: plain(*ins), reps=2, iters=3)
         kernel.launches = launches0  # comparison launches do not count
-        bound_ms, bound_by = epilogue_bound(STREAM_4K, ops_pw, bytes_pw)
+        bound_ms, bound_by = epilogue_bound(STREAM_4K * bytes_pw, STREAM_4K * ops_pw)
         log(f"epilogue: {name} at the 4K stream: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms, "
             f"{STREAM_4K * bytes_pw / (ms * 1e-3) / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_pw} B and {ops_pw} int ops a word)")
-        records[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": "src/repro_torch/csrc/redundancy_epilogue.cu",
-            "replaces": replaces,
-            "launches": None,
-            "max_abs_err": 0.0,
-            "tolerance": "bitwise",
-            "ms": ms,
-            "eager_ms": eager_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "library_why": NO_LIBRARY,
-        }
+        records[name] = epilogue_record(name, replaces, ms, eager_ms, plain_ms, bound_ms, bound_by)
     return records
 
 
@@ -532,6 +748,16 @@ def loop_phase(epi: dict) -> dict:
     launches = {}
     for w in wrappers:  # counts start here
         w.launches = 0
+    # F3: lockstep_cuda reads the replicas where they lie; the packed copy
+    # of the word layer must not run on its path
+    flatten_calls = [0]
+    flatten = ops.flatten_replicas
+
+    def counting_flatten(*a, **k):
+        flatten_calls[0] += 1
+        return flatten(*a, **k)
+
+    ops.flatten_replicas = counting_flatten
 
     def run(exe, states, faults=None):
         res = exe.run(states, LOOP_STEPS, faults=faults)
@@ -593,11 +819,15 @@ def loop_phase(epi: dict) -> dict:
         raise AssertionError("TMR: the struck run's final states differ from the unstruck run's")
     if not all(bool(torch.isfinite(x).all()) for x in _leaves(res_t.states)):
         raise AssertionError("TMR: state not finite")
+    ops.flatten_replicas = flatten
+    if flatten_calls[0]:
+        raise AssertionError(f"lockstep_cuda called flatten_replicas {flatten_calls[0]} times")
     log(f"loop: DMR hash: first event at step {recent_h[0]}, K1 launches "
         f"{launches['dmr_hash']}; DMR compare_every=4: first event at step {recent_4[0]}, "
         f"K1 launches {launches['dmr_every4']}; TMR: {tot['events']:.0f} event, per replica "
         f"{tot['per_replica']}, final states bitwise equal to the unstruck run; K2 launches "
-        f"{launches['tmr']} (+{LOOP_STEPS} unstruck)")
+        f"{launches['tmr']} (+{LOOP_STEPS} unstruck); flatten_replicas calls on the "
+        f"lockstep_cuda runs: {flatten_calls[0]}")
     want = {"dmr_bitwise": LOOP_STEPS, "dmr_hash": LOOP_STEPS, "dmr_every4": LOOP_STEPS // 4,
             "tmr": LOOP_STEPS}
     if launches != want:
@@ -630,7 +860,8 @@ def loop_phase(epi: dict) -> dict:
         f"{counts.tolist()}) on the final state bitwise equal to the plain versions; "
         f"launches on the loop: " + ", ".join(f"{k} {v['launches']}" for k, v in epi.items()))
 
-    # ms per step, lockstep vs lockstep_cuda, in turns; then the epilogue's parts
+    # ms per step, lockstep vs lockstep_cuda, in turns (F3's gate: DMR
+    # lockstep_cuda no slower than lockstep)
     timing = {}
     for label, policy, states in (("dmr", dmr, None), ("tmr", tmr, s_tmr)):
         prog = blend_program(policy)
@@ -645,25 +876,16 @@ def loop_phase(epi: dict) -> dict:
             torch.cuda.synchronize()
             timing.setdefault(f"{label}_{backend}_ms_per_step", []).append(
                 (time.perf_counter() - t0) / 16 * 1e3)
-        new = states["ImageBlend"]
-        R = policy.level
-        layout = ops.word_layout(new, lead=1)
-        blk = fs.pick_block(layout.total)
-        flat_ms = events_ms(lambda: ops.flatten_replicas(new, R, multiple=blk, layout=layout))
-        flats = ops.flatten_replicas(new, R, multiple=blk, layout=layout)
-        like = tree_map(lambda x: x[0], new)
-        unflat_ms = events_ms(lambda: [x.unsqueeze(0).repeat(R, 1) for x in _leaves(
-            ops.unflatten_from_u32(flats[0], like, layout=layout))])
-        timing[f"{label}_flatten_ms"] = flat_ms
-        timing[f"{label}_unflatten_replicate_ms"] = unflat_ms
-        kernel = "dmr_compare" if R == 2 else "tmr_step"
+        kernel = "dmr_compare" if policy.level == 2 else "tmr_step"
         fused = timing[f"{label}_lockstep_cuda_ms_per_step"]
         plain = timing[f"{label}_lockstep_ms_per_step"]
         log(f"loop: {label.upper()} 4K ms/step: lockstep {plain[0]:.3f} / {plain[1]:.3f}, "
             f"lockstep_cuda {fused[0]:.3f} / {fused[1]:.3f}; {kernel} {epi[kernel]['ms']:.4f} ms "
-            f"({epi[kernel]['ms'] / min(fused) * 100:.1f} % of a step), flatten {flat_ms:.4f} ms"
-            + (f", unflatten + replicate {unflat_ms:.4f} ms" if R == 3 else ""))
-    return {"launches": launches, **timing}
+            f"({epi[kernel]['ms'] / min(fused) * 100:.1f} % of a step)")
+    fused, plain = timing["dmr_lockstep_cuda_ms_per_step"], timing["dmr_lockstep_ms_per_step"]
+    if sum(fused) > sum(plain):
+        raise AssertionError(f"DMR lockstep_cuda {fused} ms/step is slower than lockstep {plain}")
+    return {"launches": launches, "flatten_replicas_calls": flatten_calls[0], **timing}
 
 
 # --------------------------------------------------------------------------
@@ -1018,14 +1240,14 @@ def mla_inputs(dtype, gen, B=8, h=128, lora=512, rope=64, ps=16, max_len=512, ed
     return q_lat, q_rope, ckv, krope, pages, pos
 
 
-def k6_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str, float, int, float]:
+def k6_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str, int, float]:
     """Least time for this call's work: q read once, the valid latent and
     RoPE lanes read once, the page table and pos, and the f32 output
     written once, over HBM bandwidth; or the two products over the valid
     lanes, 2 (lora + rope) flops a lane and head for the scores and 2 lora
     for the context, over the tensor-core rate of the input type (the f32
-    CUDA-core rate for f32), whichever is larger.  Also the FLOPs over the
-    f32 CUDA-core rate, the rate the kernel computes at."""
+    CUDA-core rate for f32), whichever is larger.  Also the bytes and
+    FLOPs counted."""
     from repro_torch.kernels.paged_decode import paged_valid
 
     B, h, lora = q_lat.shape
@@ -1037,8 +1259,7 @@ def k6_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str, float, int, fl
     flops = n_valid * h * (2 * (lora + rope) + 2 * lora)
     rate = BF16_FLOP_PER_S if q_lat.dtype == torch.bfloat16 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            flops / F32_FLOP_PER_S * 1e3, nbytes, flops)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
 
 
 def sdpa_backend(fn):
@@ -1066,57 +1287,149 @@ def sdpa_backend(fn):
     raise AssertionError("no SDPA backend takes the MLA yardstick")
 
 
+#: per (slot, head) row: the relative L2 error a sound K6 stays within
+#: (its elementwise tolerances); an average over hundreds of lanes is
+#: small, so an elementwise check alone could pass a skipped or stale lane
+#: tile, which this limit rejects
+MLA_ROW_L2 = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+MLA_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # atol = rtol
+
+
+def mla_verdict(got, ref, dtype) -> tuple[bool, float, float, int]:
+    """(within both limits, max abs err, worst row's relative L2 error,
+    elements over the elementwise limit)."""
+    err = (got - ref).abs()
+    over = int((err > MLA_TOL[dtype] + MLA_TOL[dtype] * ref.abs()).sum())
+    row = float(((got - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max())
+    return over == 0 and row <= MLA_ROW_L2[dtype], float(err.max()), row, over
+
+
+def mla_planted_faults(q_lat, q_rope, ckv, krope, pages, pos) -> dict:
+    """Outputs of two faults a lane-tile ring could make, computed
+    plainly: lane tile 10 (lanes 640-703) skipped, and tile 10 read from
+    the stage tile 8 left there (stale)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    cd, rd = pd.paged_gather_lanes(ckv, pages), pd.paged_gather_lanes(krope, pages)
+    valid = pd.paged_valid(pages, pos, ckv.shape[1])
+    skip = valid.clone()
+    skip[:, 640:704] = False
+    c2, r2 = cd.clone(), rd.clone()
+    c2[:, 640:704], r2[:, 640:704] = cd[:, 512:576], rd[:, 512:576]
+    return {"lane tile 10 skipped": pd.attend_mla(q_lat, q_rope, cd, rd, skip, MLA_SCALE),
+            "lane tile 10 stale (tile 8's stage)": pd.attend_mla(q_lat, q_rope, c2, r2, valid,
+                                                                   MLA_SCALE)}
+
+
+def mla_dense_and_shuffled(dtype, gen, B=8, h=128, lora=512, rope=64, S=512, ps=16):
+    """A dense latent cache, its view for K6, and the same values through
+    a shuffled page table: (queries, pos, view, pools, pages)."""
+    from repro_torch.kernels.paged_decode import dense_mla_view
+
+    P = S // ps
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    ql, qr, ckv, kr = rn(B, h, lora), rn(B, h, rope), rn(B, S, lora), rn(B, S, rope)
+    pos = torch.linspace(0, S - 1, B, device="cuda").to(torch.int32)
+    pos[1] = 63
+    pages = torch.randperm(B * P, generator=gen, device="cuda").reshape(B, P).to(torch.int32)
+    pools = []
+    for x in (ckv, kr):
+        pool = torch.empty((B * P, ps, x.shape[-1]), dtype=dtype, device="cuda")
+        pool[pages.long()] = x.reshape(B, P, ps, -1)
+        pools.append(pool)
+    return (ql, qr), pos, dense_mla_view(ckv, kr), pools, pages
+
+
 def mla_kernel_phase(build_log: Path) -> dict:
     from repro_torch.kernels import paged_decode as pd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    # f32: reduction order only; bf16 inputs: both sides read the same bf16
-    # values and sum in f32, the output is f32
-    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # atol = rtol
-    # the served shape takes G = 16 and 4096 lanes G = 8; fewer heads give
-    # the wrapper's other groups (h = 12: 4, 6: 2, 3: 1), so every
-    # template instance is held against the plain version
-    cases = [("served 512", torch.bfloat16, {}), ("served 512", torch.float32, {}),
-             ("all lanes valid 512", torch.bfloat16, {"full": True}),
-             ("4096", torch.bfloat16, {"max_len": 4096}), ("4096", torch.float32, {"max_len": 4096}),
-             ("edge 512", torch.bfloat16, {"edge": True}), ("edge 512", torch.float32, {"edge": True})]
-    cases += [(f"h={h} B=3 512", dtype, {"h": h, "B": 3}) for h in (12, 6, 3)
-              for dtype in (torch.bfloat16, torch.float32)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     launches0 = pd.paged_mla_attention.launches
-    errs = {}
-    groups = set()
-    for label, dtype, kw in cases:
-        args = mla_inputs(dtype, gen, **kw)
-        G = pd.mla_group(kw.get("h", 128), 512, 64, kw.get("max_len", 512),
-                         kw.get("max_len", 512) // 16)
-        groups.add((G, dtype))
-        label = f"{label} G={G}"
+    errs, rows = {}, {}
+
+    def held(name, args, dtype):
         got = pd.paged_mla_attention(*args, scale=MLA_SCALE)
         torch.cuda.synchronize()
         ref = pd.paged_mla_plain(*args, scale=MLA_SCALE)
-        name = f"{label} {str(dtype).removeprefix('torch.')}"
         if got.dtype != torch.float32 or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"paged_mla_decode {name}: wrong type/shape or not finite")
-        err = (got - ref).abs()
-        errs[name] = float(err.max())
-        if not bool((err <= tol[dtype] + tol[dtype] * ref.abs()).all()):
-            raise AssertionError(f"paged_mla_decode {name}: max abs err {errs[name]}")
-        if kw.get("edge") and not (bool((got[4] == 0).all()) and bool((ref[4] == 0).all())):
-            raise AssertionError(f"paged_mla_decode {name}: the slot with nothing mapped is not 0")
-    if groups != {(g, d) for g in (1, 2, 4, 8, 16) for d in (torch.float32, torch.bfloat16)}:
-        raise AssertionError(f"paged_mla_decode: not every (G, dtype) instance compared: {groups}")
+        ok, err, row, over = mla_verdict(got, ref, dtype)
+        errs[name], rows[name] = err, row
+        if not ok:
+            raise AssertionError(f"paged_mla_decode {name}: max abs err {err}, row L2 {row}, "
+                                 f"{over} elements over")
+        return got
+
+    # every f32 instance (G = 16 at 512 lanes, 8 at 4096, 2 at 16384; h =
+    # 12, 6, 3 give 4, 2, 1) and the bf16 kernel at the wrapper's splits
+    cases = [("served 512", {}), ("all lanes valid 512", {"full": True}),
+             ("4096", {"max_len": 4096}), ("16384", {"max_len": 16384}),
+             ("edge 512", {"edge": True})]
+    cases += [(f"h={h} B=3 512", {"h": h, "B": 3}) for h in (12, 6, 3)]
+    instances = set()
+    for label, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = mla_inputs(dtype, gen, **kw)
+            h, S = kw.get("h", 128), kw.get("max_len", 512)
+            if dtype == torch.float32:
+                inst = f"f32 G={pd.mla_group(h, 512, 64, S, S // 16)}"
+            else:
+                lanes = pd.mla_split_lanes(kw.get("B", 8), -(-h // pd.MLA_HEADS), S, sms)
+                inst = f"bf16 {-(-S // lanes)} splits"
+            instances.add(inst)
+            got = held(f"{label} {inst}", args, dtype)
+            if kw.get("edge") and not bool((got[4] == 0).all()):
+                raise AssertionError(f"paged_mla_decode {label} {dtype}: nothing mapped is not 0")
+    if not {f"f32 G={g}" for g in (1, 2, 4, 8, 16)} <= instances:
+        raise AssertionError(f"paged_mla_decode: not every f32 instance compared: {instances}")
+    # the bf16 kernel at every split count it can take at 512 and 4096 lanes
+    rule, split_ms = pd.mla_split_lanes, {}
+    sweep_sets = [mla_inputs(torch.bfloat16, gen, max_len=4096, full=True),
+                  mla_inputs(torch.bfloat16, gen), mla_inputs(torch.bfloat16, gen, edge=True)]
+    try:
+        for lanes in (64, 128, 256, 512, 1024, 4096):
+            pd.mla_split_lanes = lambda *a, lanes=lanes: lanes
+            held(f"4096 all valid bf16 {4096 // lanes} splits", sweep_sets[0], torch.bfloat16)
+            if lanes <= 512:
+                for name, args in (("served 512", sweep_sets[1]), ("edge 512", sweep_sets[2])):
+                    held(f"{name} bf16 {512 // lanes} splits", args, torch.bfloat16)
+    finally:
+        pd.mla_split_lanes = rule
     log("mla: paged_mla_decode (K6) vs paged_mla_plain at B=8 h=128 lora=512 rope=64 ps=16: "
-        + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
-        + f" (atol=rtol f32 {tol[torch.float32]}, bf16 inputs {tol[torch.bfloat16]}); every "
-        "G in 1..16 in both dtypes")
+        + ", ".join(f"{k} max_abs_err {errs[k]:.3e} row L2 {rows[k]:.3e}" for k in errs)
+        + f" (atol=rtol f32 {MLA_TOL[torch.float32]}, bf16 inputs {MLA_TOL[torch.bfloat16]}; "
+        f"row relative L2 f32 {MLA_ROW_L2[torch.float32]}, bf16 {MLA_ROW_L2[torch.bfloat16]})")
+    # the row limit must reject the faults a lane-tile ring could make
+    planted = {}
+    for label, bad in mla_planted_faults(*sweep_sets[0]).items():
+        ref = pd.paged_mla_plain(*sweep_sets[0], scale=MLA_SCALE)
+        ok, err, row, over = mla_verdict(bad, ref, torch.bfloat16)
+        planted[label] = {"max_abs_err": err, "row_rel_l2": row, "elements_over": over}
+        log(f"mla: planted fault at 4096 lanes, {label}: max abs err {err:.3e}, row L2 {row:.3e}, "
+            f"{over} of {ref.numel()} elements over the elementwise limit: rejected")
+        if ok:
+            raise AssertionError(f"paged_mla_decode check does not reject the planted fault: {label}")
+    # F1: a dense latent cache through its view equals the same values
+    # through a shuffled page table, bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        (ql, qr), pos, view, pools, pages = mla_dense_and_shuffled(dtype, gen)
+        dense = pd.paged_mla_attention(ql, qr, *view, pos, scale=MLA_SCALE)
+        paged = pd.paged_mla_attention(ql, qr, *pools, pages, pos, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        if not torch.equal(dense, paged):
+            raise AssertionError(f"paged_mla_decode {dtype}: dense view != shuffled pages")
+        held(f"dense view {dtype}", (ql, qr, *view, pos), dtype)
+    log("mla: paged_mla_decode on a dense (8, 512, 512 / 64) latent cache equals the same values "
+        "through a shuffled page table bitwise, f32 and bf16")
     ptxas = ptxas_lines(build_log)
-    log(f"mla: ptxas for the 10 instances (G = 1..16, f32 / bf16): {'; '.join(ptxas)}")
+    log(f"mla: ptxas per instance (f32_kernel<G>, bf16_kernel, merge_kernel): {'; '.join(ptxas)}")
 
     # device times in the serving dtype; enough input sets that the sets
     # together exceed the 50 MB L2, so every call reads its pages from HBM
     timings, backends = {}, {}
     for label, kw, n_sets in (("served 512", {}, 16), ("all lanes valid 512", {"full": True}, 16),
-                              ("4096", {"max_len": 4096}, 4)):
+                              ("4096", {"max_len": 4096}, 4), ("16384", {"max_len": 16384}, 2)):
         sets = [mla_inputs(torch.bfloat16, gen, **kw) for _ in range(n_sets)]
         it = iter(range(10**9))
 
@@ -1134,7 +1447,7 @@ def mla_kernel_phase(build_log: Path) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask[:, None, None], scale=MLA_SCALE)
 
-        heavy = "4096" in label
+        heavy = "512" not in label
         ms = graph_ms(lambda: pd.paged_mla_attention(*nxt(), scale=MLA_SCALE),
                       reps=10 if heavy else 20, iters=5 if heavy else 10)
         eager_ms = events_ms(lambda: pd.paged_mla_attention(*nxt(), scale=MLA_SCALE))
@@ -1142,15 +1455,32 @@ def mla_kernel_phase(build_log: Path) -> dict:
         backend, sdpa_run = sdpa_backend(sdpa_call)
         backends[label] = backend
         library_ms = graph_ms(sdpa_run, reps=4 if heavy else 10, iters=5)
-        bound_ms, bound_by, f32_ms, nbytes, flops = k6_bound(*[sets[0][i] for i in (0, 1, 2, 4, 5)])
+        bound_ms, bound_by, nbytes, flops = k6_bound(*[sets[0][i] for i in (0, 1, 2, 4, 5)])
         timings[label] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
+        if label in ("served 512", "4096"):  # the split rule's evidence: every count, same inputs
+            S = kw.get("max_len", 512)
+            try:
+                for lanes in (64, 128, 256, 512, 1024, 2048):
+                    if lanes > S:
+                        continue
+                    pd.mla_split_lanes = lambda *a, lanes=lanes: lanes
+                    split_ms.setdefault(label, {})[S // lanes] = graph_ms(
+                        lambda: pd.paged_mla_attention(*nxt(), scale=MLA_SCALE),
+                        reps=10 if heavy else 20, iters=5 if heavy else 10)
+            finally:
+                pd.mla_split_lanes = rule
         log(f"mla: {label} bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} "
             f"ms, gather + sdpa ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores "
-            f"{f32_ms:.4f} ms)")
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+            + (f"; by split count (the rule takes {S // rule(8, 2, S, sms)}): "
+               + ", ".join(f"{n}: {t:.4f} ms" for n, t in split_ms[label].items())
+               if label in split_ms else ""))
     pd.paged_mla_attention.launches = launches0  # comparison launches do not count
     t = timings["served 512"]
+    if not t["ms"] < t["library_ms"]:
+        raise AssertionError(f"paged_mla_decode bf16 {t['ms']} ms is not faster than gather + "
+                             f"sdpa {t['library_ms']} ms at the served shape")
     return {
         "name": "paged_mla_attention",
         "route": "cuda",
@@ -1159,7 +1489,11 @@ def mla_kernel_phase(build_log: Path) -> dict:
         "launches": None,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_case": errs,
-        "tolerance": {"f32": tol[torch.float32], "bf16_inputs": tol[torch.bfloat16]},
+        "row_rel_l2_by_case": rows,
+        "tolerance": {"f32": MLA_TOL[torch.float32], "bf16_inputs": MLA_TOL[torch.bfloat16],
+                      "row_rel_l2_f32": MLA_ROW_L2[torch.float32],
+                      "row_rel_l2_bf16": MLA_ROW_L2[torch.bfloat16]},
+        "planted_faults_at_4096": planted,
         "ms": t["ms"],
         "eager_ms": t["eager_ms"],
         "plain_ms": t["plain_ms"],
@@ -1169,8 +1503,10 @@ def mla_kernel_phase(build_log: Path) -> dict:
         "library": f"page gather + torch.nn.functional.scaled_dot_product_attention "
                    f"({backends['served 512']}; yardstick only)",
         "shape": "B=8 h=128 lora=512 rope=64 ps=16 max_len=512 bf16, pos ragged",
+        "ms_by_splits": split_ms,
         "all_lanes_valid_512": timings["all lanes valid 512"],
         "max_len_4096": timings["4096"],
+        "max_len_16384": timings["16384"],
         "ptxas": ptxas,
     }
 
@@ -1471,7 +1807,9 @@ def _leaves(tree):
 # --------------------------------------------------------------------------
 # phase 4: small f32 models agree with a full-sequence forward
 # --------------------------------------------------------------------------
-def check_phase(arch: str, cfg=None, **serve) -> None:
+def check_phase(arch: str, cfg=None, **serve) -> list:
+    """Serve six requests (none / DMR / TMR) on a reduced f32 model; every
+    clear token must be the full forward's.  Returns the token streams."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.models.lm_cells import ServeConfig
@@ -1497,6 +1835,24 @@ def check_phase(arch: str, cfg=None, **serve) -> None:
         checked += int(clear.sum())
     log(f"check: reduced f32 {arch} serving ({'paged' if serve.get('paged') else 'dense'}) "
         f"matches the full forward on {checked} tokens")
+    return [list(engine.result(r.id)["tokens"]) for r in reqs]
+
+
+def parity_phase(arch: str, kernel, cfg=None) -> dict:
+    """F1 on the card: the same requests served from paged pools and from
+    the dense cache give EQUAL token streams, and the dense run's decode
+    went through ``kernel`` (K5 or K6) too."""
+    paged = check_phase(arch, cfg, paged=True, page_size=16)
+    kernel.launches = 0
+    dense = check_phase(arch, cfg)
+    launches = kernel.launches
+    if launches == 0:
+        raise AssertionError(f"{arch}: dense decode did not launch {kernel.__name__}")
+    if paged != dense:
+        raise AssertionError(f"{arch}: paged and dense token streams differ")
+    log(f"check: {arch} paged and dense token streams equal ({sum(map(len, dense))} tokens, "
+        f"none/dmr/tmr); dense decode launched {kernel.__name__} {launches} times")
+    return {"tokens": sum(map(len, dense)), "dense_launches": launches}
 
 
 def main() -> int:
@@ -1539,12 +1895,15 @@ def main() -> int:
     mla["launches"] = deepseek["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    check_phase("internlm2-1.8b", paged=True, page_size=16)
-    check_phase("mamba2-2.7b")
     from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.kernels import paged_decode as pd
 
-    check_phase("deepseek-v3-671b", dataclasses.replace(ds.dense_prefix(ds.reduced()), n_layers=2),
-                paged=True, page_size=16)
+    parity = {"internlm2-1.8b": parity_phase("internlm2-1.8b", pd.paged_gqa_attention)}
+    check_phase("mamba2-2.7b")
+    parity["deepseek-v3-671b"] = parity_phase(
+        "deepseek-v3-671b", pd.paged_mla_attention,
+        dataclasses.replace(ds.dense_prefix(ds.reduced()), n_layers=2))
+    print(json.dumps({"paged_dense_parity": parity}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)
     print(json.dumps({"engine_mamba2": mamba}), flush=True)

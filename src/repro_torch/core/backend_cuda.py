@@ -7,9 +7,15 @@ epilogue is ONE kernel per step (``kernels/fused_step.py``, CUDA on the
 card):
 
   DMR -- K1 ``dmr_compare``: word compare + both replica fingerprints in
-         one pass over the flat word streams;
+         one pass over the replicas' words;
   TMR -- K2 ``tmr_step``: majority vote + per-replica mismatch counts +
-         the voted state's fingerprint in one pass.
+         the voted state's fingerprint in one pass, writing the voted
+         words into every replica of the next state.
+
+The kernels read the leaves where they lie (``fused_step.plan_segments``:
+one segment per leaf at its offset in the padded u32 stream that
+``kernels.ops.flatten_replicas`` would build), so no packed copy of the
+state is made and the voted state needs no unpacking or re-replication.
 
 The transition, fault injection and read-prev/write-next semantics are
 those of ``lockstep`` (``redundancy.replicated_transition`` is shared),
@@ -31,10 +37,10 @@ import torch
 
 from ..kernels import ops
 from ..kernels.fused_step import dmr_compare, pick_block, tmr_step
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves
 from .executor import LockstepExecutor, register_backend
 from .program import MisoProgram
-from .redundancy import replicate_state, replicated_transition, run_transition, zero_report
+from .redundancy import MAX_REPLICAS, replicated_transition, run_transition, zero_report
 
 
 def fused_transition(cell, prevs, levels, *, cell_id, step, fault, compare_now: bool = True):
@@ -51,36 +57,31 @@ def fused_transition(cell, prevs, levels, *, cell_id, step, fault, compare_now: 
     layout = ops.word_layout(new, lead=1)
     blk = pick_block(layout.total)
     device = tree_leaves(new)[0].device
-    report = {k: v.to(device) for k, v in zero_report().items()}
 
     if R == 2:
         if not compare_now:
-            return new, report
-        flats = ops.flatten_replicas(new, 2, multiple=blk, layout=layout)
-        diff_words, fps = dmr_compare(flats[0], flats[1])
+            return new, {k: v.to(device) for k, v in zero_report().items()}
+        diff_words, fps = dmr_compare(new, blk, layout)
         if policy.compare == "hash":
             # what a spatial deployment ships between devices: 2 x 16 bytes
             diff = (fps[0] != fps[1]).sum(dtype=torch.float32)
         else:
             diff = diff_words.to(torch.float32)
-        report["mismatch_elems"] = diff
-        report["events"] = (diff > 0).to(torch.float32)
-        return new, report
+        per = torch.zeros((MAX_REPLICAS,), dtype=torch.float32, device=device)
+        return new, {"mismatch_elems": diff, "events": (diff > 0).to(torch.float32),
+                     "per_replica": per}
 
-    # R == 3: correction by vote
-    flats = ops.flatten_replicas(new, 3, multiple=blk, layout=layout)
-    voted_flat, counts, _fp = tmr_step(flats[0], flats[1], flats[2])
-    voted = ops.unflatten_from_u32(voted_flat, tree_map(lambda x: x[0], new), layout=layout)
+    # R == 3: correction by vote; the replicas come back re-synchronized to
+    # the voted value (prevents divergence)
+    voted, counts, _fp = tmr_step(new, blk, layout)
     per = counts.to(torch.float32)
     if policy.compare == "hash":
         per = (per > 0).to(torch.float32)  # indicators, as lockstep's hash mode
     if not compare_now:
         per = torch.zeros_like(per)
-    report["per_replica"] = (per > 0).to(torch.float32) * torch.clamp(per, min=1.0)
-    report["mismatch_elems"] = per.sum()
-    report["events"] = (per.sum() > 0).to(torch.float32)
-    # re-synchronize replicas to the voted value (prevents divergence)
-    return replicate_state(voted, R), report
+    total = per.sum()
+    return voted, {"mismatch_elems": total, "events": (total > 0).to(torch.float32),
+                   "per_replica": (per > 0).to(torch.float32) * torch.clamp(per, min=1.0)}
 
 
 def compile_step_cuda(program: MisoProgram, *, with_compare: bool = True):

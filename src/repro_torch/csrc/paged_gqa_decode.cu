@@ -7,7 +7,7 @@
 // masked; a row past the pool's end reads the pool's last row), masking
 // lanes past pos[b]; scores in f32 as (q * scale) . k; softmax over all
 // P * ps lanes with masked lanes at -1e30; P.V in f32; cast to the input
-// type.
+// type.  Like the reference, any query group G = Hq / Hkv is taken.
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): the bytes of
 // the valid K/V lanes, read once.  At the serving shape (B = 8 slots,
@@ -18,12 +18,33 @@
 // is far below the card's f32 rate.
 //
 // Design (split-lane decode):
-//   * grid (slot, kv head, split): a split takes a contiguous run of the
-//     slot's pages, and the wrapper picks the number of splits so the grid
-//     has at least two blocks an SM (8 splits of 4 pages, 512 blocks, at
-//     the serving shape).  A split with no valid lane writes an empty partial and
-//     exits;
-//   * the G <= 8 query heads of the group stay in registers; a K or V row
+//   * grid (slot, kv head x head chunk, split): a chunk is at most 8 of
+//     the group's query heads, so G > 8 (48 for MQA granite-20b, 12 for
+//     command-r-plus) takes ceil(G / 8) blocks per kv head.  The blocks
+//     of one kv head read the same K/V rows, the later ones from L2.  The
+//     other choice, a loop over chunks inside the block, was argued, not
+//     built or measured: it would hold the same register tile (kG <= 8)
+//     plus the loop's state and leave the grid smaller, so the grid axis
+//     was taken.  ptxas' report of the instances built (the chip smoke
+//     log) covers this design only.  A split takes a run of split_lanes
+//     lanes (a multiple of 64), and the wrapper picks the number of splits
+//     so the grid has at least two blocks an SM (8 splits of 64 lanes, 512
+//     blocks, at the serving shape).  A split with no valid lane writes an empty partial
+//     and exits;
+//   * the pool is addressed by strides: lane t of page row r and kv head h
+//     is at r * page_stride + h * head_stride + (t % ps) * Dk.  A pool
+//     (N, Hkv, ps, Dk) has strides (Hkv ps Dk, ps Dk); a dense cache
+//     (B, Hkv, S, Dk) is read in place as one page of S lanes a slot
+//     (strides (S Dk, S Dk), page row b * Hkv), which is how dense decode
+//     runs this kernel on the card;
+//   * the reduction order is a function of the lane index alone: split
+//     boundaries are multiples of 64 lanes, fixed by (B, Hkv, G, P * ps)
+//     and the SM count, and a lane's row group, warp and unroll slot
+//     depend on t - L0 only.  So a dense view and a paged pool that hold
+//     the same values at the lanes a slot attends to give the same bits
+//     for any page size, which the engine's paged-vs-dense token parity
+//     rests on;
+//   * the G <= 8 query heads of the chunk stay in registers; a K or V row
 //     is read with 16-byte loads, 8 values a thread, ceil(Dk / 8) threads
 //     (a power of two) a row, so a warp covers 32 / that many rows at once
 //     and keeps kUnroll of its rows' loads in flight;
@@ -40,8 +61,9 @@
 //     masked lanes would give 0 / 0, so the block detects the case from the
 //     page row and pos and takes that uniform mean explicitly (score 0 on
 //     every lane, unmapped lanes weighing 1 with V = 0).
-// The scores never live in shared memory, so max_len is not bounded by
-// it; Dk must be a multiple of 8 and at most 256.
+// The scores and the page rows never live in shared memory, so neither
+// max_len nor the page size is bounded by it; Dk must be a multiple of 8
+// and at most 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,11 +71,14 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "split_merge.cuh"  // the split partials and the merge kernel
+
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;     // lanes a row group has in flight
+constexpr int kChunk = 8;      // query heads a block takes at most
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 8 consecutive values of a row, as 16-byte loads (one for bf16, two for
@@ -90,11 +115,6 @@ struct Row8<float> {
   }
 };
 
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
 // Merge the online-softmax state (m2, l2, acc2) into (m, l, acc); m in
 // log2 units, -inf when nothing was seen.
 template <int kN>
@@ -109,46 +129,32 @@ __device__ __forceinline__ void merge(float& m, float& l, float (&acc)[kN], floa
   m = mx;
 }
 
-// Partials of split s for query head row bh = b * Hq + head: acc at
-// part[(bh * nsplit + s) * Dk ...], then m and l of all B * Hq * nsplit.
-struct Partials {
-  float* acc;
-  float* m;
-  float* l;
-  __device__ Partials(float* part, int BH, int nsplit, int Dk)
-      : acc(part), m(part + (size_t)BH * nsplit * Dk), l(m + (size_t)BH * nsplit) {}
-};
-
-// kG: the group bound (G <= kG query heads per kv head).
+// kG: the chunk bound (a block takes Gc <= kG <= kChunk query heads).
 template <typename T, int kG>
 __global__ void __launch_bounds__(kThreads)
     split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                  const T* __restrict__ v_pool, const int* __restrict__ pages,
-                 const int* __restrict__ pos, float* __restrict__ part,
-                 int Hq, int Hkv, int Dk, int ps, int P, int N, int nsplit, float scale_log2,
-                 int tpr) {
-  extern __shared__ float smem[];  // warp partials: m, l (kWarps * G each), acc; then page rows
+                 const int* __restrict__ pos, float* __restrict__ part, int Hq, int Hkv, int Dk,
+                 int ps, int P, int N, long long page_stride, long long head_stride,
+                 int split_lanes, int nsplit, int nchunk, float scale_log2, int tpr) {
+  extern __shared__ float smem[];  // warp partials: m, l (kWarps * Gc each), acc
   const int G = Hq / Hkv;
+  const int b = blockIdx.x, h = blockIdx.y / nchunk, split = blockIdx.z;
+  const int g0 = (blockIdx.y % nchunk) * kChunk;  // the chunk's first head in the group
+  const int Gc = min(kChunk, G - g0);
+  const int hq0 = h * G + g0;  // its first query head
   float* wm = smem;
-  float* wl = wm + kWarps * G;
-  float* wacc = wl + kWarps * G;  // kWarps * G * Dk
-  int* rows = reinterpret_cast<int*>(wacc + kWarps * G * Dk);
+  float* wl = wm + kWarps * Gc;
+  float* wacc = wl + kWarps * Gc;  // kWarps * Gc * Dk
 
-  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pps = (P + nsplit - 1) / nsplit;  // pages per split
-  const int pg0 = split * pps, pg1 = min(P, pg0 + pps);
   const int qpos = pos[b];
+  const int* prow = pages + (size_t)b * P;
 
-  // One pass over the slot's page row: does the slot have any valid lane
-  // (a mapped page starting at or before pos)?  If not, every split takes
-  // the uniform mean.  And this split's rows, clamped to the pool.
+  // Does the slot have any valid lane (a mapped page starting at or
+  // before pos)?  If not, every split takes the uniform mean.
   int has_valid = 0;
-  for (int i = tid; i < P; i += kThreads) {
-    const int row = pages[(size_t)b * P + i];
-    has_valid |= row >= 0 && i * ps <= qpos;
-    if (i >= pg0 && i < pg1) rows[i - pg0] = min(row, N - 1);
-  }
+  for (int i = tid; i < P; i += kThreads) has_valid |= prow[i] >= 0 && i * ps <= qpos;
 
   // this thread: row group warp * rpw + lane / tpr of ngroups, chunk sub
   // (dims 8 sub .. 8 sub + 7); its query values, loaded meanwhile
@@ -160,22 +166,24 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (g < G && active) {
+    if (g < Gc && active) {
       Row8<T> r;
-      r.load(q + ((size_t)b * Hq + h * G + g) * Dk + sub * 8);
+      r.load(q + ((size_t)b * Hq + hq0 + g) * Dk + sub * 8);
       r.get(x);
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) qv[g][e] = x[e] * scale_log2;
   }
-  const bool uniform = !__syncthreads_or(has_valid);  // and rows[] is written
-  const int L0 = pg0 * ps;
-  const int L1 = uniform ? pg1 * ps : min(pg1 * ps, qpos + 1);  // lanes [L0, L1) of the split
+  const bool uniform = !__syncthreads_or(has_valid);
+  const int S = P * ps;
+  const int L0 = split * split_lanes;
+  const int Lend = min(S, L0 + split_lanes);
+  const int L1 = uniform ? Lend : min(Lend, qpos + 1);  // lanes [L0, L1) of the split
   const int BH = gridDim.x * Hq;
   const Partials pt(part, BH, nsplit, Dk);
   if (L1 <= L0) {  // no valid lane in this split: an empty partial
-    for (int g = tid; g < G; g += kThreads) {
-      const size_t i = ((size_t)b * Hq + h * G + g) * nsplit + split;
+    for (int g = tid; g < Gc; g += kThreads) {
+      const size_t i = ((size_t)b * Hq + hq0 + g) * nsplit + split;
       pt.m[i] = -INFINITY;
       pt.l[i] = 0.f;
     }
@@ -192,18 +200,19 @@ __global__ void __launch_bounds__(kThreads)
 
   // The trip count is the warp's (its first row group's), not the row
   // group's: every lane of the warp must reach the shuffles below.
+  const size_t head_off = (size_t)h * head_stride + sub * 8;
   for (int tw = L0 + warp * rpw; tw < L1; tw += ngroups * kUnroll) {
     Row8<T> kr[kUnroll], vr[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = tw + lane / tpr + u * ngroups;
-      const int row = t < L1 ? rows[t / ps - pg0] : -1;
+      const int row = t < L1 ? min(__ldg(prow + t / ps), N - 1) : -1;
       ok[u] = t < L1 && (uniform || row >= 0);
       kr[u].zero();
       vr[u].zero();
       if (row >= 0 && active) {
-        const size_t off = (((size_t)row * Hkv + h) * ps + t % ps) * Dk + sub * 8;
+        const size_t off = (size_t)row * page_stride + head_off + (size_t)(t % ps) * Dk;
         if (!uniform) kr[u].load(k_pool + off);
         vr[u].load(v_pool + off);
       }
@@ -260,31 +269,31 @@ __global__ void __launch_bounds__(kThreads)
       const float l2 = __shfl_xor_sync(0xffffffffu, l[g], o);
       merge(m[g], l[g], acc[g], m2, l2, acc2);
     }
-    if (g < G && lane < tpr) {
+    if (g < Gc && lane < tpr) {
       if (lane == 0) {
-        wm[warp * G + g] = m[g];
-        wl[warp * G + g] = l[g];
+        wm[warp * Gc + g] = m[g];
+        wl[warp * Gc + g] = l[g];
       }
       if (active)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) wacc[(warp * G + g) * Dk + sub * 8 + e] = acc[g][e];
+        for (int e = 0; e < 8; ++e) wacc[(warp * Gc + g) * Dk + sub * 8 + e] = acc[g][e];
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * Dk; i += kThreads) {
+  for (int i = tid; i < Gc * Dk; i += kThreads) {
     const int g = i / Dk, d = i - g * Dk;
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * G + g]);
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * Gc + g]);
     const float mu = M == -INFINITY ? 0.f : M;
     float L = 0.f, A = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = exp2f(wm[w * G + g] - mu);  // 0 for a warp that saw nothing
-      L += wl[w * G + g] * f;
-      A += f == 0.f ? 0.f : wacc[(w * G + g) * Dk + d] * f;
+      const float f = exp2f(wm[w * Gc + g] - mu);  // 0 for a warp that saw nothing
+      L += wl[w * Gc + g] * f;
+      A += f == 0.f ? 0.f : wacc[(w * Gc + g) * Dk + d] * f;
     }
-    const size_t j = ((size_t)b * Hq + h * G + g) * nsplit + split;
+    const size_t j = ((size_t)b * Hq + hq0 + g) * nsplit + split;
     pt.acc[j * Dk + d] = A;
     if (d == 0) {
       pt.m[j] = M;
@@ -293,93 +302,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (slot, query head): merge the splits' partials (a split
-// with l = 0 saw no lane and is skipped).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    merge_kernel(const float* __restrict__ part, T* __restrict__ out, int BH, int Dk,
-                 int nsplit) {
-  const int bh = blockIdx.x;
-  const Partials pt(const_cast<float*>(part), BH, nsplit, Dk);
-  const float* m = pt.m + (size_t)bh * nsplit;
-  const float* l = pt.l + (size_t)bh * nsplit;
-  float M = -INFINITY;
-  for (int s = 0; s < nsplit; ++s)
-    if (l[s] > 0.f) M = fmaxf(M, m[s]);
-  for (int d = threadIdx.x; d < Dk; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      if (!(l[s] > 0.f)) continue;
-      const float f = exp2f(m[s] - M);
-      L += l[s] * f;
-      A += pt.acc[((size_t)bh * nsplit + s) * Dk + d] * f;
-    }
-    store_out(out + (size_t)bh * Dk + d, L > 0.f ? A / L : 0.f);
-  }
-}
-
-template <typename T, int kG>
-int launch_split(const T* q, const T* k_pool, const T* v_pool, const int* pages, const int* pos,
-                 float* part, int B, int Hq, int Hkv, int Dk, int ps, int P, int N, int nsplit,
-                 float scale_log2, int tpr, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const int pps = (P + nsplit - 1) / nsplit;
-  const size_t smem =
-      sizeof(float) * (2 * kWarps * G + (size_t)kWarps * G * Dk) + sizeof(int) * pps;
-  split_kernel<T, kG><<<dim3(B, Hkv, nsplit), kThreads, smem, stream>>>(
-      q, k_pool, v_pool, pages, pos, part, Hq, Hkv, Dk, ps, P, N, nsplit, scale_log2, tpr);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* pages,
            const void* pos, void* out, void* part, int B, int Hq, int Hkv, int Dk, int ps, int P,
-           int N, int nsplit, float scale, void* stream) {
+           int N, long long page_stride, long long head_stride, int split_lanes, float scale,
+           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
   int tpr = 1;
   while (tpr * 8 < Dk) tpr <<= 1;  // threads a row: ceil(Dk / 8), a power of two <= 32
-  if (Dk % 8 || tpr > 32 || G < 1 || G > 8 || nsplit < 1 || !part)
+  if (Dk % 8 || tpr > 32 || G < 1 || Hq % Hkv || split_lanes < 64 || split_lanes % 64 || !part)
     return (int)cudaErrorInvalidValue;
+  const int S = P * ps;
+  const int nsplit = (S + split_lanes - 1) / split_lanes;
+  const int nchunk = (G + kChunk - 1) / kChunk;
+  const int Gc = min(G, kChunk);
+  const size_t smem = sizeof(float) * (2 * kWarps * Gc + (size_t)kWarps * Gc * Dk);
+  const dim3 grid(B, Hkv * nchunk, nsplit);
   const T* qq = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k_pool);
   const T* vp = static_cast<const T*>(v_pool);
   const int* pg = static_cast<const int*>(pages);
   const int* pp = static_cast<const int*>(pos);
-  T* o = static_cast<T*>(out);
   float* pt = static_cast<float*>(part);
   const float sl = scale * kLog2e;
-#define GQA_SPLIT(KG) \
-  launch_split<T, KG>(qq, kp, vp, pg, pp, pt, B, Hq, Hkv, Dk, ps, P, N, nsplit, sl, tpr, s)
-  const int e =
-      G == 1 ? GQA_SPLIT(1) : G == 2 ? GQA_SPLIT(2) : G <= 4 ? GQA_SPLIT(4) : GQA_SPLIT(8);
+#define GQA_SPLIT(KG)                                                                       \
+  split_kernel<T, KG><<<grid, kThreads, smem, s>>>(qq, kp, vp, pg, pp, pt, Hq, Hkv, Dk, ps, P, \
+                                                   N, page_stride, head_stride, split_lanes,  \
+                                                   nsplit, nchunk, sl, tpr)
+  if (Gc == 1)
+    GQA_SPLIT(1);
+  else if (Gc == 2)
+    GQA_SPLIT(2);
+  else if (Gc <= 4)
+    GQA_SPLIT(4);
+  else
+    GQA_SPLIT(8);
 #undef GQA_SPLIT
-  if (e) return e;
-  merge_kernel<T><<<B * Hq, kThreads, 0, s>>>(pt, o, B * Hq, Dk, nsplit);
+  if (const int e = (int)cudaGetLastError()) return e;
+  merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(pt, static_cast<T*>(out), B * Hq, Dk, nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 = ok.
-// Pointers are device pointers of contiguous, 16-byte aligned tensors: q
-// (B,Hq,Dk), pools (N,Hkv,ps,Dk), pages (B,P) int32 (-1 = unmapped), pos
-// (B,) int32, out (B,Hq,Dk); `part` is f32 scratch of B*Hq*nsplit*(Dk + 2)
-// floats.  `nsplit` splits of ceil(P / nsplit) pages each (at most 1024),
-// chosen by the wrapper.  One call launches the split kernel and the merge
-// kernel: the wrapper counts it as one launch.
+// Device pointers, 16-byte aligned: q (B,Hq,Dk) and out (B,Hq,Dk)
+// contiguous; the pools' lane t of page row r and kv head h at element
+// r * page_stride + h * head_stride + (t % ps) * Dk (rows r < N); pages
+// (B,P) int32 (-1 = unmapped); pos (B,) int32; `part` is f32 scratch of
+// B*Hq*nsplit*(Dk + 2) floats, nsplit = ceil(P * ps / split_lanes).
+// split_lanes, a multiple of 64, is chosen by the wrapper.  One call
+// launches the split kernel and the merge kernel: the wrapper counts it
+// as one launch.
 extern "C" int paged_gqa_decode_f32(const void* q, const void* k_pool, const void* v_pool,
                                     const void* pages, const void* pos, void* out, void* part,
                                     int B, int Hq, int Hkv, int Dk, int ps, int P, int N,
-                                    int nsplit, float scale, void* stream) {
+                                    long long page_stride, long long head_stride,
+                                    int split_lanes, float scale, void* stream) {
   return launch<float>(q, k_pool, v_pool, pages, pos, out, part, B, Hq, Hkv, Dk, ps, P, N,
-                       nsplit, scale, stream);
+                       page_stride, head_stride, split_lanes, scale, stream);
 }
 
 extern "C" int paged_gqa_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                                      const void* pages, const void* pos, void* out, void* part,
                                      int B, int Hq, int Hkv, int Dk, int ps, int P, int N,
-                                     int nsplit, float scale, void* stream) {
+                                     long long page_stride, long long head_stride,
+                                     int split_lanes, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k_pool, v_pool, pages, pos, out, part, B, Hq, Hkv, Dk, ps, P,
-                               N, nsplit, scale, stream);
+                               N, page_stride, head_stride, split_lanes, scale, stream);
 }

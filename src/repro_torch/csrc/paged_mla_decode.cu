@@ -1,11 +1,12 @@
 // Paged absorbed-MLA single-query decode attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/paged_decode.py::paged_mla_attention (_mla_kernel).  Same function: for each slot b and
-// query head, attend over the slot's latent pages through its page-table
-// row (-1 = unmapped, read as zero lanes and masked; a row past the pool's
-// end reads the last row, as the plain gather clamps), masking lanes past
-// pos[b] with the finite -1e30; scores in f32 as
+// src/repro/kernels/paged_decode.py::paged_mla_attention (_mla_kernel,
+// pallas_call at :250).  Same function: for each slot b and query head,
+// attend over the slot's latent pages through its page-table row (-1 =
+// unmapped, read as zero lanes and masked; a row past the pool's end reads
+// the last row, as the plain gather clamps), masking lanes past pos[b]
+// with the finite -1e30; scores in f32 as
 // (q_lat . ckv + q_rope . krope) * scale, the scale applied after the sum;
 // a full f32 softmax over all P * ps lanes (a row with no valid lane
 // averages its gathered ckv lanes, 0 when nothing is mapped); the output
@@ -15,40 +16,92 @@
 // h = 128 heads, lora = 512, rope = 64, 512 lanes, bf16 in, f32 out) it
 // must move q 1.2 MB + ckv 4.2 MB + krope 0.5 MB + out 2.1 MB = 8.0 MB,
 // 2.4 us at 3.35 TB/s, and do 1.14 GFLOP: 1.2 us on the bf16 tensor
-// cores, 17 us on the f32 CUDA cores this kernel uses.  All heads share
-// one latent row per lane, so the work is two small products per slot,
-// (h x 576) . (576 x S) and (h x S) . (S x 512).
+// cores.  All heads share one latent row per lane, so the work is two
+// small products per slot, (h x 576) . (576 x S) and (h x S) . (S x 512).
 //
-// Design (simple and right first): one block per (slot, group of G query
-// heads); G is a template parameter chosen by the wrapper, the largest
-// that fits (16 at the served shape).  The block loads its page row itself (no
-// scalar prefetch) and its G query rows [q_lat | q_rope] into shared
-// memory as f32.
+// bf16 design (bf16_kernel; the layout of DeepSeek's public FlashMLA for
+// this function on Hopper, on K7's wgmma helpers in hopper.cuh):
+//   * grid (slot, group of 64 query heads, split): a split is a run of
+//     split_lanes lanes, a multiple of the 64-lane tile.  The wrapper takes
+//     the most splits that keep the grid within one wave (one block fills
+//     an SM: 221 KB of shared memory) with at least two tiles a split, so
+//     a tile's copy overlaps the products of the one before: 4 splits of
+//     128 lanes at B = 8 and 512 lanes, 8 of 512 at 4096, the fastest of
+//     the split sweep in chip_smoke.py phase 2f (one tile a split re-reads
+//     Q and writes more partials per lane; a second wave waits on the
+//     first).  Split boundaries and tiles sit at
+//     multiples of 64 lanes from lane 0, so the reduction order is a
+//     function of the lane index alone: a dense cache seen as one page of
+//     S lanes a slot and a paged pool give the same bits;
+//   * all 256 threads (two warpgroups) copy with cp.async, 16 bytes a
+//     thread, four threads a lane: the block's 64 query rows [q_lat |
+//     q_rope] once, then tiles of 64 latent rows [ckv | krope], each lane's
+//     row found through the page table, into two stages (the next tile's
+//     copies fly while the tensor cores work on this one).  Each row is 9
+//     blocks of 64 columns (lora zero-padded to 512, rope to 64), 128 B a
+//     row, 16-byte chunks XOR row % 8: the 128-byte swizzle wgmma reads.
+//     Lanes past pos, past the split and on unmapped pages are never read:
+//     cp.async writes zeros there (a zero in the tile, not a stale value,
+//     meets p = 0 in P.V);
+//   * S = Q K^T with wgmma.m64n64k16 over the 576 columns (36 steps; both
+//     operands K-major in shared memory), f32 accumulators.  Both
+//     warpgroups compute the same S: P.V needs all of P in each, and
+//     recomputing S costs less than a handoff through shared memory;
+//   * the online softmax in registers (quad shuffles per row, ex2 in log2
+//     units; the scale applied to the f32 sum);
+//   * O += P V with P from registers (the accumulator layout of S is the
+//     A-fragment layout of P, as in K7) and V the tile's first 512
+//     columns, MN-major (transpose-B).  The 512 context columns are split
+//     between the two warpgroups (64 x 256 f32 accumulators each: one
+//     warpgroup could not hold 64 x 512).  P is split into a bf16 high
+//     part and a bf16 remainder, two products, so P carries 16 bits of
+//     mantissa and the f32 context stays within the instance's 1e-3 limit
+//     (bf16 P alone would put 2^-9 of relative error on every weight);
+//   * the splits' unnormalised contexts and (m, l) go to f32 partials and
+//     merge_kernel (split_merge.cuh, launched from the same entry point, as
+//     K5's) combines them in split order and normalises;
+//   * a slot with mapped pages but no valid lane: the full softmax over
+//     -1e30 scores is uniform over all P * ps lanes.  The block detects the
+//     case from the page row and pos (as K5 does) and takes that mean
+//     explicitly: no S product, score 0 on every lane of the slot, the
+//     unmapped ones zero-filled;
+//   * the scores never sit in shared memory: max_len has no shared-memory
+//     cap.
+//
+// f32 design (f32_kernel): CUDA cores, since TF32 tensor cores would break
+// f32's 1e-4 limit.  One block per (slot, group of G query heads); G is a
+// template parameter chosen by the wrapper, the largest that fits (16 at
+// 512 lanes).  The block loads its page row and its G query rows into
+// shared memory as f32.
 //   Pass 1: one thread per lane (t = tid, tid + 256, ...) reads the lane's
 //   576 latent values straight from device memory in 16-byte chunks and
-//   keeps G dot products in registers; the query values are shared-memory
-//   broadcasts (every thread of a warp reads the same float4).  Masked
-//   lanes never touch the pools.  Scores go to shared memory as (S, G).
+//   keeps G dot products in registers.  Masked lanes never touch the
+//   pools.  Scores go to shared memory as (S, G).
 //   Softmax: per-head max and sum over all S lanes, each thread over its
-//   lanes, reduced across the block (warp shuffles, then one row per warp
-//   in shared memory).  The scores become p in place.
-//   Pass 2: each thread owns two of the lora columns for all G heads (2G
-//   f32 accumulators in registers) and streams the live lanes again: the
-//   lanes <= pos of mapped pages, or every mapped lane when the row has no
-//   valid lane (masked lanes of a row with a valid lane have p = 0 exactly).
-// Known costs, recorded and not fixed here: at the served shape the grid
-// is 64 blocks on 132 SMs, the latent rows are read h / G times (from L2),
-// and the products run on the CUDA cores in f32.
-// The (S, G) scores live in shared memory, which bounds max_len; the
-// wrapper refuses inputs whose block would exceed Hopper's 227 KB, and
-// picks a smaller G for longer caches.
+//   lanes, reduced across the block.  The scores become p in place.
+//   Pass 2: each thread owns two of the lora columns for all G heads and
+//   streams the live lanes again: the lanes <= pos of mapped pages, or
+//   every mapped lane when the row has no valid lane.
+// Every sum runs over lanes in index order with the lane -> thread map
+// t % 256, so a dense view gives the paged pool's bits here too.  The
+// (S, G) scores live in shared memory, which bounds max_len; the wrapper
+// refuses inputs whose block would exceed Hopper's 227 KB, and picks a
+// smaller G for longer caches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper.cuh"        // cp.async, wgmma and the swizzled descriptors
+#include "split_merge.cuh"   // the split partials and the merge kernel
 
 namespace {
+
+// --------------------------------------------------------------------------
+// f32: CUDA cores, scores in shared memory
+// --------------------------------------------------------------------------
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
@@ -62,28 +115,9 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // two consecutive values as f32 (p 8- or 4-byte aligned: the column is even)
 __device__ __forceinline__ float2 load2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
 }
 
 // G consecutive f32 from shared memory (16-byte aligned when G % 4 == 0)
@@ -142,8 +176,8 @@ __device__ void block_reduce(float (&v)[G], float* red) {
 
 // dot products of one lane's row (n values, n % 8 == 0) with the G query
 // rows held in shared memory at stride `dk`
-template <int G, typename T>
-__device__ __forceinline__ void dot_rows(const T* __restrict__ row, const float* qs, int dk,
+template <int G>
+__device__ __forceinline__ void dot_rows(const float* __restrict__ row, const float* qs, int dk,
                                          int n, float (&acc)[G]) {
 #pragma unroll 4
   for (int d = 0; d < n; d += 8) {
@@ -167,10 +201,10 @@ __device__ __forceinline__ void dot_rows(const T* __restrict__ row, const float*
   }
 }
 
-template <int G, typename T>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-    paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
-                            const T* __restrict__ ckv, const T* __restrict__ krope,
+    f32_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope,
+                            const float* __restrict__ ckv, const float* __restrict__ krope,
                             const int* __restrict__ pages, const int* __restrict__ pos,
                             float* __restrict__ out, int H, int lora, int rope, int ps, int P,
                             int N, float scale) {
@@ -191,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < G * dk; i += kThreads) {
     const int g = i / dk, d = i - g * dk;
     const size_t hq = (size_t)b * H + h0 + g;
-    qs[i] = d < lora ? load_f32(q_lat + hq * lora + d) : load_f32(q_rope + hq * rope + d - lora);
+    qs[i] = d < lora ? q_lat[hq * lora + d] : q_rope[hq * rope + d - lora];
   }
   __syncthreads();
 
@@ -261,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
       if (row < 0) continue;  // unmapped page: zero lanes
       const int t0 = pg * ps;
       const int t1 = any_valid ? min(t0 + ps, qpos + 1) : t0 + ps;
-      const T* kr = ckv + (size_t)row * ps * lora + c;
+      const float* kr = ckv + (size_t)row * ps * lora + c;
 #pragma unroll 8
       for (int t = t0; t < t1; ++t) {
         const float2 kv = load2(kr + (size_t)(t - t0) * lora);
@@ -280,7 +314,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int G, typename T>
+template <int G>
 int launch_g(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
              const void* pages, const void* pos, void* out, int B, int H, int lora, int rope,
              int ps, int P, int N, float scale, size_t smem, cudaStream_t stream) {
@@ -289,42 +323,286 @@ int launch_g(const void* q_lat, const void* q_rope, const void* ckv, const void*
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_mla_decode_kernel<G, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        f32_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   const dim3 grid(B, H / G);
-  paged_mla_decode_kernel<G, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q_lat), static_cast<const T*>(q_rope), static_cast<const T*>(ckv),
-      static_cast<const T*>(krope), static_cast<const int*>(pages), static_cast<const int*>(pos),
+  f32_kernel<G><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q_lat), static_cast<const float*>(q_rope), static_cast<const float*>(ckv),
+      static_cast<const float*>(krope), static_cast<const int*>(pages), static_cast<const int*>(pos),
       static_cast<float*>(out), H, lora, rope, ps, P, N, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
-           const void* pages, const void* pos, void* out, int B, int H, int lora, int rope,
-           int ps, int P, int N, int G, float scale, size_t smem, void* stream) {
+int launch_f32(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
+               const void* pages, const void* pos, void* out, int B, int H, int lora, int rope,
+               int ps, int P, int N, int G, float scale, size_t smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLA_F32(G_) \
+  launch_g<G_>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P, N, scale, smem, s)
   switch (G) {
-    case 1:
-      return launch_g<1, T>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P,
-                            N, scale, smem, s);
-    case 2:
-      return launch_g<2, T>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P,
-                            N, scale, smem, s);
-    case 4:
-      return launch_g<4, T>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P,
-                            N, scale, smem, s);
-    case 8:
-      return launch_g<8, T>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P,
-                            N, scale, smem, s);
-    case 16:
-      return launch_g<16, T>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps,
-                             P, N, scale, smem, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return MLA_F32(1);
+    case 2: return MLA_F32(2);
+    case 4: return MLA_F32(4);
+    case 8: return MLA_F32(8);
+    case 16: return MLA_F32(16);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef MLA_F32
+}
+
+// --------------------------------------------------------------------------
+// bf16: cp.async tiles through the page table, wgmma on the tensor cores
+// --------------------------------------------------------------------------
+constexpr int kHeads = 64;       // query heads a block takes: one wgmma M
+constexpr int kTile = 64;        // latent lanes a tile
+constexpr int kLoraMax = 512;    // latent width of the instance (zero-padded)
+constexpr int kRopeMax = 64;     // RoPE width of the instance (zero-padded)
+constexpr int kColBlocks = (kLoraMax + kRopeMax) / 64;  // 9 swizzled 64-column blocks
+constexpr uint32_t kBlockBytes = 64 * 128;              // one 64-row, 64-column block
+constexpr uint32_t kTileBytes = kColBlocks * kBlockBytes;  // 72 KB, Q's size too
+constexpr int kBf16Threads = 256;  // two warpgroups
+// Q, two tile stages, the stages' lane flags, and the slack to align to 1024
+constexpr size_t kBf16Smem = 3 * (size_t)kTileBytes + 2 * kTile + 1024;
+
+// Row r (< 64) of a swizzled [lat | rope] tile at dst: this thread's 18 of
+// its 72 16-byte chunks (chunk c = part + 4 i), each read from lat or rope,
+// or zero-filled past lora / rope and where `ok` is false.
+__device__ __forceinline__ void copy_row(uint32_t dst, int r, int part,
+                                         const __nv_bfloat16* lat, const __nv_bfloat16* rp,
+                                         int lora, int rope, bool ok) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    const int c = part + 4 * i;
+    const int cc = c & 7;
+    const uint32_t d = dst + (c >> 3) * kBlockBytes + r * 128 + ((cc ^ (r & 7)) << 4);
+    const bool in = c < 64 ? ok && c * 8 < lora : ok && (c - 64) * 8 < rope;
+    const __nv_bfloat16* src = c < 64 ? lat + c * 8 : rp + (c - 64) * 8;
+    cp_async16(d, in ? src : lat, in ? 16u : 0u);
+  }
+}
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    bf16_kernel(const __nv_bfloat16* __restrict__ q_lat, const __nv_bfloat16* __restrict__ q_rope,
+                const __nv_bfloat16* __restrict__ ckv, const __nv_bfloat16* __restrict__ krope,
+                const int* __restrict__ pages, const int* __restrict__ pos,
+                float* __restrict__ part, int H, int lora, int rope, int ps, int P, int N,
+                int split_lanes, int nsplit, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;
+  auto stage = [&](int st) { return qs + (1 + st) * kTileBytes; };
+  // per stage and lane of the tile: 1 where the lane's score counts
+  unsigned char* okf = smem_raw + (qs - raw) + 3 * kTileBytes;
+
+  const int b = blockIdx.x, h0 = blockIdx.y * kHeads, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int qpos = pos[b];
+  const int* prow = pages + (size_t)b * P;
+
+  // Does the slot have a valid lane (a mapped page starting at or before
+  // pos)?  If not, the block takes the uniform mean of the slot's lanes.
+  int has_valid = 0;
+  for (int i = tid; i < P; i += kBf16Threads) has_valid |= prow[i] >= 0 && i * ps <= qpos;
+  const bool uniform = !__syncthreads_or(has_valid);
+  const int S = P * ps;
+  const int L0 = split * split_lanes;
+  const int Lend = min(S, L0 + split_lanes);
+  const int L1 = uniform ? Lend : min(Lend, qpos + 1);  // lanes [L0, L1) of the split
+  const Partials pt(part, gridDim.x * H, nsplit, lora);
+  if (L1 <= L0) {  // no valid lane in this split: an empty partial
+    for (int g = tid; g < kHeads && h0 + g < H; g += kBf16Threads) {
+      const size_t i = ((size_t)b * H + h0 + g) * nsplit + split;
+      pt.m[i] = -INFINITY;
+      pt.l[i] = 0.f;
+    }
+    return;
+  }
+  const int n_tiles = (L1 - L0 + kTile - 1) / kTile;
+
+  // copies: thread tid fills row tid / 4 of a tile, chunks tid % 4 + 4 i
+  const int lr = tid >> 2, lp = tid & 3;
+  auto load_tile = [&](int j) {
+    const int st = j & 1, t = L0 + j * kTile + lr;
+    const int row = t < L1 ? min(__ldg(prow + t / ps), N - 1) : -1;
+    const size_t lane = row >= 0 ? (size_t)row * ps + t % ps : 0;
+    copy_row(stage(st), lr, lp, ckv + lane * lora, krope + lane * rope, lora, rope, row >= 0);
+    if (lp == 0) okf[st * kTile + lr] = t < L1 && (uniform || row >= 0);
+  };
+  {
+    const int hq = min(h0 + lr, H - 1);  // rows past H: zeros, never stored
+    const size_t qrow = (size_t)b * H + hq;
+    copy_row(qs, lr, lp, q_lat + qrow * lora, q_rope + qrow * rope, lora, rope, h0 + lr < H);
+  }
+  load_tile(0);
+  cp_async_commit();
+
+  // a warpgroup: rows r0 and r0 + 8 of the 64 heads in this thread; its
+  // 256 context columns [256 wg, 256 wg + 256)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  float o[2][64];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) o[i][j] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) load_tile(j + 1);  // into the stage tile j - 1 left
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) landed for this thread's copies
+    fence_async_shared();
+    __syncthreads();  // ... and for every thread's
+
+    // S = Q K^T over the 576 columns; s[4 jj + e] is row r0 + 8 (e >> 1),
+    // lane L0 + 64 j + 8 jj + c0 + (e & 1)
+    float s[32];
+    if (!uniform) {
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kColBlocks; ++kk) {
+        const uint32_t off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
+        wgmma_ss(s, desc(qs + off, 16, 1024), desc(stage(st) + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    }
+    // the online softmax of the tile, in log2 units; a lane whose flag is
+    // 0 scores -inf (p = 0), and every lane of a uniform slot scores 0
+    const unsigned char* ok = okf + st * kTile;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * jj + e] * scale_log2;
+        s[4 * jj + e] = ok[8 * jj + c0 + (e & 1)] ? x : -INFINITY;
+        if (e & 2)
+          mx1 = fmaxf(mx1, s[4 * jj + e]);
+        else
+          mx0 = fmaxf(mx0, s[4 * jj + e]);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;  // a row that saw nothing yet
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float al0 = ex2(m0 - mu0), al1 = ex2(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    // P as the A fragments of P.V: a bf16 high part and the bf16 remainder
+    uint32_t ph[4][4], pl[4][4];
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = ex2(s[4 * jj + e] - (e & 2 ? mu1 : mu0));
+      ls0 += p[0] + p[1];
+      ls1 += p[2] + p[3];
+      const __nv_bfloat162 h01 = __floats2bfloat162_rn(p[0], p[1]);
+      const __nv_bfloat162 h23 = __floats2bfloat162_rn(p[2], p[3]);
+      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+      ph[jj >> 1][(jj & 1) * 2] = *reinterpret_cast<const uint32_t*>(&h01);
+      ph[jj >> 1][(jj & 1) * 2 + 1] = *reinterpret_cast<const uint32_t*>(&h23);
+      pl[jj >> 1][(jj & 1) * 2] = pack_bf16(p[0] - f01.x, p[1] - f01.y);
+      pl[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(p[2] - f23.x, p[3] - f23.y);
+    }
+    l0 = l0 * al0 + ls0;  // this thread's share of the row sum
+    l1 = l1 * al1 + ls1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        o[i][4 * jj] *= al0;
+        o[i][4 * jj + 1] *= al0;
+        o[i][4 * jj + 2] *= al1;
+        o[i][4 * jj + 3] *= al1;
+      }
+    // O += P V: 16 lanes a step; V's 64-column blocks are a block apart
+    // (the leading byte offset), 8-lane groups 1024 B (the stride)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t bv = stage(st) + (4 * wg + 2 * i) * kBlockBytes + kk * (16 * 128);
+        wgmma_rs(o[i], ph[kk], desc(bv, kBlockBytes, 1024), 1);
+        wgmma_rs(o[i], pl[kk], desc(bv, kBlockBytes, 1024), 1);
+      }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) fence_regs(o[i]);
+    fence_regs(ph);
+    fence_regs(pl);
+    __syncthreads();  // every warpgroup is done with the stage: tile j + 2 may land there
+  }
+
+  // this split's partials: the unnormalised context, (m, l) in log2 units
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int hA = h0 + r0, hB = hA + 8;
+  const size_t jA = ((size_t)b * H + hA) * nsplit + split, jB = jA + 8 * (size_t)nsplit;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int col = 256 * wg + 128 * i + 8 * jj + c0;  // lora % 8 == 0: col + 1 < lora too
+      if (col >= lora) continue;
+      if (hA < H)
+        *reinterpret_cast<float2*>(pt.acc + jA * lora + col) =
+            make_float2(o[i][4 * jj], o[i][4 * jj + 1]);
+      if (hB < H)
+        *reinterpret_cast<float2*>(pt.acc + jB * lora + col) =
+            make_float2(o[i][4 * jj + 2], o[i][4 * jj + 3]);
+    }
+  if (wg == 0 && (lane & 3) == 0) {
+    if (hA < H) pt.m[jA] = m0, pt.l[jA] = l0;
+    if (hB < H) pt.m[jB] = m1, pt.l[jB] = l1;
+  }
+}
+
+int launch_bf16(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
+                const void* pages, const void* pos, void* out, void* part, int B, int H,
+                int lora, int rope, int ps, int P, int N, int split_lanes, float scale,
+                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lora > kLoraMax || rope > kRopeMax || lora % 8 || rope % 8 || split_lanes < kTile ||
+      split_lanes % kTile || !part)
+    return (int)cudaErrorInvalidValue;
+  // Raise the dynamic shared memory limit on the first (eager) launch:
+  // not again inside a CUDA-graph capture.
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBf16Smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  const int nsplit = (P * ps + split_lanes - 1) / split_lanes;
+  const dim3 grid(B, (H + kHeads - 1) / kHeads, nsplit);
+  bf16_kernel<<<grid, kBf16Threads, kBf16Smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q_lat), static_cast<const __nv_bfloat16*>(q_rope),
+      static_cast<const __nv_bfloat16*>(ckv), static_cast<const __nv_bfloat16*>(krope),
+      static_cast<const int*>(pages), static_cast<const int*>(pos), static_cast<float*>(part), H,
+      lora, rope, ps, P, N, split_lanes, nsplit, scale * kLog2e);
+  if (const int e = (int)cudaGetLastError()) return e;
+  merge_kernel<float><<<B * H, kMergeThreads, 0, s>>>(static_cast<const float*>(part),
+                                                      static_cast<float*>(out), B * H, lora,
+                                                      nsplit);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -333,22 +611,29 @@ int launch(const void* q_lat, const void* q_rope, const void* ckv, const void* k
 // Device pointers of contiguous, 16-byte aligned tensors: q_lat (B,H,lora),
 // q_rope (B,H,rope), ckv (N,ps,lora), krope (N,ps,rope), all of the entry
 // point's type; pages (B,P) int32 (-1 = unmapped); pos (B,) int32; out
-// (B,H,lora) f32.  lora and rope are multiples of 8; G (heads per block)
-// is 1, 2, 4, 8 or 16 and divides H.  `smem` is the block's dynamic
-// shared memory in bytes, computed by the wrapper:
+// (B,H,lora) f32.  lora and rope are multiples of 8.
+//
+// f32: G (heads per block) is 1, 2, 4, 8 or 16 and divides H; `smem` is
+// the block's dynamic shared memory in bytes, computed by the wrapper:
 // 4 * (8 * 16 + G * (lora + rope) + P * ps * G + P).
 extern "C" int paged_mla_decode_f32(const void* q_lat, const void* q_rope, const void* ckv,
                                     const void* krope, const void* pages, const void* pos,
                                     void* out, int B, int H, int lora, int rope, int ps, int P,
                                     int N, int G, float scale, size_t smem, void* stream) {
-  return launch<float>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P, N, G,
-                       scale, smem, stream);
+  return launch_f32(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P, N, G,
+                    scale, smem, stream);
 }
 
+// bf16: lora <= 512 and rope <= 64; `part` is f32 scratch of
+// B*H*nsplit*(lora + 2) floats, nsplit = ceil(P * ps / split_lanes), and
+// split_lanes a multiple of 64 chosen by the wrapper.  One call launches
+// the split kernel and the merge kernel: the wrapper counts it as one
+// launch.
 extern "C" int paged_mla_decode_bf16(const void* q_lat, const void* q_rope, const void* ckv,
                                      const void* krope, const void* pages, const void* pos,
-                                     void* out, int B, int H, int lora, int rope, int ps, int P,
-                                     int N, int G, float scale, size_t smem, void* stream) {
-  return launch<__nv_bfloat16>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps,
-                               P, N, G, scale, smem, stream);
+                                     void* out, void* part, int B, int H, int lora, int rope,
+                                     int ps, int P, int N, int split_lanes, float scale,
+                                     void* stream) {
+  return launch_bf16(q_lat, q_rope, ckv, krope, pages, pos, out, part, B, H, lora, rope, ps, P,
+                     N, split_lanes, scale, stream);
 }

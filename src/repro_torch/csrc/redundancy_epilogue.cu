@@ -1,6 +1,6 @@
 // The DMR/TMR epilogue kernels for Hopper (sm_90a): integer streaming
-// passes over flat u32 word streams (a state tree packed by
-// repro_torch/kernels/ops.py::flatten_to_u32).
+// passes over u32 word streams (a state tree as
+// repro_torch/kernels/ops.py::flatten_to_u32 lays it out).
 //
 // Replaces four Pallas TPU kernels, all of which share one piece of
 // fingerprint math (repro/kernels/state_hash.py::block_fingerprint):
@@ -20,8 +20,9 @@
 // fp_add below is its single definition on the card; K1, K2 and K3 all
 // call it.
 //
-// What bounds them: bytes.  Per word K1 reads 8 B, K2 and K4 move 16 B
-// (3 reads, 1 write), K3 reads 4 B.  Their integer work is 11-28
+// What bounds them: bytes.  Per word K1 reads 8 B, K2 moves 24 B (3
+// reads, and the voted word written to 3 replicas), K4 16 B (3 reads, 1
+// write), K3 reads 4 B.  Their integer work is 11-28
 // operations a word (K4 11, K3 14, K2 25, K1 28), which on this card
 // (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T ops/s against 3.35 TB/s)
 // puts K1 and K2 near the bytes line and K3/K4 below it.
@@ -33,11 +34,21 @@
 // thread keeps its sums, its xor and its counts in registers; a warp
 // reduction (__shfl_xor_sync) and a block reduction follow; and one
 // atomicAdd / atomicXor per output word and block lands the result in an
-// output the wrapper zeroed.  Addition mod 2^32 and xor are commutative
+// output the launch zeroed.  Addition mod 2^32 and xor are commutative
 // and associative, so every result is BITWISE the same for any launch
-// shape and any order of the atomics: no run-to-run variation.  Streams
-// whose pointers are not 16-byte aligned, and the last n % 4 words, take
-// a scalar loop with the same arithmetic.
+// shape, any split of the stream into launches and any order of the
+// atomics: no run-to-run variation.  Streams whose pointers are not
+// 16-byte aligned, and the last n % 4 words, take a scalar loop with the
+// same arithmetic.
+//
+// The stream is given as segments: runs of words at a global index, each
+// read from its own pointer per replica, or read as zeros (the stream's
+// padding).  K3 and K4 take a flat stream, one segment.  K1 and K2 take a
+// replicated state tree as one segment per leaf, read where the replicas
+// lie (a u32 view of each word-aligned leaf), so they need no packed copy
+// of the state; K2 writes the voted words of a segment to up to three
+// outputs, the re-replicated leaves.  Up to kMaxSegs segments travel in
+// one launch's parameters; more take more launches into the same output.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -113,11 +124,24 @@ __device__ __forceinline__ uint4 load4(const uint32_t* p, size_t q) {
   return __ldcs(reinterpret_cast<const uint4*>(p) + q);
 }
 
+// A run of n words at global index off: word k of replica r at in[r][k]
+// (in[0] null: every word is 0), the voted word k to out[r][k] for each
+// non-null out[r].  The layout of the C interface's segment array.
+struct Seg {
+  const uint32_t* in[3];
+  uint32_t* out[3];
+  unsigned long long n;
+  unsigned long long off;
+};
+constexpr int kMaxSegs = 16;
+struct Segs {
+  Seg s[kMaxSegs];
+  int count;
+};
+
 template <int M>
 __global__ void __launch_bounds__(kThreads)
-    epilogue_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                    const uint32_t* __restrict__ c, uint32_t* __restrict__ voted,
-                    unsigned long long n, unsigned long long n_vec, uint32_t* __restrict__ out) {
+    epilogue_kernel(const __grid_constant__ Segs segs, uint32_t* __restrict__ out) {
   using S = Spec<M>;
   uint32_t acc[S::kOut];
 #pragma unroll
@@ -126,25 +150,46 @@ __global__ void __launch_bounds__(kThreads)
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
 
-  // words 4q .. 4q+3 of every stream, 16 bytes a thread and stream
-  for (size_t q = tid; q < n_vec; q += stride) {
-    const uint4 x = load4(a, q);
-    const uint4 y = S::kIn >= 2 ? load4(b, q) : zero4;
-    const uint4 z = S::kIn >= 3 ? load4(c, q) : zero4;
-    const uint32_t i = (uint32_t)(4 * q);  // the global index, as a u32
-    uint4 v;
-    v.x = word<M>(acc, x.x, y.x, z.x, i);
-    v.y = word<M>(acc, x.y, y.y, z.y, i + 1);
-    v.z = word<M>(acc, x.z, y.z, z.z, i + 2);
-    v.w = word<M>(acc, x.w, y.w, z.w, i + 3);
-    if constexpr (S::kVoted) __stcs(reinterpret_cast<uint4*>(voted) + q, v);
-  }
-  // the words the vector loop left: the tail, or every word when unaligned
-  for (size_t k = 4 * n_vec + tid; k < n; k += stride) {
-    const uint32_t y = S::kIn >= 2 ? b[k] : 0u;
-    const uint32_t z = S::kIn >= 3 ? c[k] : 0u;
-    const uint32_t v = word<M>(acc, a[k], y, z, (uint32_t)k);
-    if constexpr (S::kVoted) voted[k] = v;
+  for (int k = 0; k < segs.count; ++k) {
+    const Seg& g = segs.s[k];
+    const uint32_t* a = g.in[0];
+    const uint32_t* b = S::kIn >= 2 ? g.in[1] : nullptr;
+    const uint32_t* c = S::kIn >= 3 ? g.in[2] : nullptr;
+    const bool zeros = a == nullptr;
+    uintptr_t ptrs = (uintptr_t)a | (uintptr_t)b | (uintptr_t)c;
+    if (S::kVoted) ptrs |= (uintptr_t)g.out[0] | (uintptr_t)g.out[1] | (uintptr_t)g.out[2];
+    const size_t n = g.n, n_vec = ptrs % 16 == 0 ? n / 4 : 0;
+    const uint32_t i0 = (uint32_t)g.off;  // the global index, as a u32
+
+    // words 4q .. 4q+3 of every stream, 16 bytes a thread and stream
+    for (size_t q = tid; q < n_vec; q += stride) {
+      const uint4 x = zeros ? zero4 : load4(a, q);
+      const uint4 y = S::kIn >= 2 && !zeros ? load4(b, q) : zero4;
+      const uint4 z = S::kIn >= 3 && !zeros ? load4(c, q) : zero4;
+      const uint32_t i = i0 + (uint32_t)(4 * q);
+      uint4 v;
+      v.x = word<M>(acc, x.x, y.x, z.x, i);
+      v.y = word<M>(acc, x.y, y.y, z.y, i + 1);
+      v.z = word<M>(acc, x.z, y.z, z.z, i + 2);
+      v.w = word<M>(acc, x.w, y.w, z.w, i + 3);
+      if constexpr (S::kVoted) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+          if (g.out[r]) __stcs(reinterpret_cast<uint4*>(g.out[r]) + q, v);
+      }
+    }
+    // the words the vector loop left: the tail, or every word when unaligned
+    for (size_t j = 4 * n_vec + tid; j < n; j += stride) {
+      const uint32_t x = zeros ? 0u : a[j];
+      const uint32_t y = S::kIn >= 2 && !zeros ? b[j] : 0u;
+      const uint32_t z = S::kIn >= 3 && !zeros ? c[j] : 0u;
+      const uint32_t v = word<M>(acc, x, y, z, i0 + (uint32_t)j);
+      if constexpr (S::kVoted) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+          if (g.out[r]) g.out[r][j] = v;
+      }
+    }
   }
 
   // warp, then block, then one atomic per output word and block
@@ -180,56 +225,77 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Zero `out`, then launch over `count` segments, kMaxSegs a launch, all
+// accumulating into it.
 template <int M>
-int launch(const void* a, const void* b, const void* c, void* voted, long long n, void* out,
-           void* stream) {
-  using S = Spec<M>;
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  uintptr_t ptrs = (uintptr_t)a;
-  if (S::kIn >= 2) ptrs |= (uintptr_t)b;
-  if (S::kIn >= 3) ptrs |= (uintptr_t)c;
-  if (S::kVoted) ptrs |= (uintptr_t)voted;
-  const unsigned long long n_vec = (ptrs % 16 == 0) ? (unsigned long long)n / 4 : 0;
-  const unsigned long long work = n_vec + ((unsigned long long)n - 4 * n_vec);
+int launch(const Seg* segs, int count, void* out, void* stream) {
+  if (count < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(uint32_t) * Spec<M>::kOut, st);
+  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  unsigned long long blocks = (work + kThreads - 1) / kThreads;
-  const unsigned long long cap = (unsigned long long)sms * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  epilogue_kernel<M><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<const uint32_t*>(c), static_cast<uint32_t*>(voted),
-      (unsigned long long)n, n_vec, static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
+  for (int first = 0; first < count; first += kMaxSegs) {
+    Segs batch;
+    batch.count = count - first < kMaxSegs ? count - first : kMaxSegs;
+    unsigned long long work = 0;  // the longest segment's words, then its 16-byte quads
+    for (int k = 0; k < batch.count; ++k) {
+      batch.s[k] = segs[first + k];
+      work = work > batch.s[k].n ? work : batch.s[k].n;
+    }
+    work = (work + 3) / 4;
+    unsigned long long blocks = (work + kThreads - 1) / kThreads;
+    const unsigned long long cap = (unsigned long long)sms * kBlocksPerSm;
+    if (blocks > cap) blocks = cap;
+    if (blocks < 1) blocks = 1;
+    epilogue_kernel<M><<<(unsigned)blocks, kThreads, 0, st>>>(batch, static_cast<uint32_t*>(out));
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// One segment: a flat stream of n words from global index 0 (K3, K4).
+template <int M>
+int launch_flat(const void* a, const void* b, const void* c, void* voted, long long n, void* out,
+                void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  using S = Spec<M>;
+  Seg g = {{static_cast<const uint32_t*>(a), S::kIn >= 2 ? static_cast<const uint32_t*>(b) : nullptr,
+            S::kIn >= 3 ? static_cast<const uint32_t*>(c) : nullptr},
+           {S::kVoted ? static_cast<uint32_t*>(voted) : nullptr, nullptr, nullptr},
+           (unsigned long long)n,
+           0ull};
+  return launch<M>(&g, 1, out, stream);
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes), one signature for all four.
-// a, b, c: device pointers to n u32 words each (b, c unused where a kernel
-// reads fewer streams; pass NULL); voted: n words written by K2/K4, else
-// NULL; out: the kernel's output words, ZEROED by the caller (K3 4, K4 3,
-// K1 9, K2 7; layouts at Spec above).  Launches on `stream` and returns a
-// cudaError_t; 0 = ok.
+// Plain C interface (loaded with ctypes).  Every entry launches on
+// `stream` and returns a cudaError_t; 0 = ok.  out: the kernel's output
+// words, zeroed here before the sums land (K3 4, K4 3, K1 9, K2 7;
+// layouts at Spec above).
+//
+// K3 / K4 over a flat stream: a, b, c device pointers to n u32 words each
+// (b, c NULL for K3); voted: n words written by K4.
 extern "C" int state_hash_u32(const void* a, const void* b, const void* c, void* voted,
                               long long n, void* out, void* stream) {
-  return launch<kHash>(a, b, c, voted, n, out, stream);
+  return launch_flat<kHash>(a, b, c, voted, n, out, stream);
 }
 
 extern "C" int tmr_vote_u32(const void* a, const void* b, const void* c, void* voted,
                             long long n, void* out, void* stream) {
-  return launch<kVote>(a, b, c, voted, n, out, stream);
+  return launch_flat<kVote>(a, b, c, voted, n, out, stream);
 }
 
-extern "C" int dmr_compare_u32(const void* a, const void* b, const void* c, void* voted,
-                               long long n, void* out, void* stream) {
-  return launch<kDmr>(a, b, c, voted, n, out, stream);
+// K1 / K2 over a stream given as `count` segments (host array of Seg, the
+// struct above: 3 input pointers, 3 output pointers, n, off; 64 bytes),
+// which together cover the word indices [0, total) once each.
+extern "C" int dmr_compare_segs(const void* segs, int count, void* out, void* stream) {
+  return launch<kDmr>(static_cast<const Seg*>(segs), count, out, stream);
 }
 
-extern "C" int tmr_step_u32(const void* a, const void* b, const void* c, void* voted,
-                            long long n, void* out, void* stream) {
-  return launch<kTmr>(a, b, c, voted, n, out, stream);
+extern "C" int tmr_step_segs(const void* segs, int count, void* out, void* stream) {
+  return launch<kTmr>(static_cast<const Seg*>(segs), count, out, stream);
 }

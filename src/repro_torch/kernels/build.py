@@ -3,8 +3,9 @@ with ctypes.
 
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers, so
 a build takes seconds) and compiles into ``_build/lib<name>-<hash>.so``
-next to the package, at first use.  The hash covers the source and the
-flags, so an edited kernel rebuilds and a stale library is never loaded.
+next to the package, at first use.  The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel
+rebuilds and a stale library is never loaded.
 ``build`` starts one nvcc per missing library, all at once.
 """
 
@@ -46,7 +47,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -25,9 +25,17 @@ the GQA kernel's; scores are ``(q_lat . ckv + q_rope . krope) * scale``,
 the scale applied after the sum, and the output is the f32 latent
 context ``p . ckv`` (B, h, lora), cast by the caller before ``w_uv``.
 
+A dense cache is read by the same kernels in place, as one page of S
+lanes a slot: ``dense_gqa_view`` (a strided view of (B, Hkv, S, D) and
+the table ``b * Hkv``) and ``dense_mla_view`` (the cache itself and the
+table ``b``).  Both kernels split a slot's lanes at multiples of
+``SPLIT_QUANTUM`` and reduce in an order fixed by the lane index alone,
+so a dense view and a paged pool holding the same values give the same
+bits: the paged-vs-dense token parity of the engine holds on the card.
+
 Each wrapper takes its plain version for CPU tensors only; a CUDA tensor
 reaches the kernel or an exception.  ``launches`` on a wrapper counts
-its kernel launches: one a call (the GQA kernel's split pass and merge
+its kernel launches: one a call (each kernel's split pass and merge
 pass are one launch of its entry point).
 """
 
@@ -44,12 +52,15 @@ NEG_INF = -1e30
 
 #: dynamic shared memory one block of the kernel may use on Hopper
 SMEM_LIMIT = 232448
-#: largest query-group size (Hq / Hkv) the kernel's register tiles hold
-MAX_GROUP = 8
 #: largest head dim of the GQA kernel (ceil(Dk / 8) threads a row, one warp)
 MAX_HEAD_DIM = 256
-#: most pages one split of the GQA kernel takes (its page rows in shared memory)
-MAX_SPLIT_PAGES = 1024
+#: query heads one GQA block takes (its register tile); a larger group
+#: takes ceil(G / GQA_CHUNK) blocks per kv head
+GQA_CHUNK = 8
+#: lanes of a split boundary: both kernels split a slot's lanes at
+#: multiples of it, so their reduction order is a function of the lane
+#: index alone (a dense view and any page size give the same bits)
+SPLIT_QUANTUM = 64
 
 
 def attend(q, k, v, valid, scale: float) -> torch.Tensor:
@@ -93,24 +104,41 @@ def paged_gqa_plain(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.Tenso
     return attend(q, paged_gather(k_pool, pages), paged_gather(v_pool, pages), valid, scale)
 
 
-def gqa_splits(B: int, Hkv: int, P: int, sms: int) -> int:
-    """Splits of a slot's pages the GQA kernel's grid (B, Hkv, splits)
-    takes: the fewest, a power of two up to P, that give the grid at least
-    two blocks an SM (8 of 4 pages at B = 8, Hkv = 8, P = 32 on 132 SMs),
-    and at least enough that no split holds more than
-    ``MAX_SPLIT_PAGES``; then as many as ceil(P / pages a split) covers."""
+def gqa_split_lanes(B: int, blocks: int, S: int, sms: int) -> int:
+    """Lanes a split of the GQA kernel takes, a multiple of
+    ``SPLIT_QUANTUM``: the fewest splits, a power of two, that give the
+    grid (B, blocks = Hkv x head chunks, splits) at least two blocks an
+    SM, at most one quantum each; 64 lanes, 8 splits, at B = 8, Hkv = 8,
+    G = 2, S = 512 on 132 SMs.  A function of S, not of the page size: a
+    dense view and a paged pool of one slot length split alike."""
+    quanta = -(-S // SPLIT_QUANTUM)
     n = 1
-    while n * 2 <= P and B * Hkv * n < 2 * sms:
+    while n * 2 <= quanta and B * blocks * n < 2 * sms:
         n *= 2
-    n = max(n, -(-P // MAX_SPLIT_PAGES))
-    return -(-P // -(-P // n))
+    return SPLIT_QUANTUM * -(-quanta // n)
+
+
+def dense_gqa_view(k: torch.Tensor, v: torch.Tensor):
+    """A dense cache (B, Hkv, S, D) seen as a pool for the paged kernel,
+    read in place: views (N, Hkv, S, D) with strides (S D, S D, D, 1), so
+    page row r and kv head h start at element (r + h) S D, and the table
+    ``pages[b, 0] = b Hkv`` (one page of S lanes a slot; N = (B - 1) Hkv +
+    1 rows, the last of which ends at the cache's last element)."""
+    if not (k.is_contiguous() and v.is_contiguous()) or v.shape != k.shape:
+        raise ValueError("dense_gqa_view takes two contiguous caches of one shape")
+    B, Hkv, S, D = k.shape
+    N = (B - 1) * Hkv + 1
+    views = [x.as_strided((N, Hkv, S, D), (S * D, S * D, D, 1)) for x in (k, v)]
+    pages = (torch.arange(B, dtype=torch.int32, device=k.device) * Hkv)[:, None]
+    return views[0], views[1], pages
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_gqa_decode")
     for fn in (lib.paged_gqa_decode_f32, lib.paged_gqa_decode_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -124,8 +152,8 @@ def _check(q, k_pool, v_pool, pages, pos) -> None:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
     if pages.dim() != 2 or pages.shape[0] != B or tuple(pos.shape) != (B,):
         raise ValueError(f"pages must be (B,P) and pos (B,) for B={B}")
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}, at most {MAX_GROUP}x")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if min(B, N, ps, Dk, pages.shape[1]) < 1:
         raise ValueError("empty input")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -137,8 +165,11 @@ def _check(q, k_pool, v_pool, pages, pos) -> None:
     tensors = (q, k_pool, v_pool, pages, pos)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the kernel takes contiguous tensors")
+    if not all(t.is_contiguous() for t in (q, pages, pos)):
+        raise ValueError("the kernel takes contiguous q, pages and pos")
+    if k_pool.stride()[2:] != (Dk, 1) or v_pool.stride() != k_pool.stride():
+        raise ValueError("the pools' lanes must be contiguous rows of Dk, and both pools must "
+                         "share one layout (a contiguous pool, or a dense_gqa_view)")
     if Dk % 8 or Dk > MAX_HEAD_DIM:
         raise ValueError(f"head dim {Dk} must be a multiple of 8 (16-byte row loads) and at most "
                          f"{MAX_HEAD_DIM}")
@@ -149,10 +180,12 @@ def _check(q, k_pool, v_pool, pages, pos) -> None:
 def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.Tensor:
     """Single-query GQA attention reading K/V through a page table.
 
-    q (B, Hq, Dk); pools (N, Hkv, ps, Dk); pages (B, P) int32, -1 =
-    unmapped; pos (B,) int32.  Returns (B, Hq, Dk) in q.dtype.  CPU
-    tensors take ``paged_gqa_plain``; CUDA tensors launch the kernel on
-    the current stream."""
+    q (B, Hq, Dk), any group Hq / Hkv; pools (N, Hkv, ps, Dk), contiguous
+    or a ``dense_gqa_view`` (the kernel reads them through their page and
+    head strides); pages (B, P) int32, -1 = unmapped; pos (B,) int32.
+    Returns (B, Hq, Dk) in q.dtype.  CPU tensors take
+    ``paged_gqa_plain``; CUDA tensors launch the kernel on the current
+    stream."""
     if q.device.type == "cpu":
         return paged_gqa_plain(q, k_pool, v_pool, pages, pos, scale=scale)
     if q.device.type != "cuda":
@@ -164,7 +197,9 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
     scale = (Dk**-0.5) if scale is None else scale
     lib = _lib()
     fn = lib.paged_gqa_decode_f32 if q.dtype == torch.float32 else lib.paged_gqa_decode_bf16
-    n_split = gqa_splits(B, Hkv, P, build.sm_count(q.device.index))
+    chunks = -(-(Hq // Hkv) // GQA_CHUNK)
+    split_lanes = gqa_split_lanes(B, Hkv * chunks, P * ps, build.sm_count(q.device.index))
+    n_split = -(-P * ps // split_lanes)
     out = torch.empty_like(q)
     # per split and query head: the unnormalised f32 context, then (m, l)
     part = torch.empty(B * Hq * n_split * (Dk + 2), dtype=torch.float32, device=q.device)
@@ -184,7 +219,9 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
             ps,
             P,
             N,
-            n_split,
+            k_pool.stride(0),
+            k_pool.stride(1),
+            split_lanes,
             float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -200,10 +237,14 @@ paged_gqa_attention.launches = 0
 # --------------------------------------------------------------------------
 # MLA: absorbed latent attention through a page table
 # --------------------------------------------------------------------------
-#: query heads one block of the MLA kernel may take (its register tiles)
+#: query heads one block of the f32 MLA kernel may take (its register tiles)
 MLA_MAX_GROUP = 16
-#: threads of one MLA block (the kernel's kThreads)
+#: threads of one f32 MLA block (the kernel's kThreads)
 MLA_THREADS = 256
+#: query heads one bf16 MLA block takes (one wgmma M)
+MLA_HEADS = 64
+#: widest latent and RoPE rows of the bf16 MLA instance (zero-padded up to them)
+MLA_MAX_LORA, MLA_MAX_ROPE = 512, 64
 
 
 def attend_mla(q_lat, q_rope, ckv, krope, valid, scale: float) -> torch.Tensor:
@@ -237,15 +278,23 @@ def paged_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: f
                       paged_gather_lanes(krope_pool, pages), valid, scale)
 
 
+def dense_mla_view(ckv: torch.Tensor, krope: torch.Tensor):
+    """A dense latent cache (B, S, lora) / (B, S, rope) seen as a pool for
+    the paged kernel: it already has the pool layout (N = B rows of one
+    page of S lanes), so only the table ``pages[b, 0] = b`` is new."""
+    pages = torch.arange(ckv.shape[0], dtype=torch.int32, device=ckv.device)[:, None]
+    return ckv, krope, pages
+
+
 def mla_smem_bytes(group: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
-    """Dynamic shared memory of one MLA block: the per-warp reduction
+    """Dynamic shared memory of one f32 MLA block: the per-warp reduction
     scratch, the group's f32 query rows [q_lat | q_rope], the (seq, group)
     f32 scores and the slot's page row."""
     return 4 * (MLA_THREADS // 32 * MLA_MAX_GROUP + group * (lora + rope) + seq * group + n_pages)
 
 
 def mla_group(h: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
-    """Query heads per block: the largest power of two up to
+    """Query heads per f32 block: the largest power of two up to
     ``MLA_MAX_GROUP`` that divides ``h`` and whose block fits in shared
     memory (16 at h = 128 and 512 lanes, 8 at 4096).  0 when not even
     one head fits."""
@@ -254,15 +303,31 @@ def mla_group(h: int, lora: int, rope: int, seq: int, n_pages: int) -> int:
     return fits[0] if fits else 0
 
 
+def mla_split_lanes(B: int, head_blocks: int, S: int, sms: int) -> int:
+    """Lanes a split of the bf16 MLA kernel takes, a multiple of its
+    64-lane tile (``SPLIT_QUANTUM``): the most splits, a power of two,
+    that keep the grid (B, head_blocks, splits) within one wave (a block
+    fills an SM's shared memory) and leave each split at least two tiles
+    (the next tile's copy overlaps this one's products).  4 splits of 128
+    lanes at DeepSeek's B = 8, h = 128 (2 head blocks), S = 512 on 132
+    SMs, 8 of 512 at S = 4096: the fastest of the split sweep in
+    ``chip_smoke.py`` phase 2f at both lengths.  A function of S, not of
+    the page size."""
+    quanta = -(-S // SPLIT_QUANTUM)
+    n = 1
+    while 4 * n <= quanta and B * head_blocks * 2 * n <= sms:
+        n *= 2
+    return SPLIT_QUANTUM * -(-quanta // n)
+
+
 @functools.cache
 def _mla_lib() -> ctypes.CDLL:
     lib = build.load("paged_mla_decode")
+    lib.paged_mla_decode_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_size_t, ctypes.c_void_p]
+    lib.paged_mla_decode_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
     for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-            ctypes.c_float,
-            ctypes.c_size_t,
-            ctypes.c_void_p,
-        ]
         fn.restype = ctypes.c_int
     return lib
 
@@ -299,11 +364,16 @@ def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos) -> None:
         raise ValueError("the kernel takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in tensors[:4]):
         raise ValueError("the kernel reads 16-byte rows: the queries and pools must be 16-byte aligned")
+    if q_lat.dtype == torch.bfloat16:
+        if lora > MLA_MAX_LORA or rope > MLA_MAX_ROPE:
+            raise ValueError(f"the bf16 kernel takes lora <= {MLA_MAX_LORA} and rope <= "
+                             f"{MLA_MAX_ROPE}, not {lora} / {rope}")
+        return
     smem = mla_smem_bytes(1, lora, rope, pages.shape[1] * ps, pages.shape[1])
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"{smem} bytes of shared memory for one head (max_len {pages.shape[1] * ps}) exceed "
-            f"the {SMEM_LIMIT} a Hopper block can use")
+            f"the {SMEM_LIMIT} a Hopper block of the f32 kernel can use")
 
 
 def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: float) -> torch.Tensor:
@@ -311,10 +381,11 @@ def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scal
     through a page table.
 
     q_lat (B, h, lora) latent-absorbed query; q_rope (B, h, rope); pools
-    (N, ps, lora) / (N, ps, rope); pages (B, P) int32, -1 = unmapped; pos
-    (B,) int32.  Returns the f32 latent context (B, h, lora).  CPU
-    tensors take ``paged_mla_plain``; CUDA tensors launch the kernel on
-    the current stream."""
+    (N, ps, lora) / (N, ps, rope), or a ``dense_mla_view``; pages (B, P)
+    int32, -1 = unmapped; pos (B,) int32.  Returns the f32 latent context
+    (B, h, lora).  CPU tensors take ``paged_mla_plain``; CUDA tensors
+    launch the kernel on the current stream (bf16: the tensor-core
+    kernel; f32: the CUDA-core kernel)."""
     if q_lat.device.type == "cpu":
         return paged_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, scale=scale)
     if q_lat.device.type != "cuda":
@@ -323,31 +394,24 @@ def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scal
     B, h, lora = q_lat.shape
     N, ps, _ = ckv_pool.shape
     rope, P = q_rope.shape[-1], pages.shape[1]
-    G = mla_group(h, lora, rope, P * ps, P)
     lib = _mla_lib()
-    fn = lib.paged_mla_decode_f32 if q_lat.dtype == torch.float32 else lib.paged_mla_decode_bf16
     out = torch.empty((B, h, lora), dtype=torch.float32, device=q_lat.device)
+    ptrs = [t.data_ptr() for t in (q_lat, q_rope, ckv_pool, krope_pool, pages, pos, out)]
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     with torch.cuda.device(q_lat.device):  # the C launch uses the current device
-        err = fn(
-            q_lat.data_ptr(),
-            q_rope.data_ptr(),
-            ckv_pool.data_ptr(),
-            krope_pool.data_ptr(),
-            pages.data_ptr(),
-            pos.data_ptr(),
-            out.data_ptr(),
-            B,
-            h,
-            lora,
-            rope,
-            ps,
-            P,
-            N,
-            G,
-            float(scale),
-            mla_smem_bytes(G, lora, rope, P * ps, P),
-            torch.cuda.current_stream(q_lat.device).cuda_stream,
-        )
+        if q_lat.dtype == torch.float32:
+            G = mla_group(h, lora, rope, P * ps, P)
+            err = lib.paged_mla_decode_f32(*ptrs, B, h, lora, rope, ps, P, N, G, float(scale),
+                                           mla_smem_bytes(G, lora, rope, P * ps, P), stream)
+        else:
+            split_lanes = mla_split_lanes(B, -(-h // MLA_HEADS), P * ps,
+                                          build.sm_count(q_lat.device.index))
+            n_split = -(-P * ps // split_lanes)
+            # per split and query head: the unnormalised f32 context, then (m, l)
+            part = torch.empty(B * h * n_split * (lora + 2), dtype=torch.float32,
+                               device=q_lat.device)
+            err = lib.paged_mla_decode_bf16(*ptrs, part.data_ptr(), B, h, lora, rope, ps, P, N,
+                                            split_lanes, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_mla_decode launch failed: cudaError {err}")
     paged_mla_attention.launches += 1

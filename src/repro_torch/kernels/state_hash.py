@@ -67,9 +67,11 @@ def xor_fold(x: torch.Tensor) -> torch.Tensor:
     return x.sum()
 
 
-def fingerprint_u32(v: torch.Tensor) -> torch.Tensor:
-    """(4,) int64 fingerprint of a 1-D int64 stream of u32 values."""
-    i = torch.arange(v.numel(), dtype=torch.int64, device=v.device) & M32
+def fingerprint_u32(v: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """(4,) int64 fingerprint of a 1-D int64 stream of u32 values whose
+    first word sits at global index ``start`` (a segment of a longer
+    stream: the segments' sums add and their h3 xor)."""
+    i = (torch.arange(v.numel(), dtype=torch.int64, device=v.device) + start) & M32
     w = (mul32(i, MIX) + PHI) & M32
     h1 = mul32(v, w).sum() & M32
     h2 = mul32(v ^ w, MIX).sum() & M32
@@ -87,14 +89,28 @@ def state_hash_plain(v: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # the CUDA binding shared by K1-K4
 # --------------------------------------------------------------------------
+class Seg(ctypes.Structure):
+    """One segment of a word stream, as the kernels' C interface takes it:
+    n words at global index ``off``, word k of replica r at ``inp[r][k]``
+    (``inp[0]`` null: zeros), the voted word k to each non-null
+    ``out[r][k]``."""
+
+    _fields_ = [("inp", ctypes.c_void_p * 3), ("out", ctypes.c_void_p * 3),
+                ("n", ctypes.c_ulonglong), ("off", ctypes.c_ulonglong)]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     from . import build
 
     lib = build.load("redundancy_epilogue")
-    for name in ("state_hash_u32", "tmr_vote_u32", "dmr_compare_u32", "tmr_step_u32"):
+    for name in ("state_hash_u32", "tmr_vote_u32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("dmr_compare_segs", "tmr_step_segs"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -122,11 +138,12 @@ def on_cpu(kernel: str, streams) -> bool:
 
 
 def launch(kernel: str, streams, voted, n_out: int) -> torch.Tensor:
-    """Launch ``<kernel>_u32`` on the current stream over 1-3 int32 word
-    streams (``voted``: the output stream, or None).  Returns the
-    kernel's ``n_out`` output words, accumulated into zeros."""
+    """Launch ``<kernel>_u32`` (K3, K4) on the current stream over 1 or 3
+    int32 word streams (``voted``: the output stream, or None).  Returns the
+    kernel's ``n_out`` output words (the C side zeroes them before
+    accumulating)."""
     dev = streams[0].device
-    out = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    out = torch.empty(n_out, dtype=torch.int32, device=dev)
     ptrs = [s.data_ptr() for s in streams] + [None] * (3 - len(streams))
     fn = getattr(_lib(), f"{kernel}_u32")
     with torch.cuda.device(dev):  # the C launch uses the current device
@@ -137,6 +154,21 @@ def launch(kernel: str, streams, voted, n_out: int) -> torch.Tensor:
             out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    return out
+
+
+def launch_segments(kernel: str, segs, device, n_out: int) -> torch.Tensor:
+    """Launch ``<kernel>_segs`` (K1, K2) on the current stream over a
+    stream given as a ctypes array of ``Seg`` (``fused_step.plan_segments``
+    builds it).  Returns the kernel's ``n_out`` output words (the C side
+    zeroes them before accumulating)."""
+    out = torch.empty(n_out, dtype=torch.int32, device=device)
+    fn = getattr(_lib(), f"{kernel}_segs")
+    with torch.cuda.device(device):  # the C launch uses the current device
+        err = fn(ctypes.addressof(segs), len(segs), out.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     return out

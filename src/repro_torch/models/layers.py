@@ -6,12 +6,19 @@ keys and layouts.  Attention has three execution paths:
 
   * ``blockwise_attention`` — online-softmax attention over KV blocks
     (prefill; MLA's expanded path too), plain torch as in the JAX package;
-  * ``decode_attention`` / ``attend_mla`` — single-query attention over a
-    dense cache, plain torch as in the JAX package;
   * the paged branches of ``gqa_attention`` and ``mla_attention`` —
     single-query attention through a page table, the hand-written CUDA
     kernels ``kernels.paged_decode.paged_gqa_attention`` and
-    ``paged_mla_attention``.
+    ``paged_mla_attention``;
+  * ``decode_attention`` / the dense branch of ``mla_attention`` —
+    single-query attention over a dense cache.  On the CPU, plain torch
+    as in the JAX package (``attend`` / ``attend_mla``, masked by
+    ``slot_pos``).  On the card, the same kernels as paged decode over
+    the dense cache seen as one page a slot (``dense_gqa_view`` /
+    ``dense_mla_view``), masked by lane: the two masks agree on every
+    active slot of a non-windowed cache (``slot_pos[b, s] = s`` for every
+    ``s <= pos``), and the kernels reduce a dense view and a paged pool
+    in the same order, so paged and dense decode give the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.paged_decode import NEG_INF, attend, attend_mla, paged_gqa_attention, paged_mla_attention
+from ..kernels.paged_decode import (NEG_INF, attend, attend_mla, dense_gqa_view, dense_mla_view,
+                                    paged_gqa_attention, paged_mla_attention)
 from .config import MLAConfig, ModelConfig
 
 Params = dict
@@ -120,6 +128,20 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
+def dense_decode_on_card(device: torch.device, window: Optional[int]) -> bool:
+    """Does dense decode on ``device`` run the paged kernels?  True on a
+    card, False on the CPU (plain torch).  A windowed arch on a card
+    raises: the kernels mask by lane, and a window's ring cache needs its
+    ``slot_pos`` mask."""
+    if device.type != "cuda":
+        return False
+    if window:
+        raise NotImplementedError(
+            "dense decode of a windowed arch on the card is not ported (ROADMAP Queue 1 item "
+            "4d): the decode kernels mask by lane, a window's ring cache by slot_pos")
+    return True
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, 1, Dk)
     k_cache: torch.Tensor,  # (B, Hkv, S, Dk)
@@ -132,6 +154,10 @@ def decode_attention(
 ) -> torch.Tensor:
     Dk = q.shape[-1]
     scale = (Dk**-0.5) if scale is None else scale
+    if dense_decode_on_card(q.device, window):
+        out = paged_gqa_attention(q[:, :, 0].contiguous(), *dense_gqa_view(k_cache, v_cache),
+                                  pos.contiguous(), scale=scale)
+        return out[:, :, None]
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
     if window is not None:
         valid &= slot_pos > (pos[:, None] - window)
@@ -369,8 +395,13 @@ def mla_attention(
         bidx = torch.arange(B, device=x.device)
         for key, new in (("ckv", ckv[:, 0]), ("krope", k_rope[:, 0]), ("slot_pos", pos)):
             cache[key][bidx, slot] = _gate(active, new.to(cache[key].dtype), cache[key][bidx, slot])
-        valid = (cache["slot_pos"] >= 0) & (cache["slot_pos"] <= pos[:, None])
-        ctx = attend_mla(q_lat, q_rope[:, 0], cache["ckv"], cache["krope"], valid, scale)
+        if dense_decode_on_card(x.device, cfg.window):
+            ctx = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(),
+                                      *dense_mla_view(cache["ckv"], cache["krope"]),
+                                      pos.contiguous(), scale=scale)
+        else:
+            valid = (cache["slot_pos"] >= 0) & (cache["slot_pos"] <= pos[:, None])
+            ctx = attend_mla(q_lat, q_rope[:, 0], cache["ckv"], cache["krope"], valid, scale)
     out = torch.einsum("bhl,lhv->bhv", ctx.to(x.dtype), w_uv)
     return out.reshape(B, S, h * dv) @ p["wo"], cache
 

@@ -6,10 +6,11 @@ it) and to its reference ``paged_gqa_ref``, at atol = rtol = 1e-5 in f32
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there.  Here: the wrapper's dispatch (CPU
 tensors -> plain version), its refusal of inputs the kernel does not
-take, its choice of splits, and a torch model of the kernel's split-lane
-algorithm (per-split online softmax, cross-split merge, the explicit
-uniform mean of a slot with no valid lane) held to the plain version at
-1e-6 in f32.
+take, its choice of splits (lanes, in multiples of 64), and a torch model
+of the kernel's split-lane algorithm (per-split online softmax,
+cross-split merge, the explicit uniform mean of a slot with no valid
+lane) held to the plain version at 1e-6 in f32.  Any query group is
+taken (the kernel runs groups above 8 as chunks of 8 heads).
 """
 
 import jax.numpy as jnp
@@ -50,6 +51,13 @@ CASES = {
         2, 4, 2, 8, 4, 6,
         [[-1, 3, 5], [2, 0, -1]],
         [2, 5],
+    ),
+    # 160 lanes a slot: three 64-lane split quanta, the last one ragged;
+    # a group of 12 (two head chunks on the card)
+    "long_group12": (
+        2, 12, 1, 16, 16, 20,
+        [[19, 3, 7, 0, 11, 2, 9, 14, 5, 1], [4, 6, 8, 10, 12, 13, 15, 16, -1, -1]],
+        [150, 70],
     ),
 }
 
@@ -101,16 +109,18 @@ def test_row_with_nothing_mapped_is_zero_and_masked_rows_average_v():
 LOG2E = 1.4426950408889634
 
 
-def split_model(q, k, v, pages, pos, n_split):
+def split_model(q, k, v, pages, pos, split_lanes):
     """K5's algorithm (csrc/paged_gqa_decode.cu) in torch, f32: each split
-    of ceil(P / n_split) pages keeps an online-softmax state (m, l, acc) in
+    of ``split_lanes`` lanes keeps an online-softmax state (m, l, acc) in
     log2 units over its valid lanes only; the splits merge by their maxima;
     a slot with no valid lane scores every lane 0, unmapped lanes weighing
-    1 with V = 0 (the full softmax's uniform mean)."""
+    1 with V = 0 (the full softmax's uniform mean).  The kernel's splits
+    are multiples of 64 lanes; the model takes any count, so the small
+    cases split too."""
     B, Hq, Dk = q.shape
     Hkv, ps = k.shape[1], k.shape[2]
     P, G = pages.shape[1], Hq // Hkv
-    pps = -(-P // n_split)
+    S = P * ps
     kg, vg = pd.paged_gather(k, pages).float(), pd.paged_gather(v, pages).float()
     valid = pd.paged_valid(pages, pos, ps)
     out = torch.zeros(B, Hq, Dk)
@@ -118,8 +128,8 @@ def split_model(q, k, v, pages, pos, n_split):
         uniform = not bool(valid[b].any())
         qb = q[b].float().reshape(Hkv, G, Dk) * (Dk**-0.5 * LOG2E)
         parts = []
-        for s0 in range(0, P, pps):
-            lanes = torch.arange(s0 * ps, min(P, s0 + pps) * ps)
+        for s0 in range(0, S, split_lanes):
+            lanes = torch.arange(s0, min(S, s0 + split_lanes))
             take = lanes if uniform else lanes[valid[b, lanes]]
             if len(take) == 0:
                 continue  # the kernel's empty partial, l = 0: skipped
@@ -137,12 +147,16 @@ def split_model(q, k, v, pages, pos, n_split):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_split_model_matches_plain(case):
-    """Every split count, from one split to one page a split, gives the
-    plain version's output within 1e-6 (f32, O(1) values)."""
+    """Every split size, from one page a split to the whole slot, and the
+    wrapper's own, gives the plain version's output within 1e-6 (f32, O(1)
+    values)."""
     q, k, v, pages, pos = torch_args(*make(case))
     want = pd.paged_gqa_plain(q, k, v, pages, pos)
-    for n_split in sorted({1, 2, 3, pages.shape[1]}):
-        got = split_model(q, k, v, pages, pos, n_split)
+    ps, S = k.shape[2], pages.shape[1] * k.shape[2]
+    G = q.shape[1] // k.shape[1]
+    rule = pd.gqa_split_lanes(q.shape[0], k.shape[1] * -(-G // pd.GQA_CHUNK), S, 132)
+    for split_lanes in sorted({ps, 2 * ps, 3 * ps, S, rule}):
+        got = split_model(q, k, v, pages, pos, split_lanes)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
@@ -159,20 +173,21 @@ def test_mapped_pages_without_a_valid_lane_average_the_mapped_lanes():
 
 
 @pytest.mark.parametrize(
-    "B,Hkv,P,sms,want",
+    "B,Hkv,G,S,sms,want",
     [
-        (8, 8, 32, 132, 8),  # the serving shape: 8 splits of 4 pages, 512 blocks
-        (8, 8, 32, 1, 1),  # the grid already fills the card
-        (8, 8, 32, 33, 2),  # 128 blocks >= 2 x 33 SMs
-        (1, 1, 4096, 132, 512),  # the fewest powers of two for two blocks an SM
-        (64, 8, 8192, 132, 8),  # no split holds more than MAX_SPLIT_PAGES
-        (1, 1, 5, 1000, 3),  # 8 wanted, at most P = 5: 4, and ceil(5 / 2) = 3 cover the row
+        (8, 8, 2, 512, 132, 8),  # the serving shape: 8 splits of 64 lanes, 512 blocks
+        (8, 8, 2, 512, 1, 1),  # the grid already fills the card
+        (8, 8, 2, 512, 33, 2),  # 128 blocks >= 2 x 33 SMs
+        (1, 1, 1, 65536, 132, 512),  # the fewest powers of two for two blocks an SM
+        (8, 1, 48, 512, 132, 8),  # granite-20b's MQA group: 6 head chunks a kv head
+        (8, 8, 12, 512, 132, 4),  # command-r-plus' group of 12: 2 head chunks
+        (1, 1, 1, 300, 1000, 3),  # 8 wanted, at most 5 quanta: 4, and 128-lane splits cover 300
     ],
 )
-def test_split_count(B, Hkv, P, sms, want):
-    n = pd.gqa_splits(B, Hkv, P, sms)
-    assert n == want
-    assert -(-P // n) <= pd.MAX_SPLIT_PAGES
+def test_split_count(B, Hkv, G, S, sms, want):
+    lanes = pd.gqa_split_lanes(B, Hkv * -(-G // pd.GQA_CHUNK), S, sms)
+    assert lanes % pd.SPLIT_QUANTUM == 0
+    assert -(-S // lanes) == want
 
 
 def test_bf16_plain_within_tolerance_of_jax_ref():
@@ -278,12 +293,13 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card(monkeypatch):
     """Every case, the mapped-but-no-valid-lane slot included, in f32 (1e-4)
-    and bf16 (2e-2), at the wrapper's split count and at 1, 2 and 3."""
+    and bf16 (2e-2), at the wrapper's split size and at 64, 128 and 192
+    lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rule = pd.gqa_splits
-    for n in (None, 1, 2, 3):
-        monkeypatch.setattr(pd, "gqa_splits", rule if n is None else lambda *a, n=n: min(n, a[2]))
+    rule = pd.gqa_split_lanes
+    for n in (None, 64, 128, 192):
+        monkeypatch.setattr(pd, "gqa_split_lanes", rule if n is None else lambda *a, n=n: n)
         for case in sorted(CASES):
             for dtype, tol in ((np.float32, 1e-4), (ml_dtypes.bfloat16, 2e-2)):
                 args = [t.cuda() for t in torch_args(*make(case, dtype=dtype))]
@@ -291,4 +307,48 @@ def test_kernel_matches_plain_on_the_card(monkeypatch):
                 want = pd.paged_gqa_plain(*args)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    pd.paged_gqa_attention.launches = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(96, 8), (48, 1)], ids=["group12", "group48"])
+def test_kernel_takes_large_groups_on_the_card(Hq, Hkv):
+    """Groups above 8 (command-r-plus' 12, granite-20b's MQA 48) against
+    the plain version, f32 1e-4 and bf16 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(Hq)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q = torch.randn(3, Hq, 128, generator=gen).to(dtype).cuda()
+        k, v = (torch.randn(12, Hkv, 16, 128, generator=gen).to(dtype).cuda() for _ in range(2))
+        pages = torch.tensor([[3, 7, 1, 0], [5, -1, 2, 4], [11, 10, 9, 8]], dtype=torch.int32).cuda()
+        pos = torch.tensor([63, 20, 40], dtype=torch.int32).cuda()
+        got = pd.paged_gqa_attention(q, k, v, pages, pos)
+        torch.testing.assert_close(got.float(), pd.paged_gqa_plain(q, k, v, pages, pos).float(),
+                                   atol=tol, rtol=tol)
+    pd.paged_gqa_attention.launches = 0
+
+
+@pytest.mark.cuda
+def test_dense_view_equals_shuffled_pages_bitwise_on_the_card():
+    """The same values through a dense view and through a shuffled page
+    table give the same bits: the reduction order is the lane index's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(7)
+    B, Hq, Hkv, S, D, ps = 4, 16, 8, 256, 128, 16
+    P = S // ps
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, Hq, D, generator=gen).to(dtype).cuda()
+        k, v = (torch.randn(B, Hkv, S, D, generator=gen).to(dtype).cuda() for _ in range(2))
+        pos = torch.tensor([0, 63, 64, 255], dtype=torch.int32).cuda()
+        pages = torch.randperm(B * P, generator=gen).reshape(B, P).to(torch.int32).cuda()
+        pools = []
+        for x in (k, v):
+            pool = torch.empty(B * P, Hkv, ps, D, dtype=dtype, device="cuda")
+            pool[pages.long()] = x.reshape(B, Hkv, P, ps, D).permute(0, 2, 1, 3, 4)
+            pools.append(pool)
+        dense = pd.paged_gqa_attention(q, *pd.dense_gqa_view(k, v), pos)
+        paged = pd.paged_gqa_attention(q, *pools, pages, pos)
+        assert torch.equal(dense, paged)
     pd.paged_gqa_attention.launches = 0

@@ -8,8 +8,9 @@ values and sum in f32; the output is f32).
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there (the ``cuda``-marked test below does the
 same when a card is present).  Here: the wrapper's dispatch (CPU tensors
--> plain version), its choice of heads per block, and its refusal of
-inputs the kernel does not take.
+-> plain version), its choice of heads per block (the f32 kernel) and of
+splits (the bf16 kernel: lanes in multiples of its 64-lane tile), and its
+refusal of inputs the kernel does not take.
 """
 
 import jax.numpy as jnp
@@ -139,6 +140,21 @@ def test_heads_per_block(h, S, want):
     assert pd.mla_smem_bytes(G, 512, 64, S, S // 16) <= pd.SMEM_LIMIT
 
 
+@pytest.mark.parametrize(
+    "B,h,S,sms,want",
+    [(8, 128, 512, 132, 4), (8, 128, 4096, 132, 8), (8, 128, 16384, 132, 8),
+     (8, 128, 512, 16, 1), (1, 3, 100, 132, 1), (1, 128, 4096, 132, 32)],
+    ids=["served", "s4096", "s16384", "small_card", "reduced", "one_slot"],
+)
+def test_bf16_split_count(B, h, S, sms, want):
+    """The bf16 kernel's splits: the most, a power of two, that keep the
+    grid (B, ceil(h / 64), splits) within one wave of one block an SM,
+    with at least two 64-lane tiles a split."""
+    lanes = pd.mla_split_lanes(B, -(-h // pd.MLA_HEADS), S, sms)
+    assert lanes % pd.SPLIT_QUANTUM == 0
+    assert -(-S // lanes) == want
+
+
 def good_inputs():
     q_lat, q_rope, ckv, krope, pages, pos = torch_args(*make("pos_at_page_edges"))
     return dict(q_lat=q_lat, q_rope=q_rope, ckv_pool=ckv, krope_pool=krope, pages=pages, pos=pos)
@@ -173,6 +189,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
         pd._check_mla(**a)
 
 
+def test_bf16_takes_long_caches_and_refuses_wide_rows():
+    """The bf16 kernel keeps no scores in shared memory: the 65536-lane
+    table the f32 kernel refuses passes; rows wider than its instance
+    (lora 512, rope 64) are refused."""
+    a = {k: v.bfloat16() if v.is_floating_point() else v for k, v in good_inputs().items()}
+    a.update(pages=torch.zeros((3, 8192), dtype=torch.int32))
+    pd._check_mla(**a)
+    a = {k: v.bfloat16() if v.is_floating_point() else v for k, v in good_inputs().items()}
+    a.update(q_lat=torch.zeros((3, 2, 520), dtype=torch.bfloat16),
+             ckv_pool=torch.zeros((8, 8, 520), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="lora <= 512"):
+        pd._check_mla(**a)
+
+
 def test_non_cuda_non_cpu_tensor_raises():
     a = {k: v.to("meta") for k, v in good_inputs().items()}
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -199,3 +229,43 @@ def test_kernel_matches_plain_on_the_card():
         assert pd.paged_mla_attention.launches == 1
         ref = pd.paged_mla_plain(*args, scale=SCALE)
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_matches_plain_at_every_split_on_the_card(monkeypatch):
+    """The tensor-core kernel, bf16 inputs, f32 output, 1e-3, at the
+    wrapper's splits and at 64, 128 and 256 lanes a split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rule = pd.mla_split_lanes
+    for n in (None, 64, 128, 256):
+        monkeypatch.setattr(pd, "mla_split_lanes", rule if n is None else lambda *a, n=n: n)
+        for case in sorted(CASES):
+            args = [t.cuda() for t in torch_args(*make(case, dtype=ml_dtypes.bfloat16))]
+            got = pd.paged_mla_attention(*args, scale=SCALE)
+            ref = pd.paged_mla_plain(*args, scale=SCALE)
+            torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+    pd.paged_mla_attention.launches = 0
+
+
+@pytest.mark.cuda
+def test_dense_view_equals_shuffled_pages_bitwise_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(3)
+    B, h, S, lora, rope, ps = 3, 128, 256, 512, 64, 16
+    P = S // ps
+    for dtype in (torch.float32, torch.bfloat16):
+        ql, qr = (torch.randn(B, h, d, generator=gen).to(dtype).cuda() for d in (lora, rope))
+        ckv, kr = (torch.randn(B, S, d, generator=gen).to(dtype).cuda() for d in (lora, rope))
+        pos = torch.tensor([0, 100, 255], dtype=torch.int32).cuda()
+        pages = torch.randperm(B * P, generator=gen).reshape(B, P).to(torch.int32).cuda()
+        pools = []
+        for x in (ckv, kr):
+            pool = torch.empty(B * P, ps, x.shape[-1], dtype=dtype, device="cuda")
+            pool[pages.long()] = x.reshape(B, P, ps, -1)
+            pools.append(pool)
+        dense = pd.paged_mla_attention(ql, qr, *pd.dense_mla_view(ckv, kr), pos, scale=SCALE)
+        paged = pd.paged_mla_attention(ql, qr, *pools, pages, pos, scale=SCALE)
+        assert torch.equal(dense, paged)
+    pd.paged_mla_attention.launches = 0
