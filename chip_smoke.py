@@ -45,11 +45,18 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  then K3 and K4 through ``kernels.ops`` on the final
                  state; ms per step of ``lockstep`` and ``lockstep_cuda``
                  in turns, DMR ``lockstep_cuda`` no slower.
-  2d. ssd     -- K8 (the Mamba2 SSD chunked scan) against its plain
+  2d. ssd     -- K8 (the Mamba2 SSD chunked scan: chunk states, state
+                 passing and chunk outputs on wgmma) against its plain
                  version at mamba2-2.7b's shapes (80 heads of 64, state
                  128, one group, bf16), L = 256 and a ragged L = 300, each
                  with and without an initial state, plus one f32 case;
-                 device times beside the bound.
+                 each element within its tolerance and each row of y and
+                 of the state within a relative L2 limit, a check that two
+                 planted faults at L = 300 (the inter-chunk carry dropped,
+                 a chunk reading the previous chunk's carry) must fail;
+                 ptxas registers and spills per kernel; device times at
+                 L = 128, 256, 300 and 320 beside the bound, and each
+                 launch's device time from torch.profiler.
   2e. attention -- K7 (flash attention) through ``kernels.ops.attention``
                  at internlm2's head layout (16 query / 8 KV heads of 128,
                  bf16): causal at 512 and 4096, windowed, and with a
@@ -937,16 +944,57 @@ def ssd_bound(x, bm, h0, chunk=SSD_CHUNK) -> tuple[float, str, float, int, int]:
     return bound, "bytes" if t_bytes >= t_ops else "operations", flops / F32_FLOP_PER_S * 1e3, nbytes, flops
 
 
-def ssd_phase() -> dict:
+#: K8's limits (atol = rtol): y in bf16 2e-2 (both sides sum in f32 and
+#: round to bf16, so one rounding may flip by a bf16 ulp, 2**-8 relative),
+#: y in f32 1e-3; the state 1e-3 (f32; its decays exp(cum) come from
+#: cumsums of up to 128 terms of |cum| <= 10**2, whose f32 rounding, ~1e-5,
+#: exp turns into ~1e-5 relative; the bf16 kernel's hi/lo operands keep 16
+#: significant bits).  Each row, one (b, t, h) vector of P in y and one (b,
+#: h, n) row of P in the state, also within a relative L2 limit: 1e-2 for
+#: bf16 y (K7's), 1e-3 for f32 y and the state.
+SSD_TOL = {"y_bf16": 2e-2, "y_f32": 1e-3, "state": 1e-3}
+SSD_ROW_TOL = {"y_bf16": 1e-2, "y_f32": 1e-3, "state": 1e-3}
+
+
+def ssd_verdict(got, ref, kind) -> tuple[bool, float, float, float]:
+    """(within both limits, max abs err, worst ratio to the elementwise
+    limit, worst row's relative L2 error) of one K8 output."""
+    t, r = SSD_TOL[kind], SSD_ROW_TOL[kind]
+    g, f = got.float(), ref.float()
+    err = (g - f).abs()
+    ratio = float((err / (t + t * f.abs())).max())
+    row = float(((g - f).norm(dim=-1) / f.norm(dim=-1).clamp_min(1e-30)).max())
+    ok = bool(torch.isfinite(g).all()) and ratio <= 1.0 and row <= r
+    return ok, float(err.max()), ratio, row
+
+
+def ssd_planted_faults(x, dt, a, bm, cm, h0) -> dict:
+    """(y, state) of two faults the state passing could make, computed from
+    the plain form of the kernel's three steps: the inter-chunk carry
+    dropped (every chunk reads S_in = h0), and a stale chunk (chunk c reads
+    S_in of chunk c - 1)."""
     from repro_torch.kernels import ssd_scan as ks
 
+    ds, dec = ks.ssd_chunk_states(x, dt, a, bm, chunk=SSD_CHUNK)
+    s_in, _ = ks.ssd_state_passing(ds, dec, h0)
+    dec_last, ds_last = dec[:, :, -1, None, None], ds[:, :, -1]
+    dropped = h0[:, :, None].expand_as(s_in)
+    stale = torch.cat([s_in[:, :, :1], s_in[:, :, :-1]], dim=2)
+    out = {}
+    for name, s in (("carry dropped (S_in = h0 in every chunk)", dropped),
+                    ("stale chunk (chunk c reads S_in of c - 1)", stale)):
+        y = ks.ssd_chunk_outputs(x, dt, a, bm, cm, s, chunk=SSD_CHUNK)
+        out[name] = (y, dec_last * s[:, :, -1] + ds_last)
+    return out
+
+
+def ssd_phase(build_log: Path) -> dict:
+    from repro_torch.kernels import ssd_scan as ks
+
+    for ln in ptxas_lines(build_log):
+        log(f"ssd: ptxas {ln}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    # y: both sides sum in f32 and round to bf16, so one rounding may flip
-    # by a bf16 ulp (2**-8 relative); the state: f32, its decays exp(cum)
-    # come from cumsums of up to 128 terms of |cum| <= 10**2, whose f32
-    # rounding (~1e-5) exp turns into ~1e-5 relative
-    tol = {"y_bf16": 2e-2, "y_f32": 1e-3, "state": 1e-3}  # atol = rtol
-    errs = {}
+    errs, rows = {}, {}
     launches0 = ks.ssd_scan.launches
     cases = [(256, torch.bfloat16, False), (256, torch.bfloat16, True),
              (300, torch.bfloat16, False), (300, torch.bfloat16, True), (300, torch.float32, True)]
@@ -957,21 +1005,29 @@ def ssd_phase() -> dict:
         ry, rht = ks.ssd_scan_plain(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
         label = f"L={L} {str(dtype).removeprefix('torch.')}{' h0' if with_h0 else ''}"
         assert y.dtype == dtype and y.shape == x.shape and ht.shape == rht.shape
-        for name, got, ref, t in (("y", y, ry, tol["y_bf16" if dtype == torch.bfloat16 else "y_f32"]),
-                                  ("state", ht, rht, tol["state"])):
-            if not bool(torch.isfinite(got.float()).all()):
-                raise AssertionError(f"ssd_scan {label}: {name} not finite")
-            err = (got.float() - ref.float()).abs()
-            errs[f"{label} {name}"] = float(err.max())
-            if not bool((err <= t + t * ref.float().abs()).all()):
-                raise AssertionError(f"ssd_scan {label} {name}: max abs err {float(err.max())}")
-        log(f"ssd: {label}: y max_abs_err {errs[label + ' y']:.3e}, state max_abs_err "
-            f"{errs[label + ' state']:.3e} (atol=rtol: y {tol['y_bf16' if dtype == torch.bfloat16 else 'y_f32']}, "
-            f"state {tol['state']})")
+        msg = []
+        for name, got, ref, kind in (("y", y, ry, "y_bf16" if dtype == torch.bfloat16 else "y_f32"),
+                                     ("state", ht, rht, "state")):
+            ok, err, ratio, row = ssd_verdict(got, ref, kind)
+            errs[f"{label} {name}"], rows[f"{label} {name}"] = err, row
+            msg.append(f"{name} max_abs_err {err:.3e} ({ratio:.3f} of atol=rtol {SSD_TOL[kind]}), "
+                       f"worst row L2 {row:.3e} (limit {SSD_ROW_TOL[kind]})")
+            if not ok:
+                raise AssertionError(f"ssd_scan {label} {name}: max abs err {err}, {ratio} of the "
+                                     f"elementwise limit, row L2 {row}")
+        log(f"ssd: {label}: " + "; ".join(msg))
+        if L == 300 and dtype == torch.bfloat16 and with_h0:
+            # the check must reject what a broken state passing would give
+            for name, (fy, fht) in ssd_planted_faults(x, dt, a, bm, cm, h0).items():
+                v = [ssd_verdict(fy.to(dtype), ry, "y_bf16"), ssd_verdict(fht, rht, "state")]
+                if v[0][0] and v[1][0]:
+                    raise AssertionError(f"ssd_scan: the planted fault '{name}' passes the check")
+                log(f"ssd: planted fault, {name}: y {v[0][2]:.1f} of the elementwise limit, row "
+                    f"L2 {v[0][3]:.3e}; state {v[1][2]:.1f}, row L2 {v[1][3]:.3e}: rejected")
     # times at the prefill's own call: no h0, bf16; 4 input sets so a call
     # does not find its 8 MB in L2 from the one before
     timings = {}
-    for L in (256, 300):
+    for L in (128, 256, 300, 320):
         sets = [ssd_inputs(L, gen) for _ in range(4)]
         it = iter(range(10**9))
 
@@ -985,10 +1041,26 @@ def ssd_phase() -> dict:
         bound_ms, bound_by, f32_ms, nbytes, flops = ssd_bound(x, bm, None)
         timings[L] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        blocks = ks.bf16_blocks(1, L, SSD_SHAPE["H"], SSD_SHAPE["N"], SSD_SHAPE["P"])
         log(f"ssd: L={L} B=1 H=80 P=64 N=128 bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores {f32_ms:.4f} ms); "
-            f"library: {NO_SSD_LIBRARY}; 80 blocks on 132 SMs")
+            f"library: {NO_SSD_LIBRARY}; blocks of the three launches {blocks} on "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    # a CUDA graph keeps the three launches' dependencies: its replay gives
+    # the eager call's bits
+    x, dt, a, bm, cm, h0 = ssd_inputs(300, gen, with_h0=True)
+    ey, eht = ks.ssd_scan(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        gy, ght = ks.ssd_scan(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
+    gy.zero_(), ght.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(gy, ey) and torch.equal(ght, eht)):
+        raise AssertionError("ssd_scan: a CUDA-graph replay differs from the eager call")
+    log("ssd: L=300 bf16 h0 under CUDA-graph replay: y and state bitwise equal to the eager call")
+    log(f"ssd: device time by launch at L=256, eager: {ssd_launch_breakdown(ks, gen)}")
     ks.ssd_scan.launches = launches0  # comparison launches do not count
     t = timings[256]
     return {
@@ -999,7 +1071,9 @@ def ssd_phase() -> dict:
         "launches": None,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_case": errs,
-        "tolerance": tol,
+        "row_l2_by_case": rows,
+        "tolerance": SSD_TOL,
+        "row_tolerance": SSD_ROW_TOL,
         "ms": t["ms"],
         "eager_ms": t["eager_ms"],
         "plain_ms": t["plain_ms"],
@@ -1008,8 +1082,47 @@ def ssd_phase() -> dict:
         "library_ms": None,
         "library_why": NO_SSD_LIBRARY,
         "shape": "B=1 L=256 H=80 P=64 G=1 N=128 bf16, chunk 128",
-        "L300": timings[300],
+        **{f"L{L}": timings[L] for L in (128, 300, 320)},
     }
+
+
+def device_kernel_us(prof) -> dict:
+    """Device time (us) by kernel name of a torch.profiler run: the events
+    the profiler recorded on the card (kernels, copies, fills)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return out
+
+
+def profiled(fn, calls: int = 1) -> tuple[float, dict]:
+    """(host ms per call, synchronised; device us per call by kernel name)
+    of ``calls`` calls of fn under torch.profiler, after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    return wall, {k: v / calls for k, v in device_kernel_us(prof).items()}
+
+
+def ssd_launch_breakdown(ks, gen, L: int = 256, calls: int = 20) -> str:
+    """Device time of each CUDA kernel one K8 call launches, from
+    torch.profiler over ``calls`` eager calls; "not measured" where the
+    profiler records no device time."""
+    args = ssd_inputs(L, gen)[:5]
+    _, by_name = profiled(lambda: ks.ssd_scan(*args, chunk=SSD_CHUNK), calls)
+    parts = [f"{re.sub(r'[(<].*', '', k.replace('(anonymous namespace)::', ''))}: {us / 1e3:.4f} ms"
+             for k, us in by_name.items() if us > 0]
+    return "; ".join(parts) or "not measured"
 
 
 # --------------------------------------------------------------------------
@@ -1728,7 +1841,19 @@ def mamba_engine_phase() -> dict:
     prompt = torch.zeros((1, MAMBA_PROMPTS[1]), dtype=torch.int64, device="cuda")
     params = states["weights"]["params"]
     prefill_ms = events_ms(lambda: T.forward(cfg, params, prompt, fill_cache=True), iters=3)
-    ks.ssd_scan.launches = launches  # the prefill timing's launches do not count
+    # the same prefill under torch.profiler: how much of it the card is busy
+    wall_ms, by_name = profiled(lambda: T.forward(cfg, params, prompt, fill_cache=True))
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device time for the prefill")
+    busy_ms = sum(by_name.values()) / 1e3
+    k8_ms = sum(us for k, us in by_name.items() if re.search(r"chunk_state|state_pass|chunk_out", k)) / 1e3
+    ks.ssd_scan.launches = launches  # the prefill timings' launches do not count
+    log(f"engine: one prefill of {MAMBA_PROMPTS[1]} tokens under torch.profiler: device busy "
+        f"{busy_ms:.2f} ms of the unprofiled {prefill_ms:.2f} ms (idle share "
+        f"{1 - busy_ms / prefill_ms:.3f}; {wall_ms:.2f} ms wall under the profiler), K8 "
+        f"{k8_ms:.2f} ms, {len(by_name)} kernel names; the largest: " + ", ".join(
+            f"{re.sub(r'[(<].*', '', k)[:60]} {us / 1e3:.2f} ms"
+            for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]))
     log(f"engine: per tick: decode step {step_ms:.2f} ms, slot fingerprints {fp_ms:.2f} ms, "
         f"state copy {copy_ms:.3f} ms ({2 * state_bytes / 1e9:.3f} GB moved, "
         f"{2 * state_bytes / (copy_ms * 1e-3) / 1e12:.2f} TB/s); one prefill of "
@@ -1742,6 +1867,9 @@ def mamba_engine_phase() -> dict:
         "state_copy_ms": copy_ms,
         "state_copy_gb": 2 * state_bytes / 1e9,
         "prefill_320_ms": prefill_ms,
+        "prefill_320_device_busy_ms": busy_ms,
+        "prefill_320_idle_share": 1 - busy_ms / prefill_ms,
+        "prefill_320_k8_ms": k8_ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
 
@@ -1879,7 +2007,7 @@ def main() -> int:
     epi = epilogue_phase()
     loop = loop_phase(epi)
     torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
-    ssd = ssd_phase()
+    ssd = ssd_phase(paths["ssd_scan"].with_suffix(".log"))
     attn = attention_phase(paths["flash_attention"].with_suffix(".log"))
     mla = mla_kernel_phase(paths["paged_mla_decode"].with_suffix(".log"))
     torch.cuda.empty_cache()

@@ -148,6 +148,57 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
         ks._check(**a)
 
 
+def bf16_args(l=300, chunk=128):
+    """mamba2's head shape (P 64, N 128), two groups, bf16, with h0."""
+    x, dt, a, bm, cm, h0 = (tt(v) for v in inputs(1, l, 4, 64, 2, 128, ml_dtypes.bfloat16,
+                                                 with_h0=True))
+    return dict(x=x, dt=dt, a=a, b=bm, c=cm, h0=h0, chunk=chunk)
+
+
+def unaligned(t):
+    """t's values in a contiguous tensor whose data starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)[1:]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
+@pytest.mark.parametrize(
+    "mutate",
+    [
+        lambda a: a.update(chunk=64),
+        lambda a: a.update(chunk=256),
+        lambda a: a.update(b=torch.zeros((1, 300, 2, 136), dtype=torch.bfloat16),
+                           c=torch.zeros((1, 300, 2, 136), dtype=torch.bfloat16), h0=None),
+        lambda a: a.update(x=torch.zeros((1, 300, 4, 72), dtype=torch.bfloat16), h0=None),
+        lambda a: a.update(x=torch.zeros((1, 300, 4, 60), dtype=torch.bfloat16), h0=None),
+        lambda a: a.update(b=torch.zeros((1, 300, 2, 100), dtype=torch.bfloat16),
+                           c=torch.zeros((1, 300, 2, 100), dtype=torch.bfloat16), h0=None),
+        lambda a: a.update(x=unaligned(a["x"])),
+        lambda a: a.update(h0=unaligned(a["h0"])),
+    ],
+    ids=["chunk_64", "chunk_256", "state_over_128", "head_dim_over_64", "head_dim_not_x8",
+         "state_not_x8", "x_unaligned", "h0_unaligned"],
+)
+def test_wrapper_refuses_what_the_bf16_kernel_does_not_take(mutate):
+    """The bf16 instance scans chunks of 128 rows, N <= 128 and P <= 64 in
+    multiples of 8 (zero-padded to the instance), with 16-byte copies."""
+    a = bf16_args()
+    ks._check(**a)
+    mutate(a)
+    with pytest.raises(ValueError):
+        ks._check(**a)
+
+
+@pytest.mark.parametrize("l,chunk", [(300, 128), (128, 256), (100, 100), (40, 64), (1, 16)])
+def test_bf16_kernel_takes_its_chunks(l, chunk):
+    """chunk = 128, or a single chunk of at most 128 rows: the chunk
+    boundaries are the kernel's either way."""
+    a = bf16_args(l, chunk)
+    ks._check(**a)
+    assert ks.bf16_blocks(1, l, 4, 128, 64)["chunk_outputs"] == 4 * 2 * -(-l // 128)
+
+
 def test_non_cuda_non_cpu_tensor_raises():
     a = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v) for k, v in good_args().items()}
     with pytest.raises(ValueError, match="cuda or cpu"):
