@@ -45,6 +45,25 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  then K3 and K4 through ``kernels.ops`` on the final
                  state; ms per step of ``lockstep`` and ``lockstep_cuda``
                  in turns, DMR ``lockstep_cuda`` no slower.
+  2g. schedules -- the paper's other schedules and its language at 4K
+                 UHD: Listing 1 through ``compile_source`` with Int
+                 slots, DMR and TMR through ``auto`` (must resolve to
+                 ``lockstep_cuda``), a bit flip at step 20 detected on
+                 every later step / voted away, K1/K2 launches equal to
+                 the compared steps, 8 DMR steps bitwise equal to the
+                 port's CPU path, ms/step beside the float blend of 2c in
+                 turns; ``host`` under DMR: one recovery through K4, the
+                 final states the unstruck run's, host syncs a step; a
+                 TMR ``run_campaign`` of four strikes: each trajectory
+                 the unstruck run and a ``pure_step`` loop, one event
+                 each, ledger and step counter unchanged; the §III
+                 wavefront (``benchmarks/run.py::bench_mimd_wavefront``
+                 at 8,294,400 cells a unit): ``auto`` -> wavefront,
+                 ``max_lead`` > 0, bitwise equal to ``lockstep`` and
+                 ``lockstep_cuda``, one host sync a run (torch's sync
+                 debug mode), a strike in the ledger at its step, 64
+                 ``unit_step`` events through a ``Tracer``; ms/step
+                 against ``lockstep`` in turns.
   2d. ssd     -- K8 (the Mamba2 SSD chunked scan: chunk states, state
                  passing and chunk outputs on wgmma) against its plain
                  version at mamba2-2.7b's shapes (80 heads of 64, state
@@ -110,8 +129,9 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  the dense cache), and the two token streams must be
                  equal, none / DMR / TMR.
 
-The last lines are the paged-vs-dense parity, the loop's, the three
-engines' and the kernels' JSON records, the card's name and power limit, and ``{"ok": true, "device":
+The last lines are the paged-vs-dense parity, the loop's, the
+schedules', the three engines' and the kernels' JSON records (K1-K4's
+launches add phases 2c and 2g, ``launches_by_path``), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -861,6 +881,7 @@ def loop_phase(epi: dict) -> dict:
         raise AssertionError("tmr_vote_pytree: voted state != plain version / replica 0")
     for w, key in zip(wrappers, ("dmr_compare", "tmr_step", "state_hash", "tmr_vote")):
         epi[key]["launches"] = w.launches  # and are read here
+        epi[key]["launches_by_path"] = {"loop_2c": w.launches}
         if w.launches == 0:
             raise AssertionError(f"{key} was not launched on the paper's loop")
     log(f"loop: ops.fingerprint_fused (K3) and ops.tmr_vote_pytree (K4, counts "
@@ -893,6 +914,285 @@ def loop_phase(epi: dict) -> dict:
     if sum(fused) > sum(plain):
         raise AssertionError(f"DMR lockstep_cuda {fused} ms/step is slower than lockstep {plain}")
     return {"launches": launches, "flatten_replicas_calls": flatten_calls[0], **timing}
+
+
+# --------------------------------------------------------------------------
+# phase 2g: the schedules and the MISO language, 4K UHD
+# --------------------------------------------------------------------------
+#: (step, replica, leaf, bit) of the campaign's four strikes: leaves 0-2 are
+#: image1's b, g, r (keys sorted)
+CAMPAIGN = ((5, 0, 0, 30), (20, 1, 1, 7), (40, 2, 2, 12), (63, 1, 0, 31))
+WAVE_STEPS = 32
+
+
+def listing1_4k():
+    """The paper's Listing 1 at 4K UHD through the port's IR, with Int
+    r/g/b images 0-255 made from the seed with numpy."""
+    from repro_torch import api
+    from repro_torch.core.ir import LISTING_1
+
+    rng = np.random.default_rng(SEED)
+    n = W4K * H4K
+    inputs = {img: {c: rng.integers(0, 256, n).astype(np.int32) for c in "rgb"}
+              for img in ("image1", "image2")}
+    return api.compile_source(LISTING_1.replace("300*200", f"{W4K}*{H4K}"), inputs)
+
+
+def sync_warnings(fn):
+    """``(fn(), the texts of the warnings fn raised)`` under torch's sync
+    debug mode, which warns once per synchronising CUDA call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, [str(w.message) for w in caught]
+
+
+def calibrate_syncs() -> tuple[str, list]:
+    """The text of the warning one copy to the host raises, learnt after a
+    first copy that may also carry the mode's once-a-process notice, and
+    every text seen; a kernel launch must raise none."""
+    x = torch.zeros(4, device="cuda")
+    _, first = sync_warnings(lambda: x.cpu())
+    _, texts = sync_warnings(lambda: x.cpu())
+    _, quiet = sync_warnings(lambda: x + 1)
+    if len(texts) != 1 or quiet:
+        raise AssertionError(f"sync counter: a copy to the host raised {texts}, a launch {quiet}")
+    return texts[0], sorted(set(first) | set(texts))
+
+
+def host_syncs(fn, sync_text: str):
+    """``(fn(), the synchronising CUDA calls fn made)``."""
+    out, texts = sync_warnings(fn)
+    return out, texts.count(sync_text)
+
+
+def ms_per_step(exe, states, steps: int, faults=None) -> float:
+    """Host clock over ``steps`` steps that end in a synchronise, after 4
+    warm-up steps."""
+    exe.run(states, 4, start_step=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run(states, steps, start_step=0, faults=faults)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def in_turns(steps: int, **variants) -> dict:
+    """ms/step of each (executor, states) variant, timed in turns a b b a."""
+    names = list(variants)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        exe, states = variants[k]
+        out[k].append(ms_per_step(exe, states, steps))
+    return out
+
+
+def wave_program(n: int):
+    """``benchmarks/run.py::bench_mimd_wavefront`` in torch: two
+    independent stencil chains, ``fast`` (work 1, DMR) and ``slow`` (work
+    16, unreplicated), of n f32 cells each."""
+    from repro_torch import api
+
+    def stencil_cell(name, work, redundancy):
+        def init(gen, dev):
+            return {"t": torch.linspace(0, 1, n, device=dev)}
+
+        def transition(prev):
+            t = prev[name]["t"]
+            for _ in range(work):  # heavier transition = slower unit
+                t = 0.25 * torch.roll(t, 1) + 0.5 * t + 0.25 * torch.roll(t, -1)
+            return {"t": t}
+
+        return api.CellType(name, init, transition, instances=n, redundancy=redundancy)
+
+    prog = api.MisoProgram()
+    prog.add(stencil_cell("fast", 1, api.RedundancyPolicy(level=2)))
+    prog.add(stencil_cell("slow", 16, api.NO_REDUNDANCY))
+    return prog
+
+
+def schedules_phase(epi: dict) -> dict:
+    from repro_torch import api
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import state_hash as sh
+    from repro_torch.kernels import tmr_vote as tv
+    from repro_torch.tree import tree_map
+
+    wrappers = {"dmr_compare": fs.dmr_compare, "tmr_step": fs.tmr_step,
+                "state_hash": sh.state_hash, "tmr_vote": tv.tmr_vote}
+    for w in wrappers.values():  # counts start here
+        w.launches = 0
+    dmr, tmr = api.RedundancyPolicy(level=2), api.RedundancyPolicy(level=3)
+    centre = (H4K // 2) * W4K + W4K // 2
+    strike = api.FaultSpec.at(step=STRIKE_STEP, cell_id=0, replica=1, leaf=2, index=centre,
+                              bit=30)
+    prog = listing1_4k()
+    out = {}
+    sync_text, texts = calibrate_syncs()
+    log(f"schedules: host syncs counted by torch.cuda.set_sync_debug_mode('warn'), whose "
+        f"warnings read: {'; '.join(texts)}")
+
+    def run(exe, states, n, faults=None):
+        res = exe.run(states, n, start_step=0, faults=faults)
+        torch.cuda.synchronize()
+        return res
+
+    # (a) Listing 1 through the IR: auto -> lockstep_cuda, DMR and TMR
+    exe_d = api.compile(prog, backend="auto", policies={"image1": dmr})
+    exe_t = api.compile(prog, backend="auto", policies={"image1": tmr})
+    for e in (exe_d, exe_t):
+        if e.name != "lockstep_cuda":
+            raise AssertionError(f"IR Listing 1: auto resolved to {e.name!r}, not lockstep_cuda")
+    s_d, s_t = exe_d.init(SEED), exe_t.init(SEED)
+    r = s_d["image1"]["r"]
+    if r.dtype != torch.int32 or tuple(r.shape) != (2, W4K * H4K):
+        raise AssertionError(f"IR Listing 1: image1.r is {r.dtype} {tuple(r.shape)}")
+    k1 = fs.dmr_compare.launches
+    res_d = run(exe_d, s_d, LOOP_STEPS, strike)
+    k1 = fs.dmr_compare.launches - k1
+    want = {"image1": list(range(STRIKE_STEP, LOOP_STEPS))}  # DMR detects, does not repair
+    if exe_d.ledger.recent != want or k1 != LOOP_STEPS:
+        raise AssertionError(f"IR DMR: ledger.recent {exe_d.ledger.recent}, K1 launches {k1}")
+    k2 = fs.tmr_step.launches
+    res_t = run(exe_t, s_t, LOOP_STEPS, strike)
+    k2 = fs.tmr_step.launches - k2
+    tot = exe_t.ledger.totals["image1"]
+    clean_t = run(api.compile(prog, backend="auto", policies={"image1": tmr}), s_t, LOOP_STEPS)
+    if (exe_t.ledger.recent != {"image1": [STRIKE_STEP]} or tot["per_replica"] != [0.0, 1.0, 0.0]
+            or k2 != LOOP_STEPS or not bits_equal(res_t.states, clean_t.states)):
+        raise AssertionError(f"IR TMR: recent {exe_t.ledger.recent}, totals {tot}, K2 {k2}, "
+                             f"equal to unstruck {bits_equal(res_t.states, clean_t.states)}")
+    # card against the port's CPU path: 8 steps, unstruck, DMR
+    cpu_exe = api.compile(prog, backend="auto", device="cpu", policies={"image1": dmr})
+    cpu = cpu_exe.run(cpu_exe.init(SEED), 8, start_step=0).states
+    card = run(api.compile(prog, backend="auto", policies={"image1": dmr}), s_d, 8).states
+    if cpu_exe.name != "lockstep" or not bits_equal(tree_map(lambda x: x.cpu(), card), cpu):
+        raise AssertionError("IR DMR: 8 card steps differ from the port's CPU path")
+    log(f"schedules: IR Listing 1 at 4K (Int slots): auto -> {exe_d.name}; DMR strike at step "
+        f"{STRIKE_STEP} detected on steps {STRIKE_STEP}-{LOOP_STEPS - 1}, K1 launches {k1}; TMR "
+        f"voted away ({tot['events']:.0f} event, per replica {tot['per_replica']}), final states "
+        f"bitwise the unstruck run's, K2 launches {k2}; 8 DMR steps bitwise equal to the CPU path")
+    blend_d = api.compile(blend_program(dmr), backend="lockstep_cuda")
+    blend_t = api.compile(blend_program(tmr), backend="lockstep_cuda")
+    times = in_turns(16, blend_dmr=(blend_d, blend_d.init(SEED)), ir_dmr=(exe_d, s_d))
+    times.update(in_turns(16, blend_tmr=(blend_t, blend_t.init(SEED)), ir_tmr=(exe_t, s_t)))
+    out["ir_ms_per_step"] = times
+    log("schedules: 4K ms/step on lockstep_cuda, in turns: " + "; ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in times.items()))
+    del blend_d, blend_t, res_t, clean_t, cpu, card
+
+    # (b) host: the §IV tie-break through K4
+    exe_h = api.compile(prog, backend="host", policies={"image1": dmr})
+    k4 = tv.tmr_vote.launches
+    res_h = run(exe_h, s_d, LOOP_STEPS, [strike])
+    k4 = tv.tmr_vote.launches - k4
+    clean_d = run(api.compile(prog, backend="auto", policies={"image1": dmr}), s_d, LOOP_STEPS)
+    if exe_h.recoveries != [(STRIKE_STEP, "image1")] or k4 != 1:
+        raise AssertionError(f"host: recoveries {exe_h.recoveries}, K4 launches {k4}")
+    if exe_h.ledger.totals["image1"]["events"] != 1.0:
+        raise AssertionError(f"host: ledger {exe_h.ledger.totals['image1']}, want one event")
+    if not bits_equal(res_h.states, clean_d.states):
+        raise AssertionError("host: the recovered states differ from the unstruck lockstep_cuda run")
+    _, host_sync = host_syncs(lambda: api.compile(prog, backend="host", policies={
+        "image1": dmr}).run(s_d, 4, start_step=0), sync_text)
+    _, lock_sync = host_syncs(lambda: exe_d.run(s_d, 4, start_step=0), sync_text)
+    times = in_turns(16, lockstep_cuda=(exe_d, s_d), host=(exe_h, s_d))
+    out["host"] = {"recoveries": [list(x) for x in exe_h.recoveries], "tmr_vote_launches": k4,
+                   "syncs_per_4_steps": host_sync, "lockstep_cuda_syncs_per_4_steps": lock_sync,
+                   "ms_per_step": times}
+    log(f"schedules: host at 4K, DMR: recoveries {exe_h.recoveries} through K4 ({k4} launch), "
+        f"final states bitwise the unstruck lockstep_cuda run's; host syncs over 4 steps "
+        f"{host_sync} (lockstep_cuda {lock_sync}); ms/step in turns: " + "; ".join(
+            f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in times.items()))
+    del res_h, clean_d, exe_h
+
+    # (c) a fault campaign: TMR on lockstep_cuda, four strikes
+    specs = [api.FaultSpec.at(step=t, cell_id=0, replica=rep, leaf=leaf, index=centre + 997 * i,
+                              bit=bit) for i, (t, rep, leaf, bit) in enumerate(CAMPAIGN)]
+    exe_c = api.compile(prog, backend="auto", policies={"image1": tmr})
+    clean = run(exe_c, s_t, LOOP_STEPS).states
+    steps0, ledger0 = exe_c.metrics()["steps"], json.dumps(exe_c.ledger.totals, sort_keys=True)
+    k2 = fs.tmr_step.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    camp = exe_c.run_campaign(s_t, LOOP_STEPS, specs, start_step=0)
+    torch.cuda.synchronize()
+    camp_ms = (time.perf_counter() - t0) / (len(specs) * LOOP_STEPS) * 1e3
+    k2 = fs.tmr_step.launches - k2
+    if exe_c.metrics()["steps"] != steps0 or json.dumps(exe_c.ledger.totals, sort_keys=True) != ledger0:
+        raise AssertionError("run_campaign moved the executor's step counter or ledger")
+    events = camp.reports["image1"]["events"].tolist()
+    per = camp.reports["image1"]["per_replica"].tolist()
+    if events != [1.0] * len(specs) or k2 != len(specs) * LOOP_STEPS:
+        raise AssertionError(f"run_campaign: events {events}, K2 launches {k2}")
+    for i, spec in enumerate(specs):
+        traj = tree_map(lambda x, i=i: x[i], camp.states)
+        st = s_t
+        for t in range(LOOP_STEPS):
+            st, _ = exe_c.pure_step(st, t, spec if spec.step == t else None)
+        if not bits_equal(traj, clean) or not bits_equal(traj, st):
+            raise AssertionError(f"run_campaign trajectory {i}: not the unstruck run / pure_step")
+        if per[i][spec.replica] != 1.0 or sum(per[i]) != 1.0:
+            raise AssertionError(f"run_campaign trajectory {i}: per replica {per[i]}")
+    out["campaign"] = {"trajectories": len(specs), "events": events, "tmr_step_launches": k2,
+                       "ms_per_trajectory_step": camp_ms}
+    log(f"schedules: run_campaign at 4K, TMR on {exe_c.name}: {len(specs)} trajectories "
+        f"(strikes at steps {[s.step for s in specs]}, replicas {[s.replica for s in specs]}, "
+        f"leaves {[s.leaf for s in specs]}) each voted away (events {events}), bitwise the "
+        f"unstruck run and a pure_step loop; ledger and step counter unchanged; "
+        f"{camp_ms:.3f} ms a trajectory-step, K2 launches {k2}")
+    del camp, clean, exe_c, exe_d, exe_t, s_d, s_t, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the §III wavefront: two independent chains at 4K cells each
+    from repro_torch.obs import Tracer
+
+    wprog = wave_program(W4K * H4K)
+    wf = api.compile(wprog, backend="auto", window=8)
+    if wf.name != "wavefront":
+        raise AssertionError(f"wavefront program: auto resolved to {wf.name!r}")
+    s_w = wf.init(SEED)
+    res_w, wave_sync = host_syncs(lambda: wf.run(s_w, WAVE_STEPS, start_step=0), sync_text)
+    lock = api.compile(wprog, backend="lockstep")
+    res_l, lock_sync = host_syncs(lambda: lock.run(s_w, WAVE_STEPS, start_step=0), sync_text)
+    res_c = run(api.compile(wprog, backend="lockstep_cuda"), s_w, WAVE_STEPS)
+    if wf.max_lead() <= 0 or wave_sync != 1:
+        raise AssertionError(f"wavefront: max_lead {wf.max_lead()}, host syncs {wave_sync}")
+    if not bits_equal(res_w.states, res_l.states) or not bits_equal(res_w.states, res_c.states):
+        raise AssertionError("wavefront: final states differ from lockstep / lockstep_cuda")
+    tracer = Tracer()
+    wf_s = api.compile(wprog, backend="auto", window=8, on_event=tracer.executor_hook())
+    hit = api.FaultSpec.at(step=12, cell_id=wprog.cell_id("fast"), replica=1, index=12345, bit=29)
+    wf_s.run(s_w, WAVE_STEPS, start_step=0, faults=hit)
+    unit_steps = sum(e["name"] == "unit_step" for e in tracer.events())
+    recent = wf_s.ledger.recent.get("fast", [])
+    if recent[:1] != [12] or unit_steps != 2 * WAVE_STEPS:
+        raise AssertionError(f"wavefront: strike at {recent[:1]}, unit_step events {unit_steps}")
+    times = in_turns(WAVE_STEPS, lockstep=(lock, s_w), wavefront=(wf, s_w))
+    out["wavefront"] = {"units": wf.metrics()["units"], "max_lead": wf.max_lead(),
+                        "window": wf.window, "host_syncs": wave_sync,
+                        "lockstep_host_syncs": lock_sync, "unit_step_events": unit_steps,
+                        "ms_per_step": times}
+    log(f"schedules: wavefront at {W4K * H4K} cells a unit (fast DMR work 1, slow work 16): "
+        f"auto -> wavefront, max_lead {wf.max_lead()}, host syncs over {WAVE_STEPS} steps "
+        f"{wave_sync} (lockstep {lock_sync}), final states bitwise lockstep's and "
+        f"lockstep_cuda's, strike into fast in the ledger at {recent[0]}, {unit_steps} unit_step "
+        f"events traced; ms/step in turns: " + "; ".join(
+            f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in times.items()))
+    for key, w in wrappers.items():  # and are read here
+        epi[key]["launches_by_path"]["schedules_2g"] = w.launches
+        epi[key]["launches"] += w.launches
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2006,7 +2306,10 @@ def main() -> int:
     record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
     epi = epilogue_phase()
     loop = loop_phase(epi)
-    torch.cuda.empty_cache()  # hand the 4K states' memory back before serving
+    torch.cuda.empty_cache()  # hand the 4K states' memory back
+    schedules = schedules_phase(epi)
+    gc.collect()
+    torch.cuda.empty_cache()
     ssd = ssd_phase(paths["ssd_scan"].with_suffix(".log"))
     attn = attention_phase(paths["flash_attention"].with_suffix(".log"))
     mla = mla_kernel_phase(paths["paged_mla_decode"].with_suffix(".log"))
@@ -2033,6 +2336,7 @@ def main() -> int:
         dataclasses.replace(ds.dense_prefix(ds.reduced()), n_layers=2))
     print(json.dumps({"paged_dense_parity": parity}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
+    print(json.dumps({"schedules": schedules}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)
     print(json.dumps({"engine_mamba2": mamba}), flush=True)
     print(json.dumps({"engine_deepseek_mla": deepseek}), flush=True)

@@ -1,4 +1,5 @@
-"""MISO front door in PyTorch: ``compile()`` and ``serve()``.
+"""MISO front door in PyTorch: ``compile()``, ``compile_source()`` and
+``serve()``.
 
     from repro_torch import api as miso
 
@@ -7,10 +8,16 @@
     exe = miso.compile(prog)                  # runs on cuda; device="cpu"
     result = exe.run(exe.init(0), 100)        # -> RunResult
 
+    prog = miso.compile_source(src)           # the textual MISO language
+
 The same protocol as ``repro.api`` (the JAX reference).  Back-ends:
 ``lockstep``, ``lockstep_cuda`` (the replicated cells' compare or vote
-fused into one CUDA kernel per step) and ``auto`` (``lockstep_cuda`` on
-a card, ``lockstep`` on the CPU); and the temporal serving engine.
+fused into one CUDA kernel per step), ``host`` (the §IV DMR tie-break in
+the loop), ``wavefront`` (§III: independent units advance without a
+global barrier) and ``auto`` (``wavefront`` for a program of more than
+one independent unit, else ``lockstep_cuda`` on a card and ``lockstep``
+on the CPU); and the temporal serving engine.  ``on_event=`` with
+``Tracer().executor_hook()`` traces any executor.
 
     exe = miso.compile(prog, backend="auto")  # -> lockstep_cuda on cuda
 """
@@ -27,10 +34,11 @@ from .core.executor import (  # noqa: F401
 )
 from .core.fault import FaultSpec, random_fault_campaign  # noqa: F401
 from .core.graph import DependencyGraph  # noqa: F401
+from .core.ir import compile_source  # noqa: F401
 from .core.program import MisoProgram  # noqa: F401
 from .core.redundancy import FaultLedger  # noqa: F401
 from .models.lm_cells import ServeConfig  # noqa: F401
-from .obs import MetricsRegistry  # noqa: F401
+from .obs import MetricsRegistry, Tracer  # noqa: F401
 from .serving.engine import EngineConfig, EngineParts, ServingEngine
 
 
@@ -65,8 +73,10 @@ __all__ = [
     "RedundancyPolicy",
     "RunResult",
     "ServeConfig",
+    "Tracer",
     "available_backends",
     "compile",
+    "compile_source",
     "random_fault_campaign",
     "register_backend",
     "serve",

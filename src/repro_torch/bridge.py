@@ -21,10 +21,10 @@ from .tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    c = np.ascontiguousarray(a).reshape(a.shape)  # ascontiguousarray makes a 0-d array 1-d
     if a.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(c.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(c.copy()).to(device)
 
 
 def states_from_numpy(tree, device="cuda"):

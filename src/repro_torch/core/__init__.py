@@ -1,5 +1,7 @@
-"""MISO core in PyTorch: cells (paper §II), the dependency graph (§III)
-and runtime-managed replication for dependability (§IV)."""
+"""MISO core in PyTorch: cells (paper §II), the textual language and the
+dependency graph (§III), runtime-managed replication for dependability
+(§IV), and the executors that run a program (lock-step, fused, host,
+wavefront)."""
 
 from .cell import (  # noqa: F401
     NO_REDUNDANCY,
@@ -28,3 +30,4 @@ from .redundancy import (  # noqa: F401
 
 # registers the fused ``lockstep_cuda`` back-end
 from . import backend_cuda  # noqa: F401
+from . import ir  # noqa: F401

@@ -60,7 +60,7 @@ def fused_transition(cell, prevs, levels, *, cell_id, step, fault, compare_now: 
 
     if R == 2:
         if not compare_now:
-            return new, {k: v.to(device) for k, v in zero_report().items()}
+            return new, zero_report(device)
         diff_words, fps = dmr_compare(new, blk, layout)
         if policy.compare == "hash":
             # what a spatial deployment ships between devices: 2 x 16 bytes

@@ -10,27 +10,48 @@ Every executor speaks the same protocol as the JAX package's:
     step(states, ...)            -> (states', reports)
     pure_step(states, t, ...)    -> (states', reports), no side effects
     run(states, n_steps, ...)    -> RunResult(states, reports, collected)
+    run_campaign(states, n, faults) -> RunResult with a campaign axis
     stream(states[, n_steps])    -> generator of (states', reports)
     metrics()                    -> dict (FaultLedger / compare statistics)
 
-Back-ends: ``lockstep`` (every cell's transition computed from the
-previous program state, double-buffered, one Python-level step after
-another) and ``lockstep_cuda`` (``core/backend_cuda.py``: the same
-schedule with each replicated cell's compare or vote fused into one
-kernel).  ``backend="auto"`` picks between them by device.
+Back-ends:
+
+  * ``lockstep``  -- every cell's transition computed from the previous
+    program state, double-buffered, one Python-level step after another.
+  * ``lockstep_cuda`` (``core/backend_cuda.py``) -- the same schedule with
+    each replicated cell's compare or vote fused into one kernel.
+  * ``host``      -- lock-step with the paper's §IV recovery protocol in
+    the loop: a DMR mismatch triggers a third tie-breaking execution from
+    the immutable previous buffer.
+  * ``wavefront`` -- the §III "no global barrier" schedule: the SCC
+    condensation of the read graph gives units that advance independently,
+    each free-running up to a bounded buffer window ahead of its
+    consumers.
+  * ``auto``      -- resolves at compile time as the JAX package's does:
+    wavefront when the read graph has more than one independent unit,
+    else the lock-step flavour of the device (``lockstep_cuda`` on a card,
+    ``lockstep`` on the CPU).
+
+``on_event(name, attrs)`` is the observability hook of every back-end:
+timed steps, checkpoints, compare mismatches, §IV recoveries and the
+wavefront's unit steps.  ``None`` (the default) costs nothing: every
+emission site is guarded, so no dicts are made and no clock is read.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import inspect
+import time
 from typing import Any, Callable, Iterator, Mapping, Optional
 
 import torch
 
-from ..tree import tree_map
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from .fault import FaultSpec
 from .program import MisoProgram
-from .redundancy import FaultLedger, run_transition
+from .redundancy import FaultLedger, make_tiebreak, run_transition
 
 Tree = Any
 
@@ -87,6 +108,17 @@ def _as_fault_list(faults) -> list[FaultSpec]:
     return list(faults)
 
 
+def _single_fault(faults) -> Optional[FaultSpec]:
+    fs = _as_fault_list(faults)
+    if len(fs) > 1:
+        raise ValueError(
+            "this backend threads a single FaultSpec through the compiled "
+            f"step (step-gated in-graph); got {len(fs)}.  Use "
+            "backend='host' for multi-fault campaigns."
+        )
+    return fs[0] if fs else None
+
+
 def _fault_in_window(faults: list, t: int, stride: int):
     """The armed fault whose step falls in [t, t + stride).  A step()
     call threads one FaultSpec, so two strikes in the same window cannot
@@ -105,6 +137,30 @@ def _to_host(reports: dict) -> dict:
     return tree_map(
         lambda x: x.tolist() if isinstance(x, torch.Tensor) else x, reports
     )
+
+
+def _on_host(trees: list) -> list:
+    """The trees with every CUDA tensor brought to the host in ONE copy,
+    so one synchronisation, however many steps and cells they hold (the
+    JAX package's single ``device_get`` of a run's reports)."""
+    flat = [tree_flatten(t) for t in trees]
+    dev = [x for leaves, _ in flat for x in leaves
+           if isinstance(x, torch.Tensor) and x.device.type != "cpu"]
+    if not dev:
+        return trees
+    host = iter(torch.cat([x.reshape(-1) for x in dev]).cpu().split([x.numel() for x in dev]))
+    return [
+        tree_unflatten(td, [
+            next(host).to(x.dtype).reshape(x.shape)
+            if isinstance(x, torch.Tensor) and x.device.type != "cpu" else x
+            for x in leaves
+        ])
+        for leaves, td in flat
+    ]
+
+
+def _stack(trees: list):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 # --------------------------------------------------------------------------
@@ -138,10 +194,16 @@ class Executor:
         compare_every: Optional[int] = None,
         checkpoint_cb: Optional[Callable[[int, dict], None]] = None,
         checkpoint_every: int = 0,
+        on_event: Optional[Callable[[str, dict], None]] = None,
     ):
         self.program = program
         self.device = resolve_device(device)
         self.compare_every = compare_every or 1
+        #: observability hook: ``on_event(name, attrs)`` for timed steps
+        #: (``dur_us``, ``dispatch_us``, ``device_us``), checkpoints,
+        #: compare mismatches, §IV recoveries and wavefront unit steps.
+        #: ``Tracer.executor_hook()`` adapts it into trace events.
+        self.on_event = on_event
         #: ``run``/``stream`` hand the cb the consistent pre-step buffer
         #: every ``checkpoint_every`` steps (double buffering makes the
         #: previous state a snapshot for free)
@@ -204,16 +266,71 @@ class Executor:
         collected = [] if collect is not None else None
         for t in range(start, start + n_steps, stride):
             self._maybe_checkpoint(t, states)
+            t0 = time.perf_counter() if self.on_event is not None else None
             states, rep = self.step(
                 states, step_idx=t, fault=_fault_in_window(flist, t, stride)
             )
+            if t0 is not None:
+                # bracket the dispatch AND the device work: the split
+                # tells host-bound from device-bound steps apart
+                t1 = time.perf_counter()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                t2 = time.perf_counter()
+                self.on_event("step", {
+                    "step": t, "dur_us": (t2 - t0) * 1e6,
+                    "dispatch_us": (t1 - t0) * 1e6, "device_us": (t2 - t1) * 1e6,
+                })
             totals = rep if totals is None else tree_map(lambda a, b: a + b, totals, rep)
             if collect is not None:
                 collected.append(collect(states))
         if collected:
-            collected = tree_map(lambda *xs: torch.stack(xs), *collected)
+            collected = _stack(collected)
         return RunResult(
             states=states, reports=totals if totals is not None else {}, collected=collected
+        )
+
+    # -- multi-fault campaigns --------------------------------------------
+    def run_campaign(
+        self,
+        states: dict,
+        n_steps: int,
+        faults,
+        *,
+        start_step: Optional[int] = None,
+        collect: Optional[Callable[[dict], Tree]] = None,
+    ) -> RunResult:
+        """Run the SAME trajectory once per armed ``FaultSpec``: a fault
+        campaign.  States, reports and collected carry a leading campaign
+        axis of size ``len(faults)``.  Campaigns are analysis: no
+        FaultLedger entries, no step-counter advance (the ``pure_step``
+        contract, batched).  A host loop of ``pure_step`` on every
+        back-end (the JAX package's lock-step flavours vmap it into one
+        dispatch; the outputs are the same)."""
+        flist = _as_fault_list(faults)
+        if not flist:
+            raise ValueError("run_campaign needs at least one FaultSpec")
+        stride = self.step_stride
+        if n_steps % stride != 0:
+            raise ValueError("n_steps must be a multiple of compare_every")
+        start = self._t if start_step is None else int(start_step)
+        finals, totals_all, coll_all = [], [], []
+        for fault in flist:
+            st, totals = states, None
+            coll = [] if collect is not None else None
+            for t in range(start, start + n_steps, stride):
+                st, rep = self.pure_step(st, t, _fault_in_window([fault], t, stride))
+                totals = rep if totals is None else tree_map(lambda a, b: a + b, totals, rep)
+                if collect is not None:
+                    coll.append(collect(st))
+            finals.append(st)
+            totals_all.append(totals)
+            if collect is not None:
+                coll_all.append(_stack(coll))
+        return RunResult(
+            states=_stack(finals),
+            reports=_stack(totals_all),
+            collected=_stack(coll_all) if collect is not None else None,
         )
 
     # -- serving stream ---------------------------------------------------
@@ -281,7 +398,28 @@ class Executor:
             and self.checkpoint_every
             and t % self.checkpoint_every == 0
         ):
+            t0 = time.perf_counter() if self.on_event is not None else None
             self.checkpoint_cb(t, states)
+            if t0 is not None:
+                self.on_event("checkpoint", {
+                    "step": t, "dur_us": (time.perf_counter() - t0) * 1e6,
+                })
+
+    def _ledger_update(self, step: int, reports: dict) -> None:
+        host = _to_host(reports)
+        self.ledger.update(step, host)
+        if self.on_event is not None:
+            self._emit_mismatches(step, host)
+
+    def _emit_mismatches(self, step: int, host_reports: dict) -> None:
+        """Surface replica-compare disagreements (caller guards on
+        ``on_event``): one event per cell that detected any this step."""
+        for name, rep in host_reports.items():
+            ev = rep.get("events") if isinstance(rep, dict) else None
+            if ev is not None and int(ev) > 0:
+                self.on_event("compare_mismatch", {
+                    "step": int(step), "cell": name, "events": int(ev),
+                })
 
 
 # --------------------------------------------------------------------------
@@ -337,7 +475,7 @@ class LockstepExecutor(Executor):
         t = self._t if step_idx is None else int(step_idx)
         states, reports = self._window(states, t, fault, True)
         # the compare runs on the window's last sub-step: attribute there
-        self.ledger.update(t + self.compare_every - 1, _to_host(reports))
+        self._ledger_update(t + self.compare_every - 1, reports)
         self._t = t + self.compare_every
         return states, reports
 
@@ -349,25 +487,249 @@ class LockstepExecutor(Executor):
 
 
 # --------------------------------------------------------------------------
+# host back-end: §IV recovery protocol in the loop
+# --------------------------------------------------------------------------
+@register_backend("host")
+class HostExecutor(Executor):
+    """Lock-step with the paper's §IV recovery in the host loop.
+
+    Every step's reports come to the host (one copy); a DMR cell whose
+    replicas disagree is repaired by a third transition from the immutable
+    previous buffer, voted 2-of-3 with the two replicas
+    (``redundancy.make_tiebreak``: K4 on a card), and ``(step, cell)`` is
+    appended to ``recoveries``.  Extra option: ``ledger`` (a FaultLedger
+    to accumulate into).  The JAX package's ``jit=`` option has no meaning
+    for eager torch and is not accepted.  ``run`` takes a list of
+    FaultSpecs, one armed strike per step.
+    """
+
+    def __init__(self, program, *, ledger: Optional[FaultLedger] = None, **kw):
+        super().__init__(program, **kw)
+        if self.compare_every != 1:
+            raise ValueError(
+                "backend='host' compares every step (the §IV protocol needs "
+                "per-step reports); use backend='lockstep' for "
+                "compare_every amortization"
+            )
+        if ledger is not None:
+            self.ledger = ledger
+        self._step = compile_step(program)
+        self._step_nocmp = None  # lazy: pure_step(compare=False)
+        levels = program.levels()
+        self._tiebreakers = {
+            name: make_tiebreak(cell, levels)
+            for name, cell in program.cells.items()
+            if cell.redundancy.level == 2
+        }
+
+    def pure_step(self, states, step_idx, fault=None, *, compare=True):
+        """Replay one transition with no ledger/recovery side effects (the
+        §IV third execution; see ``Executor.pure_step``)."""
+        if not compare:
+            if self._step_nocmp is None:
+                self._step_nocmp = compile_step(self.program, with_compare=False)
+            return self._step_nocmp(states, int(step_idx), fault)
+        return self._step(states, int(step_idx), fault)
+
+    def step(self, states, *, step_idx=None, fault=None):
+        t = self._t if step_idx is None else int(step_idx)
+        prev = states  # immutable previous buffer (double buffering)
+        states, reports = self._step(prev, t, fault)
+        host_reports = _on_host([reports])[0]
+        self.ledger.update(t, host_reports)
+        if self.on_event is not None:
+            self._emit_mismatches(t, host_reports)
+        # paper §IV: DMR mismatch -> a third equal transition decides
+        for name, rep in host_reports.items():
+            cell = self.program.cells[name]
+            if cell.redundancy.level == 2 and rep["events"] > 0:
+                t0 = time.perf_counter() if self.on_event is not None else None
+                states = dict(states)
+                states[name] = self._tiebreakers[name](prev, states[name])
+                if t0 is not None:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self.on_event("dmr_recovery", {
+                        "step": t, "cell": name,
+                        "dur_us": (time.perf_counter() - t0) * 1e6,
+                    })
+                self.recoveries.append((t, name))
+        self._t = t + 1
+        return states, host_reports
+
+
+# --------------------------------------------------------------------------
+# wavefront back-end (paper §III: no global barrier)
+# --------------------------------------------------------------------------
+@register_backend("wavefront")
+class WavefrontExecutor(Executor):
+    """Dependency-aware asynchronous execution.
+
+    Units = SCCs of the read graph.  Unit u may compute its step t+1 as
+    soon as every unit it reads has produced step t (it does NOT wait for
+    the rest of the program), bounded by ``window`` so producers never run
+    more than ``window`` steps ahead of their slowest consumer (bounded
+    buffers).  Unit steps are dispatched eagerly on one CUDA stream, so the
+    host runs ahead of the card as JAX's async dispatch does; a run's
+    reports stay on the device and come to the host in one copy at its end.
+    """
+
+    def __init__(self, program, *, window: int = 4, **kw):
+        super().__init__(program, **kw)
+        if self.compare_every != 1:
+            raise ValueError("backend='wavefront' does not amortize "
+                             "compares; compare_every must be 1")
+        self.window = window
+        self.units, self._edges = program.graph().condensation()
+        self._unit_of = {n: i for i, comp in enumerate(self.units) for n in comp}
+        self._levels = program.levels()
+        # external reads per unit
+        self._ext_reads: list[set[str]] = [
+            {r for n in comp for r in program.cells[n].reads
+             if self._unit_of[r] != self._unit_of[n]}
+            for comp in self.units
+        ]
+        self._consumers: dict[int, set[int]] = {i: set() for i in range(len(self.units))}
+        for i, deps in self._edges.items():
+            for d in deps:
+                self._consumers[d].add(i)
+        self._unit_step = [self._make_unit_step(i) for i in range(len(self.units))]
+        self.trace: list[tuple[int, int]] = []  # (unit, step) order
+
+    def _make_unit_step(self, ui: int):
+        cells = [self.program.cells[n] for n in self.units[ui]]
+        # the index lockstep gives the cell: a strike lands on the same
+        # cell, replica, leaf, word and bit on every back-end
+        ids = {c.name: self.program.cell_id(c.name) for c in cells}
+
+        def ustep(own: dict, ext: dict, step_idx: int, fault):
+            env = {**own, **ext}
+            new, reports = {}, {}
+            for cell in cells:
+                new[cell.name], reports[cell.name] = run_transition(
+                    cell, env, self._levels,
+                    cell_id=ids[cell.name], step=step_idx, fault=fault,
+                )
+            return new, reports
+
+        return ustep
+
+    def step(self, states, *, step_idx=None, fault=None):
+        """One globally synchronized transition (all units advance once).
+        Read-prev semantics make unit order irrelevant within a step."""
+        t = self._t if step_idx is None else int(step_idx)
+        new, reports = {}, {}
+        for ui in range(len(self.units)):
+            own = {n: states[n] for n in self.units[ui]}
+            ext = {r: states[r] for r in self._ext_reads[ui]}
+            nstates, reps = self._unit_step[ui](own, ext, t, fault)
+            new.update(nstates)
+            reports.update(reps)
+        self._ledger_update(t, reports)
+        self._t = t + 1
+        return new, reports
+
+    def run(self, states, n_steps, *, start_step=None, faults=None, collect=None):
+        if collect is not None:
+            raise ValueError(
+                "backend='wavefront' advances units out of global step "
+                "order, so a per-step collect of the full program state "
+                "does not exist; use .stream() for per-step observation")
+        if self.checkpoint_cb is not None and self.checkpoint_every:
+            raise ValueError(
+                "backend='wavefront' has no globally consistent cut "
+                "mid-run (units free-run); use .stream(), whose ticks are "
+                "globally synchronized, for checkpointing")
+        start = self._t if start_step is None else int(start_step)
+        fault = _single_fault(faults)
+        nU = len(self.units)
+        clock = [0] * nU
+        # history[name] = deque of (step, state) for produced states
+        hist: dict[str, collections.deque] = {
+            n: collections.deque([(0, states[n])], maxlen=self.window + 1)
+            for n in self.program.cells
+        }
+        self.trace.clear()
+        step_reports: dict[int, dict] = {}  # step -> per-cell reports, on the device
+
+        def ready(ui: int) -> bool:
+            t = clock[ui]
+            if t >= n_steps:
+                return False
+            for r in self._ext_reads[ui]:
+                if not any(s == t for s, _ in hist[r]):
+                    return False  # dependency hasn't produced step t yet
+            for k in self._consumers[ui]:
+                if t - clock[k] >= self.window:
+                    return False  # bounded buffer: don't outrun consumers
+            return True
+
+        progressed = True
+        while progressed:
+            progressed = False
+            for ui in range(nU):
+                while ready(ui):
+                    t = clock[ui]
+                    own = {n: next(st for s, st in hist[n] if s == t) for n in self.units[ui]}
+                    ext = {r: next(st for s, st in hist[r] if s == t) for r in self._ext_reads[ui]}
+                    new, reps = self._unit_step[ui](own, ext, start + t, fault)
+                    for n, st in new.items():
+                        hist[n].append((t + 1, st))
+                    step_reports.setdefault(t, {}).update(reps)
+                    clock[ui] = t + 1
+                    self.trace.append((ui, t))
+                    if self.on_event is not None:
+                        # the barrier-free schedule is the observable:
+                        # emission order IS the wavefront execution order
+                        self.on_event("unit_step", {
+                            "unit": ui, "step": t, "lead": max(clock) - min(clock)})
+                    progressed = True
+        if any(c != n_steps for c in clock):
+            raise RuntimeError(f"wavefront deadlock: clocks={clock}")
+        # the single host sync, at the end: attribute events to their true
+        # step so the ledger's windowed permanent-fault flagging works here too
+        steps = sorted(step_reports)
+        totals = None
+        for t, reps in zip(steps, _on_host([step_reports[t] for t in steps])):
+            self._ledger_update(start + t, reps)
+            totals = reps if totals is None else tree_map(lambda a, b: a + b, totals, reps)
+        self._t = start + n_steps
+        final = {n: hist[n][-1][1] for n in self.program.cells}
+        return RunResult(states=final, reports=totals or {})
+
+    def max_lead(self) -> int:
+        """Largest step-gap between units observed during execution: > 0
+        proves barrier-free overlap (paper §III)."""
+        lead, clocks = 0, [0] * len(self.units)
+        for ui, t in self.trace:
+            clocks[ui] = t + 1
+            lead = max(lead, max(clocks) - min(clocks))
+        return lead
+
+    def metrics(self) -> dict:
+        m = super().metrics()
+        m["units"] = len(self.units)
+        m["max_lead"] = self.max_lead()
+        m["window"] = self.window
+        return m
+
+
+# --------------------------------------------------------------------------
 # the front door
 # --------------------------------------------------------------------------
 def _auto_backend(program: MisoProgram, device: torch.device, compare_every) -> str:
     """The JAX package's ``auto`` rule: wavefront when the read graph has
-    more than one independent unit (unless ``compare_every > 1``, which
-    only the lock-step back-ends amortize), else the lock-step flavor of
-    the device: the fused ``lockstep_cuda`` on a card, ``lockstep`` on
-    the CPU (JAX picks ``lockstep`` off the TPU).  The wavefront back-end
-    is not ported, so that case raises rather than run another schedule.
-    (JAX resolves to its spatial back-end only when given a device mesh
-    with a pod axis; this package's ``compile`` takes none, as JAX
-    without a mesh.)"""
-    units = len(program.graph().independent_groups())
-    if units > 1 and not (compare_every and compare_every > 1):
-        raise NotImplementedError(
-            f"backend='auto' resolves to 'wavefront' for a program of {units} "
-            "independent units, and the wavefront back-end is not ported yet "
-            "(ROADMAP P13); name a lock-step back-end explicitly"
-        )
+    more than one independent unit (weakly-connected component of the SCC
+    condensation), unless ``compare_every > 1``, which only the lock-step
+    back-ends amortize; else the lock-step flavour of the device: the
+    fused ``lockstep_cuda`` on a card, ``lockstep`` on the CPU (JAX picks
+    ``lockstep`` off the TPU).  (JAX resolves to its spatial back-end only
+    when given a device mesh with a pod axis; this package's ``compile``
+    takes none, as JAX without a mesh.)"""
+    if len(program.graph().independent_groups()) > 1 and not (
+        compare_every and compare_every > 1
+    ):
+        return "wavefront"
     return "lockstep_cuda" if device.type == "cuda" else "lockstep"
 
 
@@ -380,23 +742,38 @@ def compile(
     compare_every: Optional[int] = None,
     checkpoint_cb: Optional[Callable[[int, dict], None]] = None,
     checkpoint_every: int = 0,
+    on_event: Optional[Callable[[str, dict], None]] = None,
+    **backend_opts,
 ) -> Executor:
     """Compile a MisoProgram into an Executor — the single front door.
 
     backend       -- a name registered through ``register_backend``
-                     ("lockstep", "lockstep_cuda"), or "auto".
+                     ("lockstep", "lockstep_cuda", "host", "wavefront"),
+                     or "auto".
     device        -- "cuda" (default) or "cpu"; CUDA that is not there
                      raises.
     policies      -- optional {cell_name: RedundancyPolicy}: selective
                      replication (§IV) applied before compilation.
-    compare_every -- compare replicas every k-th transition.
+    compare_every -- compare replicas every k-th transition (lock-step
+                     back-ends only).
     checkpoint_cb -- ``(step, states) -> None``: run/stream snapshot the
-                     pre-step buffer every ``checkpoint_every`` steps.
+                     pre-step buffer every ``checkpoint_every`` steps (the
+                     wavefront back-end on ``stream`` only).
+    on_event      -- ``(name, attrs) -> None`` observability hook: timed
+                     steps, checkpoints, compare mismatches, §IV
+                     recoveries, wavefront unit steps.
+                     ``Tracer.executor_hook()`` (obs/trace.py) adapts it
+                     into trace events.  None allocates nothing and reads
+                     no clocks.
+    backend_opts  -- forwarded to the back-end (host: ledger; wavefront:
+                     window).  Under "auto", options the resolved
+                     back-end does not take are dropped.
     """
     if policies:
         program = program.with_policies(policies)
     device = resolve_device(device)
-    if backend == "auto":
+    auto = backend == "auto"
+    if auto:
         backend = _auto_backend(program, device, compare_every)
     try:
         cls = BACKENDS[backend]
@@ -405,10 +782,17 @@ def compile(
             f"unknown backend {backend!r}; registered backends: "
             f"{available_backends()}"
         ) from None
+    if auto and backend_opts:
+        # auto may resolve to any back-end, so hints for the others
+        # (window= when lockstep wins) are dropped, not fatal
+        accepted = set(inspect.signature(cls.__init__).parameters)
+        backend_opts = {k: v for k, v in backend_opts.items() if k in accepted}
     return cls(
         program,
         device=device,
         compare_every=compare_every,
         checkpoint_cb=checkpoint_cb,
         checkpoint_every=checkpoint_every,
+        on_event=on_event,
+        **backend_opts,
     )

@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from ..kernels import ops
 from ..kernels.state_hash import M32, MIX, PHI, mul32
 from ..tree import tree_leaves, tree_map
 from .cell import CellType, restrict_reads, undeclared_read_error
@@ -127,13 +128,15 @@ def fingerprint_majority(hs: torch.Tensor):
     return (eq01, eq02, eq12), idx, per
 
 
-def zero_report() -> dict:
-    """A clean report.  Host (CPU) tensors, so an unreplicated cell's
-    report never forces a device synchronisation in the ledger."""
+def zero_report(device=None) -> dict:
+    """A clean report, made where it is to live.  The default is host (CPU)
+    tensors, so an unreplicated cell's report never forces a device
+    synchronisation in the ledger; a replicated cell's report is made on
+    its device directly (a blocking host-to-device copy would be one)."""
     return {
-        "mismatch_elems": torch.zeros((), dtype=torch.float32),
-        "events": torch.zeros((), dtype=torch.float32),
-        "per_replica": torch.zeros((MAX_REPLICAS,), dtype=torch.float32),
+        "mismatch_elems": torch.zeros((), dtype=torch.float32, device=device),
+        "events": torch.zeros((), dtype=torch.float32, device=device),
+        "per_replica": torch.zeros((MAX_REPLICAS,), dtype=torch.float32, device=device),
     }
 
 
@@ -238,7 +241,7 @@ def run_transition(
     )
     reps = [tree_map(lambda x, i=i: x[i], new) for i in range(R)]
     device = tree_leaves(new)[0].device
-    report = {k: v.to(device) for k, v in zero_report().items()}
+    report = zero_report(device)
 
     if R == 2:
         if policy.compare == "hash":
@@ -267,6 +270,35 @@ def run_transition(
     report["events"] = (per.sum() > 0).to(torch.float32)
     # re-synchronize replicas to the voted value (prevents divergence)
     return replicate_state(voted, R), report
+
+
+def make_tiebreak(cell: CellType, levels: Mapping[str, int]):
+    """Paper §IV DMR recovery: "a third equal transition should be
+    executed to decide between the two possible outcomes."  The host calls
+    the returned ``tiebreak(prevs, disagreeing)`` with the immutable
+    previous program state (double buffering keeps it) and the two
+    disagreeing replicas; it returns the repaired replicated state.
+
+    The third transition reads the canonical view of every read cell and
+    has no replica axis.  On a CUDA state the 2-of-3 vote over (r0, r1,
+    third) is K4 (``kernels.ops.tmr_vote_pytree``); on the CPU it is
+    ``majority_vote``.  The two are bitwise equal."""
+    def tiebreak(prevs: Mapping[str, Tree], disagreeing: Tree) -> Tree:
+        canon = {
+            name: canonical_state(val, levels.get(name, 1))
+            for name, val in restrict_reads(cell, prevs).items()
+        }
+        third = _call(cell, canon)
+        if tree_leaves(third)[0].device.type == "cuda":
+            stacked = tree_map(lambda x, t: torch.cat([x[:2], t.unsqueeze(0)]), disagreeing, third)
+            voted, _counts = ops.tmr_vote_pytree(stacked)
+        else:
+            r0 = tree_map(lambda x: x[0], disagreeing)
+            r1 = tree_map(lambda x: x[1], disagreeing)
+            voted = majority_vote(r0, r1, third)
+        return replicate_state(voted, cell.redundancy.level)
+
+    return tiebreak
 
 
 # --------------------------------------------------------------------------

@@ -1,3 +1,4 @@
-"""Observability: the metrics registry (tracing is not ported yet)."""
+"""Observability: the metrics registry and the structured tracer."""
 
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry  # noqa: F401
+from .trace import Tracer  # noqa: F401

@@ -53,7 +53,7 @@ class EngineConfig:
     retain_results   -- finished records kept for ``result()`` pickup.
     compare_every    -- executor compare cadence (None = backend default).
     checkpoint_cb/checkpoint_every -- executor checkpoint segmentation.
-    tracer           -- not ported yet: must be None.
+    tracer           -- the engine's spans are not ported yet: must be None.
     registry         -- metrics registry (a fresh one when None).
     """
 
@@ -71,7 +71,10 @@ class EngineConfig:
         if self.placement != "temporal":
             raise NotImplementedError("spatial replica placement is not ported yet")
         if self.tracer is not None:
-            raise NotImplementedError("tracing (obs/trace.py) is not ported yet")
+            raise NotImplementedError(
+                "the serving engine's trace spans are not ported yet (they come "
+                "with speculation); an executor takes a Tracer through on_event"
+            )
 
 
 class EngineParts(NamedTuple):

@@ -226,11 +226,10 @@ def two_unit_programs():
     return progs
 
 
-def test_auto_raises_where_jax_picks_the_unported_wavefront():
+def test_auto_resolves_like_jax_on_two_units():
     jp, tp = two_unit_programs()
     assert jmiso.compile(jp, backend="auto").name == "wavefront"
-    with pytest.raises(NotImplementedError, match="P13"):
-        tmiso.compile(tp, backend="auto", device="cpu")
+    assert tmiso.compile(tp, backend="auto", device="cpu").name == "wavefront"
     # compare_every > 1: JAX keeps a lock-step back-end, and so does the port
     assert jmiso.compile(jp, backend="auto", compare_every=2).name == "lockstep"
     assert tmiso.compile(tp, backend="auto", device="cpu", compare_every=2).name == "lockstep"

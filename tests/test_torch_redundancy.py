@@ -124,7 +124,7 @@ def test_pure_step_replays_without_side_effects():
 
 def test_unknown_backend_and_missing_cuda_raise():
     with pytest.raises(ValueError, match="unknown backend"):
-        tmiso.compile(torch_program(), backend="wavefront", device="cpu")
+        tmiso.compile(torch_program(), backend="quantum", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA was requested"):
             tmiso.compile(torch_program())  # the default device is cuda
