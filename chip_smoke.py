@@ -122,6 +122,23 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  a seed, the MTP head built) with paged latent KV: the
                  stream and strike of phase 3; K6 launches must equal
                  3 layers x (ticks + replays), K5 none.
+  3d. spec    -- speculative decoding on replica slots, phase 3's stream
+                 again with every request asking for ``draft_len`` 4, and
+                 the tokens of each request bitwise phase 3's: (a)
+                 self-speculation (K5 launches = 24 x (ticks + replays) x
+                 5, more than one token a verify walk); (b) a second
+                 full-width internlm2 drawn from another seed as the draft
+                 (real rejections; its dense cache through K5 too, so K5
+                 launches = 2 x 24 x (ticks + replays) x 5), under a
+                 ``Tracer`` and with the strike of phase 3 landing
+                 mid-verify: the trace passes ``tools/validate_trace.py``,
+                 holds one tick span a tick, one verify-walk span a
+                 counted walk, one B/E pair a request and the strike's
+                 detect -> attribute -> repair on the victim's track, and
+                 gives each tick's dispatch / device / harvest split; (c)
+                 phase 3c's deepseek stream self-speculating with
+                 ``draft_len`` 2 (tokens bitwise 3c's, K6 launches = 3 x
+                 (ticks + replays) x 3, K5 none).
   4. check    -- reduced f32 models (internlm2, mamba2, and deepseek's
                  dense prefix) served the same way must emit the tokens a
                  full-sequence forward pass predicts; internlm2 and
@@ -130,9 +147,11 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  equal, none / DMR / TMR.
 
 The last lines are the paged-vs-dense parity, the loop's, the
-schedules', the three engines' and the kernels' JSON records (K1-K4's
-launches add phases 2c and 2g, ``launches_by_path``), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+schedules', the three engines', the speculating engines'
+(``engine_spec``) and the kernels' JSON records (each kernel's launches
+add up the paths that drive it, ``launches_by_path``: K1-K4 phases 2c
+and 2g, K5 phases 3 and 3d, K6 phases 3c and 3d), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1933,7 +1952,7 @@ POLICIES = ("none", "dmr", "tmr")
 MAMBA_PROMPTS = (16, 320, 128, 77, 256, 300, 129, 190)
 
 
-def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None):
+def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None):
     from repro_torch.api import RedundancyPolicy
     from repro_torch.serving import Request
 
@@ -1945,6 +1964,7 @@ def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None):
                                 else lengths[i]).astype(np.int32),
             max_new_tokens=new,
             policy=RedundancyPolicy(level=levels[POLICIES[i % 3]]),
+            spec=spec,
         )
         for i in range(n)
     ]
@@ -1985,25 +2005,27 @@ def drive(engine, reqs, strike: bool):
     return victim
 
 
-def serve_engine(cfg, scfg):
+def serve_engine(cfg, scfg, tracer=None):
     from repro_torch import api
     from repro_torch.serving.lm import lm_engine_parts
 
     prog, adapter = lm_engine_parts(cfg, scfg)
-    engine = api.serve(prog, adapter)
+    engine = api.serve(prog, adapter, api.EngineConfig(tracer=tracer))
     engine.start(SEED)
     return engine
 
 
-def serve_stream(cfg, scfg, wrappers, lengths=None) -> tuple:
+def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
+                 tracer=None) -> tuple:
     """Build the engine on the card, warm it up with one request, set the
-    ``wrappers``' launch counts to 0, drive the 8-request stream with its
-    strike, read the counts, and check every request and the strike.
-    Returns (engine, run record, launch counts)."""
+    ``wrappers``' launch counts to 0, drive the 8-request stream (each
+    request asking for ``spec``) with its strike, read the counts, and
+    check every request and the strike.  Returns (engine, run record,
+    launch counts, each request's tokens)."""
     from repro_torch.serving import DONE, Request
 
     t0 = time.perf_counter()
-    engine = serve_engine(cfg, scfg)
+    engine = serve_engine(cfg, scfg, tracer)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(engine._states["weights"]))
     log(f"engine: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} vocab="
@@ -2016,21 +2038,22 @@ def serve_stream(cfg, scfg, wrappers, lengths=None) -> tuple:
     engine.pump()
     assert engine.result(warm.id)["status"] == DONE
 
-    reqs = make_requests(cfg.vocab_size, lengths=lengths)
+    reqs = make_requests(cfg.vocab_size, lengths=lengths, spec=spec)
     R = engine.registry
-    ticks0 = R["serving_ticks_total"].value
-    replays0 = R["serving_replays_total"].value
+    names = ("serving_ticks_total", "serving_replays_total", "serving_spec_verify_ticks_total",
+             "serving_spec_tokens_committed_total")
+    before = [R[k].value for k in names]
     busy0 = R["serving_tick_seconds"].sum
+    first_step = engine.exe.metrics()["steps"]
     torch.cuda.synchronize()
     for w in wrappers:  # counts start here
         w.launches = 0
     t0 = time.perf_counter()
-    victim = drive(engine, reqs, strike=True)
+    victim = drive(engine, reqs, strike=strike)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [w.launches for w in wrappers]  # and are read here
-    ticks = int(R["serving_ticks_total"].value - ticks0)
-    replays = int(R["serving_replays_total"].value - replays0)
+    ticks, replays, spec_ticks, spec_tokens = (int(R[k].value - b) for k, b in zip(names, before))
     busy = R["serving_tick_seconds"].sum - busy0
 
     results = {r.id: engine.result(r.id) for r in reqs}
@@ -2043,18 +2066,27 @@ def serve_stream(cfg, scfg, wrappers, lengths=None) -> tuple:
             raise AssertionError(f"{r.id}: token out of range")
     m = engine.metrics()
     struck = {rid: n for rid, n in m["request_faults"].items() if rid != warm.id}
-    if struck != {victim.id: 1} or m["fault_totals"][victim.id]["events"] != 1.0:
-        raise AssertionError(f"strike not detected/attributed once to {victim.id}: {struck}")
-    if m["fault_totals"][victim.id]["per_replica"][1] != 1.0 or replays < 1:
-        raise AssertionError("strike not localized to replica 1 by a §IV replay")
+    if strike:
+        if struck != {victim.id: 1} or m["fault_totals"][victim.id]["events"] != 1.0:
+            raise AssertionError(f"strike not detected/attributed once to {victim.id}: {struck}")
+        if m["fault_totals"][victim.id]["per_replica"][1] != 1.0 or replays < 1:
+            raise AssertionError("strike not localized to replica 1 by a §IV replay")
+    elif struck or replays:
+        raise AssertionError(f"faults {struck} and {replays} replays in a run without a strike")
     n_tok = sum(len(results[r.id]["tokens"]) for r in reqs)
     ttfts = sorted(results[r.id]["ttft_s"] for r in reqs)
+    spec_line = ""
+    if spec is not None:
+        spec_line = (f"; {spec_ticks} verify walks committed {spec_tokens} tokens "
+                     f"({spec_tokens / max(spec_ticks, 1):.3f} a walk, smallest commit "
+                     f"{m['spec_min_commit']})")
     log(f"engine: {cfg.name}: {len(reqs)} requests DONE (prompts "
         f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)} tokens), "
         f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; TTFT p50 "
         f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; {ticks} ticks, "
-        f"{busy / ticks * 1e3:.2f} ms/tick; {replays} replay(s); strike on {victim.id} "
-        f"detected, attributed, repaired")
+        f"{busy / ticks * 1e3:.2f} ms/tick; {replays} replay(s)"
+        + (f"; strike on {victim.id} detected, attributed, repaired" if strike else "")
+        + spec_line)
     run = {
         "requests": len(reqs),
         "tokens_per_s": n_tok / wall,
@@ -2065,17 +2097,23 @@ def serve_stream(cfg, scfg, wrappers, lengths=None) -> tuple:
         "replays": replays,
         "params_b": n_params / 1e9,
     }
-    return engine, run, launches
+    if spec is not None:
+        run.update(spec_ticks=spec_ticks, spec_tokens=spec_tokens,
+                   spec_tokens_per_tick=spec_tokens / max(spec_ticks, 1),
+                   spec_min_commit=m["spec_min_commit"])
+    run["first_step"] = first_step
+    run["victim"] = victim.id if strike else None
+    return engine, run, launches, [list(results[r.id]["tokens"]) for r in reqs]
 
 
-def engine_phase() -> dict:
+def engine_phase() -> tuple[dict, list]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.models.lm_cells import ServeConfig
 
     cfg = get_config("internlm2-1.8b")
     scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
-    engine, run, (launches,) = serve_stream(cfg, scfg, [pd.paged_gqa_attention])
+    engine, run, (launches,), tokens = serve_stream(cfg, scfg, [pd.paged_gqa_attention])
     n_sub = max(1, scfg.prefill_chunk)
     expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
     if launches == 0 or launches != expect:
@@ -2104,7 +2142,7 @@ def engine_phase() -> dict:
         "fingerprints_ms": fp_ms,
         "pool_copy_ms": copy_ms,
         "pool_copy_gb": 2 * pool_bytes / 1e9,
-    }
+    }, tokens
 
 
 def mamba_engine_phase() -> dict:
@@ -2115,7 +2153,7 @@ def mamba_engine_phase() -> dict:
     cfg = get_config("mamba2-2.7b")
     scfg = ServeConfig(batch=8, max_len=512)
     torch.cuda.reset_peak_memory_stats()
-    engine, run, (launches,) = serve_stream(cfg, scfg, [ks.ssd_scan], lengths=MAMBA_PROMPTS)
+    engine, run, (launches,), _ = serve_stream(cfg, scfg, [ks.ssd_scan], lengths=MAMBA_PROMPTS)
     m = engine.metrics()
     if m["paged"] or m["prefill_buckets"] is not None:
         raise AssertionError(f"mamba2 must serve dense and unbucketed: {m['paged']}, "
@@ -2174,7 +2212,7 @@ def mamba_engine_phase() -> dict:
     }
 
 
-def mla_engine_phase() -> dict:
+def mla_engine_phase() -> tuple[dict, list]:
     from repro_torch.configs import get_config
     from repro_torch.configs.deepseek_v3_671b import dense_prefix
     from repro_torch.kernels import paged_decode as pd
@@ -2184,8 +2222,8 @@ def mla_engine_phase() -> dict:
     scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
     torch.cuda.reset_peak_memory_stats()
     mem_start = torch.cuda.memory_allocated() / 1e9
-    engine, run, (k6, k5) = serve_stream(cfg, scfg, [pd.paged_mla_attention,
-                                                     pd.paged_gqa_attention])
+    engine, run, (k6, k5), tokens = serve_stream(cfg, scfg, [pd.paged_mla_attention,
+                                                             pd.paged_gqa_attention])
     m = engine.metrics()
     if not m["paged"]:
         raise AssertionError("deepseek's MLA layers must serve from paged latent pools")
@@ -2223,7 +2261,149 @@ def mla_engine_phase() -> dict:
         "peak_memory_gb": peak,
         "memory_before_gb": mem_start,
         "memory_after_gb": held,
-    }
+    }, tokens
+
+
+# --------------------------------------------------------------------------
+# phase 3d: speculative decoding on replica slots, and the engine's trace
+# --------------------------------------------------------------------------
+TICK_SPLIT = ("dispatch_us", "device_us", "harvest_us")
+
+
+def load_validate_trace():
+    """``tools/validate_trace.py``, loaded by path (it imports only json
+    and sys)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "validate_trace.py"
+    spec = importlib.util.spec_from_file_location("validate_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def spec_stream(label, cfg, spec_cfg, req_spec, wrappers, want, *, strike, tracer=None):
+    """One speculating stream of phase 3d: the engine, the run, the launch
+    counts; its tokens must equal ``want`` (a plain stream's), bitwise."""
+    from repro_torch.models.lm_cells import ServeConfig
+
+    scfg = ServeConfig(batch=8, max_len=512, paged=True, page_size=16, spec=spec_cfg)
+    engine, run, launches, tokens = serve_stream(cfg, scfg, wrappers, strike=strike,
+                                                 spec=req_spec, tracer=tracer)
+    if tokens != want:
+        bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
+        raise AssertionError(f"{label}: tokens of requests {bad} differ from the plain stream's")
+    n_sub = max(max(1, scfg.prefill_chunk), spec_cfg.draft_len + 1)
+    return engine, run, launches, n_sub
+
+
+def tick_split(tracer, engine, run) -> dict:
+    """The trace of phase 3d (b): valid, one tick span a tick, one verify
+    walk span a counted walk, one B/E pair a request, the strike timeline
+    on the victim's track; and each tick's dispatch / device / harvest
+    split over the stream."""
+    evs = tracer.events()
+    errors = load_validate_trace().validate_events(evs)
+    if errors:
+        raise AssertionError(f"trace fails tools/validate_trace.py: {errors[:3]}")
+    m = engine.metrics()
+    xs = [e for e in evs if e["ph"] == "X"]
+    ticks = [e for e in xs if e["name"] == "tick"]
+    walks = sum(e["name"] == "verify_walk" for e in xs)
+    begins = sum(e["ph"] == "B" and e["name"] == "request" for e in evs)
+    ends = sum(e["ph"] == "E" and e["name"] == "request" for e in evs)
+    if (len(ticks), walks, begins, ends) != (m["ticks"], m["spec_ticks"], m["submitted"],
+                                             m["submitted"]):
+        raise AssertionError(
+            f"trace spans (tick {len(ticks)}, verify_walk {walks}, request B {begins} / E {ends}) "
+            f"!= counters (ticks {m['ticks']}, spec_ticks {m['spec_ticks']}, submitted "
+            f"{m['submitted']})")
+    vtid = tracer.tid(run["victim"])
+    line = [e["name"] for e in evs if e["tid"] == vtid and e["name"].startswith("strike_")]
+    if line != ["strike_detected", "strike_attributed", "strike_repaired"]:
+        raise AssertionError(f"strike timeline on {run['victim']}: {line}")
+    stream = [e["args"] for e in ticks if e["args"]["step"] >= run["first_step"]]
+    out = {"ticks_traced": len(stream), "events": len(evs)}
+    for k in TICK_SPLIT:
+        v = sorted(a[k] for a in stream)
+        out[k] = {"median": float(np.median(v)), "min": v[0], "max": v[-1]}
+    return out
+
+
+def spec_phase(plain_tokens: list, mla_tokens: list) -> dict:
+    """Phase 3d: phase 3's stream (and 3c's) again, every request asking
+    for speculation; the tokens must be the plain streams', bitwise."""
+    from repro_torch.api import Tracer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_prefix
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.lm_cells import SpecConfig
+
+    cfg = get_config("internlm2-1.8b")
+    k5 = [pd.paged_gqa_attention]
+    out, launches = {}, {"paged_gqa_decode": {}, "paged_mla_decode": {}}
+
+    # (a) self-speculation: the draft is the target's own pass
+    spec = SpecConfig(draft_len=4)
+    engine, run, (n5,), n_sub = spec_stream("3d (a)", cfg, spec, spec, k5, plain_tokens,
+                                            strike=False)
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if n5 != expect or not run["spec_tokens_per_tick"] > 1:
+        raise AssertionError(f"3d (a): K5 launches {n5} != {expect}, or "
+                             f"{run['spec_tokens_per_tick']} tokens a verify walk")
+    log(f"spec: (a) self-speculation, draft_len 4: tokens equal phase 3's; K5 launches {n5} = "
+        f"{cfg.n_layers} layers x ({run['ticks']} ticks + {run['replays']} replays) x {n_sub}")
+    out["self"] = {**run, "k5_launches": n5, "k5_formula": f"{cfg.n_layers} x (ticks + replays) x {n_sub}"}
+    launches["paged_gqa_decode"]["spec_3d_self"] = n5
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a second full-width model as the draft (another seed: real
+    # rejections), under a tracer, with a strike in a DMR replica slot
+    tracer = Tracer()
+    engine, run, (n5,), n_sub = spec_stream(
+        "3d (b)", cfg, SpecConfig(draft_len=4, draft_param_seed=SEED + 1), spec, k5,
+        plain_tokens, strike=True, tracer=tracer)
+    expect = 2 * cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if n5 != expect:
+        raise AssertionError(f"3d (b): K5 launches {n5} != 2 x {cfg.n_layers} x "
+                             f"({run['ticks']} + {run['replays']}) x {n_sub}")
+    split = tick_split(tracer, engine, run)
+    log(f"spec: (b) full-width draft (seed {SEED + 1}), draft_len 4: tokens equal phase 3's; "
+        f"strike on {run['victim']} detected, attributed to replica 1, repaired by a §IV "
+        f"replay; K5 launches {n5} = 2 models x {cfg.n_layers} layers x ({run['ticks']} ticks + "
+        f"{run['replays']} replays) x {n_sub} (the draft's dense cache through dense_gqa_view)")
+    log("spec: (b) trace valid (tools/validate_trace.py), span counts equal the counters; "
+        f"{split['ticks_traced']} stream ticks, per tick (median, min-max): " + "; ".join(
+            f"{k} {split[k]['median'] / 1e3:.2f} ms ({split[k]['min'] / 1e3:.2f}-"
+            f"{split[k]['max'] / 1e3:.2f})" for k in TICK_SPLIT))
+    out["draft"] = {**run, "k5_launches": n5,
+                    "k5_formula": f"2 x {cfg.n_layers} x (ticks + replays) x {n_sub}",
+                    "tick_split_us": split}
+    launches["paged_gqa_decode"]["spec_3d_draft"] = n5
+    del engine, tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) deepseek-v3's dense prefix, self-speculating: the latent cache
+    # rolls back on the card
+    cfg = dense_prefix(get_config("deepseek-v3-671b"))
+    spec = SpecConfig(draft_len=2)
+    engine, run, (n6, n5), n_sub = spec_stream(
+        "3d (c)", cfg, spec, spec, [pd.paged_mla_attention, pd.paged_gqa_attention], mla_tokens,
+        strike=True)
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if n6 != expect or n5 != 0:
+        raise AssertionError(f"3d (c): K6 launches {n6} != {expect}, or K5 launches {n5} != 0")
+    log(f"spec: (c) {cfg.name} dense prefix, draft_len 2: tokens equal phase 3c's; K6 launches "
+        f"{n6} = {cfg.n_layers} layers x ({run['ticks']} ticks + {run['replays']} replays) x "
+        f"{n_sub}; K5 launches 0")
+    out["deepseek_self"] = {**run, "k6_launches": n6,
+                            "k6_formula": f"{cfg.n_layers} x (ticks + replays) x {n_sub}"}
+    launches["paged_mla_decode"]["spec_3d_deepseek"] = n6
+    out["launches"] = launches
+    return out
 
 
 def _leaves(tree):
@@ -2314,16 +2494,25 @@ def main() -> int:
     attn = attention_phase(paths["flash_attention"].with_suffix(".log"))
     mla = mla_kernel_phase(paths["paged_mla_decode"].with_suffix(".log"))
     torch.cuda.empty_cache()
-    eng = engine_phase()
+    eng, plain_tokens = engine_phase()
     record["launches"] = eng["launches"]
+    record["launches_by_path"] = {"engine_3": eng["launches"]}
     gc.collect()
     torch.cuda.empty_cache()  # the internlm2 engine is gone: hand its memory back
     mamba = mamba_engine_phase()
     ssd["launches"] = mamba["launches"]
     gc.collect()
     torch.cuda.empty_cache()  # the mamba2 engine is gone: hand its memory back
-    deepseek = mla_engine_phase()
+    deepseek, mla_tokens = mla_engine_phase()
     mla["launches"] = deepseek["launches"]
+    mla["launches_by_path"] = {"engine_3c": deepseek["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = spec_phase(plain_tokens, mla_tokens)
+    for rec, key in ((record, "paged_gqa_decode"), (mla, "paged_mla_decode")):
+        for path, n in spec["launches"][key].items():
+            rec["launches_by_path"][path] = n
+            rec["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
     from repro_torch.configs import deepseek_v3_671b as ds
@@ -2340,6 +2529,7 @@ def main() -> int:
     print(json.dumps({"engine": eng}), flush=True)
     print(json.dumps({"engine_mamba2": mamba}), flush=True)
     print(json.dumps({"engine_deepseek_mla": deepseek}), flush=True)
+    print(json.dumps({"engine_spec": spec}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ fused into one CUDA kernel per step), ``host`` (the §IV DMR tie-break in
 the loop), ``wavefront`` (§III: independent units advance without a
 global barrier) and ``auto`` (``wavefront`` for a program of more than
 one independent unit, else ``lockstep_cuda`` on a card and ``lockstep``
-on the CPU); and the temporal serving engine.  ``on_event=`` with
-``Tracer().executor_hook()`` traces any executor.
+on the CPU); and the temporal serving engine, speculating with
+``ServeConfig(spec=SpecConfig(...))``.  ``on_event=`` with
+``Tracer().executor_hook()`` traces any executor, and
+``EngineConfig(tracer=Tracer())`` the engine.
 
     exe = miso.compile(prog, backend="auto")  # -> lockstep_cuda on cuda
 """
@@ -37,7 +39,7 @@ from .core.graph import DependencyGraph  # noqa: F401
 from .core.ir import compile_source  # noqa: F401
 from .core.program import MisoProgram  # noqa: F401
 from .core.redundancy import FaultLedger  # noqa: F401
-from .models.lm_cells import ServeConfig  # noqa: F401
+from .models.lm_cells import ServeConfig, SpecConfig  # noqa: F401
 from .obs import MetricsRegistry, Tracer  # noqa: F401
 from .serving.engine import EngineConfig, EngineParts, ServingEngine
 
@@ -50,7 +52,7 @@ def serve(program, adapter, config=None, *, device="cuda") -> ServingEngine:
                ``serving.lm.lm_engine_parts`` returns ``EngineParts``).
     adapter -- the ``SlotAdapter`` describing the slotted cell.
     config  -- an ``EngineConfig`` (backend, queue depth, compare
-               cadence, checkpointing, registry).
+               cadence, checkpointing, tracer, registry).
 
     Returns the engine; call ``.start(seed)`` before submitting."""
     return ServingEngine(program, adapter, config, device=device)
@@ -73,6 +75,7 @@ __all__ = [
     "RedundancyPolicy",
     "RunResult",
     "ServeConfig",
+    "SpecConfig",
     "Tracer",
     "available_backends",
     "compile",

@@ -7,9 +7,10 @@
                      one greedy decode step for every active slot
 
 Per-request replication (paper §IV) happens on replica *slots* of the
-decoder batch (``repro_torch.serving``), not on the cells.  Training
-cells, the fixed-batch ``make_serve_program`` and speculative decoding
-are not ported yet.
+decoder batch (``repro_torch.serving``), not on the cells.  Speculative
+decoding (``SpecConfig``) fuses a draft model and the verify walk into
+the decoder's transition.  Training cells and the fixed-batch
+``make_serve_program`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,35 @@ import torch
 from ..core import CellType, MisoProgram
 from . import transformer as T
 from .config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding: a DRAFT model proposes up to ``draft_len``
+    tokens a tick and the resident decoder verifies them in one walk; the
+    accepted prefix commits and the first rejection rolls the position
+    back.  Verification is greedy, so the emitted stream is bitwise the
+    plain greedy decode's.
+
+    On ``ServeConfig.spec`` it sizes the resident draft (the engine-wide
+    verify-walk width K); on ``Request.spec`` it picks the request's draft
+    length (clamped to K).
+
+    draft_arch       -- reduced-config name of the draft model; "" = the
+                        target itself (self-speculation).
+    draft_param_seed -- the draft's parameter seed; None = the serve
+                        config's ``param_seed`` (self-speculation: the
+                        draft IS the target).  Any other value draws a
+                        different draft, which brings real rejections.
+    """
+
+    draft_len: int = 4
+    draft_arch: str = ""
+    draft_param_seed: int | None = None
+
+    def __post_init__(self):
+        if self.draft_len < 1:
+            raise ValueError("draft_len must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +75,12 @@ class ServeConfig:
     page_size: int = 16
     #: total pages in the pool; 0 = batch * (max_len / page_size)
     page_budget: int = 0
-    spec: object = None
+    #: speculative decoding; archs that cannot roll the cache position
+    #: back (``spec_serving_supported``) fall back to plain decode
+    spec: SpecConfig | None = None
     placement: str = "temporal"
 
     def __post_init__(self):
-        if self.spec is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
         if self.placement != "temporal":
             raise NotImplementedError("spatial placement is not ported yet")
 
@@ -86,18 +116,81 @@ def _slot_leaves(batch: int, max_len: int, device) -> dict:
     }
 
 
-def slot_decoder_init(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+def spec_state_leaves(draft_cfg: ModelConfig | None, batch: int, max_len: int,
+                      draft_len: int, device) -> dict:
+    """The extra per-slot decoder leaves of a speculating engine:
+
+    draft_cache -- the draft model's own KV cache, always DENSE, even on a
+                   paged engine; absent under true self-speculation
+                   (``draft_cfg is None``: the draft is the target's pass).
+    spec_out    -- (B, K+1) tokens committed this tick, in emission order.
+    spec_n      -- committed count: a+1 for a slot that verified this tick
+                   (a = accepted draft prefix), 0 otherwise.
+    spec_k      -- the slot's requested draft length (0 = no speculation).
+    budget      -- the request's ``max_new_tokens`` (the in-graph clamp
+                   stops speculation where plain decode would stop).
+    """
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    st = {"spec_out": z(batch, draft_len + 1), "spec_n": z(batch), "spec_k": z(batch),
+          "budget": z(batch)}
+    if draft_cfg is not None:
+        st["draft_cache"] = T.init_cache(draft_cfg, batch, max_len, device)
+    return st
+
+
+def slot_decoder_init(cfg: ModelConfig, batch: int, max_len: int, device,
+                      draft_cfg: ModelConfig | None = None, draft_len: int = 0) -> dict:
     """Decoder-cell state for the continuous batcher: every leaf is
     per-slot, so requests can join/leave individual slots between ticks.
     ``active`` is the slot mask; ``pending``/``p_head``/``p_len`` hold the
-    prompt tail the transition walks one token per sub-step."""
-    return {"cache": T.init_cache(cfg, batch, max_len, device), **_slot_leaves(batch, max_len, device)}
+    prompt tail the transition walks one token per sub-step.
+    ``draft_cfg``/``draft_len`` (speculating engines) add the
+    ``spec_state_leaves``."""
+    st = {"cache": T.init_cache(cfg, batch, max_len, device), **_slot_leaves(batch, max_len, device)}
+    if draft_len > 0:
+        st.update(spec_state_leaves(draft_cfg, batch, max_len, draft_len, device))
+    return st
 
 
 def paged_serving_supported(cfg: ModelConfig) -> bool:
     """Archs whose serve cache can live in pages: pure-attention text
     models (callers fall back to the dense cache for the others)."""
     return cfg.mixer_type != "mamba2" and not cfg.window and not cfg.n_vision_tokens
+
+
+def spec_serving_supported(cfg: ModelConfig) -> bool:
+    """Archs whose slots can speculate: full-attention single-codebook
+    text models.  A rejection rolls back by resetting ``pos``, sound only
+    because every decode read masks the lanes past ``pos`` and the next
+    write overwrites a lane before it is read.  Recurrent state cannot be
+    rewound and a sliding window would evict real KV."""
+    return (cfg.mixer_type != "mamba2" and not cfg.window and not cfg.n_vision_tokens
+            and cfg.n_codebooks == 1)
+
+
+def resolve_draft_config(cfg: ModelConfig, spec: SpecConfig) -> ModelConfig | None:
+    """The draft model's config: ``spec.draft_arch`` as a reduced config;
+    the target's own config for ``draft_arch=""`` with a divergent
+    ``draft_param_seed``; or None for TRUE self-speculation (the draft
+    would be the target bit for bit, so the target's pass is shared).  A
+    real draft must share the target's token space and be able to roll
+    back itself."""
+    if not spec.draft_arch:
+        return None if spec.draft_param_seed is None else cfg
+    from ..configs import get_reduced
+
+    dcfg = get_reduced(spec.draft_arch)
+    if dcfg.vocab_size != cfg.vocab_size or dcfg.n_codebooks != 1:
+        raise ValueError(
+            f"draft arch {spec.draft_arch!r} vocab "
+            f"{dcfg.vocab_size} does not match target {cfg.vocab_size}")
+    if not spec_serving_supported(dcfg):
+        raise ValueError(
+            f"draft arch {spec.draft_arch!r} cannot speculate (recurrent/"
+            "windowed/vision drafts cannot roll back)")
+    return dcfg
 
 
 def paged_pool_pages(scfg: ServeConfig) -> int:
@@ -107,20 +200,38 @@ def paged_pool_pages(scfg: ServeConfig) -> int:
 
 
 def paged_slot_decoder_init(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
-                            n_pages: int, device) -> dict:
+                            n_pages: int, device, draft_cfg: ModelConfig | None = None,
+                            draft_len: int = 0) -> dict:
     """Paged variant of ``slot_decoder_init``: shared page POOLS plus a
     per-slot page table ``pages`` ((batch, max_len/page_size) int32 pool
-    rows, -1 = unmapped).  Pool leaves carry no slot axis."""
+    rows, -1 = unmapped).  Pool leaves carry no slot axis; the speculative
+    leaves stay dense and per-slot."""
     if max_len % page_size:
         raise ValueError(
             f"max_len ({max_len}) must be a multiple of page_size ({page_size}): "
             "the paged-decode kernel gathers whole pages"
         )
-    return {
+    st = {
         "cache": T.init_paged_cache(cfg, batch, n_pages, page_size, device),
         **_slot_leaves(batch, max_len, device),
         "pages": torch.full((batch, max_len // page_size), -1, dtype=torch.int32, device=device),
     }
+    if draft_len > 0:
+        st.update(spec_state_leaves(draft_cfg, batch, max_len, draft_len, device))
+    return st
+
+
+def spec_k_eff(spec_k, budget, n_decoded, pos, max_len: int, draft_len: int):
+    """Per-slot EFFECTIVE draft length of one tick, the clamp that keeps
+    speculation observationally plain decode: ``budget - n_decoded - 2``
+    (the host has emitted ``n_decoded + 1`` tokens and a tick commits at
+    most k_eff + 1, so the request ends on the token plain decode ends
+    on) and ``max_len - 1 - pos`` (the walk writes positions
+    ``pos .. pos + k_eff``).  ``serving.paging.host_k_eff`` applies the
+    same formula on the host to map pages ahead of the walk; the two must
+    agree, or a verify sub-step writes an unmapped page."""
+    room = torch.minimum(budget - n_decoded - 2, max_len - 1 - pos)
+    return torch.clamp(torch.minimum(spec_k, room), 0, draft_len)
 
 
 def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
@@ -129,14 +240,40 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
     write on the per-slot ``active`` mask, and each batch row's math is
     row-independent, so an active slot's trajectory does not depend on
     which other slots are occupied — the isolation invariant the
-    continuous batcher is built on."""
+    continuous batcher is built on.
+
+    With ``scfg.spec`` the transition also runs the verify walk, for every
+    slot with ``spec_k > 0``:
+
+      sub-step 0      feeds the last committed token; the target emits
+                      g1, the draft proposes d1 (both read the same input);
+      sub-step j>=1   feeds d_j to BOTH models: the target emits g_{j+1},
+                      the draft chains d_{j+1};
+      commit          a = longest prefix with d_j == g_j; g_1..g_{a+1}
+                      commit, and both cache positions roll back to
+                      pos0 + a + 1 (the lanes past it are masked on every
+                      later read and overwritten before use).
+
+    Everything is inside the transition, so a §IV replay of the tick
+    reproduces the accept and the rollback bit for bit."""
     from ..serving.slots import infer_slot_axes, mask_slots
+
+    spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
+    dcfg = resolve_draft_config(cfg, spec) if spec else None
+    K = spec.draft_len if spec else 0
+    d_seed = (scfg.param_seed if spec is None or spec.draft_param_seed is None
+              else spec.draft_param_seed)
 
     def w_init(gen, device):
         # the weights draw from their own generator, seeded from the
-        # program's seed and ``param_seed``
+        # program's seed and ``param_seed``; the draft from another, drawn
+        # after, so the target's weights are a plain engine's
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + scfg.param_seed)
-        return {"params": T.init_params(cfg, g, device)}
+        st = {"params": T.init_params(cfg, g, device)}
+        if dcfg is not None:
+            gd = torch.Generator(device=device).manual_seed(gen.initial_seed() + d_seed)
+            st["draft"] = T.init_params(dcfg, gd, device)
+        return st
 
     weights = CellType(name="weights", init=w_init, transition=lambda prev: prev["weights"])
 
@@ -146,32 +283,42 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
 
         n_pages = paged_pool_pages(scfg)
         axes = infer_paged_axes(
-            lambda b: paged_slot_decoder_init(cfg, b, scfg.max_len, scfg.page_size, n_pages, "meta")
+            lambda b: paged_slot_decoder_init(cfg, b, scfg.max_len, scfg.page_size, n_pages,
+                                              "meta", dcfg, K)
         )
         mask_fn = mask_slots_paged
 
         def d_init(gen, device):
-            return paged_slot_decoder_init(cfg, scfg.batch, scfg.max_len, scfg.page_size, n_pages, device)
+            return paged_slot_decoder_init(cfg, scfg.batch, scfg.max_len, scfg.page_size, n_pages,
+                                           device, dcfg, K)
 
     else:
-        axes = infer_slot_axes(lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta"))
+        axes = infer_slot_axes(lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta", dcfg, K))
         mask_fn = mask_slots
 
         def d_init(gen, device):
-            return slot_decoder_init(cfg, scfg.batch, scfg.max_len, device)
+            return slot_decoder_init(cfg, scfg.batch, scfg.max_len, device, dcfg, K)
 
     # bounded k-token prefill walk: prefill_chunk > 1 drains up to k
     # pending prompt tokens per tick (k sub-steps; non-walking slots step
-    # once, in the first)
-    n_sub = max(1, scfg.prefill_chunk)
+    # once, in the first).  The verify walk needs K+1 sub-steps: walkers
+    # still stop at k_walk, verifiers at their own k_eff
+    k_walk = max(1, scfg.prefill_chunk)
+    n_sub = max(k_walk, K + 1) if spec else k_walk
 
-    def sub_step(st, weights_params, j: int):
+    def sub_step(st, weights_params, j: int, draft_params=None, verifying=None, k_eff=None):
         act = st["active"]
         walking = act & (st["p_head"] < st["p_len"])
-        elig = act if j == 0 else walking
+        if j == 0:
+            elig = act
+        elif spec:
+            elig = (walking & (j < k_walk)) | (verifying & (j <= k_eff))
+        else:
+            elig = walking
         idx = st["p_head"].clamp(0, scfg.max_len - 1).long()
         nxt_p = st["pending"].gather(1, idx[:, None])
-        # walkers feed their next prompt token, the others their last argmax
+        # walkers feed their next prompt token; verifiers the draft's
+        # proposal, stashed in ``tokens`` below; the others their last argmax
         tok_in = torch.where(walking[:, None], nxt_p, st["tokens"])
         logits, cache = T.decode_step(
             cfg, weights_params, st["cache"], tok_in, active=elig, pages=st.get("pages")
@@ -188,14 +335,66 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
         }
         if paged:
             new["pages"] = st["pages"]
+        d_raw = None
+        if spec:
+            if dcfg is None:
+                # true self-speculation: the proposal IS the target's argmax
+                d_raw = nxt
+            else:
+                # the draft steps on the input the target just read: while
+                # walking it ingests prompt tokens, while verifying it
+                # chains its own proposal
+                d_logits, d_cache = T.decode_step(
+                    dcfg, draft_params, st["draft_cache"], tok_in,
+                    active=elig & (st["spec_k"] > 0),
+                )
+                d_raw = torch.argmax(d_logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)
+                new["draft_cache"] = d_cache
+            new["tokens"] = torch.where(verifying[:, None], d_raw, nxt)
+            for k in ("spec_out", "spec_n", "spec_k", "budget"):
+                new[k] = st[k]
         # gate the whole writeback on the eligibility mask
-        return mask_fn(elig, new, st, axes)
+        return mask_fn(elig, new, st, axes), nxt, d_raw
 
     def d_transition(prev):
         st = prev["decoder"]
         wp = prev["weights"]["params"]
+        if not spec:
+            for j in range(n_sub):
+                st, _, _ = sub_step(st, wp, j)
+            return st
+        dwp = prev["weights"]["draft"] if dcfg is not None else None
+        act = st["active"]
+        walking0 = act & (st["p_head"] < st["p_len"])
+        pos0 = st["cache"]["pos"]
+        nd0 = st["n_decoded"]
+        k_eff = spec_k_eff(st["spec_k"], st["budget"], nd0, pos0, scfg.max_len, K)
+        verifying = act & ~walking0 & (k_eff > 0)
+        gs, ds = [], []
         for j in range(n_sub):
-            st = sub_step(st, wp, j)
+            st, g, d = sub_step(st, wp, j, dwp, verifying, k_eff)
+            gs.append(g)
+            ds.append(d)
+        g_stack = torch.cat(gs, dim=1)  # (B, n_sub): g_{j+1}
+        d_stack = torch.cat(ds, dim=1)  # (B, n_sub): d_{j+1}
+        # accepted prefix: the raw argmaxes compared, positions past k_eff void
+        m = (d_stack[:, :K] == g_stack[:, :K]) & (
+            torch.arange(K, device=k_eff.device)[None, :] < k_eff[:, None])
+        a = torch.cumprod(m.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)  # (B,)
+        # commit g_1..g_{a+1}; the next tick re-anchors on g_{a+1}
+        last = g_stack.gather(1, a.long()[:, None])
+        commit_pos = (pos0 + a + 1).to(pos0.dtype)
+        st = dict(st)
+        st["tokens"] = torch.where(verifying[:, None], last, st["tokens"])
+        st["cache"] = {**st["cache"], "pos": torch.where(verifying, commit_pos, st["cache"]["pos"])}
+        if dcfg is not None:
+            dpos = st["draft_cache"]["pos"]
+            st["draft_cache"] = {**st["draft_cache"],
+                                 "pos": torch.where(verifying, commit_pos.to(dpos.dtype), dpos)}
+        st["n_decoded"] = torch.where(verifying, nd0 + a + 1, st["n_decoded"])
+        st["spec_out"] = torch.where(act[:, None], g_stack[:, : K + 1], st["spec_out"])
+        st["spec_n"] = torch.where(act, torch.where(verifying, a + 1, torch.zeros_like(a)),
+                                   st["spec_n"])
         return st
 
     decoder = CellType(
@@ -237,6 +436,10 @@ def prefill_slot_state(
     prompt_len=None,
     pending=None,
     n_pending=None,
+    spec_k=None,
+    budget=None,
+    draft_cfg: ModelConfig | None = None,
+    draft_params=None,
 ) -> tuple[dict, torch.Tensor]:
     """Run the prefill for ONE prompt (head chunk) and package it as a
     width-1 dense decoder slot state, ready to join a free slot.
@@ -244,7 +447,10 @@ def prefill_slot_state(
     prompt: (P,) int32; P may be a bucket, with ``prompt_len`` the true
     head length (padded cache positions are masked and the first token is
     read at ``prompt_len - 1``).  ``pending``/``n_pending``: the uncovered
-    prompt tail, (max_len,) zero-padded + its length.  Returns
+    prompt tail, (max_len,) zero-padded + its length.  ``spec_k``/
+    ``budget`` (speculating engines; not None = speculating) land in the
+    spec leaves, and a real draft (``draft_cfg``/``draft_params``) runs
+    its own prefill of the same head into its own dense cache.  Returns
     ``(slot_state, first_token)``."""
     dev = prompt.device
     tokens = prompt[None]
@@ -264,4 +470,17 @@ def prefill_slot_state(
         "p_head": torch.zeros((1,), dtype=torch.int32, device=dev),
         "p_len": torch.full((1,), int(n_pending), dtype=torch.int32, device=dev),
     }
+    if spec_k is not None:
+        def one(v):
+            return torch.full((1,), int(v), dtype=torch.int32, device=dev)
+
+        st["spec_out"] = torch.zeros((1, scfg.spec.draft_len + 1), dtype=torch.int32, device=dev)
+        st["spec_n"] = one(0)
+        st["spec_k"] = one(spec_k)
+        st["budget"] = one(budget)
+        if draft_cfg is not None:
+            _, d_cache = T.forward(draft_cfg, draft_params, tokens, fill_cache=True,
+                                   prompt_len=prompt_len)
+            st["draft_cache"] = install_prefill(
+                draft_cfg, T.init_cache(draft_cfg, 1, scfg.max_len, dev), d_cache, plen)
     return st, first

@@ -6,9 +6,9 @@ that dependability is an *observable property of execution*: strikes are
 detected, attributed, and repaired at specific cells and ticks.  Every
 event lands in one bounded host-side ring buffer and exports as Chrome
 trace-event JSON that loads directly in Perfetto
-(https://ui.perfetto.dev) or ``chrome://tracing``.  Here the executors'
-``on_event`` hook feeds it (``Tracer.executor_hook()``); the serving
-engine's spans are not ported yet.
+(https://ui.perfetto.dev) or ``chrome://tracing``.  The executors'
+``on_event`` hook feeds it (``Tracer.executor_hook()``), and so does the
+serving engine (``EngineConfig(tracer=...)``).
 
 Design constraints:
 

@@ -16,7 +16,12 @@ multiplexes many independent decode requests onto its fixed batch:
     its FaultLedger, repairs (TMR: copy a majority slot over the
     minority; DMR: the paper's §IV third execution — ``pure_step``
     replays the tick from the immutable previous buffer — decides, and
-    both replicas adopt the replay), and only then emits the token.
+    both replicas adopt the replay), and only then emits the token;
+  * speculative decoding: a tick of a speculating slot commits up to
+    K+1 tokens, which the harvest emits one at a time;
+  * tracing (``EngineConfig.tracer``): ticks split into host dispatch,
+    device time and harvest, request lifecycles, prefills, verify walks,
+    §IV replays and the strike timeline, as Chrome trace events.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 from ..core import executor as _ex
 from ..core.redundancy import FaultLedger
-from ..obs import MetricsRegistry
+from ..obs import MetricsRegistry, Tracer
 from .request import CANCELLED, DONE, EXPIRED, QUEUED, REJECTED, RUNNING, Request, RequestQueue
 from .slots import SlotManager, SlotSurgery, default_surgery
 
@@ -40,6 +45,16 @@ Tree = Any
 
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def _fence(x: Tree) -> None:
+    """Block until the device work behind ``x`` (its first leaf) is done:
+    the traced paths bracket device time this way.  Only a tracer calls
+    it, so the untraced engine adds no synchronisation."""
+    while isinstance(x, (dict, list, tuple)):
+        x = next(iter(x.values())) if isinstance(x, dict) else x[0]
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +68,8 @@ class EngineConfig:
     retain_results   -- finished records kept for ``result()`` pickup.
     compare_every    -- executor compare cadence (None = backend default).
     checkpoint_cb/checkpoint_every -- executor checkpoint segmentation.
-    tracer           -- the engine's spans are not ported yet: must be None.
+    tracer           -- optional ``obs.Tracer``: the engine's spans and
+                        the executor's events (through ``on_event``).
     registry         -- metrics registry (a fresh one when None).
     """
 
@@ -64,17 +80,12 @@ class EngineConfig:
     compare_every: Optional[int] = None
     checkpoint_cb: Optional[Callable] = None
     checkpoint_every: int = 0
-    tracer: Any = None
+    tracer: Optional[Tracer] = None
     registry: Optional[MetricsRegistry] = None
 
     def __post_init__(self):
         if self.placement != "temporal":
             raise NotImplementedError("spatial replica placement is not ported yet")
-        if self.tracer is not None:
-            raise NotImplementedError(
-                "the serving engine's trace spans are not ported yet (they come "
-                "with speculation); an executor takes a Tracer through on_event"
-            )
 
 
 class EngineParts(NamedTuple):
@@ -106,6 +117,12 @@ class SlotAdapter:
                    before the tick's input buffer is kept for replays.
     walk_chunk  -- prompt-tail tokens the transition consumes per tick.
     contiguous_replicas -- replica slots need one adjacent run.
+    read_spec   -- optional ``(cell_state) -> (spec_out, spec_n)``: the
+                   speculative harvest, (B, K+1) committed tokens and (B,)
+                   their count (0 = the slot decoded plainly this tick).
+    attach_tracer -- optional ``(tracer) -> None``: hands the engine's
+                   tracer to adapter closures that emit events (the paged
+                   pre-tick's page faults); called only under a tracer.
     """
 
     cell: str
@@ -121,6 +138,8 @@ class SlotAdapter:
     pre_tick: Optional[Callable[[dict], dict]] = None
     walk_chunk: int = 1
     contiguous_replicas: bool = True
+    read_spec: Optional[Callable[[Tree], tuple]] = None
+    attach_tracer: Optional[Callable[[Tracer], None]] = None
 
 
 @dataclasses.dataclass
@@ -140,6 +159,8 @@ class RequestRecord:
     #: chunked prefill: prompt-tail tokens the transition still has to
     #: consume before this request emits its first token
     prefill_remaining: int = 0
+    #: tracing: a ``prefill_walk`` span is open on this request's track
+    trace_walk_open: bool = False
 
     @property
     def id(self) -> str:
@@ -172,7 +193,11 @@ class ServingEngine:
     ):
         self.config = cfg = config if config is not None else EngineConfig()
         self.adapter = adapter
+        #: None (the default) costs nothing: every emission is guarded
+        self.tracer = tracer = cfg.tracer
         self.registry = cfg.registry if cfg.registry is not None else MetricsRegistry()
+        if tracer is not None and adapter.attach_tracer is not None:
+            adapter.attach_tracer(tracer)
         self.exe = _ex.compile(
             program,
             backend=cfg.backend,
@@ -180,13 +205,17 @@ class ServingEngine:
             compare_every=cfg.compare_every,
             checkpoint_cb=cfg.checkpoint_cb,
             checkpoint_every=cfg.checkpoint_every,
+            # executor events land on the tracer's "executor" track
+            on_event=tracer.executor_hook() if tracer is not None else None,
         )
         if type(self.exe).pure_step is _ex.Executor.pure_step:
             raise ValueError(
                 f"backend {self.exe.name!r} has no pure_step replay; the engine "
                 "needs it for DMR tie-breaks"
             )
-        self.queue = RequestQueue(max_depth=cfg.max_queue, time_fn=time_fn)
+        self.queue = RequestQueue(
+            max_depth=cfg.max_queue, time_fn=time_fn, on_expire=self._on_queue_expire
+        )
         self.slots = SlotManager(adapter.n_slots)
         self.ledger = FaultLedger()  # keyed by REQUEST id, not cell name
         self.time_fn = time_fn
@@ -209,6 +238,13 @@ class ServingEngine:
             "serving_strikes_detected_total", "replica mismatches detected, attributed, and repaired"
         )
         self._m_replays = R.counter("serving_replays_total", "§IV pure_step replays of a tick")
+        #: speculation: verify passes, the tokens they committed, and the
+        #: smallest single commit (1 = a first draft token was rejected)
+        self._m_spec_ticks = R.counter("serving_spec_verify_ticks_total", "speculative verify passes")
+        self._m_spec_tokens = R.counter(
+            "serving_spec_tokens_committed_total", "tokens committed by speculative verify passes"
+        )
+        self._spec_min_commit: Optional[int] = None
         self._m_terminal = {
             DONE: R.counter("serving_requests_done_total", "requests completed"),
             CANCELLED: R.counter("serving_requests_cancelled_total", "requests cancelled"),
@@ -222,6 +258,7 @@ class ServingEngine:
             "serving_tick_seconds",
             "wall time per engine tick (swap + dispatch + harvest); sum = busy_s",
         )
+        self._trace_tick_ts0 = 0.0  # tracer clock at the current tick's start
         self._t0: Optional[float] = None
         self._ops = adapter.surgery or default_surgery(
             adapter.cell, adapter.slot_axes, adapter.make_empty
@@ -235,6 +272,12 @@ class ServingEngine:
         self._states = states if states is not None else self.exe.init(generator)
         self._t0 = self.time_fn()
 
+    def _on_queue_expire(self, req: Request) -> None:
+        """Queue expiry hook: a queued request past its deadline shows in
+        the trace (its lifecycle span closes at ``_reconcile``)."""
+        if self.tracer is not None:
+            self.tracer.instant("request_expired", req.id)
+
     def submit(self, req: Request) -> bool:
         """Admission control + enqueue.  False = rejected (queue full, too
         many replica slots, or adapter validation)."""
@@ -246,6 +289,17 @@ class ServingEngine:
         rec = RequestRecord(req=req, status=QUEUED, submitted_at=self.time_fn())
         self.requests[req.id] = rec
         self._m_submitted.inc()
+        if self.tracer is not None:
+            # the lifecycle span: one track per request, open from
+            # submission to terminal status (_finish_record)
+            self.tracer.begin(
+                "request",
+                req.id,
+                prompt_len=req.prompt_len,
+                level=req.policy.level,
+                max_new_tokens=req.max_new_tokens,
+            )
+            self.tracer.instant("queued", req.id)
         if reason is not None:
             self._m_rejected_invalid.inc()
             self._finish_record(rec, REJECTED)
@@ -307,19 +361,42 @@ class ServingEngine:
         if not self.has_work():
             return 0
         ticks = 0
+        tr = self.tracer
         stream = self.exe.stream(self._states, swap=self._swap, faults=faults)
         try:
             while True:
                 tick_t0 = self.time_fn()
+                if tr is not None:
+                    ts0 = tr.now_us()
                 try:
                     states, _reports = next(stream)
                 except StopIteration:
                     break
+                if tr is not None:
+                    # host dispatch vs device: next() returns once the
+                    # step is dispatched, and the fence brackets the
+                    # device work
+                    ts1 = tr.now_us()
+                    _fence(states[self.adapter.cell])
+                    ts2 = tr.now_us()
+                    self._trace_tick_ts0 = ts0
                 states = self._postprocess(self._tick_step, states)
                 self._states = states
                 self._override = states
                 self._m_ticks.inc()
                 self._h_tick.observe(self.time_fn() - tick_t0)
+                if tr is not None:
+                    ts3 = tr.now_us()
+                    tr.complete(
+                        "tick",
+                        "engine",
+                        ts0,
+                        ts3 - ts0,
+                        step=self._tick_step,
+                        dispatch_us=ts1 - ts0,
+                        device_us=ts2 - ts1,
+                        harvest_us=ts3 - ts2,
+                    )
                 ticks += 1
                 if max_ticks is not None and ticks >= max_ticks:
                     break
@@ -360,7 +437,12 @@ class ServingEngine:
             if not self.queue.take(req):
                 continue  # head expired underneath us: re-validate
             rec = self.requests[req.id]
-            slot_state, first, pending = self.adapter.prefill(req, states)
+            if self.tracer is not None:
+                with self.tracer.span("prefill", req.id, prompt_len=req.prompt_len):
+                    slot_state, first, pending = self.adapter.prefill(req, states)
+                    _fence(slot_state)
+            else:
+                slot_state, first, pending = self.adapter.prefill(req, states)
             slots = self.slots.alloc(req.id, req.n_slots, contiguous=contig)
             for s in slots:
                 states = self._ops.join(states, slot_state, s, req=req)
@@ -369,6 +451,12 @@ class ServingEngine:
             rec.status = RUNNING
             rec.started_at = now
             rec.prefill_remaining = int(pending)
+            if self.tracer is not None:
+                self.tracer.instant("admitted", req.id, step=t, slots=list(slots))
+                if pending:
+                    # the walk's span ends when prefill_remaining drains
+                    self.tracer.begin("prefill_walk", req.id, pending=int(pending))
+                    rec.trace_walk_open = True
             if pending == 0:
                 # the prefill's greedy continuation IS the first token
                 self._emit(rec, _host(first).reshape(-1), now)
@@ -388,6 +476,8 @@ class ServingEngine:
             if rec is not None:
                 rec.slots[rec.slots.index(src)] = dst
             self._m_defrag.inc()
+            if self.tracer is not None:
+                self.tracer.instant("defrag_move", "engine", src=src, dst=dst, rid=rid)
         return states
 
     # -- per-tick postprocessing: repair -> harvest -> evict ---------------
@@ -398,7 +488,11 @@ class ServingEngine:
             states = self._check_replicas(t, states, replicated)
         if not running:
             return states
-        toks = _host(self.adapter.read_tokens(states[self.adapter.cell]))
+        dec = states[self.adapter.cell]
+        toks = _host(self.adapter.read_tokens(dec))
+        sout = sn = None
+        if self.adapter.read_spec is not None:
+            sout, sn = (_host(x) for x in self.adapter.read_spec(dec))
         now = self.time_fn()
         for rec in running:
             if rec.status != RUNNING:
@@ -411,10 +505,45 @@ class ServingEngine:
                     if status is not None:
                         states = self._evict(states, rec, status)
                     continue
+                if self.tracer is not None and rec.trace_walk_open:
+                    self.tracer.end(rec.id, "prefill_walk")
+                    rec.trace_walk_open = False
                 # the tick consuming the LAST prompt token produced the
                 # first real continuation token -> harvest it
-            self._emit(rec, toks[rec.slots[0]].reshape(-1), now)
-            status = self._should_finish(rec, now)
+            slot = rec.slots[0]
+            n_commit = int(sn[slot]) if sn is not None else 0
+            if n_commit > 0:
+                # a verify walk committed n tokens: emit them one at a
+                # time, so stop/budget/deadline trip on the token plain
+                # decode would stop on (the surplus leaves with the slot)
+                self._m_spec_ticks.inc()
+                self._m_spec_tokens.inc(n_commit)
+                self._spec_min_commit = (
+                    n_commit if self._spec_min_commit is None
+                    else min(self._spec_min_commit, n_commit)
+                )
+                if self.tracer is not None:
+                    # the walk ran inside this tick's step: span it over
+                    # the tick so far
+                    ts0 = self._trace_tick_ts0
+                    self.tracer.complete(
+                        "verify_walk",
+                        rec.id,
+                        ts0,
+                        self.tracer.now_us() - ts0,
+                        step=t,
+                        committed=n_commit,
+                        accepted=n_commit - 1,
+                    )
+                status = None
+                for i in range(n_commit):
+                    self._emit(rec, sout[slot, i : i + 1], now)
+                    status = self._should_finish(rec, now)
+                    if status is not None:
+                        break
+            else:
+                self._emit(rec, toks[slot].reshape(-1), now)
+                status = self._should_finish(rec, now)
             if status is not None:
                 states = self._evict(states, rec, status)
         return states
@@ -430,6 +559,14 @@ class ServingEngine:
             if all(eq) and (len(s) < 3 or np.array_equal(fps[s[1]], fps[s[2]])):
                 continue
             level = rec.req.policy.level
+            tr = self.tracer
+            fid = None
+            if tr is not None:
+                # detect -> attribute -> repair on the struck request's
+                # track, with a flow arrow from detection into repair
+                fid = tr.flow_id()
+                tr.instant("strike_detected", rec.id, step=t, level=level)
+                tr.flow_start(fid, rec.id, "strike")
             if level == 3:
                 pairs = [
                     (0, 1, np.array_equal(fps[s[0]], fps[s[1]])),
@@ -443,8 +580,14 @@ class ServingEngine:
                     # real damage: elements of the struck replica slot
                     # differing from a majority slot (pre-repair)
                     dmg = self._ops.damage(states, s[i], s[bad])
+                    if tr is not None:
+                        tr.instant("strike_attributed", rec.id, step=t, replicas=[bad],
+                                   damage_elems=float(dmg))
                     states = self._ops.copy(states, s[i], s[bad])
                     self._attribute(rec, t, [bad], level, dmg)
+                    if tr is not None:
+                        tr.instant("strike_repaired", rec.id, step=t, repair="tmr_vote")
+                        tr.flow_end(fid, rec.id, "strike")
                     continue
                 bad = [0, 1, 2]  # triple divergence: fall through to replay
             else:
@@ -453,15 +596,26 @@ class ServingEngine:
                 # paper §IV: "a third equal transition should be executed to
                 # decide between the two possible outcomes" — replay the
                 # tick (no armed fault) from the immutable pre-tick buffer
-                replay, _ = self.exe.pure_step(self._tick_input, t)
+                if tr is not None:
+                    with tr.span("dmr_replay", "engine", step=t):
+                        replay, _ = self.exe.pure_step(self._tick_input, t)
+                        _fence(replay[self.adapter.cell])
+                else:
+                    replay, _ = self.exe.pure_step(self._tick_input, t)
                 self._m_replays.inc()
                 rfps = _host(self._ops.fingerprints(replay[self.adapter.cell]))
             if bad is None:
                 bad = [i for i, sl in enumerate(s) if not np.array_equal(fps[sl], rfps[sl])]
             dmg = sum(self._ops.damage_vs(states, replay, s[b]) for b in bad)
+            if tr is not None:
+                tr.instant("strike_attributed", rec.id, step=t, replicas=list(bad),
+                           damage_elems=float(dmg))
             for sl in s:
                 states = self._ops.adopt(states, replay, sl)
             self._attribute(rec, t, bad, level, dmg)
+            if tr is not None:
+                tr.instant("strike_repaired", rec.id, step=t, repair="dmr_replay")
+                tr.flow_end(fid, rec.id, "strike")
         return states
 
     def _attribute(self, rec: RequestRecord, t: int, bad: list[int], level: int, damage: float):
@@ -484,6 +638,8 @@ class ServingEngine:
         if rec.ttft is None:
             rec.ttft = now - rec.submitted_at
             self._h_ttft.observe(rec.ttft)
+            if self.tracer is not None:
+                self.tracer.instant("first_token", rec.id, ttft_s=rec.ttft)
 
     def _should_finish(self, rec: RequestRecord, now: float) -> Optional[str]:
         if rec.cancel_requested:
@@ -513,6 +669,13 @@ class ServingEngine:
         if status in self._m_terminal:
             self._m_terminal[status].inc()
         self._h_latency.observe(rec.finished_at - rec.submitted_at)
+        if self.tracer is not None:
+            if rec.trace_walk_open:  # evicted mid-walk: close the inner span
+                self.tracer.end(rec.id, "prefill_walk")
+                rec.trace_walk_open = False
+            self.tracer.instant(status, rec.id)
+            self.tracer.end(rec.id, "request", status=status, n_tokens=len(rec.tokens),
+                            faults=rec.faults)
         self._finished.append(rec.id)
         while len(self._finished) > self.retain_results:
             self.drop(self._finished[0])
@@ -578,6 +741,13 @@ class ServingEngine:
             "fault_totals": self.ledger.totals,
             "suspects": self.ledger.permanent_fault_suspects(),
         }
+        if self.adapter.read_spec is not None:
+            spec_ticks = int(self._m_spec_ticks.value)
+            spec_tokens = int(self._m_spec_tokens.value)
+            m["spec_ticks"] = spec_ticks
+            m["spec_tokens"] = spec_tokens
+            m["spec_min_commit"] = self._spec_min_commit
+            m["spec_tokens_per_tick"] = spec_tokens / spec_ticks if spec_ticks else 0.0
         if self._h_ttft.count:
             m["ttft_p50_s"] = self._h_ttft.quantile(0.5)
             m["ttft_p99_s"] = self._h_ttft.quantile(0.99)

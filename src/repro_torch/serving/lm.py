@@ -1,6 +1,6 @@
 """LM adapter for the continuous batcher: the slot-masked serve program
 of ``models/lm_cells.py`` packaged as a ``SlotAdapter`` (a port of
-``repro/serving/lm.py`` without speculation).
+``repro/serving/lm.py``).
 
     cfg = get_config("internlm2-1.8b")
     prog, adapter = lm_engine_parts(cfg, ServeConfig(batch=8, max_len=512,
@@ -13,7 +13,10 @@ geometric ladder (``ServeConfig.prefill_bucket_min`` doubling up to
 by ``prompt_len``, so the slot state equals an exact-length prefill's.
 Prefill is optionally CHUNKED (``ServeConfig.prefill_chunk``): the tail
 of a long prompt rides into the slot's ``pending`` segment and is walked
-inside the resident transition.
+inside the resident transition.  Speculation (``ServeConfig.spec``)
+falls back to plain decode on archs that cannot roll back, as paging
+does on archs without pages; a request's ``spec.draft_len`` is clamped
+to the engine's.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from ..models.lm_cells import (
     paged_slot_decoder_init,
     prefill_bucket_ladder,
     prefill_slot_state,
+    resolve_draft_config,
     slot_decoder_init,
+    spec_serving_supported,
 )
 from .engine import EngineParts, SlotAdapter
 from .request import Request
@@ -47,6 +52,10 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
     dev = resolve_device(device)
     prog = make_slot_serve_program(cfg, scfg)
     paged = scfg.paged and paged_serving_supported(cfg)
+    # speculation falls back to plain decode where the cache cannot roll back
+    spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
+    dcfg = resolve_draft_config(cfg, spec) if spec else None
+    spec_len = spec.draft_len if spec else 0
     # bucket padding is maskable only for full-attention text caches
     bucketable = cfg.mixer_type != "mamba2" and not cfg.n_vision_tokens and not cfg.window
     ladder = prefill_bucket_ladder(scfg) if bucketable else ()
@@ -69,6 +78,8 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
         pend = np.zeros((scfg.max_len,), np.int32)
         n_pending = plen - c0
         pend[:n_pending] = prompt[c0:]
+        # the request's draft length, clamped to the resident walk's width
+        spec_k = min(req.spec.draft_len, spec_len) if spec and req.spec else 0
         slot_state, first = prefill_slot_state(
             cfg,
             scfg,
@@ -77,6 +88,10 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
             prompt_len=c0 if bucketable else None,
             pending=torch.from_numpy(pend).to(dev),
             n_pending=n_pending,
+            spec_k=spec_k if spec else None,
+            budget=req.max_new_tokens if spec else None,
+            draft_cfg=dcfg,
+            draft_params=states["weights"]["draft"] if dcfg is not None else None,
         )
         buckets_used.add(bucket)
         if n_pending:
@@ -92,6 +107,15 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
                 f"prompt {plen} + budget {req.max_new_tokens} exceeds "
                 f"cache capacity {scfg.max_len}"
             )
+        if req.spec is not None and spec is not None:
+            # one resident draft serves the engine: a request picks its
+            # draft length, not another draft model
+            if req.spec.draft_arch and req.spec.draft_arch != spec.draft_arch:
+                return (
+                    f"request draft_arch {req.spec.draft_arch!r} does not "
+                    f"match the engine's resident draft "
+                    f"{spec.draft_arch or 'self'!r}"
+                )
         return None
 
     table = surgery = pre_tick = has_capacity = None
@@ -102,7 +126,8 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
         n_pages = paged_pool_pages(scfg)
         table = PageTable(n_pages, psize, scfg.max_len // psize)
         axes = infer_paged_axes(
-            lambda b: paged_slot_decoder_init(cfg, b, scfg.max_len, psize, n_pages, "meta")
+            lambda b: paged_slot_decoder_init(cfg, b, scfg.max_len, psize, n_pages, "meta",
+                                              dcfg, spec_len)
         )
 
         def reserve_fn(req: Request) -> int:
@@ -111,19 +136,21 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
 
         def make_empty():
             # the scrub template only reads non-pool leaves: a 1-page pool
-            return paged_slot_decoder_init(cfg, 1, scfg.max_len, psize, 1, dev)
+            return paged_slot_decoder_init(cfg, 1, scfg.max_len, psize, 1, dev, dcfg, spec_len)
 
         surgery = paged_surgery(table, "decoder", axes, make_empty(), reserve_fn=reserve_fn)
-        pre_tick = make_pre_tick(table, "decoder", scfg.batch, walk_chunk=max(1, chunk))
+        pre_tick = make_pre_tick(table, "decoder", scfg.batch, walk_chunk=max(1, chunk),
+                                 draft_len=spec_len)
 
         def has_capacity(req: Request) -> bool:
             return table.can_admit(req.n_slots * reserve_fn(req))
 
     else:
-        axes = infer_slot_axes(lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta"))
+        axes = infer_slot_axes(
+            lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta", dcfg, spec_len))
 
         def make_empty():
-            return slot_decoder_init(cfg, 1, scfg.max_len, dev)
+            return slot_decoder_init(cfg, 1, scfg.max_len, dev, dcfg, spec_len)
 
     def stats() -> dict:
         out = {
@@ -131,13 +158,21 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
             "prefill_buckets": list(ladder) if ladder else None,
             "prefill_chunk": chunk,
             "paged": paged,
+            "spec_draft_len": spec_len,
         }
+        if spec is not None:
+            out["spec_draft_arch"] = spec.draft_arch or "self"
         if table is not None:
             out["pages_total"] = table.n_pages
             out["pages_free"] = table.free_pages
             out["page_faults"] = table.page_faults
             out["page_size"] = table.page_size
         return out
+
+    def attach_tracer(tracer) -> None:
+        # the paged pre-tick hook emits its own page_fault instants
+        if pre_tick is not None:
+            pre_tick.tracer = tracer
 
     adapter = SlotAdapter(
         cell="decoder",
@@ -153,5 +188,7 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
         pre_tick=pre_tick,
         walk_chunk=max(1, chunk),
         contiguous_replicas=not paged,
+        read_spec=(lambda dec: (dec["spec_out"], dec["spec_n"])) if spec else None,
+        attach_tracer=attach_tracer,
     )
     return EngineParts(prog, adapter)

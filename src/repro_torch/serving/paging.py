@@ -372,18 +372,36 @@ def paged_surgery(
 # --------------------------------------------------------------------------
 # pre-tick demand growth
 # --------------------------------------------------------------------------
-def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1):
+def host_k_eff(spec_k: int, budget: int, n_decoded: int, pos: int, max_len: int,
+               draft_len: int) -> int:
+    """The host mirror of ``models.lm_cells.spec_k_eff`` for one slot: how
+    many draft tokens the tick's verify walk takes.  The two clamps must
+    agree, or the walk writes a position the pre-tick hook never mapped."""
+    room = min(budget - n_decoded - 2, max_len - 1 - pos)
+    return max(0, min(spec_k, room, draft_len))
+
+
+def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1,
+                  draft_len: int = 0):
     """The engine's pre-tick hook for a paged program: before each tick,
     map pages covering every position the tick will write (the decode
-    append, or up to ``walk_chunk`` prefill-walk tokens), count them as
-    page faults, and ZERO the newly mapped pool rows (clean-on-map: page
-    reuse between requests leaves no stale bytes, so replica fingerprints
-    and paged-vs-dense parity hold).  Runs BEFORE the engine snapshots the
-    tick's input buffer, so a §IV replay sees the same page tables."""
+    append, up to ``walk_chunk`` prefill-walk tokens, or a ``k_eff + 1``
+    verify walk when ``draft_len`` > 0), count them as page faults, and
+    ZERO the newly mapped pool rows (clean-on-map: page reuse between
+    requests leaves no stale bytes, so replica fingerprints and
+    paged-vs-dense parity hold).  A rejected speculation rolls ``pos``
+    back but unmaps nothing: the pages are inside the slot's reservation.
+    Runs BEFORE the engine snapshots the tick's input buffer, so a §IV
+    replay sees the same page tables.  ``pre_tick.tracer`` (set by the
+    adapter's ``attach_tracer``) receives one ``page_fault`` instant per
+    faulting slot."""
+    max_len = table.pages_per_slot * table.page_size
 
     def pre_tick(states):
         dec = states[cell]
-        act, p_head, p_len = (dec[k].cpu().numpy() for k in ("active", "p_head", "p_len"))
+        names = ["active", "p_head", "p_len"] + (["spec_k", "budget", "n_decoded"] if draft_len else [])
+        host = {k: dec[k].cpu().numpy() for k in names}
+        act, p_head, p_len = host["active"], host["p_head"], host["p_len"]
         pos = dec["cache"]["pos"].cpu().numpy()
         grew = np.zeros((batch,), bool)
         clean: list[int] = []
@@ -391,11 +409,20 @@ def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1):
             if not act[s]:
                 continue
             r = int(p_len[s] - p_head[s])
-            step = min(walk_chunk, r) if r > 0 else 1
+            if r > 0:
+                step = min(walk_chunk, r)
+            elif draft_len:
+                step = 1 + host_k_eff(int(host["spec_k"][s]), int(host["budget"][s]),
+                                      int(host["n_decoded"][s]), int(pos[s]), max_len, draft_len)
+            else:
+                step = 1
             new = table.grow_to(s, int(pos[s]) + step, demand=True)
             if new:
                 clean.extend(new)
                 grew[s] = True
+                if pre_tick.tracer is not None:
+                    pre_tick.tracer.instant("page_fault", "engine", slot=s,
+                                            pages=[int(p) for p in new], pos=int(pos[s]) + step)
         if not grew.any():
             return states
         new = dict(dec)
@@ -415,4 +442,5 @@ def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1):
         }
         return {**states, cell: new}
 
+    pre_tick.tracer = None
     return pre_tick

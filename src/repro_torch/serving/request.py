@@ -49,8 +49,11 @@ class Request:
                        unstarted; while running it is evicted with
                        partial output.
     stop_token      -- optional early-stop token id.
-    spec            -- speculative-decoding ask; must be None (not
-                       ported yet).
+    spec            -- optional speculative-decoding ask, read by the
+                       adapter (LM: ``models.lm_cells.SpecConfig``, whose
+                       ``draft_len`` is clamped to the engine's resident
+                       draft).  The output is the same either way; spec
+                       only changes how many tokens one tick commits.
     """
 
     prompt: Any
@@ -66,8 +69,6 @@ class Request:
             self.id = f"r{next(_ids)}"
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if self.spec is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
 
     @property
     def n_slots(self) -> int:

@@ -171,9 +171,10 @@ def test_tmr_strike_repaired_and_localized(clean_runs, paged, replica):
 
 
 def test_unported_options_raise():
+    # speculation and the engine's tracer are ported; spatial placement is not
+    TServeConfig(batch=2, max_len=16, spec=tmiso.SpecConfig(draft_len=2))
+    tmiso.EngineConfig(tracer=tmiso.Tracer())
     with pytest.raises(NotImplementedError):
-        TServeConfig(batch=2, max_len=16, spec=object())
-    with pytest.raises(NotImplementedError):
-        tmiso.EngineConfig(tracer=object())
+        TServeConfig(batch=2, max_len=16, placement="spatial")
     with pytest.raises(NotImplementedError):
         tmiso.EngineConfig(placement="spatial")
