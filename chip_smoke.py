@@ -22,7 +22,12 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  kernel, the plain version and a library yardstick (page
                  gather + SDPA), beside the bound computed from this run's
                  inputs, at the serving shape, with every lane valid and
-                 at the engine's own inputs (pos at 40-100 lanes).
+                 at the engine's own inputs (pos at 40-100 lanes); and at
+                 the head shapes of the decoders of phases 3e-3i:
+                 granite-moe's (Hq 16, Hkv 8, Dk 64) through pages and
+                 zamba2's shared block (Hq 32, Hkv 32, Dk 80) on a dense
+                 cache read in place, each case twice bitwise, timed
+                 beside its bound and gather + SDPA.
   2b. epilogue -- K1-K4 (the DMR/TMR compare, vote and fingerprint
                  kernels) BITWISE against their plain versions, each run
                  twice, with one bit flip in one replica.  K1 and K2
@@ -75,7 +80,9 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  a chunk reading the previous chunk's carry) must fail;
                  ptxas registers and spills per kernel; device times at
                  L = 128, 256, 300 and 320 beside the bound, and each
-                 launch's device time from torch.profiler.
+                 launch's device time from torch.profiler; and at
+                 zamba2-2.7b's shapes (state 64) at L = 256 and 320, the
+                 two planted faults at L = 320 rejected again, timed.
   2e. attention -- K7 (flash attention) through ``kernels.ops.attention``
                  at internlm2's head layout (16 query / 8 KV heads of 128,
                  bf16): causal at 512 and 4096, windowed, and with a
@@ -139,18 +146,36 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  phase 3c's deepseek stream self-speculating with
                  ``draft_len`` 2 (tokens bitwise 3c's, K6 launches = 3 x
                  (ticks + replays) x 3, K5 none).
+  3e-3i. archs -- phase 3's stream and strike, each engine released
+                 before the next, at full width: (3e) granite-20b, 52
+                 layers, paged (K5 at group 48 = 52 x (ticks + replays));
+                 (3f) command-r-plus-104b's first 8 of 64 layers, paged
+                 (K5 at group 12 = 8 x (ticks + replays)); (3g) zamba2-2.7b,
+                 dense (K8 = 54 mamba layers x prefills, K5 on the shared
+                 block's dense cache = 9 units x (ticks + replays)); (3h)
+                 granite-moe-1b-a400m, paged (K5 = 24 x (ticks + replays)),
+                 then the same stream self-speculating with ``draft_len``
+                 4, its tokens bitwise 3h's; (3i) deepseek-v3-671b's 3
+                 dense layers and its first MoE layer (256 experts),
+                 paged latent (K6 = 4 x (ticks + replays), K5 none).  Each
+                 prints tok/s, TTFT, ms/tick, peak device memory, the
+                 decode step and the slot fingerprints.
   4. check    -- reduced f32 models (internlm2, mamba2, and deepseek's
                  dense prefix) served the same way must emit the tokens a
                  full-sequence forward pass predicts; internlm2 and
                  deepseek are served paged and dense (through K5 / K6 over
                  the dense cache), and the two token streams must be
-                 equal, none / DMR / TMR.
+                 equal, none / DMR / TMR; the same for granite-moe (its
+                 capacity raised to n_experts / top_k, so that neither the
+                 served steps nor the forward drop a routed token) and
+                 granite-20b; zamba2 served dense.
 
 The last lines are the paged-vs-dense parity, the loop's, the
 schedules', the three engines', the speculating engines'
-(``engine_spec``) and the kernels' JSON records (each kernel's launches
-add up the paths that drive it, ``launches_by_path``: K1-K4 phases 2c
-and 2g, K5 phases 3 and 3d, K6 phases 3c and 3d), the card's name and
+(``engine_spec``), phases 3e-3i's (``engine_archs``) and the kernels'
+JSON records (each kernel's launches add up the paths that drive it,
+``launches_by_path``: K1-K4 phases 2c and 2g, K5 phases 3, 3d and 3e-3h,
+K6 phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -327,6 +352,72 @@ def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k5_arch_shapes(pd, gen, compare, library) -> dict:
+    """K5 at the head shapes phases 3e-3i give it: zamba2's
+    shared block (B 8, Hq 32, Hkv 32, Dk 80, group 1) through a dense
+    cache read in place, and granite-moe's (Hq 16, Hkv 8, Dk 64) through
+    pages.  Each f32 and bf16 case, and the no-valid-lane edge, within
+    K5's limits of the plain version; each call twice, bitwise equal; the
+    dense view bitwise equal to the same values through a shuffled page
+    table.  Times in bf16 (kernel, plain, gather + SDPA) beside the bound
+    from this run's inputs, on input sets larger than the 50 MB L2."""
+    out, errs = {}, {}
+
+    def twice(label, args) -> float:
+        a = pd.paged_gqa_attention(*args)
+        b = pd.paged_gqa_attention(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"paged_gqa_decode {label}: two calls differ")
+        return compare(label, args)
+
+    def timed(label, sets) -> dict:
+        it = iter(range(10**9))
+
+        def nxt():
+            return sets[next(it) % len(sets)]
+
+        ms = graph_ms(lambda: pd.paged_gqa_attention(*nxt()))
+        plain_ms = graph_ms(lambda: pd.paged_gqa_plain(*nxt()))
+        library_ms = graph_ms(lambda: library(*nxt()))
+        bound_ms, bound_by = k5_bound(*[sets[0][i] for i in (0, 1, 3, 4)])
+        log(f"kernels: paged_gqa_decode {label} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"gather+sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    # granite-moe: 16 query heads on 8 KV heads of 64, paged
+    label = "Dk 64 paged (Hq 16, Hkv 8)"
+    for dtype in (torch.float32, torch.bfloat16):
+        for edge in (False, True):
+            case = f"{label} {dtype}{' mapped, no valid lane' if edge else ''}"
+            errs[case] = twice(case, paged_inputs(dtype, gen, Hq=16, Hkv=8, Dk=64,
+                                                  no_valid_lane=edge))
+    out["dk64_paged"] = timed(label, [paged_inputs(torch.bfloat16, gen, Hq=16, Hkv=8, Dk=64)
+                                      for _ in range(8)])
+    # zamba2's shared block: 32 heads of 80, group 1, the dense cache in place
+    label = "Dk 80 dense view (B 8, Hq 32, Hkv 32, S 512)"
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, pos, view, pools, pages = dense_and_shuffled(dtype, gen, Hq=32, Hkv=32, D=80)
+        got_dense = pd.paged_gqa_attention(q, *view, pos)
+        got_paged = pd.paged_gqa_attention(q, *pools, pages, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(got_dense, got_paged):
+            raise AssertionError(f"paged_gqa_decode {label} {dtype}: dense view != shuffled pages")
+        case = f"{label} {dtype}"
+        errs[case] = twice(case, (q, *view, pos))
+    sets = []
+    for _ in range(4):
+        q, k, v, pos, view, _, _ = dense_and_shuffled(torch.bfloat16, gen, Hq=32, Hkv=32, D=80)
+        sets.append((q, *view, pos))
+    out["dk80_dense"] = timed(label, sets)
+    log("kernels: paged_gqa_decode at Dk 64 (paged) and Dk 80 (dense view, bitwise equal to "
+        "shuffled pages): each case twice bitwise, max abs err "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in errs.items()))
+    out["max_abs_err"] = errs
+    return out
+
+
 def kernel_phase(build_log: Path) -> dict:
     from repro_torch.kernels import paged_decode as pd
 
@@ -413,6 +504,8 @@ def kernel_phase(build_log: Path) -> dict:
     it_full = iter(range(10**9))
 
     launches0 = pd.paged_gqa_attention.launches
+    arch_shapes = k5_arch_shapes(pd, gen, compare, library)
+    errs.update(arch_shapes.pop("max_abs_err"))
     ms_full = graph_ms(lambda: pd.paged_gqa_attention(*full[next(it_full) % len(full)]))
     ms = graph_ms(lambda: pd.paged_gqa_attention(*nxt()))
     eager_ms = events_ms(lambda: pd.paged_gqa_attention(*nxt()))
@@ -479,6 +572,7 @@ def kernel_phase(build_log: Path) -> dict:
         "engine_like": {"ms": eng_ms, "plain_ms": eng_plain_ms, "library_ms": eng_library_ms,
                         "bound_ms": eng_bound, "bound_by": eng_by},
         "ptxas": ptxas,
+        **arch_shapes,
     }
 
 
@@ -1218,7 +1312,9 @@ def schedules_phase(epi: dict) -> dict:
 # phase 2d: K8 against its plain version
 # --------------------------------------------------------------------------
 #: mamba2-2.7b's scan shapes: 80 heads of 64, state 128, one B/C group
+#: (zamba2-2.7b's are the same with state 64)
 SSD_SHAPE = dict(H=80, P=64, G=1, N=128)
+ZAMBA_N = 64
 SSD_CHUNK = 128
 NO_SSD_LIBRARY = "none, no one PyTorch call computes the SSD scan"
 
@@ -1315,14 +1411,20 @@ def ssd_phase(build_log: Path) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     errs, rows = {}, {}
     launches0 = ks.ssd_scan.launches
-    cases = [(256, torch.bfloat16, False), (256, torch.bfloat16, True),
-             (300, torch.bfloat16, False), (300, torch.bfloat16, True), (300, torch.float32, True)]
-    for L, dtype, with_h0 in cases:
-        x, dt, a, bm, cm, h0 = ssd_inputs(L, gen, dtype, with_h0)
+    N = SSD_SHAPE["N"]
+    cases = [(256, torch.bfloat16, False, N), (256, torch.bfloat16, True, N),
+             (300, torch.bfloat16, False, N), (300, torch.bfloat16, True, N),
+             (300, torch.float32, True, N),
+             # zamba2-2.7b's scans: state 64, two and two and a half chunks
+             (256, torch.bfloat16, True, ZAMBA_N), (320, torch.bfloat16, False, ZAMBA_N),
+             (320, torch.bfloat16, True, ZAMBA_N)]
+    for L, dtype, with_h0, N in cases:
+        x, dt, a, bm, cm, h0 = ssd_inputs(L, gen, dtype, with_h0, N=N)
         y, ht = ks.ssd_scan(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
         torch.cuda.synchronize()
         ry, rht = ks.ssd_scan_plain(x, dt, a, bm, cm, h0=h0, chunk=SSD_CHUNK)
-        label = f"L={L} {str(dtype).removeprefix('torch.')}{' h0' if with_h0 else ''}"
+        label = (f"L={L} {str(dtype).removeprefix('torch.')}{' h0' if with_h0 else ''}"
+                 f"{f' N={N}' if N != SSD_SHAPE['N'] else ''}")
         assert y.dtype == dtype and y.shape == x.shape and ht.shape == rht.shape
         msg = []
         for name, got, ref, kind in (("y", y, ry, "y_bf16" if dtype == torch.bfloat16 else "y_f32"),
@@ -1335,19 +1437,22 @@ def ssd_phase(build_log: Path) -> dict:
                 raise AssertionError(f"ssd_scan {label} {name}: max abs err {err}, {ratio} of the "
                                      f"elementwise limit, row L2 {row}")
         log(f"ssd: {label}: " + "; ".join(msg))
-        if L == 300 and dtype == torch.bfloat16 and with_h0:
+        if L in (300, 320) and dtype == torch.bfloat16 and with_h0:
             # the check must reject what a broken state passing would give
             for name, (fy, fht) in ssd_planted_faults(x, dt, a, bm, cm, h0).items():
                 v = [ssd_verdict(fy.to(dtype), ry, "y_bf16"), ssd_verdict(fht, rht, "state")]
                 if v[0][0] and v[1][0]:
-                    raise AssertionError(f"ssd_scan: the planted fault '{name}' passes the check")
-                log(f"ssd: planted fault, {name}: y {v[0][2]:.1f} of the elementwise limit, row "
-                    f"L2 {v[0][3]:.3e}; state {v[1][2]:.1f}, row L2 {v[1][3]:.3e}: rejected")
+                    raise AssertionError(f"ssd_scan {label}: the planted fault '{name}' passes "
+                                         "the check")
+                log(f"ssd: {label} planted fault, {name}: y {v[0][2]:.1f} of the elementwise "
+                    f"limit, row L2 {v[0][3]:.3e}; state {v[1][2]:.1f}, row L2 {v[1][3]:.3e}: "
+                    "rejected")
     # times at the prefill's own call: no h0, bf16; 4 input sets so a call
     # does not find its 8 MB in L2 from the one before
     timings = {}
-    for L in (128, 256, 300, 320):
-        sets = [ssd_inputs(L, gen) for _ in range(4)]
+    for L, N in ((128, SSD_SHAPE["N"]), (256, SSD_SHAPE["N"]), (300, SSD_SHAPE["N"]),
+                 (320, SSD_SHAPE["N"]), (256, ZAMBA_N), (320, ZAMBA_N)):
+        sets = [ssd_inputs(L, gen, N=N) for _ in range(4)]
         it = iter(range(10**9))
 
         def nxt():
@@ -1358,10 +1463,10 @@ def ssd_phase(build_log: Path) -> dict:
         plain_ms = graph_ms(lambda: ks.ssd_scan_plain(*nxt()[:5], chunk=SSD_CHUNK), reps=2, iters=3)
         x, _, _, bm, _, _ = sets[0]
         bound_ms, bound_by, f32_ms, nbytes, flops = ssd_bound(x, bm, None)
-        timings[L] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-        blocks = ks.bf16_blocks(1, L, SSD_SHAPE["H"], SSD_SHAPE["N"], SSD_SHAPE["P"])
-        log(f"ssd: L={L} B=1 H=80 P=64 N=128 bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
+        timings[L if N == SSD_SHAPE["N"] else f"{L}_N{N}"] = dict(
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        blocks = ks.bf16_blocks(1, L, SSD_SHAPE["H"], N, SSD_SHAPE["P"])
+        log(f"ssd: L={L} B=1 H=80 P=64 N={N} bf16: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP; the FLOPs on the f32 CUDA cores {f32_ms:.4f} ms); "
             f"library: {NO_SSD_LIBRARY}; blocks of the three launches {blocks} on "
@@ -1401,7 +1506,7 @@ def ssd_phase(build_log: Path) -> dict:
         "library_ms": None,
         "library_why": NO_SSD_LIBRARY,
         "shape": "B=1 L=256 H=80 P=64 G=1 N=128 bf16, chunk 128",
-        **{f"L{L}": timings[L] for L in (128, 300, 320)},
+        **{f"L{L}": timings[L] for L in (128, 300, 320, f"256_N{ZAMBA_N}", f"320_N{ZAMBA_N}")},
     }
 
 
@@ -2406,6 +2511,126 @@ def spec_phase(plain_tokens: list, mla_tokens: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 3e-3i: granite-20b, command-r-plus, zamba2 and MoE at full width
+# --------------------------------------------------------------------------
+def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None) -> tuple:
+    """Phase 3's stream (8 requests, none/DMR/TMR, one strike) on ``cfg``
+    at full width, then one decode step and the slot fingerprints timed.
+    ``per_step`` / ``per_prefill``: {kernel wrapper: its launches a decode
+    step / a prefill}; each count of the stream must equal its formula.
+    The engine is released before this returns (record, tokens)."""
+    from repro_torch.models.lm_cells import ServeConfig
+
+    scfg = ServeConfig(batch=8, max_len=512, paged=paged, page_size=16)
+    per_prefill = per_prefill or {}
+    wrappers = [*per_step, *per_prefill]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, run, launches, tokens = serve_stream(cfg, scfg, wrappers)
+    m = engine.metrics()
+    if m["paged"] != paged:
+        raise AssertionError(f"{phase} {cfg.name}: paged {m['paged']}, expected {paged}")
+    steps = run["ticks"] + run["replays"]
+    expect = [n * steps for n in per_step.values()] + [n * run["requests"]
+                                                        for n in per_prefill.values()]
+    formulas = [f"{n} x (ticks + replays)" for n in per_step.values()] + [
+        f"{n} x prefills" for n in per_prefill.values()]
+    names = [w.__name__ for w in wrappers]
+    if launches != expect or not any(launches):
+        raise AssertionError(f"{phase} {cfg.name}: launches {dict(zip(names, launches))} != "
+                             f"{dict(zip(names, formulas))} = {expect}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated() / 1e9
+    states = engine._states
+    step_ms = events_ms(lambda: engine.exe.pure_step(states, 0), iters=3)
+    fp_ms = events_ms(lambda: engine._ops.fingerprints(states["decoder"]), iters=3)
+    # is the decode step host or device work: the card's busy time in it
+    _, by_name = profiled(lambda: engine.exe.pure_step(states, 0))
+    busy_ms = sum(by_name.values()) / 1e3 if by_name else None
+    for w, n in zip(wrappers, launches):  # the timing steps' launches do not count
+        w.launches = n
+    top = {re.sub(r"[(<].*", "", k)[:60]: us / 1e3
+           for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]}
+    busy = ("not measured (no device events)" if busy_ms is None else
+            f"device busy {busy_ms:.2f} ms of it (idle share {1 - busy_ms / step_ms:.3f}; the "
+            "largest: " + ", ".join(f"{k} {ms:.2f} ms" for k, ms in top.items()) + ")")
+    log(f"engine: {phase} {cfg.name}: launches " + ", ".join(
+        f"{name} {n} = {f}" for name, n, f in zip(names, launches, formulas))
+        + f" ({run['ticks']} ticks, {run['replays']} replays, {run['requests']} prefills); "
+        f"device memory peak {peak:.2f} GB, {held:.2f} GB held after the stream; per tick: "
+        f"decode step {step_ms:.2f} ms, {busy}; "
+        f"slot fingerprints {fp_ms:.2f} ms")
+    rec = {**run, "launches": dict(zip(names, launches)),
+           "formulas": dict(zip(names, formulas)), "paged": paged, "n_layers": cfg.n_layers,
+           "decode_step_ms": step_ms, "decode_step_device_busy_ms": busy_ms,
+           "decode_step_largest_kernels_ms": top,
+           "fingerprints_ms": fp_ms, "peak_memory_gb": peak, "memory_after_gb": held}
+    del engine, states
+    gc.collect()
+    torch.cuda.empty_cache()  # hand the engine's memory back before the next phase
+    return rec, tokens
+
+
+def arch_phases() -> tuple[dict, dict]:
+    """Phases 3e-3i, each released before the next: granite-20b (paged,
+    K5 at group 48), command-r-plus-104b's first 8 layers (paged, group
+    12), zamba2-2.7b (dense: K8 on every mamba layer of a prefill, K5 on
+    the shared block's dense cache), granite-moe-1b-a400m (paged, then the
+    same stream self-speculating: tokens bitwise equal) and deepseek's 3
+    dense layers and first MoE layer (paged latent, K6).  Returns the
+    records and the launches by path."""
+    from repro_torch.configs import command_r_plus_104b as cr
+    from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.lm_cells import SpecConfig
+
+    k5, k6, k8 = pd.paged_gqa_attention, pd.paged_mla_attention, ks.ssd_scan
+    out, paths = {}, {"paged_gqa_decode": {}, "paged_mla_decode": {}, "ssd_scan": {}}
+
+    cfg = get_config("granite-20b")
+    out["3e"], _ = arch_phase("3e", cfg, True, {k5: cfg.n_layers, k6: 0})
+    paths["paged_gqa_decode"]["engine_3e"] = out["3e"]["launches"]["paged_gqa_attention"]
+
+    cfg = cr.layer_prefix(get_config("command-r-plus-104b"), 8)
+    out["3f"], _ = arch_phase("3f", cfg, True, {k5: cfg.n_layers, k6: 0})
+    paths["paged_gqa_decode"]["engine_3f"] = out["3f"]["launches"]["paged_gqa_attention"]
+
+    cfg = get_config("zamba2-2.7b")
+    units = cfg.n_layers // cfg.shared_attn_every
+    out["3g"], _ = arch_phase("3g", cfg, False, {k5: units, k6: 0}, {k8: cfg.n_layers})
+    paths["paged_gqa_decode"]["engine_3g"] = out["3g"]["launches"]["paged_gqa_attention"]
+    paths["ssd_scan"]["engine_3g"] = out["3g"]["launches"]["ssd_scan"]
+
+    cfg = get_config("granite-moe-1b-a400m")
+    out["3h"], tokens = arch_phase("3h", cfg, True, {k5: cfg.n_layers, k6: 0})
+    paths["paged_gqa_decode"]["engine_3h"] = out["3h"]["launches"]["paged_gqa_attention"]
+    spec = SpecConfig(draft_len=4)
+    engine, run, (n5,), n_sub = spec_stream("3h spec", cfg, spec, spec, [k5], tokens,
+                                            strike=False)
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_sub
+    if n5 != expect or not run["spec_tokens_per_tick"] > 1:
+        raise AssertionError(f"3h spec: K5 launches {n5} != {expect}, or "
+                             f"{run['spec_tokens_per_tick']} tokens a verify walk")
+    log(f"engine: 3h {cfg.name} self-speculating, draft_len 4: tokens bitwise equal to 3h's "
+        f"plain stream; K5 launches {n5} = {cfg.n_layers} layers x ({run['ticks']} ticks + "
+        f"{run['replays']} replays) x {n_sub}")
+    out["3h_spec"] = {**run, "k5_launches": n5,
+                      "k5_formula": f"{cfg.n_layers} x (ticks + replays) x {n_sub}"}
+    paths["paged_gqa_decode"]["spec_3h_self"] = n5
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = ds.moe_prefix(get_config("deepseek-v3-671b"), 1)
+    out["3i"], _ = arch_phase("3i", cfg, True, {k6: cfg.n_layers, k5: 0})
+    paths["paged_mla_decode"]["engine_3i"] = out["3i"]["launches"]["paged_mla_attention"]
+    return out, paths
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
 
@@ -2441,9 +2666,21 @@ def check_phase(arch: str, cfg=None, **serve) -> list:
         if not (pred[clear] == toks[clear]).all():
             raise AssertionError(f"{arch} {r.id}: served tokens disagree with the forward pass")
         checked += int(clear.sum())
+    note = ""
+    if cfg.moe is not None:
+        note = (f" (capacity_factor {cfg.moe.capacity_factor} = n_experts / top_k: no routed "
+                "token is dropped, in serving or in the forward)")
     log(f"check: reduced f32 {arch} serving ({'paged' if serve.get('paged') else 'dense'}) "
-        f"matches the full forward on {checked} tokens")
+        f"matches the full forward on {checked} tokens{note}")
     return [list(engine.result(r.id)["tokens"]) for r in reqs]
+
+
+def no_drops(cfg):
+    """``cfg`` with the capacity raised so that no routed token is dropped:
+    a forward over T tokens at once could drop where a decode step of 8
+    tokens cannot, and the check compares the two."""
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, moe=moe)
 
 
 def parity_phase(arch: str, kernel, cfg=None) -> dict:
@@ -2515,7 +2752,14 @@ def main() -> int:
             rec["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
+    arch_engines, arch_paths = arch_phases()
+    ssd["launches_by_path"] = {"engine_3b": mamba["launches"]}
+    for rec, key in ((record, "paged_gqa_decode"), (mla, "paged_mla_decode"), (ssd, "ssd_scan")):
+        for path, n in arch_paths[key].items():
+            rec["launches_by_path"][path] = n
+            rec["launches"] += n
     from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.configs import get_reduced
     from repro_torch.kernels import paged_decode as pd
 
     parity = {"internlm2-1.8b": parity_phase("internlm2-1.8b", pd.paged_gqa_attention)}
@@ -2523,6 +2767,10 @@ def main() -> int:
     parity["deepseek-v3-671b"] = parity_phase(
         "deepseek-v3-671b", pd.paged_mla_attention,
         dataclasses.replace(ds.dense_prefix(ds.reduced()), n_layers=2))
+    parity["granite-moe-1b-a400m"] = parity_phase(
+        "granite-moe-1b-a400m", pd.paged_gqa_attention, no_drops(get_reduced("granite-moe-1b-a400m")))
+    parity["granite-20b"] = parity_phase("granite-20b", pd.paged_gqa_attention)
+    check_phase("zamba2-2.7b")
     print(json.dumps({"paged_dense_parity": parity}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -2530,6 +2778,7 @@ def main() -> int:
     print(json.dumps({"engine_mamba2": mamba}), flush=True)
     print(json.dumps({"engine_deepseek_mla": deepseek}), flush=True)
     print(json.dumps({"engine_spec": spec}), flush=True)
+    print(json.dumps({"engine_archs": arch_engines}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,8 +48,9 @@ def tree_to_numpy(tree):
 
 
 #: parameter leaves the models keep in f32 whatever the compute dtype
-#: (the Mamba2 decay, step bias and skip, as in the JAX package)
-F32_PARAMS = ("a_log", "dt_bias", "d_skip")
+#: (the Mamba2 decay, step bias and skip, and the MoE router, as in the
+#: JAX package)
+F32_PARAMS = ("a_log", "dt_bias", "d_skip", "router")
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
@@ -60,6 +61,8 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
     want = {"embed", "final_norm", "segments"} | (set() if cfg.tie_embeddings else {"lm_head"})
     if cfg.mtp:
         want |= {"mtp_proj", "mtp_norm"}
+    if cfg.shared_attn_every and cfg.mixer_type == "mamba2":
+        want |= {"shared_attn"}
     if set(params) != want:
         raise ValueError(f"params keys {sorted(params)} != {sorted(want)}")
     d, V = cfg.d_model, cfg.vocab_size

@@ -1,8 +1,9 @@
 """DeepSeek-V3 671B: MLA + 256-expert MoE (1 shared + top-8 routed),
 61 layers (first 3 dense), MTP head.  [arXiv:2412.19437; hf]
 
-``dense_prefix`` cuts a config to its dense layers (no experts): the
-configuration this package serves until the MoE layers are ported."""
+Two cuts keep full width on one card: ``dense_prefix`` (the 3 dense
+layers alone, no experts) and ``moe_prefix`` (the 3 dense layers and the
+first ``n_moe`` MoE layers, the MTP head as the full model has it)."""
 
 import dataclasses
 
@@ -45,3 +46,13 @@ def dense_prefix(cfg: ModelConfig) -> ModelConfig:
     """The model's first ``moe.n_dense_layers`` layers alone: MLA attention
     with a dense MLP, no experts (3 layers of the full config)."""
     return dataclasses.replace(cfg, n_layers=cfg.moe.n_dense_layers, mixer_type="mlp", moe=None)
+
+
+def moe_prefix(cfg: ModelConfig, n_moe: int) -> ModelConfig:
+    """The model's ``moe.n_dense_layers`` dense layers followed by its
+    first ``n_moe`` MoE layers, every width as published (``n_moe=1``:
+    3 dense + 1 MoE layer of 256 experts, 15.11 B parameters)."""
+    if not 1 <= n_moe <= cfg.n_layers - cfg.moe.n_dense_layers:
+        raise ValueError(f"moe_prefix: n_moe={n_moe} not in [1, "
+                         f"{cfg.n_layers - cfg.moe.n_dense_layers}]")
+    return dataclasses.replace(cfg, n_layers=cfg.moe.n_dense_layers + n_moe)

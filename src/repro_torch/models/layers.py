@@ -41,7 +41,7 @@ Params = dict
 def dense_init(gen, d_in: int, d_out: int, dtype, device, scale=None):
     scale = (d_in**-0.5) if scale is None else scale
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one f32 temporary, not two
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from ..core import CellType, MisoProgram
+from ..tree import tree_map
 from . import transformer as T
 from .config import ModelConfig
 
@@ -421,9 +422,8 @@ def install_prefill(cfg: ModelConfig, full: dict, filled: dict, plen) -> dict:
         out.narrow(ax, 0, s.shape[ax]).copy_(s)
         return out
 
-    segs = [
-        {k: leaf(d[k], s[k]) for k in d} for d, s in zip(full["segments"], filled["segments"])
-    ]
+    # a zamba unit's segment nests its mamba states and its attention cache
+    segs = [tree_map(leaf, d, s) for d, s in zip(full["segments"], filled["segments"])]
     return {"segments": segs, "pos": torch.full_like(full["pos"], int(plen))}
 
 

@@ -1,15 +1,20 @@
-"""The decoder-only LM, GQA/MLA + MLP and Mamba2 segments (a port of the
-matching subset of ``repro/models/transformer.py``).
+"""The decoder-only LM (a port of ``repro/models/transformer.py``).
 
 Parameters are the JAX package's tree: ``{"embed", "final_norm",
-"segments": [stacked per-layer dicts]}`` (plus ``lm_head`` when untied
-and ``mtp_proj``/``mtp_norm`` for a multi-token-prediction head), each
+"segments": [stacked per-layer dicts]}`` (plus ``lm_head`` when untied,
+``shared_attn`` for Zamba2's weight-shared block, and
+``mtp_proj``/``mtp_norm`` for a multi-token-prediction head), each
 segment's leaves carrying a leading layer axis.  Layers run as a Python
 loop over that axis.  Segment kinds:
 
-  attn_mlp  -- [norm -> attention (GQA or MLA) -> residual]
-               [norm -> MLP -> residual]
-  mamba     -- [norm -> mamba2 block -> residual]
+  attn_mlp   -- [norm -> attention (GQA or MLA) -> residual]
+                [norm -> MLP -> residual]
+  attn_moe   -- the same with the MoE mixer (+ shared experts)
+  mamba      -- [norm -> mamba2 block -> residual]
+  zamba_unit -- ``shared_attn_every`` mamba layers followed by one call
+                of a weight-shared attention + MLP block over
+                concat(h, e0) (Zamba2; the shared block's weights live
+                outside the segments, its KV cache in each unit's)
 
 Entry points:
   forward(...)      logits (prefill; optional cache fill with prompt_len)
@@ -23,9 +28,10 @@ from typing import Optional
 
 import torch
 
-from ..tree import tree_map
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import layers as L
 from .config import ModelConfig
+from .moe import moe_block, moe_init
 from .ssm import mamba_block, mamba_cache_init, mamba_init
 
 Params = dict
@@ -36,49 +42,86 @@ Params = dict
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str  # attn_mlp | mamba
-    count: int  # layers in the segment
+    kind: str  # attn_mlp | attn_moe | mamba | zamba_unit
+    count: int  # layers in the segment (units, for zamba_unit)
+    sub: int = 1  # mamba layers folded inside one unit (zamba_unit)
 
 
 def segment_plan(cfg: ModelConfig) -> list[Segment]:
-    if cfg.mixer_type == "mamba2" and cfg.n_codebooks == 1:
+    if cfg.n_codebooks != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-codebook models are not ported yet (ROADMAP Queue 1 item 4f)")
+    if cfg.mixer_type == "mamba2":
         if cfg.shared_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: zamba_unit segments (mamba layers with a shared "
-                "attention block) are not ported yet (P12)"
-            )
+            k = cfg.shared_attn_every
+            if cfg.n_layers % k:
+                raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not units of {k}")
+            return [Segment("zamba_unit", cfg.n_layers // k, sub=k)]
         return [Segment("mamba", cfg.n_layers)]
-    if cfg.mixer_type == "moe":
+    if cfg.mixer_type not in ("mlp", "moe") or cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (P12's MoE item); serve the "
-            "dense layers alone (configs.deepseek_v3_671b.dense_prefix)"
-        )
-    if cfg.mixer_type != "mlp" or cfg.attn_type not in ("gqa", "mla") or cfg.n_codebooks != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: only GQA/MLA + MLP and Mamba2 text decoders are ported "
+            f"{cfg.name}: only GQA/MLA + MLP/MoE, Mamba2 and Zamba2 text decoders are ported "
             f"(mixer={cfg.mixer_type}, attn={cfg.attn_type})"
         )
+    if cfg.mixer_type == "moe":
+        nd = cfg.moe.n_dense_layers if cfg.moe else 0
+        return ([Segment("attn_mlp", nd)] if nd else []) + [Segment("attn_moe", cfg.n_layers - nd)]
     return [Segment("attn_mlp", cfg.n_layers)]
 
 
 def _recurrent(cfg: ModelConfig) -> bool:
-    return any(seg.kind == "mamba" for seg in segment_plan(cfg))
+    return any(seg.kind in ("mamba", "zamba_unit") for seg in segment_plan(cfg))
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
+def _stacked(count: int, make) -> Params:
+    """``count`` draws of ``make()`` stacked on a leading axis.  Each draw
+    is written into the stack and let go before the next is made, so the
+    peak is the stack and one draw, not twice the stack (granite-20b's 52
+    layers are 40 GB); a single draw is its own stack (deepseek's one MoE
+    layer is 22.5 GB)."""
+    leaves, treedef = tree_flatten(make())
+    if count == 1:
+        return tree_unflatten(treedef, [x[None] for x in leaves])
+    stacks = [torch.empty((count, *x.shape), dtype=x.dtype, device=x.device) for x in leaves]
+    for i in range(count):
+        if i:
+            leaves = tree_flatten(make())[0]
+        for stack, x in zip(stacks, leaves):
+            stack[i] = x
+        leaves.clear()
+    return tree_unflatten(treedef, stacks)
+
+
+def _attn_init(gen, cfg: ModelConfig, device) -> Params:
+    return L.mla_init(gen, cfg, device) if cfg.attn_type == "mla" else L.gqa_init(gen, cfg, device)
+
+
 def _layer_init(gen, cfg: ModelConfig, kind: str, device) -> Params:
     d, dt = cfg.d_model, cfg.compute_dtype
     if kind == "mamba":
         return {"norm": torch.ones((d,), dtype=dt, device=device),
                 "mamba": mamba_init(gen, cfg, device)}
-    return {
+    if kind == "zamba_unit":
+        sub = cfg.shared_attn_every
+        return {
+            "norms": torch.ones((sub, d), dtype=dt, device=device),
+            "mamba": _stacked(sub, lambda: mamba_init(gen, cfg, device)),
+            "in_proj": L.dense_init(gen, 2 * d, d, dt, device),
+            "attn_norm": torch.ones((d,), dtype=dt, device=device),
+        }
+    p = {
         "ln1": torch.ones((d,), dtype=dt, device=device),
         "ln2": torch.ones((d,), dtype=dt, device=device),
-        "attn": L.mla_init(gen, cfg, device) if cfg.attn_type == "mla" else L.gqa_init(gen, cfg, device),
-        "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device),
+        "attn": _attn_init(gen, cfg, device),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
@@ -86,13 +129,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     (the draws differ: torch cannot reproduce ``jax.random``)."""
     dt = cfg.compute_dtype
     d, V = cfg.d_model, cfg.vocab_size
-    embed = torch.randn((V, d), generator=gen, dtype=torch.float32, device=device) * 0.02
-    params: Params = {"embed": embed.to(dt), "final_norm": torch.ones((d,), dtype=dt, device=device)}
-    segs = []
-    for seg in segment_plan(cfg):
-        layers = [_layer_init(gen, cfg, seg.kind, device) for _ in range(seg.count)]
-        segs.append(tree_map(lambda *xs: torch.stack(xs), *layers))
-    params["segments"] = segs
+    embed = torch.randn((V, d), generator=gen, dtype=torch.float32, device=device).mul_(0.02).to(dt)
+    params: Params = {"embed": embed, "final_norm": torch.ones((d,), dtype=dt, device=device)}
+    params["segments"] = [_stacked(seg.count, lambda seg=seg: _layer_init(gen, cfg, seg.kind, device))
+                          for seg in segment_plan(cfg)]
+    if cfg.shared_attn_every and cfg.mixer_type == "mamba2":
+        params["shared_attn"] = {
+            "attn": _attn_init(gen, cfg, device),
+            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device),
+            "ln1": torch.ones((d,), dtype=dt, device=device),
+            "ln2": torch.ones((d,), dtype=dt, device=device),
+        }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, d, V, dt, device)
     if cfg.mtp:
@@ -164,20 +211,55 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
     return out, {"k": kc, "v": vc, "slot_pos": sp}
 
 
+def _shared_attn_apply(shared: Params, xin, cfg: ModelConfig, positions, cache, fill_cache,
+                       active=None):
+    """The Zamba2 weight-shared transformer block (attention + MLP)."""
+    h = xin
+    a, kv = _attention(shared["attn"], L.rmsnorm(h, shared["ln1"], cfg.rms_eps), cfg, positions,
+                       cache, fill_cache, active)
+    h = h + a
+    h = h + L.mlp(shared["mlp"], L.rmsnorm(h, shared["ln2"], cfg.rms_eps), cfg.mlp_act)
+    return h, kv
+
+
 def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fill_cache,
-                 active=None, prompt_len=None, pages=None, rows_lanes=None):
-    """One layer: [norm -> attention -> residual] [norm -> MLP -> residual],
-    or [norm -> mamba2 block -> residual].  Returns (h, cache_out)."""
+                 shared: Optional[Params] = None, e0=None, active=None, prompt_len=None,
+                 pages=None, rows_lanes=None):
+    """One layer (one unit for ``zamba_unit``).  Returns (h, cache_out,
+    aux): the MoE load-balance loss, 0.0 for the other kinds."""
+    aux = 0.0
     if kind == "mamba":
         y, cout = mamba_block(p["mamba"], L.rmsnorm(h, p["norm"], cfg.rms_eps), cfg,
                               cache=cache, fill_cache=fill_cache)
-        return h + y, cout
+        return h + y, cout, aux
+    if kind == "zamba_unit":
+        mcaches = []
+        for i in range(cfg.shared_attn_every):
+            pi = tree_map(lambda x, i=i: x[i], p["mamba"])
+            ci = tree_map(lambda x, i=i: x[i], cache["mamba"]) if cache is not None else None
+            y, c = mamba_block(pi, L.rmsnorm(h, p["norms"][i], cfg.rms_eps), cfg,
+                               cache=ci, fill_cache=fill_cache)
+            h = h + y
+            mcaches.append(c)
+        xin = torch.cat([h, e0], dim=-1) @ p["in_proj"]
+        xin = L.rmsnorm(xin, p["attn_norm"], cfg.rms_eps)
+        u, kv = _shared_attn_apply(shared, xin, cfg, positions,
+                                   cache["attn"] if cache is not None else None, fill_cache, active)
+        cout = None
+        if mcaches[0] is not None or kv is not None:
+            cout = {"mamba": tree_map(lambda *xs: torch.stack(xs), *mcaches), "attn": kv}
+        return h + u, cout, aux
+    # attn_mlp / attn_moe
     a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
                          positions, cache, fill_cache, active, prompt_len,
                          pages, rows_lanes)
     h = h + a
-    h = h + L.mlp(p["mlp"], L.rmsnorm(h, p["ln2"], cfg.rms_eps), cfg.mlp_act)
-    return h, cout
+    x2 = L.rmsnorm(h, p["ln2"], cfg.rms_eps)
+    if kind == "attn_moe":
+        y, aux = moe_block(p["moe"], x2, cfg)
+    else:
+        y = L.mlp(p["mlp"], x2, cfg.mlp_act)
+    return h + y, cout, aux
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +279,8 @@ def forward(
     ``prompt_len`` (serving's bucketed prefill): the true prompt length
     when ``tokens`` is right-padded to a bucket; the filled caches are
     scrubbed past it and logits at real positions are untouched.  Not for
-    recurrent (mamba) segments: their state folds the padding in."""
+    recurrent (mamba, zamba_unit) segments: their state folds the padding
+    in."""
     B, S = tokens.shape[:2]
     if prompt_len is not None and (cfg.window or _recurrent(cfg)):
         raise ValueError(
@@ -208,13 +291,15 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
     h = embed_tokens(params, tokens, cfg)
+    e0 = h if cfg.shared_attn_every else None
+    shared = params.get("shared_attn")
     caches = []
     for seg, sp in zip(segment_plan(cfg), params["segments"]):
         couts = []
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
-            h, cout = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
-                                   prompt_len=prompt_len)
+            h, cout, _ = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
+                                      shared, e0, prompt_len=prompt_len)
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
@@ -228,15 +313,23 @@ def forward(
     return logits, cache_out
 
 
+def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    if cfg.attn_type == "mla":
+        return L.mla_cache_init(cfg, batch, max_len, device)
+    return L.gqa_cache_init(cfg, batch, max_len, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     out = []
     for seg in segment_plan(cfg):
         if seg.kind == "mamba":
             one = mamba_cache_init(cfg, batch, device)
-        elif cfg.attn_type == "mla":
-            one = L.mla_cache_init(cfg, batch, max_len, device)
+        elif seg.kind == "zamba_unit":
+            one = {"mamba": tree_map(lambda x: torch.stack([x] * seg.sub),
+                                     mamba_cache_init(cfg, batch, device)),
+                   "attn": _attn_cache_init(cfg, batch, max_len, device)}
         else:
-            one = L.gqa_cache_init(cfg, batch, max_len, device)
+            one = _attn_cache_init(cfg, batch, max_len, device)
         out.append(tree_map(lambda x: torch.stack([x] * seg.count), one))
     return {"segments": out, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -245,8 +338,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, page_size: int,
                      device) -> dict:
     """Paged serving cache: per-layer page POOLS shared by every slot (the
     page axis replaces the batch axis of the dense cache), plus the
-    per-slot ``pos``.  Attention-only: recurrent (mamba) state is not
-    pageable, and callers fall back to ``init_cache``."""
+    per-slot ``pos``.  Attention-only: recurrent (mamba, zamba) state is
+    not pageable, and callers fall back to ``init_cache``.  Every segment
+    has pools of the same pages, so one page table serves them all."""
     if _recurrent(cfg):
         raise ValueError("paged cache requires attention-only models")
     if cfg.window:
@@ -278,35 +372,46 @@ def decode_step(
 
     The cache is written out of place, and the input ``cache`` is left
     untouched — the serving engine keeps it as the immutable previous
-    buffer of the §IV replay.  Attention segments copy every stacked
-    cache leaf once and write their new lane into the copy; mamba
-    segments stack the new per-layer states the recurrence returns."""
+    buffer of the §IV replay.  Attention caches (a whole segment's, or a
+    zamba unit's ``attn``) are copied once and every layer writes its new
+    lane into the copy; mamba states are stacked new from the per-layer
+    states the recurrence returns."""
     pos = cache["pos"]
     positions = pos[:, None]
     h = embed_tokens(params, tokens, cfg)
+    e0 = h if cfg.shared_attn_every else None
+    shared = params.get("shared_attn")
     rows_lanes = None
     if pages is not None:
-        # the stacked pool: (L, N, Hkv, ps, D) for GQA, (L, N, ps, lora) for MLA
+        # the stacked pool: (L, N, Hkv, ps, D) for GQA, (L, N, ps, lora) for
+        # MLA; every segment's pools have the same pages
         pool = cache["segments"][0]["ckv" if cfg.attn_type == "mla" else "k"]
         rows_lanes = L.paged_write_rows(pages, pos, active, pool.shape[1], pool.shape[-2])
     new_segs = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
-        if seg.kind == "mamba":
-            couts = []
-            for i in range(seg.count):
-                lp = tree_map(lambda x, i=i: x[i], sp)
-                lc = tree_map(lambda x, i=i: x[i], sc)
-                h, cout = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False)
-                couts.append(cout)
-            new_segs.append(tree_map(lambda *xs: torch.stack(xs), *couts))
-            continue
-        new_c = {k: v.clone() for k, v in sc.items()}
+        attn = None
+        if seg.kind != "mamba":
+            attn = {k: v.clone() for k, v in (sc["attn"] if seg.kind == "zamba_unit" else sc).items()}
+        states = []
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
-            lc = {k: v[i] for k, v in new_c.items()}  # views into the copy
-            h, _ = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False, active, None,
-                                pages, rows_lanes)
-        new_segs.append(new_c)
+            lattn = {k: v[i] for k, v in attn.items()} if attn is not None else None  # views
+            if seg.kind == "mamba":
+                lc = tree_map(lambda x, i=i: x[i], sc)
+            elif seg.kind == "zamba_unit":
+                lc = {"mamba": tree_map(lambda x, i=i: x[i], sc["mamba"]), "attn": lattn}
+            else:
+                lc = lattn
+            h, cout, _ = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False, shared, e0,
+                                      active, None, pages, rows_lanes)
+            if seg.kind in ("mamba", "zamba_unit"):
+                states.append(cout if seg.kind == "mamba" else cout["mamba"])
+        if seg.kind == "mamba":
+            new_segs.append(tree_map(lambda *xs: torch.stack(xs), *states))
+        elif seg.kind == "zamba_unit":
+            new_segs.append({"mamba": tree_map(lambda *xs: torch.stack(xs), *states), "attn": attn})
+        else:
+            new_segs.append(attn)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     logits = unembed(params, h, cfg)
     new_pos = pos + 1 if active is None else pos + active.to(pos.dtype)

@@ -56,8 +56,11 @@ def test_dense_prefix_is_the_three_dense_layers_at_full_width():
     assert round(full.n_params() / 1e9, 3) == 3.604
     mtp = 2 * full.d_model * full.d_model + full.d_model
     assert round((full.n_params() + mtp) / 1e9, 3) == 3.707
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.segment_plan(tget_config(ARCH))
+    # the MoE layers are ported now: the full plan, and the served cut of
+    # the 3 dense layers and the first MoE layer
+    assert TT.segment_plan(tget_config(ARCH)) == [TT.Segment("attn_mlp", 3),
+                                                  TT.Segment("attn_moe", 58)]
+    assert round(tds.moe_prefix(tget_config(ARCH), 1).n_params() / 1e9, 3) == 15.111
 
 
 def test_init_params_layout_matches_jax_with_the_mtp_head():

@@ -173,7 +173,13 @@ def test_prefill_runs_one_scan_per_layer_and_refuses_bucket_padding(pair):
 
 
 def test_unported_archs_still_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        tget("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="P12"):
-        TT.segment_plan(dc.replace(tget(ARCH), shared_attn_every=2, name="zamba-like"))
+    """zamba2 is ported now (its plan: 9 units of 6 mamba layers and the
+    shared block); the archs still to come raise."""
+    assert TT.segment_plan(tget_config("zamba2-2.7b")) == [TT.Segment("zamba_unit", 9, sub=6)]
+    assert TT.segment_plan(dc.replace(tget(ARCH), shared_attn_every=3, name="zamba-like")) == [
+        TT.Segment("zamba_unit", 1, sub=3)]
+    for arch in ("h2o-danube-3-4b", "musicgen-large"):
+        with pytest.raises(ValueError, match="not ported"):
+            tget(arch)
+    with pytest.raises(NotImplementedError, match="multi-codebook"):
+        TT.segment_plan(dc.replace(tget(ARCH), n_codebooks=4, name="musicgen-like"))
