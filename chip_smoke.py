@@ -23,11 +23,15 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  gather + SDPA), beside the bound computed from this run's
                  inputs, at the serving shape, with every lane valid and
                  at the engine's own inputs (pos at 40-100 lanes); and at
-                 the head shapes of the decoders of phases 3e-3i:
-                 granite-moe's (Hq 16, Hkv 8, Dk 64) through pages and
-                 zamba2's shared block (Hq 32, Hkv 32, Dk 80) on a dense
-                 cache read in place, each case twice bitwise, timed
-                 beside its bound and gather + SDPA.
+                 the head shapes of the decoders of phases 3e-3l:
+                 granite-moe's (Hq 16, Hkv 8, Dk 64) and musicgen's (Hq
+                 32, Hkv 32, Dk 64) through pages, zamba2's shared block
+                 (Hq 32, Hkv 32, Dk 80) and qwen2-vl's (Hq 28, Hkv 4, Dk
+                 128) on a dense cache read in place, and h2o-danube's
+                 (Hq 32, Hkv 8, Dk 120) on a wrapped 4096-lane ring at the
+                 lane bound min(pos, S-1), also held to the window mask;
+                 each case twice bitwise, timed beside its bound and
+                 gather + SDPA.
   2b. epilogue -- K1-K4 (the DMR/TMR compare, vote and fingerprint
                  kernels) BITWISE against their plain versions, each run
                  twice, with one bit flip in one replica.  K1 and K2
@@ -146,7 +150,7 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  phase 3c's deepseek stream self-speculating with
                  ``draft_len`` 2 (tokens bitwise 3c's, K6 launches = 3 x
                  (ticks + replays) x 3, K5 none).
-  3e-3i. archs -- phase 3's stream and strike, each engine released
+  3e-3l. archs -- phase 3's stream and strike, each engine released
                  before the next, at full width: (3e) granite-20b, 52
                  layers, paged (K5 at group 48 = 52 x (ticks + replays));
                  (3f) command-r-plus-104b's first 8 of 64 layers, paged
@@ -157,9 +161,18 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  then the same stream self-speculating with ``draft_len``
                  4, its tokens bitwise 3h's; (3i) deepseek-v3-671b's 3
                  dense layers and its first MoE layer (256 experts),
-                 paged latent (K6 = 4 x (ticks + replays), K5 none).  Each
-                 prints tok/s, TTFT, ms/tick, peak device memory, the
-                 decode step and the slot fingerprints.
+                 paged latent (K6 = 4 x (ticks + replays), K5 none); (3j)
+                 h2o-danube-3-4b, 24 layers, its dense ring of 4096 lanes
+                 (max_len = window), prompts of 4000-4600 tokens that fill
+                 the ring or whose decode wraps it (K5 at Dk 120 = 24 x
+                 (ticks + replays)); (3k) qwen2-vl-7b, 28 layers, dense,
+                 M-RoPE, prompts of 264-320 tokens past the 256 zero
+                 vision rows (K5 at group 7 = 28 x (ticks + replays));
+                 (3l) musicgen-large, 48 layers, four codebooks, paged
+                 (K5 at Dk 64 group 1 = 48 x (ticks + replays)), the
+                 strike into codebook 0 of a replica slot's (B, 1, 4)
+                 tokens.  Each prints tok/s, TTFT, ms/tick, peak device
+                 memory, the decode step and the slot fingerprints.
   4. check    -- reduced f32 models (internlm2, mamba2, and deepseek's
                  dense prefix) served the same way must emit the tokens a
                  full-sequence forward pass predicts; internlm2 and
@@ -167,16 +180,18 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  the dense cache), and the two token streams must be
                  equal, none / DMR / TMR; the same for granite-moe (its
                  capacity raised to n_experts / top_k, so that neither the
-                 served steps nor the forward drop a routed token) and
-                 granite-20b; zamba2 served dense.
+                 served steps nor the forward drop a routed token),
+                 granite-20b and musicgen (two codebooks); zamba2 served
+                 dense; h2o-danube (window 32) served dense across its
+                 ring's wraps through K5.
 
-The last lines are the paged-vs-dense parity, the loop's, the
-schedules', the three engines', the speculating engines'
-(``engine_spec``), phases 3e-3i's (``engine_archs``) and the kernels'
+The last lines are the paged-vs-dense parity and the ring check, the
+loop's, the schedules', the three engines', the speculating engines'
+(``engine_spec``), phases 3e-3l's (``engine_archs``) and the kernels'
 JSON records (each kernel's launches add up the paths that drive it,
-``launches_by_path``: K1-K4 phases 2c and 2g, K5 phases 3, 3d and 3e-3h,
-K6 phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+``launches_by_path``: K1-K4 phases 2c and 2g, K5 phases 3, 3d, 3e-3h and
+3j-3l, K6 phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -352,15 +367,44 @@ def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ring_inputs(dtype, gen, B=8, Hq=32, Hkv=8, S=4096, D=120):
+    """A sliding window's dense ring of S lanes as decode leaves it (h2o-
+    danube's: window 4096 = S, head dim 120): position p at lane p % S,
+    most slots past the wrap.  (q, k, v, pos, slot_pos)."""
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    pos = torch.tensor([S - 1, S, S + 31, 2 * S + 5, 100, S - 40, S + 1000, 3],
+                       dtype=torch.int32, device="cuda")[:B]
+    lanes = torch.arange(S, device="cuda")[None, :]
+    slot_pos = torch.where(lanes <= pos[:, None], pos[:, None] - (pos[:, None] - lanes) % S, -1)
+    return q, k, v, pos, slot_pos
+
+
+#: K5 at the head shapes of phases 3e-3l's decoders: (record key, label,
+#: cache, Hq, Hkv, Dk)
+K5_ARCH_CASES = [
+    ("dk64_paged", "Dk 64 paged (Hq 16, Hkv 8)", "paged", 16, 8, 64),  # granite-moe
+    ("dk80_dense", "Dk 80 dense view (B 8, Hq 32, Hkv 32, S 512)", "dense", 32, 32, 80),  # zamba2
+    ("dk120_ring", "Dk 120 group 4 ring view (B 8, Hq 32, Hkv 8, S 4096, wrapped)", "ring", 32, 8,
+     120),  # h2o-danube
+    ("dk128_g7_dense", "Dk 128 group 7 dense view (B 8, Hq 28, Hkv 4, S 512)", "dense", 28, 4,
+     128),  # qwen2-vl
+    ("dk64_g1_paged", "Dk 64 group 1 paged (Hq 32, Hkv 32)", "paged", 32, 32, 64),  # musicgen
+]
+
+
 def k5_arch_shapes(pd, gen, compare, library) -> dict:
-    """K5 at the head shapes phases 3e-3i give it: zamba2's
-    shared block (B 8, Hq 32, Hkv 32, Dk 80, group 1) through a dense
-    cache read in place, and granite-moe's (Hq 16, Hkv 8, Dk 64) through
-    pages.  Each f32 and bf16 case, and the no-valid-lane edge, within
-    K5's limits of the plain version; each call twice, bitwise equal; the
-    dense view bitwise equal to the same values through a shuffled page
-    table.  Times in bf16 (kernel, plain, gather + SDPA) beside the bound
-    from this run's inputs, on input sets larger than the 50 MB L2."""
+    """K5 at the head shapes phases 3e-3l give it (``K5_ARCH_CASES``):
+    through pages (the no-valid-lane edge too), on a dense cache read in
+    place (bitwise equal to the same values through a shuffled page
+    table), and on a sliding window's wrapped ring read in place at the
+    lane bound ``ring_lane_pos`` (also within K5's limits of ``attend``
+    under JAX's window mask).  Each f32 and bf16 case within K5's limits
+    of the plain version, each call twice, bitwise equal.  Times in bf16
+    (kernel, plain, gather + SDPA) beside the bound from this run's
+    inputs, on input sets larger than the 50 MB L2."""
+    from repro_torch.models.layers import ring_lane_pos
+
     out, errs = {}, {}
 
     def twice(label, args) -> float:
@@ -386,34 +430,49 @@ def k5_arch_shapes(pd, gen, compare, library) -> dict:
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    # granite-moe: 16 query heads on 8 KV heads of 64, paged
-    label = "Dk 64 paged (Hq 16, Hkv 8)"
-    for dtype in (torch.float32, torch.bfloat16):
-        for edge in (False, True):
-            case = f"{label} {dtype}{' mapped, no valid lane' if edge else ''}"
-            errs[case] = twice(case, paged_inputs(dtype, gen, Hq=16, Hkv=8, Dk=64,
-                                                  no_valid_lane=edge))
-    out["dk64_paged"] = timed(label, [paged_inputs(torch.bfloat16, gen, Hq=16, Hkv=8, Dk=64)
-                                      for _ in range(8)])
-    # zamba2's shared block: 32 heads of 80, group 1, the dense cache in place
-    label = "Dk 80 dense view (B 8, Hq 32, Hkv 32, S 512)"
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, pos, view, pools, pages = dense_and_shuffled(dtype, gen, Hq=32, Hkv=32, D=80)
+    def dense_args(dtype, Hq, Hkv, Dk, label):
+        q, k, v, pos, view, pools, pages = dense_and_shuffled(dtype, gen, Hq=Hq, Hkv=Hkv, D=Dk)
         got_dense = pd.paged_gqa_attention(q, *view, pos)
         got_paged = pd.paged_gqa_attention(q, *pools, pages, pos)
         torch.cuda.synchronize()
         if not torch.equal(got_dense, got_paged):
             raise AssertionError(f"paged_gqa_decode {label} {dtype}: dense view != shuffled pages")
-        case = f"{label} {dtype}"
-        errs[case] = twice(case, (q, *view, pos))
-    sets = []
-    for _ in range(4):
-        q, k, v, pos, view, _, _ = dense_and_shuffled(torch.bfloat16, gen, Hq=32, Hkv=32, D=80)
-        sets.append((q, *view, pos))
-    out["dk80_dense"] = timed(label, sets)
-    log("kernels: paged_gqa_decode at Dk 64 (paged) and Dk 80 (dense view, bitwise equal to "
-        "shuffled pages): each case twice bitwise, max abs err "
-        + ", ".join(f"{k}: {v:.3e}" for k, v in errs.items()))
+        return (q, *view, pos)
+
+    def ring_args(dtype, Hq, Hkv, Dk, label):
+        q, k, v, pos, slot_pos = ring_inputs(dtype, gen, Hq=Hq, Hkv=Hkv, D=Dk)
+        S = k.shape[2]
+        args = (q, *pd.dense_gqa_view(k, v), ring_lane_pos(pos, S))
+        window = (slot_pos >= 0) & (slot_pos <= pos[:, None]) & (slot_pos > pos[:, None] - S)
+        got = pd.paged_gqa_attention(*args).float()
+        want = pd.attend(q, k, v, window, Dk**-0.5).float()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"paged_gqa_decode {label} {dtype}: the ring's lane bound "
+                                 "disagrees with the window mask")
+        return args
+
+    for key, label, cache, Hq, Hkv, Dk in K5_ARCH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            if cache == "paged":
+                for edge in (False, True):
+                    case = f"{label} {dtype}{' mapped, no valid lane' if edge else ''}"
+                    errs[case] = twice(case, paged_inputs(dtype, gen, Hq=Hq, Hkv=Hkv, Dk=Dk,
+                                                          no_valid_lane=edge))
+            else:
+                case = f"{label} {dtype}"
+                make = dense_args if cache == "dense" else ring_args
+                errs[case] = twice(case, make(dtype, Hq, Hkv, Dk, label))
+        if cache == "paged":
+            sets = [paged_inputs(torch.bfloat16, gen, Hq=Hq, Hkv=Hkv, Dk=Dk) for _ in range(8)]
+        else:
+            make = dense_args if cache == "dense" else ring_args
+            sets = [make(torch.bfloat16, Hq, Hkv, Dk, label) for _ in range(4)]
+        out[key] = timed(label, sets)
+        del sets
+    log("kernels: paged_gqa_decode at the arch shapes (dense views bitwise equal to shuffled "
+        "pages, the wrapped ring within limits of the window mask): each case twice bitwise, "
+        "max abs err " + ", ".join(f"{k}: {v:.3e}" for k, v in errs.items()))
     out["max_abs_err"] = errs
     return out
 
@@ -2057,16 +2116,20 @@ POLICIES = ("none", "dmr", "tmr")
 MAMBA_PROMPTS = (16, 320, 128, 77, 256, 300, 129, 190)
 
 
-def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None):
+def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None,
+                  codebooks: int = 1):
+    """``n`` requests of 8-64 prompt tokens (or ``lengths``), one (P, K)
+    row a position for K > 1 codebooks."""
     from repro_torch.api import RedundancyPolicy
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(SEED + 1)
     levels = {"none": 1, "dmr": 2, "tmr": 3}
+    tail = (codebooks,) if codebooks > 1 else ()
     return [
         Request(
-            prompt=rng.integers(0, vocab, size=int(rng.integers(8, 65)) if lengths is None
-                                else lengths[i]).astype(np.int32),
+            prompt=rng.integers(0, vocab, size=(int(rng.integers(8, 65)) if lengths is None
+                                                else lengths[i], *tail)).astype(np.int32),
             max_new_tokens=new,
             policy=RedundancyPolicy(level=levels[POLICIES[i % 3]]),
             spec=spec,
@@ -2077,7 +2140,8 @@ def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None
 
 def drive(engine, reqs, strike: bool):
     """Staggered submission as ``repro.launch.serve`` does it, then a bit
-    flip against the second replica slot of the last DMR request."""
+    flip against the second replica slot of the last DMR request (its
+    first token; codebook 0 of a multi-codebook model's)."""
     from repro_torch.api import FaultSpec
     from repro_torch.serving import RUNNING
     from repro_torch.tree import leaf_index
@@ -2103,7 +2167,7 @@ def drive(engine, reqs, strike: bool):
             step=engine.exe.metrics()["steps"] + 1,
             cell_id=engine.exe.program.cell_id("decoder"),
             leaf=leaf_index(dec, "tokens"),
-            index=rec.slots[1],
+            index=rec.slots[1] * dec["tokens"][0].numel(),  # (B, 1) or (B, 1, K)
             bit=4,
         )
     engine.pump(faults=fault)
@@ -2138,12 +2202,15 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
         f"(config n_params {cfg.n_params() / 1e9:.3f} B), init "
         f"{time.perf_counter() - t0:.1f} s")
     # warm-up request: CUDA context, cuBLAS handles, the allocator
-    warm = Request(prompt=np.arange(8, dtype=np.int32), max_new_tokens=2)
+    prompt = np.arange(8, dtype=np.int32)
+    if cfg.n_codebooks > 1:
+        prompt = np.repeat(prompt[:, None], cfg.n_codebooks, axis=1)
+    warm = Request(prompt=prompt, max_new_tokens=2)
     assert engine.submit(warm)
     engine.pump()
     assert engine.result(warm.id)["status"] == DONE
 
-    reqs = make_requests(cfg.vocab_size, lengths=lengths, spec=spec)
+    reqs = make_requests(cfg.vocab_size, lengths=lengths, spec=spec, codebooks=cfg.n_codebooks)
     R = engine.registry
     names = ("serving_ticks_total", "serving_replays_total", "serving_spec_verify_ticks_total",
              "serving_spec_tokens_committed_total")
@@ -2512,23 +2579,36 @@ def spec_phase(plain_tokens: list, mla_tokens: list) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phases 3e-3i: granite-20b, command-r-plus, zamba2 and MoE at full width
+# phases 3e-3l: granite-20b, command-r-plus, zamba2, MoE, h2o-danube,
+# qwen2-vl and musicgen at full width
 # --------------------------------------------------------------------------
-def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None) -> tuple:
-    """Phase 3's stream (8 requests, none/DMR/TMR, one strike) on ``cfg``
-    at full width, then one decode step and the slot fingerprints timed.
-    ``per_step`` / ``per_prefill``: {kernel wrapper: its launches a decode
-    step / a prefill}; each count of the stream must equal its formula.
-    The engine is released before this returns (record, tokens)."""
+#: phase 3j's prompts (h2o-danube, window 4096 = max_len): at least three
+#: at or past the window (the prefill fills the ring), at least three
+#: that the 32 new tokens carry across it (p < 4096 <= p + 30: the decode
+#: wraps the ring), one that stays inside
+DANUBE_PROMPTS = (4000, 4600, 4070, 4096, 4080, 4200, 4090, 4500)
+#: phase 3k's prompts (qwen2-vl): the 256 vision-stub rows and 8-64 text
+#: tokens, so no prompt is swallowed by the splice
+QWEN_PROMPTS = (264, 320, 279, 296, 273, 311, 287, 268)
+
+
+def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None, *,
+               max_len: int = 512, lengths=None) -> tuple:
+    """Phase 3's stream (8 requests, none/DMR/TMR, one strike; prompts of
+    8-64 tokens or ``lengths``) on ``cfg`` at full width, then one decode
+    step and the slot fingerprints timed.  ``per_step`` / ``per_prefill``:
+    {kernel wrapper: its launches a decode step / a prefill}; each count
+    of the stream must equal its formula.  The engine is released before
+    this returns (record, tokens)."""
     from repro_torch.models.lm_cells import ServeConfig
 
-    scfg = ServeConfig(batch=8, max_len=512, paged=paged, page_size=16)
+    scfg = ServeConfig(batch=8, max_len=max_len, paged=paged, page_size=16)
     per_prefill = per_prefill or {}
     wrappers = [*per_step, *per_prefill]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    engine, run, launches, tokens = serve_stream(cfg, scfg, wrappers)
+    engine, run, launches, tokens = serve_stream(cfg, scfg, wrappers, lengths)
     m = engine.metrics()
     if m["paged"] != paged:
         raise AssertionError(f"{phase} {cfg.name}: paged {m['paged']}, expected {paged}")
@@ -2544,6 +2624,7 @@ def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None) -
     peak = torch.cuda.max_memory_allocated() / 1e9
     held = torch.cuda.memory_allocated() / 1e9
     states = engine._states
+    slot_gb = sum(x.numel() * x.element_size() for x in _leaves(states["decoder"])) / 1e9
     step_ms = events_ms(lambda: engine.exe.pure_step(states, 0), iters=3)
     fp_ms = events_ms(lambda: engine._ops.fingerprints(states["decoder"]), iters=3)
     # is the decode step host or device work: the card's busy time in it
@@ -2561,9 +2642,10 @@ def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None) -
         + f" ({run['ticks']} ticks, {run['replays']} replays, {run['requests']} prefills); "
         f"device memory peak {peak:.2f} GB, {held:.2f} GB held after the stream; per tick: "
         f"decode step {step_ms:.2f} ms, {busy}; "
-        f"slot fingerprints {fp_ms:.2f} ms")
+        f"slot fingerprints {fp_ms:.2f} ms over {slot_gb:.3f} GB of slot state")
     rec = {**run, "launches": dict(zip(names, launches)),
            "formulas": dict(zip(names, formulas)), "paged": paged, "n_layers": cfg.n_layers,
+           "max_len": max_len, "slot_state_gb": slot_gb,
            "decode_step_ms": step_ms, "decode_step_device_busy_ms": busy_ms,
            "decode_step_largest_kernels_ms": top,
            "fingerprints_ms": fp_ms, "peak_memory_gb": peak, "memory_after_gb": held}
@@ -2574,13 +2656,16 @@ def arch_phase(phase: str, cfg, paged: bool, per_step: dict, per_prefill=None) -
 
 
 def arch_phases() -> tuple[dict, dict]:
-    """Phases 3e-3i, each released before the next: granite-20b (paged,
+    """Phases 3e-3l, each released before the next: granite-20b (paged,
     K5 at group 48), command-r-plus-104b's first 8 layers (paged, group
     12), zamba2-2.7b (dense: K8 on every mamba layer of a prefill, K5 on
     the shared block's dense cache), granite-moe-1b-a400m (paged, then the
-    same stream self-speculating: tokens bitwise equal) and deepseek's 3
-    dense layers and first MoE layer (paged latent, K6).  Returns the
-    records and the launches by path."""
+    same stream self-speculating: tokens bitwise equal), deepseek's 3
+    dense layers and first MoE layer (paged latent, K6), h2o-danube-3-4b
+    (its dense ring of 4096 lanes through K5, prompts of 4000-4600
+    tokens), qwen2-vl-7b (dense, group 7, prompts past the 256-row
+    splice) and musicgen-large (four codebooks, paged, group 1).  Returns
+    the records and the launches by path."""
     from repro_torch.configs import command_r_plus_104b as cr
     from repro_torch.configs import deepseek_v3_671b as ds
     from repro_torch.configs import get_config
@@ -2628,6 +2713,23 @@ def arch_phases() -> tuple[dict, dict]:
     cfg = ds.moe_prefix(get_config("deepseek-v3-671b"), 1)
     out["3i"], _ = arch_phase("3i", cfg, True, {k6: cfg.n_layers, k5: 0})
     paths["paged_mla_decode"]["engine_3i"] = out["3i"]["launches"]["paged_mla_attention"]
+
+    # 3j: the sliding window's dense ring through K5 at the lane bound
+    # min(pos, S-1), S = window = max_len = 4096 lanes
+    cfg = get_config("h2o-danube-3-4b")
+    if not (sum(p >= cfg.window for p in DANUBE_PROMPTS) >= 3
+            and sum(p < cfg.window <= p + 30 for p in DANUBE_PROMPTS) >= 3):
+        raise AssertionError("3j's prompts must fill the ring and wrap it, three of each")
+    out["3j"], _ = arch_phase("3j", cfg, False, {k5: cfg.n_layers, k6: 0}, max_len=cfg.window,
+                              lengths=DANUBE_PROMPTS)
+    # 3k: M-RoPE and the vision stub's 256 zero rows, dense
+    cfg = get_config("qwen2-vl-7b")
+    out["3k"], _ = arch_phase("3k", cfg, False, {k5: cfg.n_layers, k6: 0}, lengths=QWEN_PROMPTS)
+    # 3l: four codebooks, paged, MHA
+    cfg = get_config("musicgen-large")
+    out["3l"], _ = arch_phase("3l", cfg, True, {k5: cfg.n_layers, k6: 0})
+    for ph in ("3j", "3k", "3l"):
+        paths["paged_gqa_decode"][f"engine_{ph}"] = out[ph]["launches"]["paged_gqa_attention"]
     return out, paths
 
 
@@ -2649,7 +2751,7 @@ def check_phase(arch: str, cfg=None, **serve) -> list:
 
     cfg = dataclasses.replace(cfg or get_reduced(arch), dtype="float32")
     engine = serve_engine(cfg, ServeConfig(batch=8, max_len=128, **serve))
-    reqs = make_requests(cfg.vocab_size, n=6, new=24)
+    reqs = make_requests(cfg.vocab_size, n=6, new=24, codebooks=cfg.n_codebooks)
     drive(engine, reqs, strike=False)
     params = engine._states["weights"]["params"]
     checked = 0
@@ -2658,10 +2760,10 @@ def check_phase(arch: str, cfg=None, **serve) -> list:
         toks = np.asarray(res["tokens"], np.int64)
         seq = torch.tensor(np.concatenate([r.prompt, toks[:-1]]), device="cuda")[None]
         logits, _ = T.forward(cfg, params, seq)
-        tail = logits[0, len(r.prompt) - 1 :].float()
+        tail = logits[0, len(r.prompt) - 1 :].float()  # (T, V), or (T, K, V)
         top2 = tail.topk(2, dim=-1)
-        pred = top2.indices[:, 0].cpu().numpy()
-        gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        pred = top2.indices[..., 0].cpu().numpy()
+        gap = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
         clear = gap > 1e-3  # near-ties may flip between decode and prefill order
         if not (pred[clear] == toks[clear]).all():
             raise AssertionError(f"{arch} {r.id}: served tokens disagree with the forward pass")
@@ -2672,7 +2774,7 @@ def check_phase(arch: str, cfg=None, **serve) -> list:
                 "token is dropped, in serving or in the forward)")
     log(f"check: reduced f32 {arch} serving ({'paged' if serve.get('paged') else 'dense'}) "
         f"matches the full forward on {checked} tokens{note}")
-    return [list(engine.result(r.id)["tokens"]) for r in reqs]
+    return [np.asarray(engine.result(r.id)["tokens"]).tolist() for r in reqs]
 
 
 def no_drops(cfg):
@@ -2698,6 +2800,23 @@ def parity_phase(arch: str, kernel, cfg=None) -> dict:
     log(f"check: {arch} paged and dense token streams equal ({sum(map(len, dense))} tokens, "
         f"none/dmr/tmr); dense decode launched {kernel.__name__} {launches} times")
     return {"tokens": sum(map(len, dense)), "dense_launches": launches}
+
+
+def ring_phase() -> dict:
+    """Reduced f32 h2o-danube (window 32) served dense with prompts of
+    8-64 tokens and 24 new: the prefill fills the ring, the decode wraps
+    it, and K5 reads it at the lane bound ``min(pos, S-1)``; every clear
+    token must be the full windowed forward's."""
+    from repro_torch.kernels import paged_decode as pd
+
+    pd.paged_gqa_attention.launches = 0
+    tokens = check_phase("h2o-danube-3-4b")
+    launches = pd.paged_gqa_attention.launches
+    if launches == 0:
+        raise AssertionError("h2o-danube: dense decode of the ring did not launch K5")
+    log(f"check: h2o-danube-3-4b's ring (window 32) served through paged_gqa_decode "
+        f"({launches} launches) across its wraps matches the full forward")
+    return {"tokens": sum(map(len, tokens)), "dense_launches": launches}
 
 
 def main() -> int:
@@ -2771,7 +2890,9 @@ def main() -> int:
         "granite-moe-1b-a400m", pd.paged_gqa_attention, no_drops(get_reduced("granite-moe-1b-a400m")))
     parity["granite-20b"] = parity_phase("granite-20b", pd.paged_gqa_attention)
     check_phase("zamba2-2.7b")
-    print(json.dumps({"paged_dense_parity": parity}), flush=True)
+    parity["musicgen-large"] = parity_phase("musicgen-large", pd.paged_gqa_attention)
+    ring = ring_phase()
+    print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
     print(json.dumps({"engine": eng}), flush=True)

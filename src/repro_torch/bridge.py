@@ -65,9 +65,13 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> dict:
         want |= {"shared_attn"}
     if set(params) != want:
         raise ValueError(f"params keys {sorted(params)} != {sorted(want)}")
-    d, V = cfg.d_model, cfg.vocab_size
-    if tuple(params["embed"].shape) != (V, d):
-        raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(V, d)}")
+    d, V, K = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
+    shapes = {"embed": (K, V, d) if K > 1 else (V, d)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (K, d, V) if K > 1 else (d, V)
+    for key, want_shape in shapes.items():
+        if tuple(params[key].shape) != want_shape:
+            raise ValueError(f"{key} shape {tuple(params[key].shape)} != {want_shape}")
     paths = tree_paths(params)
     leaves, treedef = tree_flatten(params)
     dt = cfg.compute_dtype

@@ -1,4 +1,4 @@
-"""Model building blocks: norms, RoPE, GQA and MLA attention, MLPs.
+"""Model building blocks: norms, RoPE and M-RoPE, GQA and MLA attention, MLPs.
 
 A port of the GQA/MLA/MLP subset of ``repro/models/layers.py``: plain
 functions on tensors, parameters in plain dicts with the JAX package's
@@ -16,9 +16,11 @@ keys and layouts.  Attention has three execution paths:
     ``slot_pos``).  On the card, the same kernels as paged decode over
     the dense cache seen as one page a slot (``dense_gqa_view`` /
     ``dense_mla_view``), masked by lane: the two masks agree on every
-    active slot of a non-windowed cache (``slot_pos[b, s] = s`` for every
-    ``s <= pos``), and the kernels reduce a dense view and a paged pool
-    in the same order, so paged and dense decode give the same bits.
+    active slot (a full cache holds ``slot_pos[b, s] = s`` for every
+    ``s <= pos``; a sliding window's ring is full once it wraps, so the
+    lane bound is ``min(pos, S-1)``, ``ring_lane_pos``), and the kernels
+    reduce a dense view and a paged pool in the same order, so paged and
+    dense decode give the same bits.
 """
 
 from __future__ import annotations
@@ -57,13 +59,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 # RoPE
 # --------------------------------------------------------------------------
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float, sections=None):
-    """cos/sin tables for positions (..., S) -> (..., S, dim/2)."""
-    if sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet")
+    """cos/sin tables -> (..., S, dim/2).  positions: (..., S) for
+    standard RoPE, or (3, ..., S) with ``sections`` for M-RoPE (qwen2-vl's
+    t/h/w streams: frequency i reads the stream its section names)."""
     half = dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     inv = 1.0 / (theta**exponent)
-    freqs = positions[..., None].float() * inv
+    if sections is None:
+        freqs = positions[..., None].float() * inv
+    else:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+        stream = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
+                                         torch.tensor(sections, device=positions.device))
+        freqs = positions[stream].movedim(0, -1).float() * inv  # (..., S, half)
     return torch.cos(freqs), torch.sin(freqs)
 
 
@@ -96,8 +105,6 @@ def blockwise_attention(
     G = Hq // Hkv
     scale = (Dk**-0.5) if scale is None else scale
     block_k = min(block_k, Sk)
-    if Sk % block_k:
-        raise ValueError(f"Sk={Sk} is not a multiple of block_k={block_k}")
     if G > 1:
         k = k.repeat_interleave(G, dim=1)
         v = v.repeat_interleave(G, dim=1)
@@ -107,12 +114,15 @@ def blockwise_attention(
     m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hq, Sq, v.shape[-1]), dtype=torch.float32, device=dev)
-    for j in range(Sk // block_k):
-        kblk = k[:, :, j * block_k : (j + 1) * block_k].float()
-        vblk = v[:, :, j * block_k : (j + 1) * block_k].float()
+    # the last block is ragged where block_k does not divide Sk (JAX
+    # asserts it does; an exact-length windowed prefill of 4000 tokens
+    # does not)
+    for k0 in range(0, Sk, block_k):
+        kblk = k[:, :, k0 : k0 + block_k].float()
+        vblk = v[:, :, k0 : k0 + block_k].float()
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kblk)
-        kpos = j * block_k + torch.arange(block_k, device=dev)
-        mask = torch.ones((Sq, block_k), dtype=torch.bool, device=dev)
+        kpos = k0 + torch.arange(kblk.shape[2], device=dev)
+        mask = torch.ones((Sq, kblk.shape[2]), dtype=torch.bool, device=dev)
         if causal:
             mask &= kpos[None, :] <= qpos[:, None]
         if window is not None:
@@ -128,18 +138,20 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
-def dense_decode_on_card(device: torch.device, window: Optional[int]) -> bool:
+def dense_decode_on_card(device: torch.device) -> bool:
     """Does dense decode on ``device`` run the paged kernels?  True on a
-    card, False on the CPU (plain torch).  A windowed arch on a card
-    raises: the kernels mask by lane, and a window's ring cache needs its
-    ``slot_pos`` mask."""
-    if device.type != "cuda":
-        return False
-    if window:
-        raise NotImplementedError(
-            "dense decode of a windowed arch on the card is not ported (ROADMAP Queue 1 item "
-            "4d): the decode kernels mask by lane, a window's ring cache by slot_pos")
-    return True
+    card, False on the CPU (plain torch)."""
+    return device.type == "cuda"
+
+
+def ring_lane_pos(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """The lane bound the kernels mask a dense cache of ``S`` lanes by:
+    lanes ``0..min(pos, S-1)``.  A sliding window's ring holds S =
+    min(max_len, window) lanes written at ``pos % S``, so once the write
+    of ``pos`` has landed, the lanes ``slot_pos`` selects (filled, at most
+    ``pos``, inside the window) are exactly these; a full cache never
+    reaches ``pos > S-1``."""
+    return pos.clamp(max=S - 1)
 
 
 def decode_attention(
@@ -154,9 +166,9 @@ def decode_attention(
 ) -> torch.Tensor:
     Dk = q.shape[-1]
     scale = (Dk**-0.5) if scale is None else scale
-    if dense_decode_on_card(q.device, window):
+    if dense_decode_on_card(q.device):
         out = paged_gqa_attention(q[:, :, 0].contiguous(), *dense_gqa_view(k_cache, v_cache),
-                                  pos.contiguous(), scale=scale)
+                                  ring_lane_pos(pos, k_cache.shape[2]).contiguous(), scale=scale)
         return out[:, :, None]
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
     if window is not None:
@@ -207,7 +219,7 @@ def gqa_attention(
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (3, B, S) under M-RoPE
     cache: Optional[dict] = None,  # decode when present
     block_k: int = 1024,
     active: Optional[torch.Tensor] = None,  # (B,) serving slot mask (decode)
@@ -236,7 +248,7 @@ def gqa_attention(
         return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], None
     if S != 1:
         raise ValueError("decode path handles one token at a time")
-    pos = positions[:, 0]
+    pos = (positions[0] if cfg.mrope_sections else positions)[:, 0]
     if pages is not None:
         if cfg.window:
             raise ValueError("paged decode excludes windowed archs")
@@ -395,7 +407,7 @@ def mla_attention(
         bidx = torch.arange(B, device=x.device)
         for key, new in (("ckv", ckv[:, 0]), ("krope", k_rope[:, 0]), ("slot_pos", pos)):
             cache[key][bidx, slot] = _gate(active, new.to(cache[key].dtype), cache[key][bidx, slot])
-        if dense_decode_on_card(x.device, cfg.window):
+        if dense_decode_on_card(x.device):
             ctx = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(),
                                       *dense_mla_view(cache["ckv"], cache["krope"]),
                                       pos.contiguous(), scale=scale)

@@ -103,15 +103,24 @@ def prefill_bucket_ladder(scfg: ServeConfig) -> tuple:
     return tuple(ladder)
 
 
-def _slot_leaves(batch: int, max_len: int, device) -> dict:
+def token_dims(cfg: ModelConfig) -> tuple:
+    """The trailing axes of a token array: ``(K,)`` for a model of K > 1
+    codebooks (one token a codebook a position), else ``()``."""
+    return (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+
+
+def _slot_leaves(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """The per-slot leaves beside the cache (``tokens`` and ``pending``
+    with ``token_dims``)."""
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    tail = token_dims(cfg)
     return {
-        "tokens": z(batch, 1),
+        "tokens": z(batch, 1, *tail),
         "active": z(batch, dtype=torch.bool),
         "n_decoded": z(batch),
-        "pending": z(batch, max_len),
+        "pending": z(batch, max_len, *tail),
         "p_head": z(batch),
         "p_len": z(batch),
     }
@@ -149,7 +158,8 @@ def slot_decoder_init(cfg: ModelConfig, batch: int, max_len: int, device,
     prompt tail the transition walks one token per sub-step.
     ``draft_cfg``/``draft_len`` (speculating engines) add the
     ``spec_state_leaves``."""
-    st = {"cache": T.init_cache(cfg, batch, max_len, device), **_slot_leaves(batch, max_len, device)}
+    st = {"cache": T.init_cache(cfg, batch, max_len, device),
+          **_slot_leaves(cfg, batch, max_len, device)}
     if draft_len > 0:
         st.update(spec_state_leaves(draft_cfg, batch, max_len, draft_len, device))
     return st
@@ -214,7 +224,7 @@ def paged_slot_decoder_init(cfg: ModelConfig, batch: int, max_len: int, page_siz
         )
     st = {
         "cache": T.init_paged_cache(cfg, batch, n_pages, page_size, device),
-        **_slot_leaves(batch, max_len, device),
+        **_slot_leaves(cfg, batch, max_len, device),
         "pages": torch.full((batch, max_len // page_size), -1, dtype=torch.int32, device=device),
     }
     if draft_len > 0:
@@ -304,7 +314,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
     # pending prompt tokens per tick (k sub-steps; non-walking slots step
     # once, in the first).  The verify walk needs K+1 sub-steps: walkers
     # still stop at k_walk, verifiers at their own k_eff
-    k_walk = max(1, scfg.prefill_chunk)
+    k_walk = max(1, scfg.prefill_chunk if not cfg.n_vision_tokens else 0)
     n_sub = max(k_walk, K + 1) if spec else k_walk
 
     def sub_step(st, weights_params, j: int, draft_params=None, verifying=None, k_eff=None):
@@ -316,14 +326,19 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
             elig = (walking & (j < k_walk)) | (verifying & (j <= k_eff))
         else:
             elig = walking
-        idx = st["p_head"].clamp(0, scfg.max_len - 1).long()
-        nxt_p = st["pending"].gather(1, idx[:, None])
+        pend = st["pending"]  # (B, max_len), or (B, max_len, K) for K codebooks
+        idx = st["p_head"].clamp(0, scfg.max_len - 1).long()[:, None]
+        if pend.dim() == 3:
+            idx = idx[:, :, None].expand(-1, 1, pend.shape[2])
+        nxt_p = pend.gather(1, idx)  # (B, 1[, K])
+        wmask = walking.reshape(-1, *(1,) * (nxt_p.dim() - 1))
         # walkers feed their next prompt token; verifiers the draft's
         # proposal, stashed in ``tokens`` below; the others their last argmax
-        tok_in = torch.where(walking[:, None], nxt_p, st["tokens"])
+        tok_in = torch.where(wmask, nxt_p, st["tokens"])
         logits, cache = T.decode_step(
             cfg, weights_params, st["cache"], tok_in, active=elig, pages=st.get("pages")
         )
+        # (B, 1, V) -> (B, 1); (B, 1, K, V) -> (B, 1, K)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)
         new = {
             "cache": cache,
@@ -444,10 +459,12 @@ def prefill_slot_state(
     """Run the prefill for ONE prompt (head chunk) and package it as a
     width-1 dense decoder slot state, ready to join a free slot.
 
-    prompt: (P,) int32; P may be a bucket, with ``prompt_len`` the true
-    head length (padded cache positions are masked and the first token is
-    read at ``prompt_len - 1``).  ``pending``/``n_pending``: the uncovered
-    prompt tail, (max_len,) zero-padded + its length.  ``spec_k``/
+    prompt: (P,) int32, or (P, K) for K codebooks; P may be a bucket,
+    with ``prompt_len`` the true head length (padded cache positions are
+    masked and the first token is read at ``prompt_len - 1``).  A vision
+    arch's stub splices zero embeddings over the first rows.
+    ``pending``/``n_pending``: the uncovered prompt tail, (max_len[, K])
+    zero-padded + its length.  ``spec_k``/
     ``budget`` (speculating engines; not None = speculating) land in the
     spec leaves, and a real draft (``draft_cfg``/``draft_params``) runs
     its own prefill of the same head into its own dense cache.  Returns
@@ -455,18 +472,25 @@ def prefill_slot_state(
     dev = prompt.device
     tokens = prompt[None]
     plen = tokens.shape[1] if prompt_len is None else int(prompt_len)
-    logits, cache = T.forward(cfg, params, tokens, fill_cache=True, prompt_len=prompt_len)
+    vision = None
+    if cfg.n_vision_tokens:
+        vision = torch.zeros((1, min(cfg.n_vision_tokens, tokens.shape[1]), cfg.d_model),
+                             dtype=cfg.compute_dtype, device=dev)
+    logits, cache = T.forward(cfg, params, tokens, vision_embeds=vision, fill_cache=True,
+                              prompt_len=prompt_len)
     full = T.init_cache(cfg, 1, scfg.max_len, dev)
-    first = torch.argmax(logits[:, plen - 1 : plen], dim=-1).to(torch.int32)  # (1, 1)
+    tail = token_dims(cfg)
+    # (1, 1), or (1, 1, K)
+    first = torch.argmax(logits[:, plen - 1 : plen], dim=-1).to(torch.int32).reshape(1, 1, *tail)
     if pending is None:
-        pending = torch.zeros((1, scfg.max_len), dtype=torch.int32, device=dev)
+        pending = torch.zeros((1, scfg.max_len, *tail), dtype=torch.int32, device=dev)
         n_pending = 0
     st = {
         "cache": install_prefill(cfg, full, cache, plen),
         "tokens": first,
         "active": torch.ones((1,), dtype=torch.bool, device=dev),
         "n_decoded": torch.zeros((1,), dtype=torch.int32, device=dev),
-        "pending": pending.to(torch.int32).reshape(1, scfg.max_len),
+        "pending": pending.to(torch.int32).reshape(1, scfg.max_len, *tail),
         "p_head": torch.zeros((1,), dtype=torch.int32, device=dev),
         "p_len": torch.full((1,), int(n_pending), dtype=torch.int32, device=dev),
     }

@@ -2,6 +2,7 @@
 
 Parameters are the JAX package's tree: ``{"embed", "final_norm",
 "segments": [stacked per-layer dicts]}`` (plus ``lm_head`` when untied,
+both with a leading codebook axis for a multi-codebook model,
 ``shared_attn`` for Zamba2's weight-shared block, and
 ``mtp_proj``/``mtp_norm`` for a multi-token-prediction head), each
 segment's leaves carrying a leading layer axis.  Layers run as a Python
@@ -48,9 +49,6 @@ class Segment:
 
 
 def segment_plan(cfg: ModelConfig) -> list[Segment]:
-    if cfg.n_codebooks != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook models are not ported yet (ROADMAP Queue 1 item 4f)")
     if cfg.mixer_type == "mamba2":
         if cfg.shared_attn_every:
             k = cfg.shared_attn_every
@@ -128,8 +126,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random weights from ``gen``, laid out as the JAX package's tree
     (the draws differ: torch cannot reproduce ``jax.random``)."""
     dt = cfg.compute_dtype
-    d, V = cfg.d_model, cfg.vocab_size
-    embed = torch.randn((V, d), generator=gen, dtype=torch.float32, device=device).mul_(0.02).to(dt)
+    d, V, K = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
+    shape = (K, V, d) if K > 1 else (V, d)
+    embed = torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(0.02).to(dt)
     params: Params = {"embed": embed, "final_norm": torch.ones((d,), dtype=dt, device=device)}
     params["segments"] = [_stacked(seg.count, lambda seg=seg: _layer_init(gen, cfg, seg.kind, device))
                           for seg in segment_plan(cfg)]
@@ -141,7 +140,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
             "ln2": torch.ones((d,), dtype=dt, device=device),
         }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, d, V, dt, device)
+        if K > 1:
+            params["lm_head"] = torch.randn((K, d, V), generator=gen, dtype=torch.float32,
+                                            device=device).mul_(d**-0.5).to(dt)
+        else:
+            params["lm_head"] = L.dense_init(gen, d, V, dt, device)
     if cfg.mtp:
         # the multi-token-prediction head: built as JAX builds it (the
         # trees match), read only by training, which is not ported
@@ -154,10 +157,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 # embedding / unembedding
 # --------------------------------------------------------------------------
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """tokens (B, S) -> (B, S, d); a multi-codebook model's (B, S, K)
+    sum their K codebooks' rows, in codebook order as JAX does."""
+    table = params["embed"]
+    if cfg.n_codebooks > 1:
+        out = table[0][tokens[..., 0].long()]
+        for k in range(1, cfg.n_codebooks):
+            out = out + table[k][tokens[..., k].long()]
+        return out
+    return table[tokens.long()]
 
 
 def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """h (B, S, d) -> logits (B, S, V), or (B, S, K, V) for K codebooks."""
+    if cfg.n_codebooks > 1:
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,kvd->bskv", h, params["embed"])
+        return torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["lm_head"]
@@ -200,9 +216,17 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
     cos, sin = L.rope_cos_sin(positions, dh, cfg.rope_theta, cfg.mrope_sections)
     kc = L.apply_rope(k, cos, sin).transpose(1, 2)
     vc = v.transpose(1, 2)
+    pos2d = positions[0] if cfg.mrope_sections else positions
+    sp = torch.broadcast_to(pos2d, (B, S)).to(torch.int32)
     if cfg.window and S >= cfg.window:
-        raise NotImplementedError("sliding-window cache fill is not ported yet")
-    sp = torch.broadcast_to(positions, (B, S)).to(torch.int32)
+        # the ring: keep the trailing window, position p at slot p % W
+        W = cfg.window
+        slots = torch.arange(S - W, S, device=x.device) % W
+        ring_k, ring_v = torch.zeros_like(kc[:, :, :W]), torch.zeros_like(vc[:, :, :W])
+        ring_k[:, :, slots], ring_v[:, :, slots] = kc[:, :, S - W:], vc[:, :, S - W:]
+        ring_sp = torch.full((B, W), -1, dtype=torch.int32, device=x.device)
+        ring_sp[:, slots] = sp[:, S - W:]
+        kc, vc, sp = ring_k, ring_v, ring_sp
     if prompt_len is not None:
         keep = (sp >= 0) & (sp < prompt_len)
         kc = torch.where(keep[:, None, :, None], kc, torch.zeros_like(kc))
@@ -268,29 +292,37 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
 def forward(
     cfg: ModelConfig,
     params: Params,
-    tokens: torch.Tensor,  # (B, S)
+    tokens: torch.Tensor,  # (B, S), or (B, S, K) for K codebooks
     *,
     positions: Optional[torch.Tensor] = None,
+    vision_embeds: Optional[torch.Tensor] = None,
     fill_cache: bool = False,
     prompt_len=None,
 ):
     """Returns (logits, filled_cache | None).
 
+    ``vision_embeds`` (B, n, d), for a vision arch: the stub's precomputed
+    patch embeddings, spliced over the first ``n_vision_tokens`` rows.
     ``prompt_len`` (serving's bucketed prefill): the true prompt length
     when ``tokens`` is right-padded to a bucket; the filled caches are
     scrubbed past it and logits at real positions are untouched.  Not for
-    recurrent (mamba, zamba_unit) segments: their state folds the padding
-    in."""
+    recurrent (mamba, zamba_unit) segments, which fold the padding in,
+    nor for windowed or vision archs."""
     B, S = tokens.shape[:2]
-    if prompt_len is not None and (cfg.window or _recurrent(cfg)):
+    if prompt_len is not None and (cfg.window or cfg.n_vision_tokens or _recurrent(cfg)):
         raise ValueError(
-            "prompt_len (bucket-padded prefill) requires full-attention models: "
+            "prompt_len (bucket-padded prefill) requires full-attention text models: "
             "recurrent mamba state folds padding in, a sliding-window fill keeps "
-            "trailing padded positions"
+            "trailing padded positions, and the vision splice depends on the "
+            "physical prompt length"
         )
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
+        if cfg.mrope_sections:
+            positions = positions[None].expand(3, 1, S)
     h = embed_tokens(params, tokens, cfg)
+    if vision_embeds is not None and cfg.n_vision_tokens:
+        h = torch.cat([vision_embeds.to(h.dtype), h[:, cfg.n_vision_tokens:]], dim=1)
     e0 = h if cfg.shared_attn_every else None
     shared = params.get("shared_attn")
     caches = []
@@ -364,7 +396,7 @@ def decode_step(
     active: Optional[torch.Tensor] = None,
     pages: Optional[torch.Tensor] = None,
 ):
-    """One serve step: tokens (B, 1) -> (logits (B, 1, V), new cache).
+    """One serve step: tokens (B, 1[, K]) -> (logits (B, 1[, K], V), new cache).
 
     ``active`` (B,) bool is the continuous batcher's slot mask: inactive
     slots keep their cache bytes and position.  ``pages`` (B, P) switches
@@ -378,6 +410,8 @@ def decode_step(
     states the recurrence returns."""
     pos = cache["pos"]
     positions = pos[:, None]
+    if cfg.mrope_sections:
+        positions = positions[None].expand(3, -1, 1)
     h = embed_tokens(params, tokens, cfg)
     e0 = h if cfg.shared_attn_every else None
     shared = params.get("shared_attn")

@@ -39,6 +39,7 @@ from ..models.lm_cells import (
     resolve_draft_config,
     slot_decoder_init,
     spec_serving_supported,
+    token_dims,
 )
 from .engine import EngineParts, SlotAdapter
 from .request import Request
@@ -64,18 +65,19 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
         # a chunk-sized head must run a chunk-sized forward
         ladder = tuple(sorted(set(ladder) | {min(chunk, scfg.max_len)}))
     buckets_used: set = set()
+    tail_dims = token_dims(cfg)  # a multi-codebook prompt is (P, K)
 
     def prefill(req: Request, states: dict):
-        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        prompt = np.asarray(req.prompt, np.int32).reshape((-1,) + tail_dims)
         plen = int(prompt.shape[0])
         c0 = plen if chunk <= 0 or plen <= chunk else max(chunk, plen - scfg.max_len)
         bucket = min((b for b in ladder if b >= c0), default=c0)
         # the bucket-sized forward is paid for regardless: cover as much
         # prompt as fits in it, shrinking the walked tail
         c0 = min(plen, bucket)
-        head = np.zeros((bucket,), np.int32)
+        head = np.zeros((bucket,) + tail_dims, np.int32)
         head[:c0] = prompt[:c0]
-        pend = np.zeros((scfg.max_len,), np.int32)
+        pend = np.zeros((scfg.max_len,) + tail_dims, np.int32)
         n_pending = plen - c0
         pend[:n_pending] = prompt[c0:]
         # the request's draft length, clamped to the resident walk's width

@@ -37,6 +37,9 @@ from repro_torch.models.lm_cells import install_prefill as tinstall
 from repro_torch.models.lm_cells import paged_serving_supported
 from repro_torch.serving.paging import dense_to_pool as tdense_to_pool
 from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ARCHS = ["granite-20b", "command-r-plus-104b", "zamba2-2.7b", "granite-moe-1b-a400m",
          "deepseek-v3-671b"]

@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.models import transformer as TT
 from test_torch_archs import check_forward_and_filled_cache, check_greedy, make_runs
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 @pytest.fixture(scope="module")

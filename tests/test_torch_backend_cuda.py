@@ -21,6 +21,9 @@ from repro_torch import api as tmiso
 from repro_torch import bridge, tree
 from repro_torch.core.fault import bitcast_int
 from repro_torch.kernels import fused_step as tfs
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def pol(m, level, compare):

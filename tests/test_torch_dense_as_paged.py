@@ -11,7 +11,8 @@ Here, on the CPU:
     with slot reuse), every active slot's ``slot_pos`` mask equals the
     lane mask the kernels apply, so the card's dense path attends to the
     CPU path's lanes;
-  * a windowed arch on the card raises instead of masking by lane.
+  * a windowed arch's ring reaches the kernels at the lane bound
+    ``min(pos, S-1)``.
 The ``cuda``-marked tests launch the kernels on such views.
 """
 
@@ -28,6 +29,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.lm_cells import ServeConfig
 from repro_torch.serving import Request
 from repro_torch.serving.lm import lm_engine_parts
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -140,26 +144,48 @@ def test_slot_pos_mask_equals_lane_mask_on_every_tick(monkeypatch):
 # windowed archs
 # ---------------------------------------------------------------------------
 def test_windowed_dense_decode_on_the_card_raises():
-    """The route is decided from the device and the window alone: on the
-    CPU the plain path, on a card the kernels, and a windowed arch on a
-    card raises (its ring cache needs the slot_pos mask)."""
-    assert L.dense_decode_on_card(torch.device("cpu"), 16) is False
-    assert L.dense_decode_on_card(torch.device("cpu"), None) is False
-    assert L.dense_decode_on_card(torch.device("cuda", 0), None) is True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        L.dense_decode_on_card(torch.device("cuda", 0), 16)
+    """Nothing raises now: the route is decided from the device alone (the
+    kernels on a card, plain torch on the CPU), and a windowed arch's
+    ring reaches the kernels with the lane bound ``min(pos, S-1)``
+    (``ring_lane_pos``; ``tests/test_torch_window.py`` proves it equals
+    the ``slot_pos`` mask on every tick).  Through K5's plain version, a
+    wrapped ring of shuffled positions equals ``attend`` under JAX's
+    window mask bitwise."""
+    assert L.dense_decode_on_card(torch.device("cpu")) is False
+    assert L.dense_decode_on_card(torch.device("cuda", 0)) is True
+    pos = torch.tensor([0, 7, 8, 30], dtype=torch.int32)
+    assert L.ring_lane_pos(pos, 8).tolist() == [0, 7, 7, 7]
+    rng = np.random.default_rng(9)
+    B, Hq, Hkv, S, D, window = 4, 4, 2, 8, 16, 8
+    q, k, v = rand(rng, B, Hq, D), rand(rng, B, Hkv, S, D), rand(rng, B, Hkv, S, D)
+    lanes = torch.arange(S)[None, :]
+    # the ring after the write of pos: lane s holds the latest p <= pos with p % S == s
+    slot_pos = torch.where(lanes <= pos[:, None], pos[:, None] - (pos[:, None] - lanes) % S, -1)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None]) & (slot_pos > pos[:, None] - window)
+    got = pd.paged_gqa_attention(q, *pd.dense_gqa_view(k, v), L.ring_lane_pos(pos, S))
+    assert torch.equal(got, pd.attend(q, k, v, valid, D**-0.5))
 
 
 @pytest.mark.cuda
 def test_windowed_dense_decode_raises_on_a_cuda_tensor():
+    """Windowed dense decode on a CUDA tensor reaches K5 (one launch, no
+    fallback) at the clamped lane bound and agrees with the ``slot_pos``
+    route within K5's f32 limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q = torch.zeros(2, 4, 1, 16, device="cuda")
-    k = torch.zeros(2, 2, 8, 16, device="cuda")
-    slot_pos = torch.arange(8, device="cuda", dtype=torch.int32).repeat(2, 1)
-    pos = torch.tensor([3, 7], device="cuda", dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        L.decode_attention(q, k, k, slot_pos, pos, window=4)
+    rng = np.random.default_rng(3)
+    q = rand(rng, 2, 4, 1, 16).cuda()
+    k, v = rand(rng, 2, 2, 8, 16).cuda(), rand(rng, 2, 2, 8, 16).cuda()
+    slot_pos = torch.tensor([[8, 9, 2, 3, 4, 5, 6, 7], [0, 1, 2, 3, -1, -1, -1, -1]],
+                            device="cuda", dtype=torch.int32)
+    pos = torch.tensor([9, 3], device="cuda", dtype=torch.int32)
+    pd.paged_gqa_attention.launches = 0
+    got = L.decode_attention(q, k, v, slot_pos, pos, window=8)
+    assert pd.paged_gqa_attention.launches == 1
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None]) & (slot_pos > pos[:, None] - 8)
+    want = pd.attend(q[:, :, 0].cpu(), k.cpu(), v.cpu(), valid.cpu(), 16**-0.5)
+    torch.testing.assert_close(got[:, :, 0].cpu(), want, atol=1e-4, rtol=1e-4)
+    pd.paged_gqa_attention.launches = 0
 
 
 @pytest.mark.cuda

@@ -34,6 +34,9 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.serving import ServingEngine as TEngine
 from repro_torch.serving import engine as tengine_mod
 from repro_torch.serving.lm import lm_engine_parts as torch_parts
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("validate_trace", ROOT / "tools" / "validate_trace.py")

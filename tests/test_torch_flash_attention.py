@@ -24,6 +24,9 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def qkv(b, hq, hkv, sq, sk, d, dtype=np.float32, seed=0):

@@ -25,6 +25,9 @@ from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import state_hash as tsh
 from repro_torch.kernels import tmr_vote as ttv
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 WRAPPERS = (tfs.dmr_compare, tfs.tmr_step, tsh.state_hash, ttv.tmr_vote)
 

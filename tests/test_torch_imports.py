@@ -12,6 +12,10 @@ import sys
 
 import pytest
 
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -23,6 +23,9 @@ from repro_torch import tree
 from repro_torch.core import ir as tir
 from repro_torch.core.cell import MisoSemanticsError
 from repro_torch.core.fault import bitcast_int
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ROD = """
 cell Rod {

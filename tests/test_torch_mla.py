@@ -22,6 +22,9 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.configs import get_reduced as tget
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.models import transformer as TT
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ARCH = "deepseek-v3-671b"
 MAX_LEN, PS = 32, 8

@@ -18,6 +18,9 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs import get_reduced as tget
 from repro_torch.models import transformer as TT
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def configs(dtype="float32"):
@@ -38,14 +41,18 @@ def prompts(vocab, B=2, S=12, seed=0):
 
 
 def test_configs_match_the_jax_package():
-    from repro.configs import get_config
+    """All ten architectures, each equal to JAX's field for field and in
+    ``n_params``, full and reduced; an unknown name raises."""
+    from repro.configs import CANONICAL, get_config
+    from repro_torch.configs import CANONICAL as TCANONICAL
 
-    for arch in ("internlm2-1.8b", "deepseek-v3-671b"):
+    assert sorted(TCANONICAL) == sorted(CANONICAL) and len(CANONICAL) == 10
+    for arch in CANONICAL:
         assert dc.asdict(tget_config(arch)) == dc.asdict(get_config(arch))
         assert tget_config(arch).n_params() == get_config(arch).n_params()
         assert dc.asdict(tget(arch)) == dc.asdict(get_reduced(arch))
-    with pytest.raises(ValueError, match="not ported"):
-        tget("qwen2-vl-7b")
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget("gpt-2")
 
 
 def test_forward_logits_within_1e4_of_jax(f32_pair):

@@ -22,6 +22,9 @@ from repro_torch.configs import get_reduced as tget
 from repro_torch.models import moe as tmoe
 from repro_torch.models.config import MoEConfig as TMoEConfig
 from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ROUTERS = ["softmax", "sigmoid"]
 

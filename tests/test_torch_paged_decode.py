@@ -22,6 +22,9 @@ import torch
 from repro.kernels.paged_decode import paged_gqa_attention as jax_paged
 from repro.kernels.ref import paged_gqa_ref
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 CASES = {
     # B, Hq, Hkv, Dk, ps, N, pages, pos

@@ -27,6 +27,9 @@ from repro import api as jmiso
 from repro_torch import api as tmiso
 from repro_torch import bridge, tree
 from repro_torch.core.fault import bitcast_int
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 JAX_NAME = {"lockstep": "lockstep", "lockstep_cuda": "lockstep_pallas",
             "host": "host", "wavefront": "wavefront"}

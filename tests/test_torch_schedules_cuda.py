@@ -20,6 +20,9 @@ from repro_torch.core.fault import bitcast_int
 from repro_torch.core.ir import LISTING_1
 from repro_torch.kernels import tmr_vote as tv
 from repro_torch.tree import tree_leaves
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 @pytest.fixture

@@ -33,6 +33,9 @@ from repro_torch.models.lm_cells import ServeConfig as TServeConfig
 from repro_torch.models.lm_cells import SpecConfig, paged_slot_decoder_init, slot_decoder_init
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving.lm import lm_engine_parts as torch_parts
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 MOE, ZAMBA = "granite-moe-1b-a400m", "zamba2-2.7b"
 LEVELS = [1, 2, 3, 1, 2]

@@ -11,6 +11,9 @@ from repro import api as jmiso
 from repro.serving import Request as JRequest
 from repro_torch import api as tmiso
 from repro_torch.serving import Request as TRequest
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def test_slot_manager_decisions_equal_jax_under_churn():

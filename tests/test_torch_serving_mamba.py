@@ -31,6 +31,9 @@ from repro_torch.models.lm_cells import ServeConfig as TServeConfig
 from repro_torch.models.lm_cells import paged_serving_supported, slot_decoder_init
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving.lm import lm_engine_parts as torch_parts
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 CFG = dc.replace(get_reduced("mamba2-2.7b"), dtype="float32")
 TCFG = dc.replace(tget("mamba2-2.7b"), dtype="float32")

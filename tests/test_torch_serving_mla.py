@@ -32,6 +32,9 @@ from repro_torch.models.lm_cells import ServeConfig as TServeConfig
 from repro_torch.models.lm_cells import paged_slot_decoder_init, slot_decoder_init
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving.lm import lm_engine_parts as torch_parts
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ARCH = "deepseek-v3-671b"
 CFG = dc.replace(get_reduced(ARCH), n_layers=2, mixer_type="mlp", moe=None, dtype="float32")

@@ -15,6 +15,9 @@ from repro_torch import api as tmiso
 from repro_torch import tree
 from repro_torch.models.lm_cells import paged_slot_decoder_init
 from repro_torch.serving import Request as TRequest
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 @pytest.mark.parametrize("bit", [2, 20], ids=["other_row", "row_past_pool"])

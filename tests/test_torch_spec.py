@@ -30,6 +30,9 @@ from repro_torch.serving import REJECTED
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving.lm import lm_engine_parts as torch_parts
 from repro_torch.serving.paging import host_k_eff
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 TINY = dict(d_model=32, n_layers=2, d_ff=64, n_heads=2, n_kv_heads=1, vocab_size=128,
             dtype="float32")

@@ -24,6 +24,9 @@ import torch
 from repro.kernels import ref
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro_torch.kernels import ssd_scan as ks
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def inputs(b, l, h, p, g, n, seed=0, with_h0=False):

@@ -29,6 +29,9 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as TT
 from repro_torch.models.lm_cells import install_prefill as tinstall
 from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 ARCH = "mamba2-2.7b"
 CFG = dc.replace(get_reduced(ARCH), dtype="float32")
@@ -173,13 +176,17 @@ def test_prefill_runs_one_scan_per_layer_and_refuses_bucket_padding(pair):
 
 
 def test_unported_archs_still_raise():
-    """zamba2 is ported now (its plan: 9 units of 6 mamba layers and the
-    shared block); the archs still to come raise."""
+    """No arch is left unported: zamba2's plan is 9 units of 6 mamba
+    layers and the shared block, the last three archs (sliding window,
+    M-RoPE and vision, four codebooks) plan as GQA decoders, a
+    mamba2-like model with codebooks plans its mamba layers, and only an
+    unknown name raises."""
     assert TT.segment_plan(tget_config("zamba2-2.7b")) == [TT.Segment("zamba_unit", 9, sub=6)]
     assert TT.segment_plan(dc.replace(tget(ARCH), shared_attn_every=3, name="zamba-like")) == [
         TT.Segment("zamba_unit", 1, sub=3)]
-    for arch in ("h2o-danube-3-4b", "musicgen-large"):
-        with pytest.raises(ValueError, match="not ported"):
-            tget(arch)
-    with pytest.raises(NotImplementedError, match="multi-codebook"):
-        TT.segment_plan(dc.replace(tget(ARCH), n_codebooks=4, name="musicgen-like"))
+    for arch, n in (("h2o-danube-3-4b", 24), ("qwen2-vl-7b", 28), ("musicgen-large", 48)):
+        assert TT.segment_plan(tget_config(arch)) == [TT.Segment("attn_mlp", n)]
+    assert TT.segment_plan(dc.replace(tget(ARCH), n_codebooks=4, name="musicgen-like")) == [
+        TT.Segment("mamba", tget(ARCH).n_layers)]
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget("musicgen-small")

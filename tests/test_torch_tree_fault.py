@@ -18,6 +18,9 @@ from repro.core import redundancy as jred
 from repro_torch import bridge, tree
 from repro_torch.core import fault as tfault
 from repro_torch.core import redundancy as tred
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def mixed_state(seed=0):

@@ -15,6 +15,9 @@ from repro.kernels import ops as jops
 from repro_torch import bridge, tree
 from repro_torch.core.fault import bitcast_int
 from repro_torch.kernels import ops as tops
+from repro_torch.testing import cap_threads_for_xdist
+
+cap_threads_for_xdist()
 
 
 def mixed_tree(seed=0, n=7):
