@@ -185,13 +185,36 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  dense; h2o-danube (window 32) served dense across its
                  ring's wraps through K5.
 
+  5. train    -- training through the port's entry points (the launcher's
+                 ``build``/``main``, ``compile(backend="host")``):
+                 (5a) internlm2-1.8b at full width and depth, policy none,
+                 bigram data, batch 4 x 512, 20 steps: every loss finite,
+                 the last below the first; ms/step, tokens/s, peak memory
+                 and one step cut into data / forward / backward / AdamW;
+                 (5b) its first 4 layers at full width (``--d-model 2048
+                 --layers 4``) under DMR: the unstruck run shows zero
+                 ledger events, the launcher's strike at step 3 gives one
+                 recovery at (3, trainer) through one K4 launch, the
+                 replicas end bitwise equal and the final state bitwise
+                 the unstruck run's; one replica's transition in parts
+                 and the replicas' compare timed; (5c) the 4-layer config, a checkpoint
+                 every 2 steps, a crash after step 5, restore and resume
+                 to step 8 (``--simulate-failure``): bitwise an
+                 uninterrupted run; (5d) F4: the reduced mamba2 trainer on
+                 the card refuses (K8 has no backward), as K7 does on
+                 inputs that require grad; (4t) reduced f32 internlm2, 3
+                 train steps on the card against the CPU: batches bitwise
+                 (and a full-vocabulary bigram batch), loss within 1e-4,
+                 params within ``TRAIN_PARAM_TOL``.
+
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
-(``engine_spec``), phases 3e-3l's (``engine_archs``) and the kernels'
-JSON records (each kernel's launches add up the paths that drive it,
-``launches_by_path``: K1-K4 phases 2c and 2g, K5 phases 3, 3d, 3e-3h and
-3j-3l, K6 phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+(``engine_spec``), phases 3e-3l's (``engine_archs``), the training
+phases' (``train``) and the kernels' JSON records (each kernel's
+launches add up the paths that drive it, ``launches_by_path``: K1-K4
+phases 2c and 2g, K4 also 5b, K5 phases 3, 3d, 3e-3h and 3j-3l, K6
+phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2819,6 +2842,346 @@ def ring_phase() -> dict:
     return {"tokens": sum(map(len, tokens)), "dense_launches": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 5: training (data cell -> trainer cell, AdamW, host §IV, checkpoints)
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_LR, TRAIN_WARMUP = "1e-3", "4"
+DMR_LAYERS = 4  # 5b, 5c: the first 4 of 24 layers at full width
+DMR_STEPS = 6
+DMR_STRIKE = 3
+RESUME_STEPS, RESUME_CRASH, RESUME_EVERY = 8, 5, 2
+
+
+def train_argv(*extra) -> list:
+    """The launcher's flags for internlm2-1.8b at full width, batch 4 x 512
+    bigram tokens; ``--d-model 2048 --layers N`` (d_ff 4 x 2048 = 8192,
+    internlm2's own) cuts the depth alone."""
+    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--lr", TRAIN_LR, "--warmup", TRAIN_WARMUP, "--device", "cuda", *extra]
+
+
+def cut_argv(layers: int, *extra) -> list:
+    return train_argv("--d-model", "2048", "--layers", str(layers), *extra)
+
+
+def timed(fn):
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def train_breakdown(cfg, tcfg, states) -> dict:
+    """One trainer transition cut into its parts, each between CUDA
+    events: the data cell's next batch, the forward (loss), the backward
+    (``torch.autograd.grad``) and AdamW.  Returns ms per part."""
+    from repro_torch.models import lm_cells as lc
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import apply_updates
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    data = lc.make_data_cell(cfg, tcfg)
+    _, data_ms = timed(lambda: data.transition({"data": states["data"]}))
+    st = states["trainer"]
+    batch = lc._make_batch(cfg, states["data"])
+    leaves, treedef = tree_flatten(st["params"])
+    xs = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        (loss, _), fwd_ms = timed(lambda: T.loss_fn(cfg, tree_unflatten(treedef, xs), batch))
+        gs, bwd_ms = timed(lambda: torch.autograd.grad(loss, xs))
+    del loss
+    grads = tree_unflatten(treedef, list(gs))
+    del gs, xs
+    _, opt_ms = timed(lambda: apply_updates(st["params"], grads, st["opt"], tcfg.opt))
+    return {"data_ms": data_ms, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "optimizer_ms": opt_ms}
+
+
+def train_5a() -> dict:
+    """5a: internlm2-1.8b at full width and depth, policy none, host
+    back-end, bigram data; ms per step on the device clock, the loss of
+    every step, the peak device memory."""
+    from repro_torch import api
+    from repro_torch.launch import train as L
+
+    args = L.parser().parse_args(train_argv("--steps", str(TRAIN_STEPS)))
+    cfg, tcfg, prog = L.build(args)
+    exe = api.compile(prog, backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states = exe.init(args.seed)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    losses, ms = [], []
+    for t in range(TRAIN_STEPS):
+        states, dt = timed(lambda t=t: exe.run(states, 1, start_step=t).states)
+        losses.append(float(states["trainer"]["metrics"]["loss"]))
+        ms.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"5a: losses not finite or not falling: {losses}")
+    n_params = sum(x.numel() for x in _leaves(states["trainer"]["params"]))
+    parts = train_breakdown(cfg, tcfg, states)
+    del states, exe
+    med = float(np.median(ms[1:]))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "ms_per_step_median": med, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med * 1e-3),
+           "peak_gb": peak, "state_gb": state_gb, "losses": losses, "breakdown": parts}
+    log(f"train 5a: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: median {med:.1f} ms/step "
+        f"({rec['tokens_per_s']:.0f} tokens/s), first step {ms[0]:.1f} ms, state "
+        f"{state_gb:.2f} GB, peak {peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({', '.join(f'{x:.3f}' for x in losses)}); one step in parts (ms): "
+        + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in parts.items()))
+    return rec
+
+
+def host_bits(tree):
+    """The tree's leaves on the host (a copy), for a bitwise comparison
+    after the device memory is given back."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def train_5b() -> dict:
+    """5b: the first 4 layers at full width under DMR, the launcher's
+    strike at step 3: one recovery at (3, trainer), ledger events at step 3
+    only, zero on the unstruck run's every step, K4 launched once a
+    tie-break, both replicas bitwise equal, and the final state bitwise
+    the unstruck run's."""
+    from repro_torch import api
+    from repro_torch.core import FaultLedger, bit_mismatch_elems
+    from repro_torch.kernels import tmr_vote as tv
+    from repro_torch.launch import train as L
+    from repro_torch.tree import tree_map
+
+    args = L.parser().parse_args(cut_argv(DMR_LAYERS, "--steps", str(DMR_STEPS),
+                                          "--redundancy", "dmr"))
+    cfg, tcfg, prog = L.build(args)
+    runs = {}
+    for label, faults in (("clean", []), ("struck", [L.strike(prog, DMR_STRIKE)])):
+        events = []
+        exe = api.compile(prog, backend="host", device="cuda", ledger=FaultLedger(),
+                          on_event=lambda name, attrs: events.append((name, attrs)))
+        torch.cuda.reset_peak_memory_stats()
+        states = exe.init(args.seed)
+        tv.tmr_vote.launches = 0
+        states = exe.run(states, DMR_STEPS, start_step=0, faults=faults).states
+        torch.cuda.synchronize()
+        k4 = tv.tmr_vote.launches
+        tr = states["trainer"]
+        r0, r1 = tree_map(lambda x: x[0], tr), tree_map(lambda x: x[1], tr)
+        if not bits_equal(r0, r1):
+            raise AssertionError(f"5b {label}: the two replicas differ after the run")
+        if label == "clean":
+            # the DMR step in parts: one replica's transition, and the
+            # compare the host back-end runs on every step
+            _, compare_ms = timed(lambda: bit_mismatch_elems(r0, r1))
+            parts = train_breakdown(cfg, tcfg, {"data": states["data"], "trainer": r0})
+        step_ms = [a["dur_us"] / 1e3 for n, a in events if n == "step"]
+        recov_ms = [a["dur_us"] / 1e3 for n, a in events if n == "dmr_recovery"]
+        runs[label] = {"recoveries": list(exe.recoveries), "k4_launches": k4,
+                       "events": exe.ledger.totals.get("trainer", {}).get("events", 0.0),
+                       "event_steps": list(exe.ledger.recent.get("trainer", [])),
+                       "ms_per_step": step_ms, "tiebreak_ms": recov_ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "final": host_bits(r0), "loss": float(tr["metrics"]["loss"][0])}
+        del states, tr, r0, r1, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+    clean, struck = runs["clean"], runs["struck"]
+    if clean["events"] != 0 or clean["recoveries"] or clean["k4_launches"]:
+        raise AssertionError(f"5b: the unstruck DMR run saw events {clean['events']} at steps "
+                             f"{clean['event_steps']} (the replicas must agree bit for bit)")
+    if struck["recoveries"] != [(DMR_STRIKE, "trainer")] or struck["event_steps"] != [DMR_STRIKE]:
+        raise AssertionError(f"5b: recoveries {struck['recoveries']}, events at "
+                             f"{struck['event_steps']}; want one at step {DMR_STRIKE}")
+    if struck["k4_launches"] != len(struck["recoveries"]):
+        raise AssertionError(f"5b: K4 launched {struck['k4_launches']} times for "
+                             f"{len(struck['recoveries'])} tie-break(s)")
+    if not bits_equal(struck.pop("final"), clean.pop("final")):
+        raise AssertionError("5b: the repaired final state differs from the unstruck run's")
+    clean_ms = [m for i, m in enumerate(struck["ms_per_step"]) if i not in (0, DMR_STRIKE)]
+    med = float(np.median(clean["ms_per_step"][1:]))
+    log(f"train 5b: {cfg.name} first {DMR_LAYERS} layers at full width, DMR, host, "
+        f"{DMR_STEPS} steps: unstruck 0 events; strike at step {DMR_STRIKE} -> recoveries "
+        f"{struck['recoveries']}, events at steps {struck['event_steps']}, K4 launches "
+        f"{struck['k4_launches']}, replicas bitwise equal, final state bitwise the unstruck "
+        f"run's; median {med:.1f} ms/step unstruck, struck step "
+        f"{struck['ms_per_step'][DMR_STRIKE]:.1f} ms (tie-break "
+        f"{struck['tiebreak_ms'][0]:.1f} ms), peak {struck['peak_gb']:.2f} GB; a replica's "
+        f"transition in parts (ms): " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in parts.items())
+        + f"; the replicas' compare {compare_ms:.1f} ms")
+    return {"layers": DMR_LAYERS, "steps": DMR_STEPS, "strike_step": DMR_STRIKE,
+            "recoveries": struck["recoveries"], "event_steps": struck["event_steps"],
+            "k4_launches": struck["k4_launches"], "clean_events": clean["events"],
+            "ms_per_step_median": med, "ms_per_step_clean": clean["ms_per_step"],
+            "ms_per_step_struck": struck["ms_per_step"], "other_struck_steps_ms": clean_ms,
+            "tiebreak_ms": struck["tiebreak_ms"], "peak_gb": struck["peak_gb"],
+            "peak_gb_clean": clean["peak_gb"], "loss": struck["loss"],
+            "compare_ms": compare_ms, "breakdown": parts}
+
+
+def train_5c() -> dict:
+    """5c: fail-stop.  The 4-layer config, policy none, a checkpoint every
+    2 steps, a crash after step 5, restore and resume to step 8 through
+    the launcher; the final trainer state bitwise an uninterrupted run's.
+    Uniform tokens: the restored data key replays the stream all the
+    same, and the bigram walk's time would only add to the checkpoint IO."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as L
+
+    base = ("--steps", str(RESUME_STEPS), "--log-every", "1", "--data", "uniform")
+    root = Path(tempfile.mkdtemp(prefix="miso_ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        resumed, exe, rows = L.main(cut_argv(DMR_LAYERS, *base, "--ckpt-dir", str(root / "a"),
+                                             "--ckpt-every", str(RESUME_EVERY),
+                                             "--simulate-failure", str(RESUME_CRASH)))
+        resumed_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in root.rglob("*.npy")) / 1e9
+        got = host_bits(resumed["trainer"])
+        del resumed, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        straight, _, rows2 = L.main(cut_argv(DMR_LAYERS, *base))
+        straight_s = time.perf_counter() - t0
+        if not bits_equal(got, host_bits(straight["trainer"])):
+            raise AssertionError("5c: the resumed trainer state differs from the uninterrupted run's")
+        del straight
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps = [r["step"] for r in rows]
+    log(f"train 5c: crash after step {RESUME_CRASH}, checkpoints every {RESUME_EVERY} "
+        f"({ckpt_gb:.2f} GB written), restored and resumed to step {RESUME_STEPS} (rows at "
+        f"{steps}); final trainer state bitwise the uninterrupted run's "
+        f"({resumed_s:.1f} s with the crash, {straight_s:.1f} s without)")
+    return {"crash_after": RESUME_CRASH, "ckpt_every": RESUME_EVERY, "steps": RESUME_STEPS,
+            "row_steps": steps, "ckpt_gb_written": ckpt_gb, "seconds_resumed": resumed_s,
+            "seconds_uninterrupted": straight_s}
+
+
+def train_5d() -> dict:
+    """5d: F4's refusal.  The reduced mamba2 trainer on the card raises
+    (K8 has no backward), as does K7 on inputs that require grad; under
+    no_grad K8 still runs (phase 2d holds it to its plain version)."""
+    from repro_torch import api
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.lm_cells import TrainConfig, make_train_program
+
+    cfg = get_reduced("mamba2-2.7b")
+    tcfg = TrainConfig(data=DataConfig(batch=2, seq_len=32, vocab=cfg.vocab_size, kind="uniform"))
+    exe = api.compile(make_train_program(cfg, tcfg), backend="host", device="cuda")
+    states = exe.init(0)
+    launches = ks.ssd_scan.launches
+    try:
+        exe.run(states, 1)
+    except RuntimeError as e:
+        if "K8 has no backward" not in str(e):
+            raise
+        k8_msg = str(e)
+    else:
+        raise AssertionError("5d: training mamba2 on the card did not refuse")
+    if ks.ssd_scan.launches != launches:
+        raise AssertionError("5d: the refused scan was launched")
+    q = torch.randn(1, 2, 64, 64, device="cuda", requires_grad=True)
+    try:
+        fa.flash_attention(q, q, q)
+    except RuntimeError as e:
+        if "K7 has no backward" not in str(e):
+            raise
+        k7_msg = str(e)
+    else:
+        raise AssertionError("5d: K7 on inputs that require grad did not refuse")
+    n = fa.flash_attention.launches
+    with torch.no_grad():
+        y = fa.flash_attention(q, q, q)
+    fa.flash_attention.launches = n  # a check, not the main path
+    log(f"train 5d: reduced mamba2 training on the card refuses ({k8_msg.split(';')[0]}); "
+        f"K7 with grad refuses ({k7_msg.split(';')[0]}); under no_grad K7 runs "
+        f"({tuple(y.shape)})")
+    return {"k8": k8_msg, "k7": k7_msg}
+
+
+def train_parity_4t() -> dict:
+    """4t: reduced f32 internlm2, 3 train steps on the card against the
+    port on the CPU from the same state: batches bitwise, losses within
+    1e-4 relative, params within TRAIN_PARAM_TOL of the CPU's."""
+    from repro_torch import api, prng
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, sample_batch
+    from repro_torch.models.lm_cells import TrainConfig, make_train_program
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), dtype="float32")
+    tcfg = TrainConfig(data=DataConfig(batch=2, seq_len=32, vocab=cfg.vocab_size),
+                       opt=OptConfig(peak_lr=1e-2, warmup_steps=2, decay_steps=10))
+    prog = make_train_program(cfg, tcfg)
+    cpu = api.compile(prog, backend="host", device="cpu")
+    card = api.compile(prog, backend="host", device="cuda")
+    s_cpu = cpu.init(0)
+    s_card = tree_map(lambda x: x.to("cuda"), s_cpu)
+    worst_loss, worst_param = 0.0, 0.0
+    for t in range(3):
+        s_cpu = cpu.run(s_cpu, 1, start_step=t).states
+        s_card = card.run(s_card, 1, start_step=t).states
+        if not torch.equal(s_cpu["data"]["tokens"], s_card["data"]["tokens"].cpu()):
+            raise AssertionError(f"4t: step {t}: the card's batch differs from the CPU's")
+        a, b = float(s_cpu["trainer"]["metrics"]["loss"]), float(s_card["trainer"]["metrics"]["loss"])
+        worst_loss = max(worst_loss, abs(a - b) / abs(a))
+    for x, y in zip(tree_leaves(s_cpu["trainer"]["params"]), tree_leaves(s_card["trainer"]["params"])):
+        worst_param = max(worst_param, float((x - y.cpu()).abs().max() / x.abs().max()))
+    # the full vocabulary's bigram walk (5a's shapes), a few steps: the
+    # card's compiled walk against the CPU's eager one
+    full = DataConfig(batch=TRAIN_BATCH, seq_len=16, vocab=92544)
+    key = prng.fold_in(prng.PRNGKey(0), 1)
+    if not torch.equal(sample_batch(full, key), sample_batch(full, key.to("cuda")).cpu()):
+        raise AssertionError("4t: the full-vocabulary bigram batch differs between card and CPU")
+    if worst_loss > 1e-4 or worst_param > TRAIN_PARAM_TOL:
+        raise AssertionError(f"4t: loss rel {worst_loss:.2e} (limit 1e-4), params {worst_param:.2e} "
+                             f"(limit {TRAIN_PARAM_TOL})")
+    log(f"check 4t: reduced f32 {TRAIN_ARCH}, 3 train steps card vs CPU: batches bitwise, "
+        f"loss within {worst_loss:.2e} rel (limit 1e-4), params within {worst_param:.2e} of each "
+        f"leaf's largest (limit {TRAIN_PARAM_TOL}); a full-vocabulary (92544) bigram batch of "
+        f"{TRAIN_BATCH} x 16 bitwise the CPU's")
+    return {"loss_rel": worst_loss, "param_rel": worst_param}
+
+
+#: params after a few AdamW steps, relative to each leaf's largest element:
+#: Adam divides by sqrt(v), so a gradient of a few ulps' difference near
+#: zero moves its element by up to the learning rate (1e-2 here)
+TRAIN_PARAM_TOL = 5e-3
+
+
+def train_phase() -> dict:
+    out = {"5a": train_5a()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["5b"] = train_5b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["5c"] = train_5c()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["5d"] = train_5d()
+    out["4t"] = train_parity_4t()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -2892,6 +3255,11 @@ def main() -> int:
     check_phase("zamba2-2.7b")
     parity["musicgen-large"] = parity_phase("musicgen-large", pd.paged_gqa_attention)
     ring = ring_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase()
+    epi["tmr_vote"]["launches_by_path"]["train_5b"] = train["5b"]["k4_launches"]
+    epi["tmr_vote"]["launches"] += train["5b"]["k4_launches"]
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -2900,6 +3268,7 @@ def main() -> int:
     print(json.dumps({"engine_deepseek_mla": deepseek}), flush=True)
     print(json.dumps({"engine_spec": spec}), flush=True)
     print(json.dumps({"engine_archs": arch_engines}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -545,7 +545,10 @@ class HostExecutor(Executor):
             if cell.redundancy.level == 2 and rep["events"] > 0:
                 t0 = time.perf_counter() if self.on_event is not None else None
                 states = dict(states)
-                states[name] = self._tiebreakers[name](prev, states[name])
+                # hand the disagreeing replicas over (a list the tie-break
+                # empties) so their memory can return before the third
+                # transition runs
+                states[name] = self._tiebreakers[name](prev, [states.pop(name)])
                 if t0 is not None:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)

@@ -26,7 +26,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.state_hash import M32, MIX, PHI, mul32
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .cell import CellType, restrict_reads, undeclared_read_error
 from .fault import FaultSpec, bitcast_back, bitcast_int, inject
 
@@ -201,8 +201,16 @@ def replicated_transition(
             name: tree_map(lambda x, r=r: x[r], val) if levels.get(name, 1) == R else val
             for name, val in canon.items()
         }
-        outs.append(_call(cell, reads))
-    new = tree_map(lambda *xs: torch.stack(xs), *outs)
+        leaves, treedef = tree_flatten(_call(cell, reads))
+        outs.append(leaves)
+    # stack leaf by leaf, letting each replica's leaf go once stacked: the
+    # peak is the replicas and one stacked leaf, not twice the replicas
+    stacked = []
+    for i in range(len(outs[0])):
+        stacked.append(torch.stack([o[i] for o in outs]))
+        for o in outs:
+            o[i] = None
+    new = tree_unflatten(treedef, stacked)
     if fault is not None:
         new = inject(fault, cell_id=cell_id, step=step, replicated_state=new)
     return new
@@ -281,21 +289,27 @@ def make_tiebreak(cell: CellType, levels: Mapping[str, int]):
 
     The third transition reads the canonical view of every read cell and
     has no replica axis.  On a CUDA state the 2-of-3 vote over (r0, r1,
-    third) is K4 (``kernels.ops.tmr_vote_pytree``); on the CPU it is
-    ``majority_vote``.  The two are bitwise equal."""
-    def tiebreak(prevs: Mapping[str, Tree], disagreeing: Tree) -> Tree:
+    third) is one K4 launch (``kernels.ops.tiebreak_vote``, which lets the
+    replicas go once packed, before the third transition runs: a trainer
+    state is tens of GB); on the CPU it is ``majority_vote``.  The two are
+    bitwise equal.  ``disagreeing`` may be passed as a one-element list,
+    which the tie-break empties, to hand over the last reference."""
+    def third(prevs):
         canon = {
             name: canonical_state(val, levels.get(name, 1))
             for name, val in restrict_reads(cell, prevs).items()
         }
-        third = _call(cell, canon)
-        if tree_leaves(third)[0].device.type == "cuda":
-            stacked = tree_map(lambda x, t: torch.cat([x[:2], t.unsqueeze(0)]), disagreeing, third)
-            voted, _counts = ops.tmr_vote_pytree(stacked)
+        return _call(cell, canon)
+
+    def tiebreak(prevs: Mapping[str, Tree], disagreeing) -> Tree:
+        box = disagreeing if isinstance(disagreeing, list) else [disagreeing]
+        del disagreeing
+        if tree_leaves(box[0])[0].device.type == "cuda":
+            voted, _counts = ops.tiebreak_vote(box, lambda: third(prevs))
         else:
-            r0 = tree_map(lambda x: x[0], disagreeing)
-            r1 = tree_map(lambda x: x[1], disagreeing)
-            voted = majority_vote(r0, r1, third)
+            pair = box.pop()
+            voted = majority_vote(tree_map(lambda x: x[0], pair), tree_map(lambda x: x[1], pair),
+                                  third(prevs))
         return replicate_state(voted, cell.redundancy.level)
 
     return tiebreak

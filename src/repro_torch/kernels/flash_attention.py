@@ -120,13 +120,18 @@ def _check(q, k, v, window) -> None:
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):
     """Blocked online-softmax attention.  q (B, Hq, Sq, D); k, v (B, Hkv,
     Sk, D).  Returns (B, Hq, Sq, D) in q's dtype.  CPU tensors take
-    ``attention_plain``; CUDA tensors launch the kernel on the current
-    stream."""
+    ``attention_plain``, which autograd differentiates; CUDA tensors launch
+    the kernel on the current stream, which has no backward: with grad
+    enabled and an input that requires grad it raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window, scale=scale,
                                q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the ctypes launch is invisible to autograd (no grad_fn on out)
+        raise RuntimeError("K7 has no backward on the card yet; see ROADMAP.  Run it under "
+                           "torch.no_grad(), or train on the CPU")
     _check(q, k, v, window)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]

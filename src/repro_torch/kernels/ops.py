@@ -100,6 +100,12 @@ def word_layout(tree: Tree, *, lead: int = 0) -> WordLayout:
 def _pack(leaves: list, rows: int, layout: WordLayout, padded: int, device) -> torch.Tensor:
     """(rows, padded) int32 stream: row r holds row r of every leaf."""
     out = torch.empty((rows, padded), dtype=torch.int32, device=device)
+    return _pack_into(out, leaves, layout)
+
+
+def _pack_into(out: torch.Tensor, leaves: list, layout: WordLayout) -> torch.Tensor:
+    """Fill the (rows, padded) int32 ``out`` as ``_pack`` does."""
+    rows = out.shape[0]
     ob = out.view(torch.uint8)
     for x, off, nw in zip(leaves, layout.offsets, layout.n_words):
         if x.element_size() >= 4:  # whole words: copy 4 bytes per element
@@ -167,6 +173,28 @@ def tmr_vote_pytree(replicated: Tree):
     flats = flatten_replicas(replicated, 3, multiple=VOTE_BLOCK, layout=layout)
     voted, counts = tmr_vote(flats[0], flats[1], flats[2])
     like = tree_map(lambda x: x[0], replicated)
+    return unflatten_from_u32(voted, like, layout=layout), counts
+
+
+def tiebreak_vote(disagreeing: list, third_fn):
+    """The §IV tie-break's vote through K4, frugal with memory for a state
+    of tens of GB.  ``disagreeing`` is a one-element list holding the
+    replicated tree (leaves lead with an axis of 2): its two replicas are
+    packed into rows 0-1 of the word streams and the list is emptied, so
+    that, when the caller holds no other reference, their memory returns
+    before ``third_fn()`` computes the third transition into row 2.  Then
+    one K4 launch votes.  Returns (voted tree, counts (3,) int32)."""
+    leaves, treedef = tree_flatten(disagreeing[0])
+    layout = word_layout(disagreeing[0], lead=1)
+    like = tree_unflatten(treedef, [torch.empty(x.shape[1:], dtype=x.dtype, device="meta")
+                                    for x in leaves])
+    flats = torch.empty((3, layout.padded(VOTE_BLOCK)), dtype=torch.int32, device=leaves[0].device)
+    _pack_into(flats[:2], leaves, layout)
+    del leaves
+    disagreeing.clear()
+    _pack_into(flats[2:], tree_leaves(third_fn()), layout)
+    voted, counts = tmr_vote(flats[0], flats[1], flats[2])
+    del flats
     return unflatten_from_u32(voted, like, layout=layout), counts
 
 

@@ -277,12 +277,21 @@ def _check_bf16(x, b, c, h0, chunk) -> None:
 def ssd_scan(x, dt, a, b, c, *, h0=None, chunk: int = 128):
     """The SSD chunked scan.  x (B, L, H, P); dt (B, L, H) f32; a (H,) f32;
     b, c (B, L, G, N); h0 (B, H, N, P) f32 or None.  Returns (y in x's
-    dtype, final state f32).  CPU tensors take ``ssd_scan_plain``; CUDA
-    tensors launch the kernel on the current stream."""
+    dtype, final state f32).  CPU tensors take ``ssd_scan_plain``, which
+    autograd differentiates; CUDA tensors launch the kernel on the current
+    stream, which has no backward: with grad enabled and an input that
+    requires grad it raises rather than return outputs with no grad_fn."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, h0=h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    inputs = (x, dt, a, b, c, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        # the kernel writes its outputs through a ctypes launch, which
+        # autograd cannot see: they would carry no grad_fn and silently cut
+        # the gradient of everything upstream of the scan
+        raise RuntimeError("K8 has no backward on the card yet; see ROADMAP (a K8 backward "
+                           "kernel).  Run the scan under torch.no_grad(), or train on the CPU")
     _check(x, dt, a, b, c, h0, chunk)
     Bsz, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]

@@ -1,16 +1,26 @@
-"""The LM serving stack as a MISO program (the serving subset of
+"""The LM training and serving stack as a MISO program (a port of
 ``repro/models/lm_cells.py``).
 
+Training:
+    cell data     -- source cell (deterministic batches made on the device)
+    cell trainer  -- state = (params, optimizer state, metrics);
+                     transition = forward + backward + AdamW, reading the
+                     data cell's *previous* batch (a double-buffered input
+                     pipeline)
+
+Serving:
     cell weights  -- static cell (identity transition) holding the params
     cell decoder  -- slot-masked state (KV cache or page pools + page
                      table, last tokens, prompt-walk cursor); transition =
                      one greedy decode step for every active slot
 
-Per-request replication (paper §IV) happens on replica *slots* of the
-decoder batch (``repro_torch.serving``), not on the cells.  Speculative
-decoding (``SpecConfig``) fuses a draft model and the verify walk into
-the decoder's transition.  Training cells and the fixed-batch
-``make_serve_program`` are not ported yet.
+Replication (paper §IV) applies to the trainer through the generic MISO
+machinery (``program.with_policies({"trainer": DMR})``); per-request
+replication of serving happens on replica *slots* of the decoder batch
+(``repro_torch.serving``), not on the cells.  Speculative decoding
+(``SpecConfig``) fuses a draft model and the verify walk into the
+decoder's transition.  The fixed-batch ``make_serve_program`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,10 +29,127 @@ import dataclasses
 
 import torch
 
+from .. import prng
 from ..core import CellType, MisoProgram
-from ..tree import tree_map
+from ..data.pipeline import DataConfig, data_cell
+from ..optim.adamw import OptConfig, apply_updates, init_opt_state
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import transformer as T
 from .config import ModelConfig
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    data: DataConfig
+    opt: OptConfig = OptConfig()
+    microbatches: int = 1
+    grad_compression: str = "none"  # none | int8_ef (needs a mesh: not ported)
+    param_seed: int = 0
+
+
+def _make_batch(cfg: ModelConfig, data_state: dict) -> dict:
+    batch = {"tokens": data_state["tokens"]}
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = data_state["vision_embeds"]
+    return batch
+
+
+def make_data_cell(cfg: ModelConfig, tcfg: TrainConfig) -> CellType:
+    """The data source cell; a vision arch's also carries the vision
+    stub's output, drawn under ``fold_in(key, 77)`` as in JAX."""
+    base = data_cell(tcfg.data)
+    if not cfg.n_vision_tokens:
+        return base
+
+    def with_vision(st):
+        st["vision_embeds"] = (0.02 * prng.normal(
+            prng.fold_in(st["key"], 77),
+            (tcfg.data.batch, cfg.n_vision_tokens, cfg.d_model))).to(cfg.compute_dtype)
+        return st
+
+    return CellType(name=base.name, init=lambda gen, device: with_vision(base.init(gen, device)),
+                    transition=lambda prev: with_vision(base.transition(prev)),
+                    instances=base.instances)
+
+
+def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
+    """(metrics, grads) of ``T.loss_fn`` by ``torch.autograd.grad`` over
+    the params tree.  The leaves are detached aliases: ``params`` (the
+    previous buffer) is neither written nor marked."""
+    leaves, treedef = tree_flatten(params)
+    xs = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss, metrics = T.loss_fn(cfg, tree_unflatten(treedef, xs), batch)
+        gs = torch.autograd.grad(loss, xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, gs)]
+    metrics = tree_map(lambda m: m.detach() if isinstance(m, torch.Tensor) else m, metrics)
+    return metrics, tree_unflatten(treedef, grads)
+
+
+def make_trainer_cell(cfg: ModelConfig, tcfg: TrainConfig, *, data_name: str = "data") -> CellType:
+    """The trainer cell: forward, backward and AdamW over the data cell's
+    previous batch.  ``microbatches > 1`` accumulates f32 grads over row
+    slices of the batch (the metrics are their mean), as JAX's scan."""
+    if tcfg.grad_compression != "none":
+        raise NotImplementedError(
+            f"grad_compression={tcfg.grad_compression!r} reduces grads across a data "
+            "mesh (distributed/collectives.py), which waits for the multi-device port "
+            "(ROADMAP Queue 1 item 7)")
+
+    def init(gen, device):
+        g = torch.Generator(device=device).manual_seed(gen.initial_seed() + tcfg.param_seed)
+        params = T.init_params(cfg, g, device)
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return {"params": params, "opt": init_opt_state(params, tcfg.opt),
+                "metrics": {"loss": z, "grad_norm": z.clone(), "lr": z.clone()}}
+
+    def grads_microbatched(params, batch):
+        mb = tcfg.microbatches
+        B = batch["tokens"].shape[0]
+        if B % mb:
+            raise ValueError(f"batch {B} is not a multiple of microbatches {mb}")
+        n = B // mb
+        acc, ms = None, []
+        for i in range(mb):
+            m, g = _value_and_grad(cfg, params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            g = tree_map(lambda x: x.to(torch.float32) / mb, g)
+            acc = g if acc is None else tree_map(torch.add, acc, g)
+            ms.append(m)
+        metrics = tree_map(lambda *xs: torch.mean(torch.stack(
+            [torch.as_tensor(x, dtype=torch.float32) for x in xs])), *ms)
+        return metrics, acc
+
+    def transition(prev):
+        st = prev["trainer"]
+        batch = _make_batch(cfg, prev[data_name])
+        if tcfg.microbatches > 1:
+            metrics, grads = grads_microbatched(st["params"], batch)
+        else:
+            metrics, grads = _value_and_grad(cfg, st["params"], batch)
+        new_params, new_opt, info = apply_updates(st["params"], grads, st["opt"], tcfg.opt)
+        return {
+            "params": new_params,
+            "opt": new_opt,
+            "metrics": {"loss": metrics["loss"].to(torch.float32),
+                        "grad_norm": info["grad_norm"], "lr": info["lr"]},
+        }
+
+    return CellType(name="trainer", init=init, transition=transition, reads=(data_name,))
+
+
+def make_train_program(cfg: ModelConfig, tcfg: TrainConfig) -> MisoProgram:
+    prog = MisoProgram()
+    prog.add(make_data_cell(cfg, tcfg))
+    prog.add(make_trainer_cell(cfg, tcfg))
+    return prog
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

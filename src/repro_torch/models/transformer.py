@@ -19,6 +19,9 @@ loop over that axis.  Segment kinds:
 
 Entry points:
   forward(...)      logits (prefill; optional cache fill with prompt_len)
+  loss_fn(...)      the training loss (next-token cross-entropy, the
+                    multi-codebook mean, the MTP head's 0.1 term, the
+                    MoE load-balance aux) and its metrics
   decode_step(...)  one-token serve step over a dense or paged KV cache
 """
 
@@ -146,8 +149,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
         else:
             params["lm_head"] = L.dense_init(gen, d, V, dt, device)
     if cfg.mtp:
-        # the multi-token-prediction head: built as JAX builds it (the
-        # trees match), read only by training, which is not ported
+        # the multi-token-prediction head, read only by ``loss_fn``
         params["mtp_proj"] = L.dense_init(gen, 2 * d, d, dt, device)
         params["mtp_norm"] = torch.ones((d,), dtype=dt, device=device)
     return params
@@ -298,8 +300,11 @@ def forward(
     vision_embeds: Optional[torch.Tensor] = None,
     fill_cache: bool = False,
     prompt_len=None,
+    with_aux: bool = False,
 ):
-    """Returns (logits, filled_cache | None).
+    """Returns (logits, filled_cache | None), and with ``with_aux`` a
+    third item ``(aux, h)``: the summed MoE load-balance loss and the
+    final-normed hidden states (what ``loss_fn`` reads).
 
     ``vision_embeds`` (B, n, d), for a vision arch: the stub's precomputed
     patch embeddings, spliced over the first ``n_vision_tokens`` rows.
@@ -326,12 +331,14 @@ def forward(
     e0 = h if cfg.shared_attn_every else None
     shared = params.get("shared_attn")
     caches = []
+    aux_total = 0.0
     for seg, sp in zip(segment_plan(cfg), params["segments"]):
         couts = []
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
-            h, cout, _ = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
-                                      shared, e0, prompt_len=prompt_len)
+            h, cout, aux = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
+                                        shared, e0, prompt_len=prompt_len)
+            aux_total = aux_total + aux
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
@@ -342,7 +349,58 @@ def forward(
             "segments": caches,
             "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
         }
+    if with_aux:
+        return logits, cache_out, (aux_total, h)
     return logits, cache_out
+
+
+# --------------------------------------------------------------------------
+# training loss
+# --------------------------------------------------------------------------
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean next-token cross-entropy in f32.  The label's logit is
+    a gather: every row gathers one column, so its backward writes each
+    element once and is deterministic (the §IV replicas must agree bit
+    for bit).  JAX's one-hot branch serves a vocab-sharded mesh only."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
+    """batch: tokens (B, S[, K]) int32, optional loss_mask (B, S),
+    optional vision_embeds / positions.  Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    logits, _, (aux, h) = forward(
+        cfg, params, tokens, positions=batch.get("positions"),
+        vision_embeds=batch.get("vision_embeds"), with_aux=True,
+    )
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape[:2], dtype=torch.float32, device=tokens.device)
+    if cfg.n_codebooks > 1:
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for k in range(cfg.n_codebooks):
+            loss = loss + _xent(logits[:, :-1, k], tokens[:, 1:, k], mask[:, 1:])
+        loss = loss / cfg.n_codebooks
+    else:
+        loss = _xent(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.mtp:
+        # predict t+2 from (h_t, embed(tok_{t+1})): the simplified MTP head
+        emb_next = embed_tokens(params, tokens[:, 1:], cfg)
+        h_mtp = torch.cat([h[:, :-1], emb_next], dim=-1) @ params["mtp_proj"]
+        h_mtp = L.rmsnorm(h_mtp, params["mtp_norm"], cfg.rms_eps)
+        logits2 = unembed(params, h_mtp, cfg)
+        mtp_loss = _xent(logits2[:, :-1], tokens[:, 2:], mask[:, 2:])
+        metrics["mtp"] = mtp_loss
+        loss = loss + 0.1 * mtp_loss
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:

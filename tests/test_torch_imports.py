@@ -1,7 +1,8 @@
-"""``repro_torch`` and ``chip_smoke.py`` import no ``jax`` and nothing of the
-JAX package ``repro`` — not even its JAX-free modules.  Checked twice:
-statically (every import statement of every source file), and by
-importing every module in a subprocess whose import system refuses
+"""``repro_torch``, ``chip_smoke.py`` and the port's examples
+(``examples/*_torch.py``) import no ``jax`` and nothing of the JAX package
+``repro`` — not even its JAX-free modules.  Checked twice: statically
+(every import statement of every source file), and by importing every
+module of the package in a subprocess whose import system refuses
 ``jax``/``jaxlib``/``repro``."""
 
 import ast
@@ -18,7 +19,8 @@ cap_threads_for_xdist()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("*_torch.py")))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py")
@@ -95,7 +97,10 @@ def test_every_kernel_and_model_module_is_checked():
     for mod in ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
                 "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode",
                 "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b",
-                "repro_torch.configs.deepseek_v3_671b"):
+                "repro_torch.configs.deepseek_v3_671b", "repro_torch.prng",
+                "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                "repro_torch.checkpoint.ckpt", "repro_torch.ft.elastic",
+                "repro_torch.launch.train"):
         assert mod in MODULES
 
 
