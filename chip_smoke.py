@@ -206,15 +206,46 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  train steps on the card against the CPU: batches bitwise
                  (and a full-vocabulary bigram batch), loss within 1e-4,
                  params within ``TRAIN_PARAM_TOL``.
+  6. launch   -- the launchers and the examples through their entry
+                 points (``launch.serve.main``, each example's ``main``):
+                 (6a) the engine launcher on internlm2-1.8b at full width
+                 and depth, paged, 8 slots, 8 requests cycling
+                 none/dmr/tmr, 32 tokens each, prompts of 2-64 tokens,
+                 ``--strike --trace-out --metrics-json``: every request
+                 DONE, the strike attributed once to its request and
+                 repaired (``strike_repaired`` on its trace track), the
+                 snapshot parses, K5 = 24 x (ticks + replays); (6b) the
+                 same with ``--spec-k 2``: every request's tokens bitwise
+                 6a's, K5 = 24 x (ticks + replays) x 3; (6c) the static
+                 path (``--static --batch 4 --prompt-len 12 --decode 24``):
+                 internlm2 under none and TMR, tokens bitwise equal and 0
+                 events (K5 on every decode step of every layer and
+                 replica through the dense view); the TMR program on
+                 ``lockstep_cuda`` with a bit flip into a decoder
+                 replica's KV cache at step 12: one event, tokens bitwise
+                 the unstruck run's, K2 = 24 decode steps; mamba2-2.7b
+                 under DMR: 0 events, K8 = 64 (the prefill); (6d)
+                 ``validate()`` of the full-width internlm2 train program
+                 (5a's), 6a's paged slot serve program and 6c's static
+                 TMR program on fake tensors: the card's peak memory
+                 grows under 1 MB; (6e) the four examples
+                 (``examples/{quickstart,image_blend,serve_lm,
+                 serve_walkthrough}_torch.py``) on the card at their own
+                 defaults, quickstart with ``lockstep`` and
+                 ``lockstep_cuda``, serve_lm with ``--strike``,
+                 serve_walkthrough with ``--smoke``, their own asserts
+                 passing; K2, K4 and K5 each launched.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
-phases' (``train``) and the kernels' JSON records (each kernel's
-launches add up the paths that drive it, ``launches_by_path``: K1-K4
-phases 2c and 2g, K4 also 5b, K5 phases 3, 3d, 3e-3h and 3j-3l, K6
-phases 3c, 3d and 3i, K8 phases 3b and 3g), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+phases' (``train``), the launchers' (``launch``) and the kernels' JSON
+records (each kernel's launches add up the paths that drive it,
+``launches_by_path``: K1-K4 phases 2c and 2g, K4 also 5b and the
+examples, K2 also 6c and the examples, K5 phases 3, 3d, 3e-3h, 3j-3l,
+6a-6c and the examples, K6 phases 3c, 3d and 3i, K8 phases 3b, 3g and
+6c), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -3182,6 +3213,257 @@ def train_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 6: the launchers and the examples, through the entry points a
+# user calls
+# --------------------------------------------------------------------------
+LAUNCH_ARCH = "internlm2-1.8b"
+LAUNCH_6A = ["--arch", LAUNCH_ARCH, "--paged", "--slots", "8", "--requests", "8", "--mix",
+             "none,dmr,tmr", "--decode", "32", "--prompt-len", "64", "--max-len", "512",
+             "--strike", "--device", "cuda"]
+LAUNCH_SPEC_K = 2
+STATIC_RUN = ["--static", "--batch", "4", "--prompt-len", "12", "--decode", "24", "--device",
+              "cuda"]
+STATIC_STEPS = 24
+STATIC_STRIKE = dict(step=12, replica=1, index=5 * 128 + 7, bit=14)  # K lane 5, dim 7, bf16 exponent
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def launch_engine(label: str, extra: list) -> tuple[dict, list]:
+    """``launch.serve.main`` on the engine path (6a's flags plus
+    ``extra``), K5's count set to 0 just before and read just after; a
+    tracer and a metrics snapshot written to a temporary directory.  The
+    launcher itself exits non-zero unless every request is DONE and the
+    strike is detected, attributed to its request and repaired on its
+    trace track.  Returns (record, each request's tokens)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import DONE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = f"{tmp}/trace.json", f"{tmp}/metrics.json"
+        torch.cuda.synchronize()
+        pd.paged_gqa_attention.launches = 0  # counts start here
+        t0 = time.perf_counter()
+        engine = S.main(LAUNCH_6A + extra + ["--trace-out", trace, "--metrics-json", metrics])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = pd.paged_gqa_attention.launches  # and are read here
+        snap = json.loads(Path(metrics).read_text())
+        n_events = len(json.loads(Path(trace).read_text())["traceEvents"])
+    m = engine.metrics()
+    reqs = list(engine.requests.values())
+    victim = [r for r in reqs if r.req.policy.level == 2][-1].id
+    if m["request_faults"] != {victim: 1} or snap["serving_strikes_detected_total"]["value"] != 1:
+        raise AssertionError(f"{label}: strike not attributed once to {victim}: "
+                             f"{m['request_faults']}")
+    if any(r.status != DONE or len(r.tokens) != 32 for r in reqs):
+        raise AssertionError(f"{label}: not every request DONE with 32 tokens")
+    n_sub = LAUNCH_SPEC_K + 1 if "--spec-k" in extra else 1
+    layers = get_config(LAUNCH_ARCH).n_layers
+    expect = layers * (m["ticks"] + m["replays"]) * n_sub
+    if launches != expect:
+        raise AssertionError(f"{label}: K5 launches {launches} != {layers} x ({m['ticks']} "
+                             f"ticks + {m['replays']} replays) x {n_sub}")
+    rec = {"tokens_per_s": m["tokens_per_s"], "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
+           "ttft_p99_ms": m["ttft_p99_s"] * 1e3, "ms_per_tick": m["busy_s"] / m["ticks"] * 1e3,
+           "ticks": m["ticks"], "replays": m["replays"], "tokens": m["tokens_out"],
+           "victim": victim, "k5_launches": launches, "trace_events": n_events,
+           "command_s": seconds}
+    if n_sub > 1:
+        rec["spec_tokens_per_tick"] = m["spec_tokens_per_tick"]
+    log(f"launch {label}: {LAUNCH_ARCH} paged, {len(reqs)} requests DONE, {m['tokens_out']} "
+        f"tokens, {rec['tokens_per_s']:.1f} tok/s (traced), TTFT p50 {rec['ttft_p50_ms']:.1f} ms "
+        f"p99 {rec['ttft_p99_ms']:.1f} ms, {m['ticks']} ticks at {rec['ms_per_tick']:.2f} "
+        f"ms/tick, {m['replays']} replay(s); strike on {victim} repaired; K5 launches "
+        f"{launches} = {layers} x ({m['ticks']} + {m['replays']}) x {n_sub}; {n_events} trace "
+        f"events" + (f"; {rec['spec_tokens_per_tick']:.3f} tokens a verify tick"
+                     if n_sub > 1 else "") + f"; {seconds:.1f} s with init")
+    tokens = [list(r.token_ids()) for r in reqs]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, tokens
+
+
+def launch_static(arch: str, redundancy: str, wrappers, *, backend="lockstep",
+                  faults=None) -> tuple[dict, list, np.ndarray]:
+    """``launch.serve.static_main`` at full width, the ``wrappers``'
+    counts set to 0 just before and read just after.  Returns (record,
+    launch counts, collected tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+
+    args = S.parser().parse_args(STATIC_RUN + ["--arch", arch, "--redundancy", redundancy])
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    out = S.static_main(get_config(arch), args, backend=backend, faults=faults)
+    torch.cuda.synchronize()
+    launches = [w.launches for w in wrappers]
+    events = float(out["reports"]["decoder"]["events"]) if redundancy != "none" else 0.0
+    rec = {"arch": arch, "redundancy": redundancy, "backend": backend,
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "tokens_per_s": STATIC_STEPS * args.batch / out["decode_s"], "events": events}
+    toks = out["tokens"]
+    if toks.shape[:2] != (STATIC_STEPS, args.batch) or toks.min() < 0:
+        raise AssertionError(f"static {arch}: tokens {toks.shape}, min {toks.min()}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, toks
+
+
+def launch_6c() -> dict:
+    """6c: the static path at full width: internlm2 under none and TMR
+    (tokens bitwise equal, 0 events), the TMR program on ``lockstep_cuda``
+    with a bit flip into a decoder replica's cache (voted away by K2:
+    tokens bitwise, one event, K2 = decode steps), mamba2 under DMR (0
+    events, K8 = 64 layers at the prefill)."""
+    from repro_torch.api import FaultSpec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.lm_cells import ServeConfig, make_serve_program
+    from repro_torch.tree import leaf_index
+
+    k5 = pd.paged_gqa_attention
+    layers = get_config(LAUNCH_ARCH).n_layers
+    k5_total = 0
+    none, (n5,), base = launch_static(LAUNCH_ARCH, "none", [k5])
+    tmr, (t5,), voted = launch_static(LAUNCH_ARCH, "tmr", [k5])
+    if not np.array_equal(base, voted) or tmr["events"] != 0:
+        raise AssertionError(f"6c: TMR tokens differ from the unreplicated run's or events "
+                             f"{tmr['events']}")
+    spec = make_serve_program(get_config(LAUNCH_ARCH), ServeConfig(batch=4, max_len=128))
+    leaf = leaf_index(spec.state_specs()["decoder"], "k")
+    strike = FaultSpec.at(cell_id=1, leaf=leaf, **STATIC_STRIKE)
+    struck, (s5, k2), hit = launch_static(LAUNCH_ARCH, "tmr", [k5, fs.tmr_step],
+                                          backend="lockstep_cuda", faults=strike)
+    if not np.array_equal(base, hit) or struck["events"] != 1 or k2 != STATIC_STEPS:
+        raise AssertionError(f"6c: struck lockstep_cuda TMR: tokens equal "
+                             f"{np.array_equal(base, hit)}, events {struck['events']}, K2 "
+                             f"launches {k2} (want 1 event and {STATIC_STEPS})")
+    for label, n, level in (("none", n5, 1), ("tmr", t5, 3), ("tmr_cuda_struck", s5, 3)):
+        if n != layers * STATIC_STEPS * level:
+            raise AssertionError(f"6c {label}: K5 launches {n} != {layers} x {STATIC_STEPS} x "
+                                 f"{level}")
+        k5_total += n
+    mamba, (k8,), _ = launch_static("mamba2-2.7b", "dmr", [ks.ssd_scan])
+    n_mamba = get_config("mamba2-2.7b").n_layers
+    if mamba["events"] != 0 or k8 != n_mamba:
+        raise AssertionError(f"6c mamba2: events {mamba['events']}, K8 launches {k8} != "
+                             f"{n_mamba}")
+    runs = {"internlm2_none": none, "internlm2_tmr": tmr, "internlm2_tmr_cuda_struck": struck,
+            "mamba2_dmr": mamba}
+    for label, r in runs.items():
+        log(f"launch 6c: {label}: prefill 12 tok x4 {r['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{STATIC_STEPS} steps {r['decode_s']:.3f} s = {r['tokens_per_s']:.1f} tok/s, "
+            f"events {r['events']:.0f}")
+    log(f"launch 6c: internlm2 TMR tokens bitwise the unreplicated run's; the strike into "
+        f"replica 1's cache at step {STATIC_STRIKE['step']} voted away by K2 ({k2} launches, "
+        f"1 event, tokens bitwise); K5 {n5} + {t5} + {s5} = {layers} x {STATIC_STEPS} x "
+        f"(1 + 3 + 3); mamba2 DMR 0 events, K8 {k8}")
+    return {"runs": runs, "k5_launches": k5_total, "k2_launches": k2, "k8_launches": k8}
+
+
+def launch_6d() -> dict:
+    """6d: ``validate`` on the full-width internlm2 train program (5a's
+    config), 6a's paged slot serve program and 6c's static TMR program:
+    no exception, and the card's peak memory where it was."""
+    from repro_torch.api import RedundancyPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import (
+        ServeConfig,
+        make_serve_program,
+        make_slot_serve_program,
+    )
+
+    cfg = get_config(LAUNCH_ARCH)
+    progs = {
+        "train": L.build(L.parser().parse_args(train_argv("--steps", str(TRAIN_STEPS))))[2],
+        "serve_paged": make_slot_serve_program(
+            cfg, ServeConfig(batch=8, max_len=512, paged=True, page_size=16)),
+        "static_tmr": make_serve_program(cfg, ServeConfig(batch=4, max_len=128)).with_policies(
+            {"decoder": RedundancyPolicy(level=3)}),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    seconds = {}
+    for name, prog in progs.items():
+        t0 = time.perf_counter()
+        prog.validate()
+        seconds[name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - before
+    if growth >= 1 << 20:
+        raise AssertionError(f"6d: validate took {growth} B of device memory")
+    log(f"launch 6d: validate at full width: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items()) + f"; peak device memory grew {growth} B")
+    return {"seconds": seconds, "peak_growth_bytes": growth}
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_6e() -> dict:
+    """6e: the four examples on the card at their own defaults, their own
+    asserts passing; K2, K4 and K5 counted from 0 over them."""
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import tmr_vote as tv
+
+    wrappers = {"tmr_step": fs.tmr_step, "tmr_vote": tv.tmr_vote,
+                "paged_gqa_decode": pd.paged_gqa_attention}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    seconds = {}
+    runs = (("quickstart_torch", ["--backend", "lockstep"]),
+            ("quickstart_torch", ["--backend", "lockstep_cuda"]),
+            ("image_blend_torch", []), ("serve_lm_torch", ["--strike"]),
+            ("serve_walkthrough_torch", ["--smoke"]))
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        load_example(name).main(argv)
+        torch.cuda.synchronize()
+        seconds[f"{name} {' '.join(argv)}".strip()] = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"6e: a kernel of the examples' paths never launched: {launches}")
+    log(f"launch 6e: the four examples passed on the card (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()) + f"); launches {launches}")
+    return {"seconds": seconds, "launches": launches}
+
+
+def launch_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {}
+    out["6a"], plain = launch_engine("6a", [])
+    out["6b"], spec = launch_engine("6b", ["--spec-k", str(LAUNCH_SPEC_K)])
+    if spec != plain:
+        raise AssertionError("6b: speculating tokens differ from 6a's")
+    log("launch 6b: every request's tokens bitwise 6a's")
+    out["6c"] = launch_6c()
+    out["6d"] = launch_6d()
+    out["6e"] = launch_6e()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launch: phase 6 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -3260,6 +3542,20 @@ def main() -> int:
     train = train_phase()
     epi["tmr_vote"]["launches_by_path"]["train_5b"] = train["5b"]["k4_launches"]
     epi["tmr_vote"]["launches"] += train["5b"]["k4_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch = launch_phase()
+    ex = launch["6e"]["launches"]
+    for rec, path, n in ((record, "launch_6a", launch["6a"]["k5_launches"]),
+                         (record, "launch_6b", launch["6b"]["k5_launches"]),
+                         (record, "launch_6c", launch["6c"]["k5_launches"]),
+                         (record, "examples", ex["paged_gqa_decode"]),
+                         (epi["tmr_step"], "launch_6c", launch["6c"]["k2_launches"]),
+                         (epi["tmr_step"], "examples", ex["tmr_step"]),
+                         (epi["tmr_vote"], "examples", ex["tmr_vote"]),
+                         (ssd, "launch_6c", launch["6c"]["k8_launches"])):
+        rec["launches_by_path"][path] = n
+        rec["launches"] += n
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -3269,6 +3565,7 @@ def main() -> int:
     print(json.dumps({"engine_spec": spec}), flush=True)
     print(json.dumps({"engine_archs": arch_engines}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"launch": launch}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ import torch
 
 from .. import prng
 from ..core import CellType
+from ..core.cell import scan_steps
 from ..core.executor import resolve_device
 
 @dataclasses.dataclass(frozen=True)
@@ -111,14 +112,12 @@ def sample_batch(cfg: DataConfig, key: torch.Tensor) -> torch.Tensor:
     tok = prng.randint(k0, shape[:1] + shape[2:], 0, cfg.vocab)
     keys = prng.split(k1, cfg.seq_len - 1).view(torch.int32)
     table_key = _table_key(cfg, key.device).view(torch.int32)
-    toks = [tok]
     if key.device.type == "cuda":
         walk = _GraphedWalkStep.get(tok.shape, cfg.vocab, key.device)
-        return torch.stack(toks + walk.walk(table_key, keys, tok), dim=1)
-    for i in range(cfg.seq_len - 1):
-        tok = _walk_step(table_key, keys[i], tok, cfg.vocab)
-        toks.append(tok)
-    return torch.stack(toks, dim=1)
+        return torch.stack([tok] + walk.walk(table_key, keys, tok), dim=1)
+    toks = scan_steps(lambda i, t: _walk_step(table_key, keys[i], t, cfg.vocab), tok,
+                      cfg.seq_len - 1)
+    return torch.stack([tok] + toks, dim=1)
 
 
 def data_cell(cfg: DataConfig, name: str = "data") -> CellType:

@@ -6,8 +6,8 @@ fault-ledger accounting and checkpoints of the immutable previous
 buffer.  Fail-stop recovery is built in: rerunning with the same
 --ckpt-dir resumes from the latest intact checkpoint (--simulate-failure
 N crashes after step N and restarts from it).  It runs on the card
-unless --device cpu.  The JAX launcher's ``prog.validate()`` (the static
-analyzer) is left out until the analyzer is ported.
+unless --device cpu.  ``prog.validate()`` checks the §II contract on
+fake tensors before anything is allocated.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -96,6 +96,7 @@ def main(argv=None):
     """Train; returns (final states, executor, log rows)."""
     args = parser().parse_args(argv)
     cfg, tcfg, prog = build(args)
+    prog.validate()
     print(f"arch={cfg.name} params~{cfg.n_params()/1e6:.1f}M batch={args.batch} seq={args.seq} "
           f"steps={args.steps} redundancy={args.redundancy} device={args.device}")
     if args.data == "bigram":

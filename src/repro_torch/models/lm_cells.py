@@ -13,14 +13,16 @@ Serving:
     cell decoder  -- slot-masked state (KV cache or page pools + page
                      table, last tokens, prompt-walk cursor); transition =
                      one greedy decode step for every active slot
+                     (``make_slot_serve_program``, the engine's); or the
+                     fixed batch's cache, last tokens and step count
+                     (``make_serve_program``, the static reference path)
 
 Replication (paper §IV) applies to the trainer through the generic MISO
 machinery (``program.with_policies({"trainer": DMR})``); per-request
 replication of serving happens on replica *slots* of the decoder batch
 (``repro_torch.serving``), not on the cells.  Speculative decoding
 (``SpecConfig``) fuses a draft model and the verify walk into the
-decoder's transition.  The fixed-batch ``make_serve_program`` is not
-ported yet.
+decoder's transition.
 """
 
 from __future__ import annotations
@@ -184,7 +186,8 @@ class SpecConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The JAX package's ``ServeConfig`` (see there), without the
-    fixed-batch ``prefill_len``."""
+    dry-run's ``prefill_len``, which comes with the dry-run (ROADMAP
+    item 9)."""
 
     batch: int
     max_len: int  # cache capacity
@@ -228,6 +231,42 @@ def prefill_bucket_ladder(scfg: ServeConfig) -> tuple:
         b *= 2
     ladder.append(scfg.max_len)
     return tuple(ladder)
+
+
+def make_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
+    """The fixed-batch serve program (``launch/serve.py --static``): a
+    static ``weights`` cell and a ``decoder`` cell holding the whole
+    batch's cache, its last tokens ((B, 1), or (B, 1, K) for K codebooks)
+    and the step count; one greedy ``T.decode_step`` of every row a
+    transition.  The weights draw from their own generator seeded from
+    the program's seed and ``param_seed``, as the slot program's do."""
+
+    def w_init(gen, device):
+        g = torch.Generator(device=device).manual_seed(gen.initial_seed() + scfg.param_seed)
+        return {"params": T.init_params(cfg, g, device)}
+
+    weights = CellType(name="weights", init=w_init, transition=lambda prev: prev["weights"])
+
+    def d_init(gen, device):
+        return {
+            "cache": T.init_cache(cfg, scfg.batch, scfg.max_len, device),
+            "tokens": torch.zeros((scfg.batch, 1, *token_dims(cfg)), dtype=torch.int32,
+                                  device=device),
+            "n_decoded": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def d_transition(prev):
+        st = prev["decoder"]
+        logits, cache = T.decode_step(cfg, prev["weights"]["params"], st["cache"], st["tokens"])
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)  # greedy
+        return {"cache": cache, "tokens": nxt, "n_decoded": st["n_decoded"] + 1}
+
+    decoder = CellType(name="decoder", init=d_init, transition=d_transition, reads=("weights",),
+                       instances=scfg.batch)
+    prog = MisoProgram()
+    prog.add(weights)
+    prog.add(decoder)
+    return prog
 
 
 def token_dims(cfg: ModelConfig) -> tuple:
