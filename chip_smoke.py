@@ -235,14 +235,39 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  ``lockstep_cuda``, serve_lm with ``--strike``,
                  serve_walkthrough with ``--smoke``, their own asserts
                  passing; K2, K4 and K5 each launched.
+  7. analysis -- the static analyzer (``repro_torch.analysis``), which
+                 traces transitions to FX graphs on fake CPU tensors:
+                 (7a) the CI lane, ``python -m repro_torch.analysis --all
+                 --json --fail-on warning --dag-out DIR``, and
+                 ``tools/validate_dag.py`` over the 23 exports, each a
+                 subprocess that must exit 0; (7b) the full-width
+                 programs of the phases above (internlm2-1.8b's paged
+                 slot serve program with the decoder under DMR and under
+                 TMR, granite-moe-1b-a400m's under DMR, mamba2-2.7b's,
+                 5b's 4-layer DMR trainer, Listing 1 at 3840 x 2160 with
+                 image1 under TMR): seconds and codes of each, no error,
+                 the codes of each cell those of the reduced program of
+                 its family, the card's peak memory grown under 1 MB;
+                 (7c) MISO002's promise: the random programs of
+                 ``tests/test_torch_analysis_random.py`` that have dead
+                 reads and Listing 1 at 4K with a planted
+                 declared-but-unused read, every read the analyzer calls
+                 dead dropped, both versions 16 steps under DMR and TMR
+                 on ``lockstep_cuda`` with a bit flip at step 8: states
+                 bitwise, the same events, K1/K2 = compared steps x
+                 cells; (7d) JAX's MISO102 fixture as ``index_add_`` of a
+                 16 M f32 row into one index under DMR for 32 steps:
+                 MISO102, and whether K1 saw the replicas diverge
+                 (observed, not gated).
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
-phases' (``train``), the launchers' (``launch``) and the kernels' JSON
-records (each kernel's launches add up the paths that drive it,
-``launches_by_path``: K1-K4 phases 2c and 2g, K4 also 5b and the
-examples, K2 also 6c and the examples, K5 phases 3, 3d, 3e-3h, 3j-3l,
+phases' (``train``), the launchers' (``launch``), the analyzer's
+(``analysis``) and the kernels' JSON records (each kernel's launches
+add up the paths that drive it, ``launches_by_path``: K1-K4 phases 2c
+and 2g, K1 and K2 also 7c, K4 also 5b and the examples, K2 also 6c and
+the examples, K5 phases 3, 3d, 3e-3h, 3j-3l,
 6a-6c and the examples, K6 phases 3c, 3d and 3i, K8 phases 3b, 3g and
 6c), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -3464,6 +3489,340 @@ def launch_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7: the static analyzer (repro_torch.analysis) -- the CI lane, the
+# full-width programs of the phases above, and MISO002's promise replayed
+# through K1/K2
+# --------------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parent
+ANALYSIS_STEPS = 16
+ANALYSIS_STRIKE = 8
+ANALYSIS_SEEDS = range(1000, 1030)  # tests/test_torch_analysis_random.py's deletion seeds
+ACCUM_STEPS = 32
+ACCUM_N = 1 << 24  # 7d: one f32 row of 16 M values, every one added into index 0
+
+
+def analysis_7a() -> dict:
+    """7a: the CI lane, ``python -m repro_torch.analysis --all --json
+    --fail-on warning --dag-out DIR``, then ``tools/validate_dag.py`` over
+    every export, each a subprocess that must exit 0."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--all", "--json", "--fail-on",
+             "warning", "--dag-out", tmp], capture_output=True, text=True, timeout=600, env=env,
+            cwd=str(ROOT))
+        lane_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"7a: the analyzer exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout)
+        exports = sorted(Path(tmp).glob("*.json"))
+        t0 = time.perf_counter()
+        check = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "validate_dag.py"), *map(str, exports)],
+            capture_output=True, text=True, timeout=120, cwd=str(ROOT))
+        validate_s = time.perf_counter() - t0
+    if check.returncode != 0:
+        raise AssertionError(f"7a: validate_dag.py exited {check.returncode}: "
+                             f"{check.stdout[-2000:]}")
+    summary = doc["summary"]
+    if summary["n_programs"] != 23 or len(exports) != 23 or summary["failed"]:
+        raise AssertionError(f"7a: {summary}, {len(exports)} exports")
+    codes = sorted({d["code"] for p in doc["programs"] for d in p["diagnostics"]})
+    log(f"analysis 7a: --all --json --fail-on warning: exit 0, {summary['n_programs']} programs, "
+        f"counts {summary['counts']}, codes {codes}, {lane_s:.1f} s; validate_dag.py over "
+        f"{len(exports)} exports: exit 0, {validate_s:.1f} s")
+    return {"seconds": lane_s, "validate_s": validate_s, "n_programs": summary["n_programs"],
+            "counts": summary["counts"], "codes": codes}
+
+
+def codes_by_cell(result) -> dict:
+    out = {}
+    for d in result.diagnostics:
+        out.setdefault(d.cell, []).append(d.code)
+    return out
+
+
+def analysis_7b() -> dict:
+    """7b: the full-width programs the phases above run on the card,
+    analysed on fake CPU tensors: seconds, codes, and the card's peak
+    memory growth (under 1 MB, as 6d).  No error on a program an earlier
+    phase ran under DMR/TMR with zero events on clean steps, and the
+    codes of each cell those of the reduced CPU program of its family."""
+    from repro_torch import api
+    from repro_torch.analysis import analyze_program, registry
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import ServeConfig, make_slot_serve_program
+
+    dmr, tmr = api.RedundancyPolicy(level=2), api.RedundancyPolicy(level=3)
+    paged = ServeConfig(batch=8, max_len=512, paged=True, page_size=16)
+
+    def serve(arch, scfg):
+        return lambda: make_slot_serve_program(get_config(arch), scfg)
+
+    def listing1():
+        from repro_torch.core.ir import LISTING_1
+
+        return api.compile_source(LISTING_1.replace("300*200", f"{W4K}*{H4K}"))
+
+    # (label, build, policies, reduced registry twin, ran under DMR/TMR on the card)
+    cases = [
+        ("internlm2-1.8b serve paged, decoder DMR", serve("internlm2-1.8b", paged),
+         {"decoder": dmr}, "serve-paged:gqa"),
+        ("internlm2-1.8b serve paged, decoder TMR", serve("internlm2-1.8b", paged),
+         {"decoder": tmr}, "serve-paged:gqa"),
+        ("granite-moe-1b-a400m serve paged, decoder DMR", serve("granite-moe-1b-a400m", paged),
+         {"decoder": dmr}, "serve-paged:moe"),
+        ("mamba2-2.7b serve", serve("mamba2-2.7b", ServeConfig(batch=8, max_len=512)), {},
+         "serve:mamba"),
+        ("5b trainer (4 layers, DMR)",
+         lambda: L.build(L.parser().parse_args(cut_argv(DMR_LAYERS, "--redundancy", "dmr")))[2],
+         {}, "train:gqa"),
+        ("Listing 1 3840x2160, image1 TMR", listing1, {"image1": tmr}, "ir:listing1"),
+    ]
+    twin_policy = {"5b trainer (4 layers, DMR)": {"trainer": dmr}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    out = {}
+    for label, build, policies, twin in cases:
+        t0 = time.perf_counter()
+        prog = build()
+        if policies:
+            prog = prog.with_policies(policies)
+        result = analyze_program(prog, name=label)
+        seconds = time.perf_counter() - t0
+        small = registry()[twin].build().with_policies(twin_policy.get(label, policies))
+        reduced = analyze_program(small, name=twin)
+        codes, want = codes_by_cell(result), codes_by_cell(reduced)
+        errors = [d.code for d in result.diagnostics if d.severity == "error"]
+        leaves = sum(len(o) for o in (a.out_leaves for a in result.accesses.values()))
+        nodes = sum(len(a.graph.graph.nodes) for a in result.accesses.values())
+        log(f"analysis 7b: {label}: {seconds:.2f} s, {nodes} graph nodes, {leaves} output "
+            f"leaves, codes {codes} (reduced {twin}: {want})")
+        if errors:
+            raise AssertionError(f"7b {label}: error diagnostics {errors}")
+        if codes != want:
+            raise AssertionError(f"7b {label}: codes {codes} != reduced {twin}'s {want}")
+        if result.dag is None:
+            raise AssertionError(f"7b {label}: no DAG")
+        out[label] = {"seconds": seconds, "codes": codes, "graph_nodes": nodes}
+        del prog, result
+        gc.collect()
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - before
+    if growth >= 1 << 20:
+        raise AssertionError(f"7b: the analysis took {growth} B of device memory")
+    log(f"analysis 7b: peak device memory grew {growth} B over the six analyses")
+    return {"programs": out, "peak_growth_bytes": growth}
+
+
+def rand_program(seed):
+    """tests/test_torch_analysis_random.py's (and tests/test_analysis.py's)
+    random program: 2-6 cells, declared reads a superset of the consumed
+    ones, drawn from ``random.Random(seed)`` in the same order."""
+    import random
+
+    from repro_torch import api
+
+    def transition_of(name, used, rng):
+        coeffs = {d: rng.uniform(0.1, 0.9) for d in used}
+
+        def transition(prev):
+            out = prev[name]["x"] * 0.5 + prev[name]["y"].sum()
+            for d, c in coeffs.items():
+                out = out + c * torch.tanh(prev[d]["x"])
+            return {"x": out, "y": prev[name]["y"] * 0.9}
+
+        return transition
+
+    rng = random.Random(seed)
+    names = [f"c{i}" for i in range(rng.randint(2, 6))]
+    prog = api.MisoProgram()
+    for i, name in enumerate(names):
+        declared = tuple(m for m in names[:i] if rng.random() < 0.6)
+        used = tuple(m for m in declared if rng.random() < 0.6)
+        prog.add(api.CellType(
+            name, lambda g, d: {"x": torch.randn(3, generator=g, device=d),
+                                "y": torch.ones(2, device=d)},
+            transition_of(name, used, rng), reads=declared))
+    return prog
+
+
+def without_dead_reads(prog):
+    """``prog`` with every read the analyzer calls dead dropped, and the
+    dead reads."""
+    from repro_torch import api
+    from repro_torch.analysis import trace_cell
+
+    specs = prog.state_specs()
+    dead = {name: trace_cell(cell, specs).dead_reads for name, cell in prog.cells.items()}
+    pruned = api.MisoProgram()
+    for name, cell in prog.cells.items():
+        pruned.add(dataclasses.replace(cell, reads=tuple(r for r in cell.reads
+                                                          if r not in dead[name])))
+    return pruned, {k: v for k, v in dead.items() if v}
+
+
+def replay_pair(prog, pruned, level: int, fault) -> tuple[dict, int]:
+    """Both programs ``ANALYSIS_STEPS`` steps on ``lockstep_cuda`` with
+    every cell at ``level`` and the same strike: states bitwise, the same
+    ledger and recoveries.  Returns (events, kernel launches)."""
+    from repro_torch import api
+    from repro_torch.kernels import fused_step as fs
+
+    name, w = ("K1", fs.dmr_compare) if level == 2 else ("K2", fs.tmr_step)
+    runs = []
+    for p in (prog, pruned):
+        policies = {c: api.RedundancyPolicy(level=level) for c in p.cells}
+        exe = api.compile(p, backend="lockstep_cuda", policies=policies)
+        states = exe.init(SEED)
+        torch.cuda.synchronize()
+        k0 = w.launches
+        res = exe.run(states, ANALYSIS_STEPS, faults=fault)
+        torch.cuda.synchronize()
+        runs.append((res.states, exe.ledger.totals, exe.ledger.recent, exe.recoveries,
+                     w.launches - k0))
+    (a, ta, ra, reca, ka), (b, tb, rb, recb, kb) = runs
+    if not bits_equal(a, b):
+        raise AssertionError("7c: the states differ with and without the dead reads")
+    if (ta, ra, reca) != (tb, rb, recb):
+        raise AssertionError(f"7c: events differ: {ra} / {rb}")
+    want = ANALYSIS_STEPS * len(prog.cells)
+    if ka != want or kb != want:
+        raise AssertionError(f"7c: {name} launches {ka}, {kb} != {ANALYSIS_STEPS} steps x "
+                             f"{len(prog.cells)} cells")
+    return ra, ka + kb
+
+
+def analysis_7c() -> dict:
+    """7c: MISO002's promise on the card.  The random programs of the
+    parity test that have dead reads, and Listing 1 at 4K with one
+    planted declared-but-unused read (image2 declares image1): every read
+    the analyzer calls dead dropped, both versions 16 steps under DMR and
+    TMR on ``lockstep_cuda`` with a bit flip at step 8; states bitwise,
+    the same events, K1/K2 launches = compared steps x cells."""
+    from repro_torch import api
+    from repro_torch.kernels import fused_step as fs
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    fs.dmr_compare.launches = fs.tmr_step.launches = 0  # counts start here
+    progs = {}
+    for seed in ANALYSIS_SEEDS:
+        prog = rand_program(seed)
+        pruned, dead = without_dead_reads(prog)
+        if dead:
+            progs[f"random {seed}"] = (prog, pruned, dead, len(prog.cells) - 1, 0, 1, 22)
+    l1 = listing1_4k()
+    planted = api.MisoProgram()
+    for name, cell in l1.cells.items():
+        planted.add(dataclasses.replace(cell, reads=cell.reads + (("image1",) if name == "image2"
+                                                                  else ())))
+    pruned, dead = without_dead_reads(planted)
+    if dead != {"image2": ("image1",)} or {n: c.reads for n, c in pruned.cells.items()} != {
+            n: c.reads for n, c in l1.cells.items()}:
+        raise AssertionError(f"7c: Listing 1's planted read not found dead: {dead}")
+    progs["Listing 1 4K, planted"] = (planted, pruned, dead, 0, 2, (H4K // 2) * W4K, 30)
+    out, k = {}, {2: 0, 3: 0}
+    for label, (prog, pruned, dead, cell_id, leaf, index, bit) in progs.items():
+        fault = api.FaultSpec.at(step=ANALYSIS_STRIKE, cell_id=cell_id, replica=1, leaf=leaf,
+                                 index=index, bit=bit)
+        events = {}
+        for level in (2, 3):
+            events[level], n = replay_pair(prog, pruned, level, fault)
+            k[level] += n
+        struck = prog.cells[list(prog.cells)[cell_id]].name
+        if events[3] != {struck: [ANALYSIS_STRIKE]} or events[2].get(struck, [])[:1] != [
+                ANALYSIS_STRIKE]:
+            raise AssertionError(f"7c {label}: events DMR {events[2]}, TMR {events[3]}")
+        out[label] = {"dead": {c: list(r) for c, r in dead.items()}}
+    torch.cuda.synchronize()
+    launches = {"dmr_compare": fs.dmr_compare.launches, "tmr_step": fs.tmr_step.launches}
+    if launches != {"dmr_compare": k[2], "tmr_step": k[3]}:
+        raise AssertionError(f"7c: launches {launches} != compared steps {k}")
+    seconds = time.perf_counter() - t0
+    n_dead = sum(len(r) for v in out.values() for r in v["dead"].values())
+    log(f"analysis 7c: {len(out)} programs ({len(out) - 1} random seeds of "
+        f"{len(ANALYSIS_SEEDS)} with dead reads, and Listing 1 at 4K with its planted read), "
+        f"{n_dead} dead reads dropped; with and without them {ANALYSIS_STEPS} steps of DMR and "
+        f"TMR on lockstep_cuda, a flip at step {ANALYSIS_STRIKE}: states bitwise, the same "
+        f"events (DMR from step {ANALYSIS_STRIKE} on, TMR voted at it); K1 {launches['dmr_compare']}"
+        f" and K2 {launches['tmr_step']} launches = compared steps x cells; {seconds:.1f} s")
+    return {"programs": out, "launches": launches, "seconds": seconds}
+
+
+def accumulation_program(level: int):
+    """JAX's MISO102 fixture, ``x.at[zeros].add(1.0)``, as
+    ``index_add_`` at full size: every value of a 16 M f32 row added into
+    index 0, whose sum feeds the next state."""
+    from repro_torch import api
+
+    def transition(prev):
+        x = prev["acc"]["x"]
+        idx = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+        total = torch.zeros(1, device=x.device).index_add_(0, idx, x)
+        return {"x": x * 0.5 + total * (1.0 / x.shape[0])}
+
+    return api.MisoProgram().add(api.CellType(
+        "acc", lambda g, d: {"x": torch.rand(ACCUM_N, generator=g, device=d)}, transition,
+        redundancy=api.RedundancyPolicy(level=level)))
+
+
+def analysis_7d(moe_codes) -> dict:
+    """7d: what MISO102 is about, observed (not gated: atomics need not
+    diverge in a given run).  The fixture under DMR on ``lockstep_cuda``
+    for 32 steps: the analyzer's MISO102, and whether K1 saw the
+    replicas diverge; beside it the granite-moe decoder (``index_copy_``)
+    that 7b analysed under DMR without MISO102, whose clean DMR steps
+    phase 3h gates at 0 events."""
+    from repro_torch import api
+    from repro_torch.analysis import analyze_program
+    from repro_torch.kernels import fused_step as fs
+
+    codes = [d.code for d in analyze_program(accumulation_program(2), name="7d").diagnostics]
+    if codes != ["MISO102"]:
+        raise AssertionError(f"7d: the analyzer gave {codes}, not MISO102")
+    exe = api.compile(accumulation_program(2), backend="lockstep_cuda")
+    states = exe.init(SEED)
+    torch.cuda.synchronize()
+    k0 = fs.dmr_compare.launches
+    exe.run(states, ACCUM_STEPS)
+    torch.cuda.synchronize()
+    k1 = fs.dmr_compare.launches - k0
+    tot = exe.ledger.totals.get("acc", {"events": 0.0})
+    steps = exe.ledger.recent.get("acc", [])
+    log(f"analysis 7d: index_add_ of {ACCUM_N} f32 values into one index under DMR, "
+        f"{ACCUM_STEPS} steps on lockstep_cuda: analyzer {codes}; K1 ({k1} launches) saw the "
+        f"replicas diverge on {tot['events']:.0f} step(s)"
+        + (f", first at step {steps[0]}" if steps else "") + f" (observed, not gated); the "
+        f"granite-moe decoder (index_copy_) under DMR: {moe_codes} (0 events on clean steps "
+        f"gated in 3h)")
+    return {"codes": codes, "events": tot["events"], "first_event": steps[:1], "k1_launches": k1,
+            "moe_decoder_codes": moe_codes}
+
+
+def analysis_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"7a": analysis_7a(), "7b": analysis_7b()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["7c"] = analysis_7c()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = out["7b"]["programs"]["granite-moe-1b-a400m serve paged, decoder DMR"]["codes"]
+    out["7d"] = analysis_7d(moe)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"analysis: phase 7 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -3556,6 +3915,12 @@ def main() -> int:
                          (ssd, "launch_6c", launch["6c"]["k8_launches"])):
         rec["launches_by_path"][path] = n
         rec["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis = analysis_phase()
+    for key, n in analysis["7c"]["launches"].items():
+        epi[key]["launches_by_path"]["analysis_7c"] = n
+        epi[key]["launches"] += n
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -3566,6 +3931,7 @@ def main() -> int:
     print(json.dumps({"engine_archs": arch_engines}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"launch": launch}), flush=True)
+    print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

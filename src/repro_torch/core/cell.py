@@ -150,6 +150,23 @@ class RealWriteError(RuntimeError):
         self.func = func
 
 
+def abstract_mode():
+    """The fake-tensor mode of ``abstract_eval`` (see there), not yet
+    entered: the static analyzer traces transitions to FX graphs over
+    fakes made in it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    class Mode(FakeTensorMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            for t in _written_tensors(func, args, kwargs or {}):
+                if not is_fake(t):
+                    raise RealWriteError(func)
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Mode(shape_env=ShapeEnv(), allow_non_fake_inputs=True)
+
+
 @contextlib.contextmanager
 def abstract_eval():
     """Evaluate on fake CPU tensors: shapes and dtypes propagate, nothing
@@ -162,17 +179,7 @@ def abstract_eval():
     operator that would write one raises ``RealWriteError`` and leaves
     it as it was.  A captured CUDA tensor meets the fake CPU state on
     another device and is refused by the operator that mixes them."""
-    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
-    from torch.fx.experimental.symbolic_shapes import ShapeEnv
-
-    class Mode(FakeTensorMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            for t in _written_tensors(func, args, kwargs or {}):
-                if not is_fake(t):
-                    raise RealWriteError(func)
-            return super().__torch_dispatch__(func, types, args, kwargs)
-
-    with Mode(shape_env=ShapeEnv(), allow_non_fake_inputs=True):
+    with abstract_mode():
         yield
 
 

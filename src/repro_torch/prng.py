@@ -53,10 +53,7 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
 
 
-def threefry2x32(k0, k1, x0, x1):
-    """The 20-round threefry2x32 block cipher (Salmon et al. 2011) as
-    ``jax._src.prng`` applies it, on int32 tensors holding u32 words
-    (two's-complement ``+`` wraps as u32 arithmetic does), broadcast."""
+def _threefry2x32(k0, k1, x0, x1):
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = x0 + ks[0]
     x1 = x1 + ks[1]
@@ -67,6 +64,26 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = x0 + ks[(i + 1) % 3]
         x1 = x1 + ks[(i + 2) % 3] + (i + 1)
     return x0, x1
+
+
+@torch.library.custom_op("repro_torch::threefry2x32", mutates_args=())
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 20-round threefry2x32 block cipher (Salmon et al. 2011) as
+    ``jax._src.prng`` applies it, on int32 tensors holding u32 words
+    (two's-complement ``+`` wraps as u32 arithmetic does), broadcast.
+
+    One operator (``torch.ops.repro_torch.threefry2x32``), so a traced
+    transition shows each draw as one graph node, as a jaxpr shows JAX's
+    ``threefry2x32`` primitive: the static analyzer finds a draw from a
+    constant key there (MISO101)."""
+    return _threefry2x32(k0, k1, x0, x1)
+
+
+@threefry2x32.register_fake
+def _(k0, k1, x0, x1):
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    return x0.new_empty(shape), x0.new_empty(shape)
 
 
 def _counters(n: int, device, start=0) -> tuple[torch.Tensor, torch.Tensor]:

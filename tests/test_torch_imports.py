@@ -100,7 +100,11 @@ def test_every_kernel_and_model_module_is_checked():
                 "repro_torch.configs.deepseek_v3_671b", "repro_torch.prng",
                 "repro_torch.data.pipeline", "repro_torch.optim.adamw",
                 "repro_torch.checkpoint.ckpt", "repro_torch.ft.elastic",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.analysis.access",
+                "repro_torch.analysis.parity", "repro_torch.analysis.contracts",
+                "repro_torch.analysis.dag", "repro_torch.analysis.diagnostics",
+                "repro_torch.analysis.ir_lint", "repro_torch.analysis.registry",
+                "repro_torch.analysis.cli", "repro_torch.analysis.__main__"):
         assert mod in MODULES
 
 
