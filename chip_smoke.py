@@ -259,18 +259,42 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  16 M f32 row into one index under DMR for 32 steps:
                  MISO102, and whether K1 saw the replicas diverge
                  (observed, not gated).
+  8. spatial  -- spatial placement (``compile(..., mesh=...)``,
+                 ``backend="spatial_lockstep"``) with every pod an
+                 explicit allocation and stream of cuda:0: (8a) 2c's 4K
+                 blend, 64 steps, a flip at step 20 on replica 1, DMR on
+                 2 pods and TMR on 3, hash and bitwise: final states,
+                 reports and ledger bitwise ``lockstep``'s, an unstruck
+                 run 0 events, the pods' allocations distinct, K4 = 64 in
+                 each TMR bitwise run (the vote of the gathered word
+                 streams); ms/step of ``spatial_lockstep``, ``lockstep``
+                 and ``lockstep_cuda`` in turns, the analytic bytes a
+                 compare; (8b) ``ft.elastic``'s straggler run and strike
+                 report on the spatial DMR blend (tests/test_spatial.py's
+                 latencies and strikes): outcomes equal to the same run
+                 on a CPU mesh and to the reference test's; (8c)
+                 internlm2-1.8b at full width, dense, 512 lanes, phase
+                 3's traffic served spatially on 2 pods (8 slots,
+                 none/dmr) and 3 pods (9 slots, none/dmr/tmr) and
+                 temporally in the same call: every token bitwise
+                 temporal, the strike on the same request and replica,
+                 K5 = 24 x (ticks + replays) x pods; tok/s, ms/tick,
+                 detect ms against the temporal fingerprints, peak GB;
+                 (8d) ``launch.serve.main`` with ``--placement spatial``
+                 on one card (1 pod) bitwise the temporal launcher, and
+                 the quickstart's section 4b.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
 phases' (``train``), the launchers' (``launch``), the analyzer's
-(``analysis``) and the kernels' JSON records (each kernel's launches
-add up the paths that drive it, ``launches_by_path``: K1-K4 phases 2c
-and 2g, K1 and K2 also 7c, K4 also 5b and the examples, K2 also 6c and
-the examples, K5 phases 3, 3d, 3e-3h, 3j-3l,
-6a-6c and the examples, K6 phases 3c, 3d and 3i, K8 phases 3b, 3g and
-6c), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+(``analysis``), phase 8's (``spatial``) and the kernels' JSON records
+(each kernel's launches add up the paths that drive it,
+``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
+also 5b, the examples and 8a, K2 also 6c and the examples, K5 phases 3,
+3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c and 8d, K6 phases 3c, 3d and
+3i, K8 phases 3b, 3g and 6c), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -985,13 +1009,12 @@ LOOP_STEPS = 64
 STRIKE_STEP = 20
 
 
-def blend_program(policy):
+def blend_program(policy, n: int = W4K * H4K):
     """Paper Listing 1: ImageBlend {r, g, b} blends toward the unreplicated
-    StaticImage, c = .99 c + .01 StaticImage.c, at 4K UHD; both images
-    made from the generator on the device."""
+    StaticImage, c = .99 c + .01 StaticImage.c, at 4K UHD (or ``n``
+    pixels); both images made from the generator on the device."""
     from repro_torch import api
 
-    n = W4K * H4K
 
     def image(gen, dev):
         return {c: torch.rand(n, generator=gen, device=dev) * 255 for c in "rgb"}
@@ -2196,9 +2219,10 @@ MAMBA_PROMPTS = (16, 320, 128, 77, 256, 300, 129, 190)
 
 
 def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None,
-                  codebooks: int = 1):
+                  codebooks: int = 1, mix=POLICIES, placement: str = "temporal"):
     """``n`` requests of 8-64 prompt tokens (or ``lengths``), one (P, K)
-    row a position for K > 1 codebooks."""
+    row a position for K > 1 codebooks, policies cycling ``mix``
+    (replicated ones placed by ``placement``)."""
     from repro_torch.api import RedundancyPolicy
     from repro_torch.serving import Request
 
@@ -2210,7 +2234,9 @@ def make_requests(vocab: int, n: int = 8, new: int = 32, lengths=None, spec=None
             prompt=rng.integers(0, vocab, size=(int(rng.integers(8, 65)) if lengths is None
                                                 else lengths[i], *tail)).astype(np.int32),
             max_new_tokens=new,
-            policy=RedundancyPolicy(level=levels[POLICIES[i % 3]]),
+            policy=RedundancyPolicy(level=levels[mix[i % len(mix)]],
+                                    placement=placement if mix[i % len(mix)] != "none"
+                                    else "temporal"),
             spec=spec,
         )
         for i in range(n)
@@ -2242,6 +2268,8 @@ def drive(engine, reqs, strike: bool):
         if rec.status != RUNNING:
             raise AssertionError("strike victim never became resident")
         dec = engine._states["decoder"]
+        if isinstance(dec, list):  # spatial placement: the pods' parts
+            dec = dec[0]
         fault = FaultSpec.at(
             step=engine.exe.metrics()["steps"] + 1,
             cell_id=engine.exe.program.cell_id("decoder"),
@@ -2253,18 +2281,20 @@ def drive(engine, reqs, strike: bool):
     return victim
 
 
-def serve_engine(cfg, scfg, tracer=None):
+def serve_engine(cfg, scfg, tracer=None, mesh=None):
     from repro_torch import api
     from repro_torch.serving.lm import lm_engine_parts
 
     prog, adapter = lm_engine_parts(cfg, scfg)
-    engine = api.serve(prog, adapter, api.EngineConfig(tracer=tracer))
+    config = api.EngineConfig(tracer=tracer) if mesh is None else api.EngineConfig(
+        tracer=tracer, placement="spatial", mesh=mesh)
+    engine = api.serve(prog, adapter, config)
     engine.start(SEED)
     return engine
 
 
 def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
-                 tracer=None) -> tuple:
+                 tracer=None, mesh=None, mix=POLICIES) -> tuple:
     """Build the engine on the card, warm it up with one request, set the
     ``wrappers``' launch counts to 0, drive the 8-request stream (each
     request asking for ``spec``) with its strike, read the counts, and
@@ -2273,7 +2303,7 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
     from repro_torch.serving import DONE, Request
 
     t0 = time.perf_counter()
-    engine = serve_engine(cfg, scfg, tracer)
+    engine = serve_engine(cfg, scfg, tracer, mesh)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(engine._states["weights"]))
     log(f"engine: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} vocab="
@@ -2289,7 +2319,8 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
     engine.pump()
     assert engine.result(warm.id)["status"] == DONE
 
-    reqs = make_requests(cfg.vocab_size, lengths=lengths, spec=spec, codebooks=cfg.n_codebooks)
+    reqs = make_requests(cfg.vocab_size, lengths=lengths, spec=spec, codebooks=cfg.n_codebooks,
+                         mix=mix, placement="temporal" if mesh is None else "spatial")
     R = engine.registry
     names = ("serving_ticks_total", "serving_replays_total", "serving_spec_verify_ticks_total",
              "serving_spec_tokens_committed_total")
@@ -3823,6 +3854,281 @@ def analysis_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: spatial placement (replicas one a pod of a mesh on the card)
+# --------------------------------------------------------------------------
+SPATIAL_TIMED_STEPS = 16
+#: tests/test_spatial.py's straggler run and strike campaign
+STRAGGLER_TIMES = [(1.0, 1.0), (1.0, 4.0), (1.0, 1.0), (1.0, 1.0)]
+STRAGGLER_STRIKE = dict(step=1, cell_id=0, replica=1, index=3, bit=21)
+STRIKE_CAMPAIGN = ((1, 0), (3, 1), (9, 1))  # (step, replica); step 9 never fires in 6 steps
+SPATIAL_SERVE = ((2, 8, ("none", "dmr")), (3, 9, ("none", "dmr", "tmr")))
+LAUNCH_8D = ["--arch", LAUNCH_ARCH, "--slots", "4", "--requests", "4", "--mix", "none,dmr",
+             "--decode", "16", "--prompt-len", "64", "--max-len", "512", "--strike",
+             "--device", "cuda"]
+
+
+def pod_mesh(n: int, device: str = "cuda:0"):
+    """``n`` pods on one device, asked for explicitly."""
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((n,), ("pod",), devices=[device] * n)
+
+
+def pods_apart(parts) -> bool:
+    """No two pods' trees share an allocation."""
+    seen = []
+    for part in parts:
+        ptrs = {x.untyped_storage().data_ptr() for x in _leaves(part)}
+        if any(ptrs & other for other in seen):
+            return False
+        seen.append(ptrs)
+    return True
+
+
+def spatial_8a() -> dict:
+    """8a: 2c's 4K blend under ``spatial_lockstep`` (DMR on 2 pods, TMR on
+    3, hash and bitwise, all on cuda:0) against ``lockstep`` in this call."""
+    from repro_torch import api
+    from repro_torch.kernels import tmr_vote as tv
+
+    out = {}
+    state_bytes = 3 * W4K * H4K * 4
+    for level, compare in ((2, "hash"), (2, "bitwise"), (3, "hash"), (3, "bitwise")):
+        label = f"{'dmr' if level == 2 else 'tmr'}_{compare}"
+        mesh = pod_mesh(level)
+        spa = api.compile(blend_program(api.RedundancyPolicy(
+            level=level, compare=compare, placement="spatial")), backend="spatial_lockstep",
+            mesh=mesh)
+        temporal = blend_program(api.RedundancyPolicy(level=level, compare=compare))
+        ref = api.compile(temporal, backend="lockstep")
+        s0 = ref.init(SEED)
+        p0 = spa.place(s0)
+        if not pods_apart(p0["ImageBlend"]):
+            raise AssertionError(f"8a {label}: two pods share an allocation")
+        fault = api.FaultSpec.at(step=STRIKE_STEP, cell_id=0, replica=1, leaf=0,
+                                 index=(H4K // 2) * W4K + W4K // 2, bit=30)
+        torch.cuda.synchronize()
+        tv.tmr_vote.launches = 0  # counts start here
+        clean = spa.run(p0, LOOP_STEPS, start_step=0)
+        torch.cuda.synchronize()
+        k4_clean = tv.tmr_vote.launches  # and are read here
+        if float(clean.reports["ImageBlend"]["events"]) != 0.0 or spa.ledger.totals[
+                "ImageBlend"]["events"] != 0.0:
+            raise AssertionError(f"8a {label}: events in an unstruck run")
+        spa.ledger = api.FaultLedger()
+        tv.tmr_vote.launches = 0  # counts start here
+        res = spa.run(p0, LOOP_STEPS, start_step=0, faults=fault)
+        torch.cuda.synchronize()
+        k4 = tv.tmr_vote.launches  # and are read here
+        want = ref.run(s0, LOOP_STEPS, start_step=0, faults=fault)
+        torch.cuda.synchronize()
+        if not bits_equal(spa.gather(res.states), want.states):
+            raise AssertionError(f"8a {label}: final states differ from lockstep's")
+        if not bits_equal(res.reports, want.reports) or spa.ledger.totals != ref.ledger.totals \
+                or spa.ledger.recent != ref.ledger.recent:
+            raise AssertionError(f"8a {label}: reports or ledger differ from lockstep's")
+        if not pods_apart(res.states["ImageBlend"]):
+            raise AssertionError(f"8a {label}: two pods share an allocation after the run")
+        tmr_bitwise = level == 3 and compare == "bitwise"
+        if tmr_bitwise and not (k4 == k4_clean == LOOP_STEPS):
+            raise AssertionError(f"8a {label}: K4 launches {k4_clean} / {k4} != {LOOP_STEPS} "
+                                 "steps x 1 spatial TMR cell")
+        if not tmr_bitwise and k4 + k4_clean:
+            raise AssertionError(f"8a {label}: K4 launched {k4 + k4_clean} times")
+        tot = dict(spa.ledger.totals["ImageBlend"])
+        first, syncs = spa.ledger.recent["ImageBlend"][0], spa.metrics()["host_syncs"]
+        cuda_exe = api.compile(temporal, backend="lockstep_cuda")
+        ms = in_turns(SPATIAL_TIMED_STEPS, spatial_lockstep=(spa, p0), lockstep=(ref, s0),
+                      lockstep_cuda=(cuda_exe, s0))
+        wire = {"dmr_hash": 16, "dmr_bitwise": state_bytes, "tmr_hash": 48,
+                "tmr_bitwise": 3 * state_bytes}[label]
+        out[label] = {"pods": level, "events": tot["events"], "per_replica": tot["per_replica"],
+                      "first_event": first, "k4_launches": k4 + k4_clean,
+                      "host_syncs_in_two_runs": syncs, "analytic_bytes_a_compare_a_pod": wire,
+                      **{f"{k}_ms_per_step": v for k, v in ms.items()}}
+        log(f"spatial 8a {label}: {level} pods on cuda:0, 4K blend, {LOOP_STEPS} steps: states, "
+            f"reports and ledger bitwise lockstep's (events {tot['events']:.0f}, first at step "
+            f"{out[label]['first_event']}), unstruck 0 events, pods' allocations distinct, "
+            f"K4 {k4_clean} + {k4}; ms/step spatial "
+            + " / ".join(f"{x:.3f}" for x in ms["spatial_lockstep"]) + ", lockstep "
+            + " / ".join(f"{x:.3f}" for x in ms["lockstep"]) + ", lockstep_cuda "
+            + " / ".join(f"{x:.3f}" for x in ms["lockstep_cuda"])
+            + f"; {wire} B a compare a pod (analytic)")
+        del spa, ref, cuda_exe, s0, p0, clean, res, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def straggler_outcomes(device: str, n: int) -> dict:
+    """8b: ``run_with_straggler_policy`` and ``spatial_strike_report`` on
+    the spatial DMR blend of ``n`` pixels, 2 pods on ``device``."""
+    from repro_torch import api
+    from repro_torch.ft import elastic
+
+    prog = blend_program(api.RedundancyPolicy(level=2, compare="hash", placement="spatial"), n)
+    mesh = pod_mesh(2, device)
+
+    def fresh():
+        return api.compile(prog, backend="spatial_lockstep", mesh=mesh)
+
+    spa = fresh()
+    s0 = spa.init(SEED)
+    strike = api.FaultSpec.at(**STRAGGLER_STRIKE)
+    final, stats, flog = elastic.run_with_straggler_policy(
+        spa, s0, 4, elastic.StragglerPolicy(mode="first_wins", slack=1.5), STRAGGLER_TIMES,
+        faults=strike, start_step=0)
+    kinds = [[e["step"], e["kind"]] for e in flog.events]
+    plain = fresh()
+    ref = plain.run(s0, 4, start_step=0, faults=strike)
+    campaign = [api.FaultSpec.at(step=st, cell_id=0, replica=r, index=3, bit=21)
+                for st, r in STRIKE_CAMPAIGN]
+    report = elastic.spatial_strike_report(fresh(), s0, 6, campaign, start_step=0)
+    return {
+        "adopted": stats.adopted_fast, "waited": stats.waited,
+        "deficit_repaid": stats.compare_deficit == 0, "kinds": kinds,
+        "first_detect": next((st for st, k in kinds if k == "detect"), None),
+        "ledger_first": spa.ledger.recent.get("ImageBlend", [None])[0],
+        "states_match_plain_run": bits_equal(spa.gather(final), plain.gather(ref.states)),
+        "strike_report": [{k: r[k] for k in ("fault_step", "detected", "events", "repaired")}
+                          for r in report],
+    }
+
+
+def spatial_8b() -> dict:
+    t0 = time.perf_counter()
+    card = straggler_outcomes("cuda:0", W4K * H4K)
+    torch.cuda.synchronize()
+    cpu = straggler_outcomes("cpu", 64 * 32)
+    if card != cpu:
+        raise AssertionError(f"8b: the card's outcomes {card} differ from the CPU's {cpu}")
+    if (card["adopted"], card["waited"], card["first_detect"], card["ledger_first"]) != (1, 3, 2, 2) \
+            or [1, "adopt"] not in card["kinds"] or [2, "repay"] not in card["kinds"] \
+            or not card["states_match_plain_run"] \
+            or [r["detected"] for r in card["strike_report"]] != [True, True, False]:
+        raise AssertionError(f"8b: outcomes {card} are not tests/test_spatial.py's")
+    log(f"spatial 8b: straggler on the 4K spatial DMR blend: adopted {card['adopted']}, waited "
+        f"{card['waited']}, first detect at step {card['first_detect']} (the adopted step 1 hid "
+        f"the strike), trajectory bitwise a plain run; strike report detected "
+        f"{[r['detected'] for r in card['strike_report']]}; equal to the CPU's outcomes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return card
+
+
+def spatial_8c() -> dict:
+    """8c: internlm2-1.8b at full width, dense, served spatially on 2 and 3
+    pods of cuda:0 and temporally in this call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.lm_cells import ServeConfig
+    from repro_torch.serving import spatial as sp
+
+    cfg = get_config(LAUNCH_ARCH)
+    out = {}
+    k5 = 0
+    for pods, batch, mix in SPATIAL_SERVE:
+        runs = {}
+        for label, mesh in (("temporal", None), ("spatial", pod_mesh(pods))):
+            placement = "spatial" if mesh is not None else "temporal"
+            scfg = ServeConfig(batch=batch, max_len=512, placement=placement)
+            torch.cuda.reset_peak_memory_stats()
+            engine, run, (launches,), tokens = serve_stream(
+                cfg, scfg, [pd.paged_gqa_attention], mesh=mesh, mix=mix)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_pods = pods if mesh is not None else 1
+            expect = cfg.n_layers * (run["ticks"] + run["replays"]) * n_pods
+            if launches != expect:
+                raise AssertionError(f"8c {pods} pods {label}: K5 launches {launches} != "
+                                     f"{cfg.n_layers} x ({run['ticks']} + {run['replays']}) x "
+                                     f"{n_pods}")
+            k5 += launches
+            m = engine.metrics()
+            dec = engine._states["decoder"]
+            if mesh is not None:
+                if not pods_apart(dec):
+                    raise AssertionError(f"8c {pods} pods: two pods share an allocation")
+                lvl = np.full(batch // pods, 3 if "tmr" in mix else 2, np.int32)
+                detect = engine._get_detect("tmr" in mix)
+                check_ms = events_ms(lambda: detect(dec, lvl), iters=5)
+            else:
+                check_ms = events_ms(lambda: engine._ops.fingerprints(dec), iters=5)
+            victim = m["fault_totals"][run["victim"]]
+            runs[label] = {**run, "k5_launches": launches, "peak_gb": peak,
+                           "check_ms_per_tick": check_ms, "victim_ledger": victim,
+                           "victim_index": [r for r in engine.requests].index(run["victim"]),
+                           "pods": m["pods"], "backend": m["backend"], "tokens": tokens}
+            del engine, dec
+            gc.collect()
+            torch.cuda.empty_cache()
+        t, s = runs["temporal"], runs["spatial"]
+        if s["tokens"] != t["tokens"]:
+            raise AssertionError(f"8c {pods} pods: spatial tokens differ from temporal ones")
+        if s["victim_ledger"] != t["victim_ledger"] or s["victim_index"] != t["victim_index"]:
+            raise AssertionError(f"8c {pods} pods: strike ledger {s['victim_ledger']} != "
+                                 f"temporal {t['victim_ledger']}")
+        for r in runs.values():
+            r.pop("tokens")
+        detect = "TMR all-gather" if "tmr" in mix else "DMR psum_delta"
+        log(f"spatial 8c: {LAUNCH_ARCH} dense, {pods} pods x {batch // pods} slots ({'/'.join(mix)}): "
+            f"tokens bitwise temporal, strike on the same request and replica "
+            f"({s['victim_ledger']['per_replica']}); spatial {s['tokens_per_s']:.1f} tok/s, "
+            f"{s['ms_per_tick']:.2f} ms/tick, {detect} {s['check_ms_per_tick']:.2f} ms, peak "
+            f"{s['peak_gb']:.2f} GB, K5 {s['k5_launches']}; temporal {t['tokens_per_s']:.1f} "
+            f"tok/s, {t['ms_per_tick']:.2f} ms/tick, fingerprints {t['check_ms_per_tick']:.2f} ms, "
+            f"peak {t['peak_gb']:.2f} GB, K5 {t['k5_launches']}; detect "
+            f"{sp.detect_wire_bytes(pods, batch // pods, 'tmr' in mix)} B a pod a tick (analytic)")
+        out[f"{pods}_pods"] = runs
+    out["k5_launches"] = k5
+    return out
+
+
+def spatial_8d() -> dict:
+    """8d: the launcher with ``--placement spatial`` on one card (1 pod)
+    against the temporal launcher, then the quickstart's section 4b."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch import serve as S
+
+    toks, k5 = {}, 0
+    for label, extra in (("temporal", []), ("spatial", ["--placement", "spatial"])):
+        torch.cuda.synchronize()
+        pd.paged_gqa_attention.launches = 0  # counts start here
+        engine = S.main(LAUNCH_8D + extra)
+        torch.cuda.synchronize()
+        k5 += pd.paged_gqa_attention.launches  # and are read here
+        m = engine.metrics()
+        toks[label] = [r.token_ids() for r in engine.requests.values()]
+        if label == "spatial" and (m["pods"], m["backend"]) != (1, "spatial_lockstep"):
+            raise AssertionError(f"8d: the one-card launcher served {m['pods']} pods on "
+                                 f"{m['backend']}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if toks["spatial"] != toks["temporal"]:
+        raise AssertionError("8d: the 1-pod spatial launcher's tokens differ from the temporal one's")
+    qs = load_example("quickstart_torch").main(["--placement", "spatial"])
+    torch.cuda.synchronize()
+    log(f"spatial 8d: launcher --placement spatial on one card = 1 pod, tokens bitwise the "
+        f"temporal launcher's; quickstart 4b: {qs['spatial_backend']} on {qs['spatial_pods']} "
+        f"pods of cuda:0, strike detected at step {qs['spatial_detected']}, campaign events "
+        f"{qs['campaign_events']}")
+    return {"k5_launches": k5, "quickstart": {k: v for k, v in qs.items() if k.startswith(
+        ("spatial", "campaign"))}}
+
+
+def spatial_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"8a": spatial_8a(), "8b": spatial_8b()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["8c"] = spatial_8c()
+    out["8d"] = spatial_8d()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"spatial: phase 8 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -3921,6 +4227,16 @@ def main() -> int:
     for key, n in analysis["7c"]["launches"].items():
         epi[key]["launches_by_path"]["analysis_7c"] = n
         epi[key]["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    spatial = spatial_phase()
+    epi["tmr_vote"]["launches_by_path"]["spatial_8a"] = sum(
+        r["k4_launches"] for r in spatial["8a"].values())
+    epi["tmr_vote"]["launches"] += epi["tmr_vote"]["launches_by_path"]["spatial_8a"]
+    for path, n in (("spatial_8c", spatial["8c"]["k5_launches"]),
+                    ("spatial_8d", spatial["8d"]["k5_launches"])):
+        record["launches_by_path"][path] = n
+        record["launches"] += n
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -3932,6 +4248,7 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"launch": launch}), flush=True)
     print(json.dumps({"analysis": analysis}), flush=True)
+    print(json.dumps({"spatial": spatial}), flush=True)
     print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

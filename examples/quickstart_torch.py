@@ -20,7 +20,11 @@ This walkthrough compiles one tiny program four ways:
   3. backend="host" + DMR replication + an injected bit flip (paper §IV):
      the mismatch is detected, and the runtime's third tie-breaking
      execution repairs it,
-  4. TMR on the lock-step back-end: corrected by majority vote.
+  4. TMR on the lock-step back-end: corrected by majority vote,
+  4b. (--placement spatial) the same DMR policy placed spatially: each
+     replica on its own pod of a two-pod mesh (on the card: two pods of
+     cuda:0, each its own allocation and stream), compared by a 16-byte
+     fingerprint psum; ``auto`` resolves to ``spatial_lockstep``.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py                 # on cuda
       PYTHONPATH=src python examples/quickstart_torch.py --device cpu
@@ -29,18 +33,16 @@ Run:  PYTHONPATH=src python examples/quickstart_torch.py                 # on cu
 --backend picks the lock-step flavour used below: "lockstep" or
 "lockstep_cuda" (each replicated cell's compare or vote fused into one
 CUDA kernel a step; on CPU tensors the kernels' plain versions run).
---placement spatial (replicas on distinct devices) waits for the
-multi-device port and exits with a message.
+--placement spatial adds section 4b.
 """
 import argparse
 
 import torch
 
 from repro_torch import api as miso
+from repro_torch.distributed import make_mesh
 
 N = 64
-SPATIAL_REFUSAL = ("--placement spatial needs the multi-device port (ROADMAP Queue 1 item 7); "
-                   "this example runs temporal replicas")
 
 
 # ---------------------------------------------------------------------------
@@ -99,8 +101,6 @@ def main(argv=None) -> dict:
                     help="replica placement for section 4")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ns = ap.parse_args(argv)
-    if ns.placement == "spatial":
-        raise SystemExit(SPATIAL_REFUSAL)
     backend, dev = ns.backend, ns.device
     print("""sections:
   1. cells + program     a heat rod (SIMD), a probe (MIMD), an
@@ -168,6 +168,44 @@ def main(argv=None) -> dict:
     print(f"TMR        : corrected in-graph={ok} "
           f"(votes fixed {out['tmr_events']:.0f} strike)")
     assert ok and out["tmr_events"] == 1
+
+    # -----------------------------------------------------------------------
+    # 4b. (--placement spatial) The SAME policy knob, spatial placement:
+    #     each replica runs on its own pod of a mesh, and the compare is a
+    #     cross-pod collective -- a 16-byte fingerprint psum (compare="hash")
+    #     instead of moving O(state) bytes.  backend="auto" sees the
+    #     placement request and a mesh with a pod axis and resolves to the
+    #     spatial back-end; run/stream/faults/ledger are the inherited
+    #     Executor protocol.  On one card the two pods are two allocations
+    #     and two streams of that card, asked for explicitly.
+    # -----------------------------------------------------------------------
+    if ns.placement == "spatial":
+        on = torch.device(dev)
+        mesh = make_mesh((2,), ("pod",), devices=[on] * 2)
+        print(f"mesh       : {mesh}")
+        sp = miso.compile(prog, backend="auto", mesh=mesh,
+                          policies={"rod": miso.RedundancyPolicy(
+                              level=2, placement="spatial", compare="hash")})
+        sres = sp.run(sp.init(0), 100, start_step=0, faults=fault)
+        sm = sp.metrics()
+        srepaired = bool(torch.allclose(sp.gather(sres.states)["rod"]["t"][0],
+                                        final["rod"]["t"]))
+        out.update(spatial_backend=sm["backend"], spatial_pods=sm["n_pods"],
+                   spatial_detected=sp.ledger.recent["rod"][0], spatial_repaired=srepaired)
+        print(f"spatial DMR: backend={sm['backend']!r} pods={sm['n_pods']} "
+              f"compare=16-byte fingerprint psum; strike detected at step "
+              f"{out['spatial_detected']} (repaired={srepaired}: DMR detects; repair "
+              "is the host/serving tie-break)")
+        # a whole fault campaign: the executor replays the trajectory once
+        # per FaultSpec, with no ledger or counter side effects
+        rod = prog.cell_id("rod")
+        campaign = [miso.FaultSpec.at(step=s, cell_id=rod, replica=s % 2, index=N // 2, bit=30)
+                    for s in (10, 40, 70)]
+        camp = sp.run_campaign(sp.init(0), 100, campaign, start_step=0)
+        out["campaign_events"] = [float(e) for e in camp.reports["rod"]["events"]]
+        print(f"campaign   : {len(campaign)} strikes -> per-strike detection events "
+              f"{out['campaign_events']}")
+        assert sm["backend"] == "spatial_lockstep" and out["spatial_detected"] == 50
 
     print("\nNew back-ends register with miso.register_backend without touching "
           "this file (the CUDA-fused lock-step plugged in exactly that way).")

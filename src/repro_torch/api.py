@@ -14,10 +14,14 @@ The same protocol as ``repro.api`` (the JAX reference).  Back-ends:
 ``lockstep``, ``lockstep_cuda`` (the replicated cells' compare or vote
 fused into one CUDA kernel per step), ``host`` (the §IV DMR tie-break in
 the loop), ``wavefront`` (§III: independent units advance without a
-global barrier) and ``auto`` (``wavefront`` for a program of more than
-one independent unit, else ``lockstep_cuda`` on a card and ``lockstep``
-on the CPU); and the temporal serving engine, speculating with
-``ServeConfig(spec=SpecConfig(...))``.  ``on_event=`` with
+global barrier), ``spatial_lockstep`` (the replicas of
+``placement="spatial"`` cells one a pod of ``compile(..., mesh=...)``'s
+mesh, ``distributed.make_mesh``) and ``auto`` (``spatial_lockstep`` when
+the mesh can place every spatial cell, else ``wavefront`` for a program
+of more than one independent unit, else ``lockstep_cuda`` on a card and
+``lockstep`` on the CPU); and the serving engine, its replica slots
+temporal or spatial (``EngineConfig(placement="spatial", mesh=...)``),
+speculating with ``ServeConfig(spec=SpecConfig(...))``.  ``on_event=`` with
 ``Tracer().executor_hook()`` traces any executor, and
 ``EngineConfig(tracer=Tracer())`` the engine.
 
@@ -25,6 +29,7 @@ on the CPU); and the temporal serving engine, speculating with
 """
 
 from .core.backend_cuda import LockstepCudaExecutor  # noqa: F401
+from .core.backend_spatial import SpatialLockstepExecutor  # noqa: F401
 from .core.cell import NO_REDUNDANCY, CellType, MisoSemanticsError, RedundancyPolicy  # noqa: F401
 from .core.executor import (  # noqa: F401
     BACKENDS,
@@ -75,6 +80,7 @@ __all__ = [
     "RedundancyPolicy",
     "RunResult",
     "ServeConfig",
+    "SpatialLockstepExecutor",
     "SpecConfig",
     "Tracer",
     "available_backends",

@@ -159,11 +159,11 @@ def restore(directory, like: Tree, *, step: Optional[int] = None, shardings=None
             verify: bool = True) -> tuple[Tree, int]:
     """Restore into the structure of ``like``, each leaf on the device of
     ``like``'s.  ``shardings`` (placement onto a mesh) waits for the
-    multi-device port."""
+    sharding rules of the model-parallel slice."""
     if shardings is not None:
         raise NotImplementedError(
-            "restore onto shardings needs a device mesh, which waits for the "
-            "multi-device port (ROADMAP Queue 1 item 7)")
+            "restore onto shardings needs the sharding rules of the "
+            "model-parallel slice (ROADMAP Queue 1 item 7b)")
     if step is None:
         step = latest_step(directory)
         if step is None:

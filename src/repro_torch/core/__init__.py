@@ -1,7 +1,7 @@
 """MISO core in PyTorch: cells (paper §II), the textual language and the
 dependency graph (§III), runtime-managed replication for dependability
 (§IV), and the executors that run a program (lock-step, fused, host,
-wavefront)."""
+wavefront, spatial)."""
 
 from .cell import (  # noqa: F401
     NO_REDUNDANCY,
@@ -28,6 +28,7 @@ from .redundancy import (  # noqa: F401
     replicate_state,
 )
 
-# registers the fused ``lockstep_cuda`` back-end
+# registers the fused ``lockstep_cuda`` and the ``spatial_lockstep`` back-ends
 from . import backend_cuda  # noqa: F401
+from . import backend_spatial  # noqa: F401
 from . import ir  # noqa: F401

@@ -46,9 +46,9 @@ class RedundancyPolicy:
     level      -- 1 = none, 2 = DMR (detect + tie-break), 3 = TMR
                   (detect + majority-vote correction).
     placement  -- "temporal": replicas computed on the same device
-                  (cost = level x compute).  "spatial" (replicas on
-                  distinct devices) is accepted here for parity with the
-                  JAX package; no executor of this package places it yet.
+                  (cost = level x compute).  "spatial": one replica a
+                  pod of a device mesh (``backend="spatial_lockstep"``,
+                  ``compile(..., mesh=...)``; temporal elsewhere).
     compare    -- "bitwise": full-state bitwise comparison;
                   "hash": 128-bit fingerprint comparison.
     compare_every -- compare replicas every k-th transition.

@@ -27,7 +27,11 @@ Back-ends:
     condensation of the read graph gives units that advance independently,
     each free-running up to a bounded buffer window ahead of its
     consumers.
+  * ``spatial_lockstep`` (``core/backend_spatial.py``) -- lock-step with
+    the replicas of ``placement="spatial"`` cells one a pod of a device
+    mesh (``compile(..., mesh=...)``), compared and voted across pods.
   * ``auto``      -- resolves at compile time as the JAX package's does:
+    ``spatial_lockstep`` when a mesh can place every spatial cell, else
     wavefront when the read graph has more than one independent unit,
     else the lock-step flavour of the device (``lockstep_cuda`` on a card,
     ``lockstep`` on the CPU).
@@ -726,9 +730,8 @@ def _auto_backend(program: MisoProgram, device: torch.device, compare_every) -> 
     condensation), unless ``compare_every > 1``, which only the lock-step
     back-ends amortize; else the lock-step flavour of the device: the
     fused ``lockstep_cuda`` on a card, ``lockstep`` on the CPU (JAX picks
-    ``lockstep`` off the TPU).  (JAX resolves to its spatial back-end only
-    when given a device mesh with a pod axis; this package's ``compile``
-    takes none, as JAX without a mesh.)"""
+    ``lockstep`` off the TPU).  ``compile`` then lets ``_wants_spatial``
+    override the choice when a mesh can place the spatial cells."""
     if len(program.graph().independent_groups()) > 1 and not (
         compare_every and compare_every > 1
     ):
@@ -736,11 +739,31 @@ def _auto_backend(program: MisoProgram, device: torch.device, compare_every) -> 
     return "lockstep_cuda" if device.type == "cuda" else "lockstep"
 
 
+def _wants_spatial(program: MisoProgram, mesh, pod_axis: str) -> bool:
+    """True when the program asks for spatial replica placement AND the
+    mesh can realize it for EVERY spatial cell: one replica a pod, and a
+    state with something to place.  ``auto`` then resolves to
+    ``spatial_lockstep``, the only schedule that puts replicas on
+    distinct pods.  Mixed spatial levels (a cell the pod axis cannot
+    hold) keep the whole program on the temporal fallback, so ``auto``
+    always produces a runnable executor."""
+    from .backend_spatial import spatial_cells, state_words
+
+    if mesh is None or pod_axis not in getattr(mesh, "axis_names", ()):
+        return False
+    spatial = spatial_cells(program)
+    return bool(spatial) and all(
+        c.redundancy.level == mesh.shape[pod_axis] and state_words(program, n) > 0
+        for n, c in spatial.items()
+    )
+
+
 def compile(
     program: MisoProgram,
     *,
     backend: str = "lockstep",
-    device="cuda",
+    device=None,
+    mesh=None,
     policies: Optional[Mapping[str, Any]] = None,
     compare_every: Optional[int] = None,
     checkpoint_cb: Optional[Callable[[int, dict], None]] = None,
@@ -751,10 +774,17 @@ def compile(
     """Compile a MisoProgram into an Executor — the single front door.
 
     backend       -- a name registered through ``register_backend``
-                     ("lockstep", "lockstep_cuda", "host", "wavefront"),
-                     or "auto".
-    device        -- "cuda" (default) or "cpu"; CUDA that is not there
-                     raises.
+                     ("lockstep", "lockstep_cuda", "host", "wavefront",
+                     "spatial_lockstep"), or "auto".
+    device        -- "cuda" (the default without a mesh) or "cpu"; CUDA
+                     that is not there raises.  With a mesh the default
+                     is the mesh's controller device (``mesh.home()``).
+    mesh          -- an optional ``distributed.Mesh``.  Required by
+                     ``spatial_lockstep`` (one replica of every spatial
+                     cell a member of its ``pod`` axis); under "auto" a
+                     mesh that can place every spatial cell selects it.
+                     The temporal back-ends take no mesh and run on
+                     ``device``.
     policies      -- optional {cell_name: RedundancyPolicy}: selective
                      replication (§IV) applied before compilation.
     compare_every -- compare replicas every k-th transition (lock-step
@@ -769,15 +799,23 @@ def compile(
                      into trace events.  None allocates nothing and reads
                      no clocks.
     backend_opts  -- forwarded to the back-end (host: ledger; wavefront:
-                     window).  Under "auto", options the resolved
-                     back-end does not take are dropped.
+                     window; spatial_lockstep: pod_axis).  Under "auto",
+                     options the resolved back-end does not take are
+                     dropped.
     """
     if policies:
         program = program.with_policies(policies)
+    pod_axis = backend_opts.get("pod_axis", "pod")
+    if device is None:
+        device = mesh.home(pod_axis) if mesh is not None else "cuda"
     device = resolve_device(device)
     auto = backend == "auto"
     if auto:
         backend = _auto_backend(program, device, compare_every)
+        if "spatial_lockstep" in BACKENDS and _wants_spatial(program, mesh, pod_axis):
+            # spatial placement is a policy request only the spatial
+            # back-end honors, so it wins over the graph-shape choice
+            backend = "spatial_lockstep"
     try:
         cls = BACKENDS[backend]
     except KeyError:
@@ -790,6 +828,8 @@ def compile(
         # (window= when lockstep wins) are dropped, not fatal
         accepted = set(inspect.signature(cls.__init__).parameters)
         backend_opts = {k: v for k, v in backend_opts.items() if k in accepted}
+    if mesh is not None and "mesh" in inspect.signature(cls.__init__).parameters:
+        backend_opts["mesh"] = mesh
     return cls(
         program,
         device=device,

@@ -1,1 +1,2 @@
-"""Fault tolerance beyond cell replication: fail-stop recovery."""
+"""Fault tolerance beyond cell replication: fail-stop recovery and
+straggler mitigation."""

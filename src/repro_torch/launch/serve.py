@@ -24,9 +24,14 @@ resident when the flip lands.
 
 The engine path serves single-codebook archs: the reference launcher
 draws 1-D prompts, which a multi-codebook arch cannot take, so this
-launcher refuses such an arch (``--static`` serves it).  Spatial
-placement (``--placement spatial``, ``--pods``) waits for the
-multi-device port (ROADMAP item 7) and is refused.
+launcher refuses such an arch (``--static`` serves it).
+``--placement spatial`` places replica slots one a pod of a mesh over
+the distinct devices (the CUDA cards, or the one CPU with --device
+cpu): ``--pods`` (default min(4, devices)) must divide their number, as
+in the JAX launcher, so on one card the launcher serves 1 pod, which is
+the temporal engine bit for bit.  Several pods on one card go through
+``api.serve`` with an explicit mesh (``distributed.make_mesh(...,
+devices=["cuda:0"] * n)``).
 
 ``--static`` keeps the fixed-batch reference path: prefill a batch of
 identical-length prompts, then decode the whole batch a step at a time
@@ -58,9 +63,6 @@ POLICIES = {"none": RedundancyPolicy(),
             "dmr": RedundancyPolicy(level=2),
             "tmr": RedundancyPolicy(level=3)}
 
-SPATIAL_REFUSAL = ("spatial placement (--placement spatial, --pods) needs the multi-device "
-                   "port, ROADMAP Queue 1 item 7; this launcher serves temporal replica slots")
-
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -80,10 +82,11 @@ def parser() -> argparse.ArgumentParser:
                     help="inject one bit flip into the last DMR request's replica slot "
                          "and verify attribution")
     ap.add_argument("--placement", default="temporal", choices=["temporal", "spatial"],
-                    help="where replica slots live: temporal = batch rows; spatial is "
-                         "refused until the multi-device port")
+                    help="where replica slots live: temporal = batch rows of one "
+                         "device; spatial = one column across mesh pods")
     ap.add_argument("--pods", type=int, default=0,
-                    help="mesh pods for --placement spatial (refused, as spatial is)")
+                    help="mesh pods for --placement spatial (default min(4, devices); "
+                         "must divide the number of distinct devices)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: bound the out-of-band prefill to this many "
                          "tokens; the prompt tail walks through the resident transition "
@@ -143,8 +146,6 @@ def engine_main(cfg, args, *, states=None):
     from ..serving import DONE, RUNNING, Request
     from ..serving.lm import lm_engine_parts
 
-    if args.placement == "spatial" or args.pods:
-        raise SystemExit(SPATIAL_REFUSAL)
     if cfg.n_codebooks > 1:
         raise SystemExit(
             f"the engine path cannot serve {cfg.name}: its {cfg.n_codebooks} codebooks need "
@@ -156,14 +157,24 @@ def engine_main(cfg, args, *, states=None):
         from ..models.lm_cells import SpecConfig
 
         spec = SpecConfig(draft_len=args.spec_k, draft_arch=args.spec_arch)
+    spatial = args.placement == "spatial"
+    mesh = _spatial_mesh(args, device) if spatial else None
     scfg = ServeConfig(batch=args.slots, max_len=args.max_len,
                        prefill_chunk=args.prefill_chunk,
                        prefill_bucket_min=args.prefill_bucket_min,
-                       paged=args.paged, page_size=args.page_size, spec=spec)
+                       paged=args.paged, page_size=args.page_size, spec=spec,
+                       placement=args.placement)
     prog, adapter = lm_engine_parts(cfg, scfg, device=device)
     tracer = miso.Tracer() if args.trace_out else None
-    engine = miso.serve(prog, adapter, miso.EngineConfig(tracer=tracer), device=device)
+    engine = miso.serve(prog, adapter, miso.EngineConfig(
+        placement=args.placement, mesh=mesh, tracer=tracer), device=device)
     engine.start(args.seed, states=states)
+    policies = POLICIES
+    if spatial:
+        print(f"placement: spatial ({engine.pods} pods x {args.slots // engine.pods} slots, "
+              f"backend={engine.exe.name}, mesh={mesh})")
+        policies = {k: RedundancyPolicy(level=p.level, placement="spatial") if p.level > 1 else p
+                    for k, p in POLICIES.items()}
 
     # the reference launcher's prompts, drawn the same way
     rng = np.random.default_rng(args.seed + 1)
@@ -173,7 +184,7 @@ def engine_main(cfg, args, *, states=None):
         plen = int(rng.integers(2, max(3, args.prompt_len + 1)))
         prompt = rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
         reqs.append(Request(prompt=prompt, max_new_tokens=args.decode,
-                            policy=POLICIES[mix[i % len(mix)]], spec=spec))
+                            policy=policies[mix[i % len(mix)]], spec=spec))
 
     # staggered submission: half now, half after a few ticks, so requests
     # genuinely join/leave the resident batch mid-stream
@@ -259,6 +270,23 @@ def engine_main(cfg, args, *, states=None):
             json.dump(engine.registry.snapshot(), f, indent=1)
         print(f"metrics snapshot -> {args.metrics_json}")
     return engine
+
+
+def _spatial_mesh(args, device: torch.device):
+    """The JAX launcher's rule over the distinct devices present (the
+    CUDA cards, or the CPU): ``--pods`` (default min(4, devices)) must
+    divide their number and ``--slots``; the mesh is (pods, devices /
+    pods) over ("pod", "data")."""
+    from ..distributed import make_mesh
+
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    pods = args.pods or min(4, n_dev)
+    if n_dev % pods:
+        raise SystemExit(f"--pods {pods} does not divide {n_dev} devices")
+    if args.slots % pods:
+        raise SystemExit(f"--slots {args.slots} must be a multiple of --pods {pods}")
+    devices = None if device.type == "cuda" else [device] * n_dev
+    return make_mesh((pods, n_dev // pods), ("pod", "data"), devices=devices)
 
 
 def _tokens_leaf(cfg, args, spec) -> int:

@@ -98,8 +98,8 @@ def make_trainer_cell(cfg: ModelConfig, tcfg: TrainConfig, *, data_name: str = "
     if tcfg.grad_compression != "none":
         raise NotImplementedError(
             f"grad_compression={tcfg.grad_compression!r} reduces grads across a data "
-            "mesh (distributed/collectives.py), which waits for the multi-device port "
-            "(ROADMAP Queue 1 item 7)")
+            "mesh (distributed/collectives.py::compressed_psum_int8); the data-parallel "
+            "trainer waits for the model-parallel slice (ROADMAP Queue 1 item 7b)")
 
     def init(gen, device):
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + tcfg.param_seed)
@@ -209,11 +209,13 @@ class ServeConfig:
     #: speculative decoding; archs that cannot roll the cache position
     #: back (``spec_serving_supported``) fall back to plain decode
     spec: SpecConfig | None = None
+    #: "spatial": the engine places replica slots one a pod of a mesh
+    #: (``make_slot_serve_program`` stamps ``prog.spatial_serve``)
     placement: str = "temporal"
 
     def __post_init__(self):
-        if self.placement != "temporal":
-            raise NotImplementedError("spatial placement is not ported yet")
+        if self.placement not in ("temporal", "spatial"):
+            raise ValueError(f"placement={self.placement!r}: must be 'temporal' or 'spatial'")
 
 
 def prefill_bucket_ladder(scfg: ServeConfig) -> tuple:
@@ -586,6 +588,16 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
     prog = MisoProgram()
     prog.add(weights)
     prog.add(decoder)
+    if scfg.placement == "spatial":
+        if paged:
+            # the paged pool is one shared global table; splitting it
+            # across pods needs per-pod page accounting
+            raise ValueError(
+                "placement='spatial' does not support paged=True yet; "
+                "use the dense cache for spatial serving")
+        # the marker ``spatial_lockstep``'s serve mode keys on: the program
+        # is the temporal one, only the executor splits the slot axis
+        prog.spatial_serve = {"cell": "decoder", "axes": axes, "n_slots": scfg.batch}
     return prog
 
 

@@ -6,7 +6,7 @@ buffers, runs every expert's FFN over its buffer as a batched GEMM, and
 gathers and combines the results; ``moe_block`` adds the shared experts.
 The JAX package computes these products outside any Pallas kernel, and
 so does this port (``torch.bmm``).  The expert-parallel ``_moe_spmd``
-waits for multi-device support.
+waits for the model-parallel half of the mesh work (ROADMAP item 7b).
 
 Routing: softmax top-k (granite) or sigmoid with normalized top-k gates
 (deepseek-v3), plus the standard load-balance auxiliary loss.  The

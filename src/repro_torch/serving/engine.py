@@ -1,5 +1,5 @@
 """The continuous-batching serving engine (a port of
-``repro/serving/engine.py`` with temporal replica slots).
+``repro/serving/engine.py``).
 
 One resident decoder program (a weights cell + a slot-masked decoder
 cell) is compiled once and driven through ``Executor.stream``; the engine
@@ -17,6 +17,11 @@ multiplexes many independent decode requests onto its fixed batch:
     minority; DMR: the paper's §IV third execution — ``pure_step``
     replays the tick from the immutable previous buffer — decides, and
     both replicas adopt the replay), and only then emits the token;
+  * spatial placement (``EngineConfig(placement="spatial", mesh=...)``):
+    the decoder's slots are split over the mesh's pods, a replicated
+    request's replica slots sit at one column on different pods, and the
+    compare is one cross-pod collective a tick (``serving/spatial.py``);
+    repair is the temporal engine's, so the ledger is too;
   * speculative decoding: a tick of a speculating slot commits up to
     K+1 tokens, which the harvest emits one at a time;
   * tracing (``EngineConfig.tracer``): ticks split into host dispatch,
@@ -61,9 +66,16 @@ def _fence(x: Tree) -> None:
 class EngineConfig:
     """Everything ``ServingEngine`` needs beyond the program + adapter.
 
-    backend          -- executor backend name.
-    placement        -- "temporal" (replica slots are batch rows of one
-                        device); "spatial" is not ported yet.
+    backend          -- executor backend name.  With
+                        ``placement="spatial"`` a plain ``"lockstep"``
+                        becomes ``"spatial_lockstep"``.
+    placement        -- where a DMR/TMR request's replica slots live:
+                        "temporal" = batch rows of one device (host
+                        fingerprint compare), "spatial" = the same slot
+                        column on different pods of ``mesh`` (cross-pod
+                        detect, ``serving/spatial.py``).
+    mesh / pod_axis  -- the device mesh (required for spatial placement)
+                        and the axis replica slots are placed along.
     max_queue        -- bounded admission queue depth (back-pressure).
     retain_results   -- finished records kept for ``result()`` pickup.
     compare_every    -- executor compare cadence (None = backend default).
@@ -75,6 +87,8 @@ class EngineConfig:
 
     backend: str = "lockstep"
     placement: str = "temporal"
+    mesh: Any = None
+    pod_axis: str = "pod"
     max_queue: int = 64
     retain_results: int = 1024
     compare_every: Optional[int] = None
@@ -84,8 +98,16 @@ class EngineConfig:
     registry: Optional[MetricsRegistry] = None
 
     def __post_init__(self):
-        if self.placement != "temporal":
-            raise NotImplementedError("spatial replica placement is not ported yet")
+        if self.placement not in ("temporal", "spatial"):
+            raise ValueError(f"placement={self.placement!r}: must be 'temporal' or 'spatial'")
+        if self.placement == "spatial":
+            if self.mesh is None:
+                raise ValueError(
+                    "placement='spatial' places replica slots across mesh "
+                    "pods: EngineConfig(mesh=...) is required"
+                )
+            if self.backend == "lockstep":
+                object.__setattr__(self, "backend", "spatial_lockstep")
 
 
 class EngineParts(NamedTuple):
@@ -156,6 +178,9 @@ class RequestRecord:
     finished_at: Optional[float] = None
     faults: int = 0
     cancel_requested: bool = False
+    #: replica slots placed spatially (one column on different pods):
+    #: checked by the cross-pod collective instead of the host compare
+    spatial: bool = False
     #: chunked prefill: prompt-tail tokens the transition still has to
     #: consume before this request emits its first token
     prefill_remaining: int = 0
@@ -193,6 +218,18 @@ class ServingEngine:
     ):
         self.config = cfg = config if config is not None else EngineConfig()
         self.adapter = adapter
+        #: spatial placement: replica slots live at one column across
+        #: ``pods`` mesh pods; 1 pod serves as the temporal engine does
+        self.pods = 1
+        spatial_opts = {}
+        if cfg.placement == "spatial":
+            self.pods = int(cfg.mesh.shape[cfg.pod_axis])
+            if adapter.n_slots % self.pods:
+                raise ValueError(
+                    f"spatial serving needs n_slots={adapter.n_slots} "
+                    f"divisible by the {cfg.pod_axis!r} mesh axis ({self.pods} pods)"
+                )
+            spatial_opts = {"mesh": cfg.mesh, "pod_axis": cfg.pod_axis}
         #: None (the default) costs nothing: every emission is guarded
         self.tracer = tracer = cfg.tracer
         self.registry = cfg.registry if cfg.registry is not None else MetricsRegistry()
@@ -207,6 +244,7 @@ class ServingEngine:
             checkpoint_every=cfg.checkpoint_every,
             # executor events land on the tracer's "executor" track
             on_event=tracer.executor_hook() if tracer is not None else None,
+            **spatial_opts,
         )
         if type(self.exe).pure_step is _ex.Executor.pure_step:
             raise ValueError(
@@ -216,7 +254,7 @@ class ServingEngine:
         self.queue = RequestQueue(
             max_depth=cfg.max_queue, time_fn=time_fn, on_expire=self._on_queue_expire
         )
-        self.slots = SlotManager(adapter.n_slots)
+        self.slots = SlotManager(adapter.n_slots, pods=self.pods)
         self.ledger = FaultLedger()  # keyed by REQUEST id, not cell name
         self.time_fn = time_fn
         self.retain_results = cfg.retain_results
@@ -263,13 +301,30 @@ class ServingEngine:
         self._ops = adapter.surgery or default_surgery(
             adapter.cell, adapter.slot_axes, adapter.make_empty
         )
+        if cfg.placement == "spatial":
+            # the decoder's slots are split over the pods: surgery runs on
+            # the owning pod's part, on its stream, and stays on its device
+            from .spatial import pod_surgery
+
+            self._ops = pod_surgery(self._ops, adapter.cell, cfg.mesh,
+                                    spp=adapter.n_slots // self.pods, pod_axis=cfg.pod_axis,
+                                    axes=adapter.slot_axes)
+        #: spatial detect collectives, made lazily per variant (DMR-only
+        #: vs mixed-TMR) and kept for the engine's lifetime
+        self._detect: dict[bool, Callable] = {}
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, generator: torch.Generator | int = 0, *, states: Optional[dict] = None):
         """Initialize the resident states (weights + empty slots) from a
         seed or generator, or take ready-made ``states`` (the parity tests
-        hand over the JAX package's, through ``repro_torch.bridge``)."""
-        self._states = states if states is not None else self.exe.init(generator)
+        hand over the JAX package's, through ``repro_torch.bridge``).  Under
+        spatial placement the decoder's slots are placed on the pods
+        (``spatial_lockstep``'s ``init``/``place``)."""
+        if states is None:
+            states = self.exe.init(generator)
+        elif self.config.placement == "spatial":
+            states = self.exe.place(states)
+        self._states = states
         self._t0 = self.time_fn()
 
     def _on_queue_expire(self, req: Request) -> None:
@@ -284,6 +339,8 @@ class ServingEngine:
         reason = None
         if req.n_slots > self.adapter.n_slots:
             reason = f"policy needs {req.n_slots} slots, engine has {self.adapter.n_slots}"
+        elif self.pods > 1 and req.policy.placement == "spatial" and req.n_slots > self.pods:
+            reason = f"spatial policy needs {req.n_slots} pods, mesh has {self.pods}"
         elif self.adapter.validate is not None:
             reason = self.adapter.validate(req)
         rec = RequestRecord(req=req, status=QUEUED, submitted_at=self.time_fn())
@@ -430,10 +487,18 @@ class ServingEngine:
             cap = self.adapter.has_capacity
             if cap is not None and not cap(req):
                 break  # paged: not enough free pages for its worst case
-            contig = self.adapter.contiguous_replicas and req.n_slots > 1
-            if contig and self.slots.find_run(req.n_slots) is None:
+            spatial_req = self.pods > 1 and req.n_slots > 1 and req.policy.placement == "spatial"
+            contig = not spatial_req and self.adapter.contiguous_replicas and req.n_slots > 1
+            if spatial_req:
+                # a spatial group takes one slot COLUMN across pods; pinned
+                # tenants never move, so a missing column holds the head
+                if self.slots.find_column(req.n_slots) is None:
+                    break
+            elif contig and self.slots.find_run(req.n_slots) is None:
                 # capacity exists but no adjacent run: defragment
                 states = self._defrag(states, req.n_slots)
+                if self.slots.find_run(req.n_slots) is None:
+                    break  # pinned spatial tenants block every window
             if not self.queue.take(req):
                 continue  # head expired underneath us: re-validate
             rec = self.requests[req.id]
@@ -443,11 +508,12 @@ class ServingEngine:
                     _fence(slot_state)
             else:
                 slot_state, first, pending = self.adapter.prefill(req, states)
-            slots = self.slots.alloc(req.id, req.n_slots, contiguous=contig)
+            slots = self.slots.alloc(req.id, req.n_slots, contiguous=contig, spatial=spatial_req)
             for s in slots:
                 states = self._ops.join(states, slot_state, s, req=req)
             now = self.time_fn()
             rec.slots = slots
+            rec.spatial = spatial_req
             rec.status = RUNNING
             rec.started_at = now
             rec.prefill_remaining = int(pending)
@@ -467,7 +533,8 @@ class ServingEngine:
 
     def _defrag(self, states: dict, n: int) -> dict:
         """Relocate running requests' slots (bitwise copy + scrub) until an
-        ``n``-slot adjacent free run exists."""
+        ``n``-slot adjacent free run exists (or no movable window is left:
+        pinned spatial tenants are never relocated)."""
         for src, dst in self.slots.defrag_plan(n) or ():
             states = self._ops.copy(states, src, dst)
             states = self._ops.scrub(states, src)
@@ -484,15 +551,19 @@ class ServingEngine:
     def _postprocess(self, t: int, states: dict) -> dict:
         running = [r for r in self.requests.values() if r.status == RUNNING]
         replicated = [r for r in running if r.req.policy.level > 1]
-        if replicated:
-            states = self._check_replicas(t, states, replicated)
+        temporal = [r for r in replicated if not r.spatial]
+        spatial = [r for r in replicated if r.spatial]
+        if temporal:
+            states = self._check_replicas(t, states, temporal)
+        if spatial:
+            states = self._check_spatial(t, states, spatial)
         if not running:
             return states
         dec = states[self.adapter.cell]
-        toks = _host(self.adapter.read_tokens(dec))
+        toks = self._read(self.adapter.read_tokens, dec)
         sout = sn = None
         if self.adapter.read_spec is not None:
-            sout, sn = (_host(x) for x in self.adapter.read_spec(dec))
+            sout, sn = self._read(self.adapter.read_spec, dec)
         now = self.time_fn()
         for rec in running:
             if rec.status != RUNNING:
@@ -593,16 +664,7 @@ class ServingEngine:
             else:
                 bad = None  # DMR: symmetric — the replay decides
             if replay is None:
-                # paper §IV: "a third equal transition should be executed to
-                # decide between the two possible outcomes" — replay the
-                # tick (no armed fault) from the immutable pre-tick buffer
-                if tr is not None:
-                    with tr.span("dmr_replay", "engine", step=t):
-                        replay, _ = self.exe.pure_step(self._tick_input, t)
-                        _fence(replay[self.adapter.cell])
-                else:
-                    replay, _ = self.exe.pure_step(self._tick_input, t)
-                self._m_replays.inc()
+                replay = self._replay(t)
                 rfps = _host(self._ops.fingerprints(replay[self.adapter.cell]))
             if bad is None:
                 bad = [i for i, sl in enumerate(s) if not np.array_equal(fps[sl], rfps[sl])]
@@ -610,6 +672,103 @@ class ServingEngine:
             if tr is not None:
                 tr.instant("strike_attributed", rec.id, step=t, replicas=list(bad),
                            damage_elems=float(dmg))
+            for sl in s:
+                states = self._ops.adopt(states, replay, sl)
+            self._attribute(rec, t, bad, level, dmg)
+            if tr is not None:
+                tr.instant("strike_repaired", rec.id, step=t, repair="dmr_replay")
+                tr.flow_end(fid, rec.id, "strike")
+        return states
+
+    def _read(self, read: Callable, dec: Tree):
+        """``read(decoder_state)`` on the host: a tensor, or a tuple of
+        them, whose leading axis is the slot axis.  Under spatial
+        placement ``dec`` is the list of the pods' parts, read pod by pod
+        and concatenated in slot order."""
+        if self.config.placement != "spatial":
+            out = read(dec)
+            return tuple(_host(x) for x in out) if isinstance(out, tuple) else _host(out)
+        outs = [read(part) for part in dec]
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate([_host(o[i]) for o in outs]) for i in range(len(outs[0])))
+        return np.concatenate([_host(o) for o in outs])
+
+    def _get_detect(self, tmr: bool) -> Callable:
+        if tmr not in self._detect:
+            from .spatial import make_detect
+
+            self._detect[tmr] = make_detect(self.config.mesh, self.adapter.slot_axes,
+                                            pod_axis=self.config.pod_axis, tmr=tmr)
+        return self._detect[tmr]
+
+    def _replay(self, t: int) -> dict:
+        """Paper §IV: "a third equal transition should be executed to
+        decide between the two possible outcomes" -- replay the tick (no
+        armed fault) from the immutable pre-tick buffer."""
+        tr = self.tracer
+        if tr is not None:
+            with tr.span("dmr_replay", "engine", step=t):
+                replay, _ = self.exe.pure_step(self._tick_input, t)
+                _fence(replay[self.adapter.cell])
+        else:
+            replay, _ = self.exe.pure_step(self._tick_input, t)
+        self._m_replays.inc()
+        return replay
+
+    def _check_spatial(self, t: int, states: dict, recs: list[RequestRecord]) -> dict:
+        """Cross-pod detect for spatially placed replica groups.
+
+        One collective over the pods' decoder parts replaces the host
+        fingerprint walk: ``lvl`` carries the level of the group anchored
+        at each slot column, the collective compares the same 128-bit
+        per-slot fingerprints the temporal engine fetches, and a TMR
+        majority verdict comes back as the struck pod (replica index ==
+        pod index).  Repair reuses the temporal paths -- TMR: copy a
+        majority slot over the minority; DMR or a triple divergence: the
+        §IV replay, adopted -- so the ledger entries are the temporal
+        engine's."""
+        lvl = np.zeros(self.slots.per_pod, np.int32)
+        for rec in recs:
+            lvl[rec.slots[0]] = rec.req.policy.level  # slots[0] == column
+        tmr = any(r.req.policy.level >= 3 for r in recs)
+        events, struck = (_host(x) for x in self._get_detect(tmr)(states[self.adapter.cell], lvl))
+        fps = rfps = replay = None  # lazy: one replay serves every event
+        for rec in recs:
+            col = rec.slots[0]
+            if not events[col]:
+                continue
+            s = rec.slots
+            level = rec.req.policy.level
+            tr = self.tracer
+            fid = None
+            if tr is not None:
+                fid = tr.flow_id()
+                tr.instant("strike_detected", rec.id, step=t, level=level)
+                tr.flow_start(fid, rec.id, "strike")
+            if level == 3 and struck[col] >= 0:
+                # the majority verdict, with the temporal pair precedence
+                bad = int(struck[col])
+                good = 0 if bad != 0 else 1
+                dmg = self._ops.damage(states, s[good], s[bad])
+                if tr is not None:
+                    tr.instant("strike_attributed", rec.id, step=t, replicas=[bad], pod=bad,
+                               damage_elems=float(dmg))
+                states = self._ops.copy(states, s[good], s[bad])
+                self._attribute(rec, t, [bad], level, dmg)
+                if tr is not None:
+                    tr.instant("strike_repaired", rec.id, step=t, repair="tmr_vote")
+                    tr.flow_end(fid, rec.id, "strike")
+                continue
+            # DMR (symmetric) or a TMR triple divergence: the replay decides
+            if replay is None:
+                replay = self._replay(t)
+                fps = _host(self._ops.fingerprints(states[self.adapter.cell]))
+                rfps = _host(self._ops.fingerprints(replay[self.adapter.cell]))
+            bad = [i for i, sl in enumerate(s) if not np.array_equal(fps[sl], rfps[sl])]
+            dmg = sum(self._ops.damage_vs(states, replay, s[b]) for b in bad)
+            if tr is not None:
+                tr.instant("strike_attributed", rec.id, step=t, replicas=list(bad),
+                           pods=list(bad), damage_elems=float(dmg))
             for sl in s:
                 states = self._ops.adopt(states, replay, sl)
             self._attribute(rec, t, bad, level, dmg)
@@ -717,6 +876,8 @@ class ServingEngine:
         m = {
             "backend": self.exe.name,
             "placement": self.config.placement,
+            "pods": self.pods,
+            "slots_per_pod": self.adapter.n_slots // self.pods,
             "n_slots": self.adapter.n_slots,
             "ticks": int(self._m_ticks.value),
             "replays": int(self._m_replays.value),

@@ -1,12 +1,13 @@
 """Slot bookkeeping + slot surgery for the continuous batcher (a port of
-``repro/serving/slots.py`` without spatial placement).
+``repro/serving/slots.py``).
 
 The resident decoder cell has a fixed batch of ``n_slots``; the engine
 multiplexes requests onto it by scattering prompt caches into free slots
 between ticks and evicting finished ones:
 
   * ``SlotManager`` — host-side ownership (which request holds which
-    slots; per-request *replica* slots for DMR/TMR policies).
+    slots; per-request *replica* slots for DMR/TMR policies, placed on
+    one pod's rows or, spatially, at one column across pods).
   * slot surgery — ``join_slot`` / ``read_slot`` / ``copy_slot`` /
     ``slot_fingerprints`` / ``mask_slots``, driven by a per-leaf
     *slot-axis* tree (``infer_slot_axes``), because the batch axis is not
@@ -170,16 +171,35 @@ class SlotManager:
     protection.  Replica slots may be allocated CONTIGUOUS; when churn
     fragments the free list, ``defrag_plan``/``relocate`` compact it by
     moving running requests' slots (bitwise-transparent to their owners).
+
+    SPATIAL placement (``pods > 1``): the global slot space is the
+    concatenation of ``pods`` per-pod row blocks -- pod ``p`` owns global
+    slots ``[p*spp, (p+1)*spp)`` where ``spp = n_slots // pods`` (the
+    spatial back-end splits the decoder's slot axis in exactly this
+    blocked layout).  ``alloc(..., spatial=True)`` reserves the SAME
+    column on pods ``0..n-1`` -- one replica slot a pod, so a strike on
+    one pod hits exactly one replica -- with no adjacency requirement:
+    spatial admissions never defragment, and spatial tenants are pinned
+    (``defrag_plan`` never relocates them, which would tear a replica
+    off its pod).  Temporal runs and defrag windows stay inside one
+    pod's block, and unreplicated requests fill from the HIGHEST pod
+    down so low-pod columns stay clear for spatial groups.
     """
 
     n_slots: int
+    pods: int = 1
 
     def __post_init__(self):
-        if self.n_slots < 1:
-            raise ValueError(f"n_slots={self.n_slots} must be positive")
+        if self.pods < 1 or self.n_slots < 1 or self.n_slots % self.pods:
+            raise ValueError(
+                f"n_slots={self.n_slots} must be a positive multiple of "
+                f"pods={self.pods} (the mesh splits the slot axis evenly)"
+            )
+        self.per_pod = self.n_slots // self.pods
         self._free: list[int] = list(range(self.n_slots))
         self._slots_of: dict[str, list[int]] = {}
         self._owner: dict[int, str] = {}
+        self._pinned: set[int] = set()  # spatial tenants: never relocated
 
     @property
     def free(self) -> int:
@@ -195,20 +215,38 @@ class SlotManager:
     def owner(self, slot: int) -> Optional[str]:
         return self._owner.get(slot)
 
-    def alloc(self, rid: str, n: int, contiguous: bool = False) -> Optional[list[int]]:
+    def alloc(self, rid: str, n: int, contiguous: bool = False,
+              spatial: bool = False) -> Optional[list[int]]:
         """n free slots for request ``rid``; None if the batch can't fit it
-        right now.  ``contiguous=True`` requires one adjacent run."""
+        right now.  ``contiguous=True`` requires one adjacent run.
+        ``spatial=True`` instead reserves one slot a pod at a shared
+        column (``find_column``); the list is ordered by pod, so replica
+        i lives on pod i."""
         if rid in self._slots_of:
             raise ValueError(f"request {rid!r} already holds slots")
         if n > len(self._free):
             return None
-        if contiguous and n > 1:
+        if spatial and n > 1:
+            if n > self.pods:
+                return None
+            col = self.find_column(n)
+            if col is None:
+                return None
+            got = [p * self.per_pod + col for p in range(n)]
+            for s in got:
+                self._free.remove(s)
+            self._pinned.update(got)
+        elif contiguous and n > 1:
             start = self.find_run(n)
             if start is None:
                 return None
             got = list(range(start, start + n))
             for s in got:
                 self._free.remove(s)
+        elif self.pods > 1:
+            # unreplicated: fill from the highest pod down, keeping
+            # low-pod columns open for spatial groups
+            got = [self._free.pop() for _ in range(n)]
         else:
             got = [self._free.pop(0) for _ in range(n)]
         self._slots_of[rid] = got
@@ -217,19 +255,33 @@ class SlotManager:
         return list(got)
 
     def find_run(self, n: int) -> Optional[int]:
-        """Start index of the leftmost run of ``n`` adjacent free slots."""
+        """Start index of the leftmost run of ``n`` adjacent free slots
+        inside one pod's block."""
         free = set(self._free)
         for start in range(self.n_slots - n + 1):
+            if start // self.per_pod != (start + n - 1) // self.per_pod:
+                continue
             if all(start + i in free for i in range(n)):
                 return start
+        return None
+
+    def find_column(self, n: int) -> Optional[int]:
+        """Lowest column ``c`` whose slot is free on pods ``0..n-1``: the
+        spatial allocation unit."""
+        free = set(self._free)
+        for c in range(self.per_pod):
+            if all(p * self.per_pod + c in free for p in range(n)):
+                return c
         return None
 
     def defrag_plan(self, n: int) -> Optional[list[tuple[int, int]]]:
         """Relocations ``[(src, dst), ...]`` that open an n-slot adjacent
         free run: pick the window holding the fewest REPLICA slots, then
         the fewest tenants overall, and evacuate them into free slots
-        outside it.  None if total free capacity < n; [] if a run exists.
-        Always satisfiable when ``free >= n``."""
+        outside it.  None if total free capacity < n, or if every window
+        crosses a pod boundary or holds a pinned (spatial) tenant; [] if
+        a run exists.  Without pinned tenants always satisfiable when
+        ``free >= n``."""
         if n > len(self._free):
             return None
         free = set(self._free)
@@ -241,10 +293,17 @@ class SlotManager:
 
         best_cost, best_start, best_occ = None, None, None
         for start in range(self.n_slots - n + 1):
+            if start // self.per_pod != (start + n - 1) // self.per_pod:
+                continue
+            if any(s in self._pinned for s in range(start, start + n)):
+                continue
             c, occ = cost(start)
             if best_cost is None or c < best_cost:
                 best_cost, best_start, best_occ = c, start, occ
-        dsts = [s for s in sorted(free) if s < best_start or s >= best_start + n]
+        if best_start is None:
+            return None
+        dsts = [s for s in sorted(free)
+                if (s < best_start or s >= best_start + n) and s not in self._pinned]
         return list(zip(best_occ, dsts))
 
     def relocate(self, src: int, dst: int) -> str:
@@ -263,6 +322,7 @@ class SlotManager:
         got = self._slots_of.pop(rid, [])
         for s in got:
             del self._owner[s]
+            self._pinned.discard(s)
             self._free.append(s)
         self._free.sort()  # deterministic reuse order
         return got

@@ -7,8 +7,9 @@ request lines (status, token count, faults, first 8 tokens) and the
 strike line are equal; every token stream is bitwise JAX's engine's; the
 victim is the same request.  Also: ``--trace-out`` / ``--metrics-json``
 written and well formed, the multi-codebook refusal (where JAX's
-launcher fails), ``--placement spatial`` refused, and the default device
-is the card.  ``test_torch_launch_serve_spec.py`` holds ``--spec-k``."""
+launcher fails), ``--placement spatial`` on the one CPU device (1 pod:
+bitwise JAX's temporal engine) and JAX's refusal of a pod count that
+does not divide the devices, and the default device is the card.  ``test_torch_launch_serve_spec.py`` holds ``--spec-k``."""
 
 import dataclasses as dc
 import importlib.util
@@ -60,10 +61,11 @@ def jax_states(args):
     return prog.init_states(jax.random.PRNGKey(args.seed))
 
 
-def run_both(argv, monkeypatch, capsys):
-    """JAX's ``engine_main`` then the port's, on the same arguments, the
-    request counters of both packages restarted.  Returns the JAX engine,
-    the port's, and each one's printed lines."""
+def run_both(argv, monkeypatch, capsys, port_extra=()):
+    """JAX's ``engine_main`` then the port's, on the same arguments (the
+    port's with ``port_extra`` appended), the request counters of both
+    packages restarted.  Returns the JAX engine, the port's, and each
+    one's printed lines."""
     args = TS.parser().parse_args(argv)
     engines = []
     real_serve = japi.serve
@@ -74,7 +76,8 @@ def run_both(argv, monkeypatch, capsys):
     jax_out = capsys.readouterr().out.splitlines()
     states = bridge.states_from_numpy(jax.tree.map(np.asarray, jax_states(args)), device="cpu")
     monkeypatch.setattr(treq, "_ids", itertools.count())
-    teng = TS.engine_main(TCFG, args, states=states)
+    teng = TS.engine_main(TCFG, TS.parser().parse_args(list(argv) + list(port_extra)),
+                          states=states)
     port_out = capsys.readouterr().out.splitlines()
     return engines[0], teng, jax_out, port_out
 
@@ -132,10 +135,28 @@ def test_multi_codebook_engine_refused_where_jax_fails():
     assert "--static" in str(e.value)
 
 
-@pytest.mark.parametrize("extra", [["--placement", "spatial"], ["--pods", "2"]])
+def test_spatial_one_pod_launcher_equals_jax_temporal(monkeypatch, capsys):
+    """One CPU device gives one pod: the spatial engine serves every
+    request bitwise as JAX's temporal engine does, the strike included."""
+    jeng, teng, jax_out, port_out = run_both(BASE, monkeypatch, capsys,
+                                             ["--placement", "spatial"])
+    check_parity(jeng, teng, jax_out, port_out)
+    m = teng.metrics()
+    assert (m["placement"], m["pods"], m["backend"]) == ("spatial", 1, "spatial_lockstep")
+    assert any(ln.startswith("placement: spatial (1 pods x 4 slots") for ln in port_out)
+
+
+@pytest.mark.parametrize("extra", [["--placement", "spatial", "--pods", "2"],
+                                   ["--placement", "spatial", "--pods", "3"]])
 def test_spatial_placement_refused(extra):
-    with pytest.raises(SystemExit, match="item 7"):
+    """A pod count that does not divide the devices present (one CPU) is
+    refused as JAX's launcher refuses it, with the same message."""
+    args = TS.parser().parse_args(BASE + extra)
+    with pytest.raises(SystemExit) as je:
+        JS.engine_main(CFG, args)
+    with pytest.raises(SystemExit) as te:
         TS.main(BASE + extra)
+    assert str(te.value) == str(je.value) and "does not divide 1 devices" in str(te.value)
 
 
 @pytest.mark.parametrize("static", [False, True])

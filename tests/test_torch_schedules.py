@@ -232,7 +232,8 @@ def test_auto_resolves_like_jax():
         if want == "wavefront":
             assert texe.window == jexe.window == kw.get("window", 4)
             assert len(texe.program.graph().independent_groups()) == 2
-    assert tmiso.available_backends() == ["host", "lockstep", "lockstep_cuda", "wavefront"]
+    assert tmiso.available_backends() == ["host", "lockstep", "lockstep_cuda", "spatial_lockstep",
+                                          "wavefront"]
     # named explicitly, a foreign option is an error, as in JAX
     jp, tp = programs("chain")
     with pytest.raises(TypeError):

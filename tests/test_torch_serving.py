@@ -174,10 +174,18 @@ def test_tmr_strike_repaired_and_localized(clean_runs, paged, replica):
 
 
 def test_unported_options_raise():
-    # speculation and the engine's tracer are ported; spatial placement is not
+    # speculation, the engine's tracer and spatial placement are ported;
+    # spatial placement without a mesh, or an unknown placement, raises as
+    # in JAX (spatial serving itself: test_torch_spatial_serving.py)
     TServeConfig(batch=2, max_len=16, spec=tmiso.SpecConfig(draft_len=2))
     tmiso.EngineConfig(tracer=tmiso.Tracer())
-    with pytest.raises(NotImplementedError):
-        TServeConfig(batch=2, max_len=16, placement="spatial")
-    with pytest.raises(NotImplementedError):
+    TServeConfig(batch=2, max_len=16, placement="spatial")
+    with pytest.raises(ValueError) as je:
+        jmiso.EngineConfig(placement="spatial")
+    with pytest.raises(ValueError) as te:
         tmiso.EngineConfig(placement="spatial")
+    assert str(te.value) == str(je.value)
+    with pytest.raises(ValueError, match="must be 'temporal' or 'spatial'"):
+        tmiso.EngineConfig(placement="diagonal")
+    with pytest.raises(ValueError, match="must be 'temporal' or 'spatial'"):
+        TServeConfig(batch=2, max_len=16, placement="diagonal")
