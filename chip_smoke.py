@@ -283,17 +283,56 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  (8d) ``launch.serve.main`` with ``--placement spatial``
                  on one card (1 pod) bitwise the temporal launcher, and
                  the quickstart's section 4b.
+  9. model_parallel -- the model-parallel serving path (``ShardCtx``,
+                 ``make_ctx(..., decode_shardmap=True)``), every mesh
+                 member an explicit allocation of cuda:0, each run beside
+                 its unsharded twin in the same call: (9a) internlm2-1.8b
+                 at full width head-sharded on a (2, 4) data x model
+                 mesh, served through ``lm_engine_parts(cfg, scfg, ctx)``
+                 with phase 3's traffic (dense, 512 lanes, a DMR strike)
+                 beside the unsharded engine: 0 clean-tick events, the
+                 strike on the same request and replica, K5 = 24 x
+                 (ticks + replays) x 8 members, every member's shard its
+                 own allocation, replicated weights held once; then 16
+                 teacher-forced decode steps within JAX's bf16 bound
+                 (max_rel 3e-2) of the unsharded ones; (9b) K5's
+                 partials entry point against its plain version at
+                 granite-20b's member shape (and four members combined
+                 against K5 over 512 lanes), timed beside SDPA's
+                 memory-efficient call with its log-sum-exp, then granite-20b at full
+                 width and depth seq-sharded on (1, 4): prefill, 16
+                 steps unsharded, the weights resharded in place (one
+                 copy at a time), 16 steps sharded: logits at the bound,
+                 K5 partials = 52 x 16 x 4; (9c) deepseek-v3's dense
+                 prefix on (2, 4) with the latent cache seq-sharded
+                 (each member's partial the plain torch math), the same
+                 gates, K6 = 3 x 16 in the unsharded twin; (9d)
+                 granite-moe at full width with ``serve_ep2d`` (4 experts
+                 a member), capacity raised so nothing drops: every MoE
+                 call of an unsharded prefill (the all-to-all path) and
+                 of 4 decode steps (EP2D, and the sum over the model
+                 axis without ``serve_ep2d``) run again sharded on the
+                 same input, routing bitwise and outputs at the bf16
+                 bound; then the whole model sharded (prefill and 4
+                 teacher-forced steps), its routing compared call by
+                 call with the unsharded run's, and its logits at the
+                 bf16 bound on every token no differing expert set
+                 reaches, in bf16 and with f32 weights (where at least
+                 half the tokens and steps must be reached by none, and
+                 their logits be within 1e-4).
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
 phases' (``train``), the launchers' (``launch``), the analyzer's
-(``analysis``), phase 8's (``spatial``) and the kernels' JSON records
+(``analysis``), phase 8's (``spatial``), phase 9's (``model_parallel``)
+and the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
 also 5b, the examples and 8a, K2 also 6c and the examples, K5 phases 3,
-3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c and 8d, K6 phases 3c, 3d and
-3i, K8 phases 3b, 3g and 6c), the card's name and power limit, and
+3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a and 9b's unsharded
+twin, K5's partials 9b, K6 phases 3c, 3d, 3i and 9c's unsharded twin,
+K8 phases 3b, 3g and 6c), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -302,6 +341,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -317,6 +357,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+
+
+def flop_rate(dtype) -> float:
+    """The card's peak rate for operations on inputs of ``dtype``: bf16 on
+    the tensor cores, anything else at the f32 rate."""
+    return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
 SEED = 0
 KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention",
            "paged_mla_decode"]
@@ -456,7 +502,7 @@ def ptxas_lines(build_log: Path) -> list[str]:
 def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     """Least time for this call's work: the valid K/V lanes read once plus
     q, the page table, pos and the output, over HBM bandwidth — or its
-    flops over the f32 rate, whichever is larger."""
+    flops over the peak rate for the inputs' type, whichever is larger."""
     B, Hq, Dk = q.shape
     from repro_torch.kernels.paged_decode import paged_valid
 
@@ -466,7 +512,7 @@ def k5_bound(q, k, pages, pos) -> tuple[float, str]:
     nbytes = 2 * q.numel() * item + pages.numel() * 4 + pos.numel() * 4
     nbytes += 2 * n_valid * Hkv * Dk * item
     flops = 4 * n_valid * (Hq // Hkv) * Hkv * Dk
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate(q.dtype)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1955,8 +2001,7 @@ def k6_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str, int, float]:
     nbytes = (q_lat.numel() + q_rope.numel() + n_valid * (lora + rope)) * item
     nbytes += pages.numel() * 4 + pos.numel() * 4 + B * h * lora * 4
     flops = n_valid * h * (2 * (lora + rope) + 2 * lora)
-    rate = BF16_FLOP_PER_S if q_lat.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate(q_lat.dtype)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
 
 
@@ -2281,11 +2326,12 @@ def drive(engine, reqs, strike: bool):
     return victim
 
 
-def serve_engine(cfg, scfg, tracer=None, mesh=None):
+def serve_engine(cfg, scfg, tracer=None, mesh=None, ctx=None):
     from repro_torch import api
+    from repro_torch.distributed.sharding import LOCAL
     from repro_torch.serving.lm import lm_engine_parts
 
-    prog, adapter = lm_engine_parts(cfg, scfg)
+    prog, adapter = lm_engine_parts(cfg, scfg, LOCAL if ctx is None else ctx)
     config = api.EngineConfig(tracer=tracer) if mesh is None else api.EngineConfig(
         tracer=tracer, placement="spatial", mesh=mesh)
     engine = api.serve(prog, adapter, config)
@@ -2294,16 +2340,17 @@ def serve_engine(cfg, scfg, tracer=None, mesh=None):
 
 
 def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
-                 tracer=None, mesh=None, mix=POLICIES) -> tuple:
-    """Build the engine on the card, warm it up with one request, set the
-    ``wrappers``' launch counts to 0, drive the 8-request stream (each
-    request asking for ``spec``) with its strike, read the counts, and
-    check every request and the strike.  Returns (engine, run record,
-    launch counts, each request's tokens)."""
+                 tracer=None, mesh=None, mix=POLICIES, ctx=None) -> tuple:
+    """Build the engine on the card (under ``ctx``, a ``ShardCtx``, when
+    given), warm it up with one request, set the ``wrappers``' launch
+    counts to 0, drive the 8-request stream (each request asking for
+    ``spec``) with its strike, read the counts, and check every request
+    and the strike.  Returns (engine, run record, launch counts, each
+    request's tokens)."""
     from repro_torch.serving import DONE, Request
 
     t0 = time.perf_counter()
-    engine = serve_engine(cfg, scfg, tracer, mesh)
+    engine = serve_engine(cfg, scfg, tracer, mesh, ctx)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(engine._states["weights"]))
     log(f"engine: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} vocab="
@@ -4129,6 +4176,594 @@ def spatial_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: model-parallel serving (ShardCtx, flash-decoding, expert parallelism)
+# --------------------------------------------------------------------------
+MP_TOL = 3e-2  # JAX's bf16 bound on logits (tests/test_decode_spmd.py)
+MP_STEPS = 16  # 9a-9c: teacher-forced decode steps
+MP_PROMPT = 48  # 9a-9c: 8 prompts of this many tokens
+MP_MAX_LEN = 512
+MP_MOE_PREFILL = 64  # 9d: a length the model axis (4) divides: the all-to-all path
+MP_MOE_STEPS = 4
+#: K5's partials held against their plain version at 9b's member shape:
+#: local lane bounds below, at and past a member's 128 lanes
+PARTIAL_POS = (-5, 0, 1, 63, 64, 100, 127, 400)
+PARTIAL_TOL = 1e-3  # relative to the largest value; f32 math, another summation order
+MP_F32_TOL = 1e-4  # 9d's whole model with f32 weights (the f32 bound of the CPU's sharded decode)
+
+
+def mp_ctx(cfg, shape, **kw):
+    """``make_ctx`` over a (data, model) mesh whose members are
+    allocations of cuda:0, asked for explicitly, with the flash-decoding
+    layout."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.mesh import make_ctx
+
+    mesh = make_mesh(shape, ("data", "model"), devices=["cuda:0"] * math.prod(shape))
+    return make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, decode_shardmap=True,
+                    **kw)
+
+
+def mp_layout(tree) -> dict:
+    """Allocation facts of ``tree``'s ``Sharded`` leaves: every distinct
+    block its own allocation (members with one block share it), every
+    fully replicated leaf one tensor for the whole mesh, and the bytes
+    member (0, 0) holds."""
+    from repro_torch.distributed.sharding import Sharded, _key
+
+    out = {"sharded_leaves": 0, "replicated_leaves": 0, "distinct": True,
+           "replicated_once": True, "member_bytes": 0}
+    for x in _leaves(tree):
+        if not isinstance(x, Sharded):
+            continue
+        blocks: dict = {}
+        for c in x.coords():
+            blocks.setdefault(_key(x.block(c)), set()).add(x.local(c).data_ptr())
+        ptrs = [p for v in blocks.values() for p in v]
+        if len(blocks) == 1:
+            out["replicated_leaves"] += 1
+            out["replicated_once"] &= len(set(ptrs)) == 1
+        else:
+            out["sharded_leaves"] += 1
+            out["distinct"] &= (all(len(v) == 1 for v in blocks.values())
+                                and len(set(ptrs)) == len(blocks))
+        t = x.local(x.coords()[0])
+        out["member_bytes"] += t.numel() * t.element_size()
+    return out
+
+
+def mp_counters():
+    from repro_torch.kernels import paged_decode as pd
+
+    return {"k5": pd.paged_gqa_attention, "k5_partials": pd.paged_gqa_partials,
+            "k6": pd.paged_mla_attention}
+
+
+def mp_turns(cfg, ctx, params, steps: int = MP_STEPS) -> tuple[dict, dict]:
+    """Prefill 8 prompts unsharded, decode ``steps`` greedy steps
+    unsharded, then lay the params out on ``ctx``'s mesh (consuming the
+    unsharded ones: one copy of the weights at a time) and decode the
+    same steps sharded, teacher-forced with the unsharded run's tokens.
+    Each run's kernel launches are counted from 0.  Returns (record, the
+    sharded params)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_cells import install_prefill, place_cache, place_params
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    B = 8
+    toks = torch.randint(0, cfg.vocab_size, (B, MP_PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    logits, filled = T.forward(cfg, params, toks, fill_cache=True)
+    cache0 = install_prefill(cfg, T.init_cache(cfg, B, MP_MAX_LEN, "cuda"), filled, MP_PROMPT)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    del logits, filled
+    counters, counts, ms, fed, logits_by = mp_counters(), {}, {}, [], {}
+    for label in ("unsharded", "sharded"):
+        if label == "sharded":
+            params = place_params(cfg, params, ctx)
+            cache = place_cache(cfg, cache0, ctx)
+        else:
+            cache = cache0
+        out = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():  # counts start here
+            w.launches = 0
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if label == "unsharded":
+                fed.append(tok)
+                lg, cache = T.decode_step(cfg, params, cache, tok)
+                tok = lg[:, -1:].argmax(-1).to(torch.int32)
+            else:
+                lg, cache = T.decode_step(cfg, params, cache, fed[i], ctx=ctx)
+            out.append(lg.float())
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) / steps * 1e3
+        counts[label] = {k: w.launches for k, w in counters.items()}  # and are read here
+        logits_by[label] = (torch.stack(out), torch.cuda.max_memory_allocated() / 1e9)
+        if label == "sharded":
+            layout = {"params": mp_layout(params), "cache": mp_layout(cache)}
+    want, got = logits_by["unsharded"][0], logits_by["sharded"][0]
+    rel = float((got - want).abs().max() / want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    return {"max_rel": rel, "finite": finite, "ms_per_step": ms, "launches": counts,
+            "peak_gb": {k: v[1] for k, v in logits_by.items()}, "layout": layout}, params
+
+
+def mp_check_turns(tag: str, cfg, rec: dict, expect: dict) -> None:
+    """The gates of a ``mp_turns`` record: logits within the bf16 bound,
+    launches equal to ``expect`` (label -> counter -> count), every
+    member's block its own allocation, replicated weights held once."""
+    if not rec["finite"] or rec["max_rel"] >= MP_TOL:
+        raise AssertionError(f"{tag}: sharded logits max_rel {rec['max_rel']} (bound {MP_TOL})")
+    for label, want in expect.items():
+        if rec["launches"][label] != want:
+            raise AssertionError(f"{tag} {label}: launches {rec['launches'][label]} != {want}")
+    lay = rec["layout"]
+    if not (lay["params"]["distinct"] and lay["cache"]["distinct"]):
+        raise AssertionError(f"{tag}: two members' blocks share an allocation")
+    if not (lay["params"]["replicated_once"] and lay["params"]["replicated_leaves"]):
+        raise AssertionError(f"{tag}: a replicated weight is held more than once")
+
+
+def mp_9a() -> dict:
+    """9a: internlm2-1.8b served head-sharded on a (2, 4) mesh of cuda:0
+    beside the unsharded engine, then teacher-forced logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import unshard
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.lm_cells import ServeConfig
+
+    cfg = get_config("internlm2-1.8b")
+    scfg = ServeConfig(batch=8, max_len=MP_MAX_LEN)
+    ctx = mp_ctx(cfg, (2, 4))
+    members = 8  # every (data, model) member attends over its own shard
+    runs, tokens, full = {}, {}, None
+    for label, c in (("unsharded", None), ("sharded", ctx)):
+        torch.cuda.reset_peak_memory_stats()
+        engine, run, (k5,), toks = serve_stream(cfg, scfg, [pd.paged_gqa_attention], ctx=c)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = (run["ticks"] + run["replays"]) * max(1, scfg.prefill_chunk)
+        expect = cfg.n_layers * steps * (members if c is not None else 1)
+        if k5 != expect:
+            raise AssertionError(f"9a {label}: K5 launches {k5} != {cfg.n_layers} x {steps}"
+                                 + (f" x {members}" if c is not None else ""))
+        m = engine.metrics()
+        runs[label] = {**run, "k5_launches": k5, "peak_gb": peak,
+                       "victim_ledger": m["fault_totals"][run["victim"]],
+                       "victim_index": list(engine.requests).index(run["victim"])}
+        tokens[label] = toks
+        if c is not None:
+            st = engine._states
+            lay = {"params": mp_layout(st["weights"]), "cache": mp_layout(st["decoder"]["cache"])}
+            if not (lay["params"]["distinct"] and lay["cache"]["distinct"]):
+                raise AssertionError("9a: two members' blocks share an allocation")
+            if not (lay["params"]["replicated_once"] and lay["params"]["replicated_leaves"]):
+                raise AssertionError("9a: a replicated weight is held more than once")
+            runs[label]["layout"] = lay
+            full = unshard(st["weights"]["params"])
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    s, u = runs["sharded"], runs["unsharded"]
+    if s["victim_ledger"] != u["victim_ledger"] or s["victim_index"] != u["victim_index"]:
+        raise AssertionError(f"9a: strike ledger {s['victim_ledger']} != unsharded "
+                             f"{u['victim_ledger']}")
+    pairs = [(a, b) for ta, tb in zip(tokens["sharded"], tokens["unsharded"])
+             for a, b in zip(ta, tb)]
+    share = sum(a == b for a, b in pairs) / len(pairs)
+    forced, _ = mp_turns(cfg, ctx, full)
+    mp_check_turns("9a", cfg, forced, {
+        "unsharded": {"k5": cfg.n_layers * MP_STEPS, "k5_partials": 0, "k6": 0},
+        "sharded": {"k5": cfg.n_layers * MP_STEPS * members, "k5_partials": 0, "k6": 0}})
+    log(f"model_parallel 9a: {cfg.name} head-sharded on (2, 4) members of cuda:0, dense "
+        f"{MP_MAX_LEN} lanes: 0 clean-tick events, strike on the same request and replica "
+        f"({s['victim_ledger']['per_replica']}); sharded {s['tokens_per_s']:.1f} tok/s, "
+        f"{s['ms_per_tick']:.2f} ms/tick, peak {s['peak_gb']:.2f} GB, K5 {s['k5_launches']}; "
+        f"unsharded {u['tokens_per_s']:.1f} tok/s, {u['ms_per_tick']:.2f} ms/tick, peak "
+        f"{u['peak_gb']:.2f} GB, K5 {u['k5_launches']}; greedy tokens equal {share:.4f}; "
+        f"teacher-forced logits max_rel {forced['max_rel']:.3e}; member (0, 0) holds "
+        f"{s['layout']['params']['member_bytes'] / 1e9:.3f} GB of weights and "
+        f"{s['layout']['cache']['member_bytes'] / 1e6:.1f} MB of cache")
+    return {"sharded": s, "unsharded": u, "greedy_equal_share": share, "forced": forced}
+
+
+def mp_partials_check(cfg) -> dict:
+    """K5's partials entry point against its plain version at 9b's member
+    shape (8 slots, the 48 query heads of one kv head, a 128-lane shard),
+    timed beside its bound and beside the library's one call for the same
+    partial; and four members' partials combined (``decode.py``'s
+    ``_combine_partials``) against K5 over the whole 512-lane cache."""
+    from repro_torch.distributed import decode as DD
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    B, Hq, Hkv, D, tp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 4
+    S_l = MP_MAX_LEN // tp
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, MP_MAX_LEN, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    shards = [tuple(x[:, :, m * S_l:(m + 1) * S_l].contiguous() for x in (k, v))
+              for m in range(tp)]
+    pos = torch.tensor(PARTIAL_POS, dtype=torch.int32, device="cuda")
+    launches0 = pd.paged_gqa_partials.launches
+    err = 0.0
+    for m, (ks, vs) in enumerate(shards):
+        args = (q, *pd.dense_gqa_view(ks, vs), (pos - m * S_l).contiguous())
+        got, want = pd.paged_gqa_partials(*args), pd.paged_gqa_partials_plain(*args)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, want, ("acc", "m", "l")):
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                raise AssertionError(f"K5 partials member {m}: {name} finite pattern differs")
+            e = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+            scale = float(b[fin].abs().max()) if fin.any() else 1.0
+            if e > PARTIAL_TOL * max(scale, 1.0):
+                raise AssertionError(f"K5 partials member {m}: {name} max abs err {e}")
+            err = max(err, e)
+    # the flash-decoding combine of the members' partials = K5 over the whole cache
+    full_pos = pos.clamp(min=0)
+    parts = [pd.paged_gqa_partials(q, *pd.dense_gqa_view(ks, vs), (full_pos - m * S_l).contiguous())
+             for m, (ks, vs) in enumerate(shards)]
+    comb = DD._combine_partials(*([p[i] for p in parts] for i in range(3)))
+    whole = pd.paged_gqa_attention(q, *pd.dense_gqa_view(k, v), full_pos)
+    comb_err = float((comb.to(torch.bfloat16).float() - whole.float()).abs().max())
+    if comb_err > 2e-2:
+        raise AssertionError(f"K5 partials: the combined members differ from K5 by {comb_err}")
+    # time and bound at the served member shape (every lane of the shard valid)
+    tpos = torch.full((B,), S_l - 1, dtype=torch.int32, device="cuda")
+    targs = (q, *pd.dense_gqa_view(*shards[0]), tpos)
+    ms = graph_ms(lambda: pd.paged_gqa_partials(*targs))
+    plain_ms = graph_ms(lambda: pd.paged_gqa_partials_plain(*targs))
+    library = partials_library(q, *shards[0], tpos, D**-0.5, targs)
+    pd.paged_gqa_partials.launches = launches0  # comparison launches do not count
+    n_valid = B * S_l
+    nbytes = q.numel() * 2 + 2 * n_valid * Hkv * D * 2 + 8 + B * 4 + B * Hq * (D + 2) * 4
+    flops = 4 * n_valid * Hq * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate(q.dtype)
+    bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    log(f"model_parallel: paged_gqa_partials bf16 B={B} Hq={Hq} Hkv={Hkv} D={D} {S_l}-lane "
+        f"shard: max abs err {err:.3e} over local bounds {PARTIAL_POS}, 4 members combined vs "
+        f"K5 over {MP_MAX_LEN} lanes {comb_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library['ms']} ms ({library['note']}), bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "name": "paged_gqa_partials",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_gqa_decode.cu",
+        "replaces": "src/repro/kernels/paged_decode.py:144",
+        "launches": None,
+        "max_abs_err": err,
+        "combined_vs_k5_max_abs_err": comb_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library["ms"],
+        "library_note": library["note"],
+        "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "lanes": S_l},
+    }
+
+
+def partials_library(q, ks, vs, pos, scale, targs) -> dict:
+    """The one PyTorch call that gives the same partial: SDPA's memory-
+    efficient kernel with its log-sum-exp, whose ``(out, lse)`` is ``(acc
+    / l, m + log l)`` and combines across members as ``(acc, m, l)``
+    does.  It has no GQA, so it is given every query head's K/V (made
+    before it is timed), and the lane mask as an additive bias.  Its
+    agreement with the kernel's partial on these inputs is reported, and
+    its time."""
+    from repro_torch.kernels import paged_decode as pd
+
+    B, Hq, D = q.shape
+    G, S_l = Hq // ks.shape[1], ks.shape[2]
+    kk, vv = (x.repeat_interleave(G, dim=1).contiguous() for x in (ks, vs))
+    lanes = torch.arange(S_l, device=q.device)[None, :] <= pos[:, None].long()
+    bias = torch.where(lanes, 0.0, -math.inf).to(q.dtype)[:, None, None, :]
+    bias = bias.expand(B, Hq, 1, S_l).contiguous()
+    qq = q[:, :, None].contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qq, kk, vv, bias, True, scale=scale)
+
+    try:
+        out, lse = call()[:2]
+        torch.cuda.synchronize()
+        acc, m, l = pd.paged_gqa_partials(*targs)
+        out_err = float((out[:, :, 0].float() - acc / l[..., None]).abs().max())
+        lse_err = float((lse.reshape(B, Hq, -1)[..., 0].float() - (m + torch.log(l))).abs().max())
+        ms = graph_ms(call)
+    except RuntimeError as e:  # the library's call only: nothing of the port is timed here
+        return {"ms": None, "note": f"aten._scaled_dot_product_efficient_attention refused: "
+                                    f"{str(e).splitlines()[0][:160]}"}
+    return {"ms": ms, "note": f"aten._scaled_dot_product_efficient_attention(compute_log_sumexp"
+                              f"=True) on the shard, K/V repeated to {Hq} heads, the lane mask "
+                              f"as a bias; out vs acc/l max abs err {out_err:.3e}, lse vs "
+                              f"m + log l {lse_err:.3e}"}
+
+
+def mp_9b() -> tuple[dict, dict]:
+    """9b: granite-20b at full width and depth, seq-sharded on a (1, 4)
+    mesh (1 kv head cannot divide 4): K5's partials held to their plain
+    version, then 16 decode steps unsharded and sharded in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("granite-20b")
+    partials = mp_partials_check(cfg)
+    ctx = mp_ctx(cfg, (1, 4))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"model_parallel 9b: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    rec, sparams = mp_turns(cfg, ctx, params)
+    tp = 4
+    mp_check_turns("9b", cfg, rec, {
+        "unsharded": {"k5": cfg.n_layers * MP_STEPS, "k5_partials": 0, "k6": 0},
+        "sharded": {"k5": 0, "k5_partials": cfg.n_layers * MP_STEPS * tp, "k6": 0}})
+    spec = tuple(sparams["segments"][0]["attn"]["wk"].spec)
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"model_parallel 9b: seq-sharded ({MP_MAX_LEN // tp} lanes a member; wk {spec}): "
+        f"logits max_rel {rec['max_rel']:.3e}; ms/step unsharded "
+        f"{rec['ms_per_step']['unsharded']:.2f}, "
+        f"sharded {rec['ms_per_step']['sharded']:.2f}; peak GB {rec['peak_gb']}; K5 partials "
+        f"{rec['launches']['sharded']['k5_partials']} = {cfg.n_layers} x {MP_STEPS} x {tp}")
+    return {**rec, "n_params_b": n_params / 1e9, "wk_spec": spec}, partials
+
+
+def mp_9c() -> dict:
+    """9c: deepseek-v3-671b's dense prefix (3 MLA layers), latent cache
+    seq-sharded on a (2, 4) mesh: each member's partial the plain torch
+    math of JAX's ``mla_decode`` body; the unsharded twin on K6."""
+    from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = ds.dense_prefix(get_config("deepseek-v3-671b"))
+    ctx = mp_ctx(cfg, (2, 4))
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    rec, sparams = mp_turns(cfg, ctx, params)
+    mp_check_turns("9c", cfg, rec, {
+        "unsharded": {"k5": 0, "k5_partials": 0, "k6": cfg.n_layers * MP_STEPS},
+        "sharded": {"k5": 0, "k5_partials": 0, "k6": 0}})
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"model_parallel 9c: {cfg.name} {cfg.n_layers} MLA layers, latent cache seq-sharded "
+        f"({MP_MAX_LEN // 4} lanes a member, partial route: plain torch), embed "
+        f"{ctx.embed_strategy}: logits max_rel {rec['max_rel']:.3e}; ms/step unsharded "
+        f"{rec['ms_per_step']['unsharded']:.2f} (K6 {rec['launches']['unsharded']['k6']}), "
+        f"sharded {rec['ms_per_step']['sharded']:.2f}; peak GB {rec['peak_gb']}")
+    return {**rec, "member_partial_route": "plain torch (JAX's mla_decode body)",
+            "embed_strategy": ctx.embed_strategy}
+
+
+def moe_unsharded(cfg, params, toks) -> dict:
+    """9d's unsharded run: a prefill of ``toks`` and ``MP_MOE_STEPS``
+    greedy decode steps, every MoE call's ``(x, y, routing)`` recorded in
+    call order."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_cells import install_prefill
+
+    calls, local = [], M._moe_local
+
+    def spy(p, x, c, **kw):
+        y, aux, idx = local(p, x, c, with_idx=True)
+        calls.append((x, y, idx))
+        return y, aux
+
+    M._moe_local = spy
+    try:
+        logits, filled = T.forward(cfg, params, toks, fill_cache=True)
+        cache0 = install_prefill(cfg, T.init_cache(cfg, toks.shape[0], MP_MAX_LEN, "cuda"),
+                                 filled, MP_MOE_PREFILL)
+        tok, fed, want, cache = logits[:, -1:].argmax(-1).to(torch.int32), [], [], cache0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MP_MOE_STEPS):
+            fed.append(tok)
+            lg, cache = T.decode_step(cfg, params, cache, tok)
+            want.append(lg.float())
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MP_MOE_STEPS * 1e3
+    finally:
+        M._moe_local = local
+    return {"logits": logits, "cache0": cache0, "fed": fed, "want": torch.stack(want),
+            "calls": calls, "ms": ms}
+
+
+def moe_whole(cfg, sparams, ctx, toks, run: dict) -> tuple[dict, float]:
+    """The whole model sharded on ``ctx``: the prefill of ``toks``, then
+    ``run``'s decode steps teacher-forced from its prefilled cache, the
+    routing of every MoE call recorded; held to ``run`` by
+    ``whole_model_drift``.  Returns (its record, ms/step)."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_cells import place_cache
+
+    routed, spmd = [], M._moe_spmd
+
+    def spy(p, x, cfg_, ctx_, **kw):
+        y, aux, idx = spmd(p, x, cfg_, ctx_, with_idx=True)
+        routed.append(idx)
+        return y, aux
+
+    M._moe_spmd = spy
+    try:
+        sl, _ = T.forward(cfg, sparams, toks, ctx=ctx)
+        cache = place_cache(cfg, run["cache0"], ctx)
+        got = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tok in run["fed"]:
+            lg, cache = T.decode_step(cfg, sparams, cache, tok, ctx=ctx)
+            got.append(lg.float())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(run["fed"]) * 1e3
+    finally:
+        M._moe_spmd = spmd
+    return whole_model_drift(routed, run["calls"], cfg.n_layers, run["logits"], sl, run["want"],
+                             torch.stack(got)), ms
+
+
+def mp_9d() -> dict:
+    """9d: granite-moe-1b-a400m at full width, experts one slice a member
+    of a (2, 4) mesh (``serve_ep2d``).  Every MoE call of an unsharded
+    prefill (64 tokens: the all-to-all path) and of 4 decode steps (EP2D,
+    and with ``serve_ep2d=False`` the sum over the model axis) is run
+    again sharded on the same input: routing bitwise, outputs at the
+    bf16 bound.  Then the whole model, sharded, teacher-forced: its
+    logits at the bf16 bound on the tokens its routing does not part
+    from the unsharded run's (``whole_model_drift``), in bf16 and again
+    with f32 weights, where those must be at least half the prefill's
+    tokens and half the decode steps, and within ``MP_F32_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_cells import place_params
+    from repro_torch.tree import tree_map
+
+    cfg = no_drops(get_config("granite-moe-1b-a400m"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "cuda")
+    ctxs = {"ep2d": mp_ctx(cfg, (2, 4), serve_ep2d=True), "ar": mp_ctx(cfg, (2, 4))}
+    sharded = {k: place_params(cfg, tree_map(lambda x: x, params), c) for k, c in ctxs.items()}
+    w1 = sharded["ep2d"]["segments"][0]["moe"]["w1"]
+    w1_ptrs = {w1.local(c).data_ptr() for c in w1.coords()}
+    if len(w1_ptrs) != 8 or w1.local((1, 3)).shape[1] != cfg.moe.n_experts // 8:
+        raise AssertionError("9d: the expert weights are not one allocation a member")
+    B = 8
+    toks = torch.randint(0, cfg.vocab_size, (B, MP_MOE_PREFILL), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    run = moe_unsharded(cfg, params, toks)
+    ms = {"unsharded": run["ms"]}
+    L = cfg.n_layers
+    checked, worst = {"a2a": 0, "ep2d": 0, "ar": 0}, {"a2a": 0.0, "ep2d": 0.0, "ar": 0.0}
+    for i, (x, y, idx) in enumerate(run["calls"]):
+        for key in ("ep2d", "ar") if x.shape[1] == 1 else ("ep2d",):
+            path = "a2a" if x.shape[1] % 4 == 0 else key
+            lp = tree_map(lambda t: t[i % L], sharded[key]["segments"][0])["moe"]
+            ys, _, idxs = M._moe_spmd(lp, x, cfg, ctxs[key], with_idx=True)
+            if not torch.equal(idxs, idx):
+                raise AssertionError(f"9d {path}: MoE call {i} routes differently")
+            rel = float((ys.float() - y.float()).abs().max() / y.float().abs().max())
+            if rel >= MP_TOL:
+                raise AssertionError(f"9d {path}: MoE call {i} max_rel {rel}")
+            checked[path] += 1
+            worst[path] = max(worst[path], rel)
+    if checked != {"a2a": L, "ep2d": L * MP_MOE_STEPS, "ar": L * MP_MOE_STEPS}:
+        raise AssertionError(f"9d: MoE calls checked {checked}")
+    e2e = {"bf16": {}, "f32": {}}
+    for key, c in ctxs.items():
+        e2e["bf16"][key], ms[key] = moe_whole(cfg, sharded[key], c, toks, run)
+    del sharded, params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same cell with f32 weights: the sharded model's last bits then
+    # part from the unsharded model's too little to move a routing
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = T.init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    run = moe_unsharded(cfg32, params, toks)
+    for key, c in ctxs.items():
+        sp = place_params(cfg32, tree_map(lambda x: x, params), c)
+        e2e["f32"][key], ms[f"{key}_f32"] = moe_whole(cfg32, sp, c, toks, run)
+        rec = e2e["f32"][key]
+        if min(rec["clean_share"].values()) < 0.5:
+            raise AssertionError(f"9d {key} f32 whole model: routing parts from the unsharded "
+                                 f"run's before half the tokens: {rec}")
+        if not max(rec["prefill_max_rel"]["clean"], rec["decode_max_rel"]["clean"]) < MP_F32_TOL:
+            raise AssertionError(f"9d {key} f32 whole model: logits where routing agrees past "
+                                 f"{MP_F32_TOL}: {rec}")
+        del sp
+    ms["unsharded_f32"] = run["ms"]
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"model_parallel 9d: {cfg.name} {L} layers, top-{cfg.moe.top_k} of {cfg.moe.n_experts} "
+        f"(capacity factor {cfg.moe.capacity_factor}: nothing drops), (2, 4) mesh: routing "
+        f"bitwise and outputs at the bf16 bound on every MoE call (a2a {checked['a2a']}, EP2D "
+        f"{checked['ep2d']}, AR {checked['ar']}; worst max_rel {worst}); whole model, gated "
+        f"where routing agrees: {e2e}; ms/step unsharded {ms['unsharded']:.2f}, EP2D "
+        f"{ms['ep2d']:.2f}, AR {ms['ar']:.2f}")
+    return {"checked": checked, "worst_max_rel": worst, "whole_model": e2e, "ms_per_step": ms,
+            "capacity_factor": cfg.moe.capacity_factor, "experts_a_member": cfg.moe.n_experts // 8}
+
+
+def whole_model_drift(routed, calls, L, want_pre, got_pre, want_dec, got_dec) -> dict:
+    """9d's whole-model gate.  The sharded model's hidden states differ
+    from the unsharded model's in their last bits (row-parallel sums in
+    another order), so where a token's router scores nearly tie it can
+    take another set of experts downstream; its logits then differ by
+    more than rounding, and so do those of every later token that
+    attends to it.  Count, call by call (prefill: ``L`` calls over (B,
+    S); then ``L`` a decode step over (B, 1)), the (layer, token)
+    routings whose expert set differs from the unsharded run's, and
+    those that only order the same set otherwise (no drops, so the order
+    moves only rounding), and hold the logits to ``MP_TOL`` over the
+    tokens that no differing set reaches: in the prefill, a token and
+    the tokens before it in its prompt; in decode (which starts from the
+    unsharded prefill's cache), the slot's steps so far.  The rest is
+    reported."""
+    if len(routed) != len(calls):
+        raise AssertionError(f"9d: {len(routed)} sharded MoE calls, {len(calls)} unsharded")
+    moved = [(r.sort(-1).values != c[2].sort(-1).values).any(-1) for r, c in zip(routed, calls)]
+    order = [(r != c[2]).any(-1) for r, c in zip(routed, calls)]
+    pre_dirty = torch.stack(moved[:L]).any(0).cummax(dim=1).values          # (B, S)
+    steps = torch.stack([torch.stack(moved[L + i * L: L + (i + 1) * L]).any(0)[:, 0]
+                         for i in range(len(moved[L:]) // L)])                # (steps, B)
+    dec_dirty = steps.cummax(dim=0).values
+    err_pre = (got_pre.float() - want_pre.float()).abs().amax(-1)            # (B, S)
+    err_dec = (got_dec - want_dec).abs().amax(-1)[..., 0]                     # (steps, B)
+
+    def rel(err, mask, want):
+        return float(err[mask].max() / want.float().abs().max()) if mask.any() else None
+
+    def count(diffs):
+        return int(torch.stack(diffs).sum())
+
+    out = {
+        "expert_set_differs": {"prefill": count(moved[:L]), "decode": count(moved[L:])},
+        "order_only_differs": {"prefill": count(order[:L]) - count(moved[:L]),
+                               "decode": count(order[L:]) - count(moved[L:])},
+        "of": {"prefill": L * pre_dirty.numel(), "decode": L * steps.numel()},
+        "clean_share": {"prefill": float((~pre_dirty).float().mean()),
+                        "decode": float((~dec_dirty).float().mean())},
+        "prefill_max_rel": {"clean": rel(err_pre, ~pre_dirty, want_pre),
+                            "reached": rel(err_pre, pre_dirty, want_pre)},
+        "decode_max_rel": {"clean": rel(err_dec, ~dec_dirty, want_dec),
+                           "reached": rel(err_dec, dec_dirty, want_dec)},
+    }
+    for part in ("prefill", "decode"):
+        clean = out[f"{part}_max_rel"]["clean"]
+        if clean is not None and not clean < MP_TOL:
+            raise AssertionError(f"9d whole model: {part} logits where routing agrees "
+                                 f"max_rel {clean} (bound {MP_TOL}); {out}")
+    return out
+
+
+def model_parallel_phase() -> tuple[dict, dict]:
+    t0 = time.perf_counter()
+    out = {"9a": mp_9a()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["9b"], partials = mp_9b()
+    out["9c"] = mp_9c()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["9d"] = mp_9d()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"model_parallel: phase 9 took {out['seconds']:.1f} s")
+    return out, partials
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -4237,6 +4872,21 @@ def main() -> int:
                     ("spatial_8d", spatial["8d"]["k5_launches"])):
         record["launches_by_path"][path] = n
         record["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp, partials = model_parallel_phase()
+    a9 = mp["9a"]
+    for rec, path, n in ((record, "mp_9a_engine", a9["sharded"]["k5_launches"]),
+                         (record, "mp_9a_engine_unsharded", a9["unsharded"]["k5_launches"]),
+                         (record, "mp_9a_forced", a9["forced"]["launches"]["sharded"]["k5"]),
+                         (record, "mp_9a_forced_unsharded",
+                          a9["forced"]["launches"]["unsharded"]["k5"]),
+                         (record, "mp_9b_unsharded", mp["9b"]["launches"]["unsharded"]["k5"]),
+                         (mla, "mp_9c_unsharded", mp["9c"]["launches"]["unsharded"]["k6"])):
+        rec["launches_by_path"][path] = n
+        rec["launches"] += n
+    partials["launches"] = mp["9b"]["launches"]["sharded"]["k5_partials"]
+    partials["launches_by_path"] = {"mp_9b": partials["launches"]}
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -4249,7 +4899,8 @@ def main() -> int:
     print(json.dumps({"launch": launch}), flush=True)
     print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"spatial": spatial}), flush=True)
-    print(json.dumps({"kernels": [record, *epi.values(), attn, ssd, mla]}), flush=True)
+    print(json.dumps({"model_parallel": mp}), flush=True)
+    print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -238,10 +238,16 @@ def run_transition(
         new = _call(cell, _canonical_reads(cell, prevs, levels))
         if fault is not None:
             # unprotected cells are still physically strikeable — the flip
-            # simply goes undetected (the paper's motivating failure mode)
-            exp = tree_map(lambda x: x.unsqueeze(0), new)
-            exp = inject(fault, cell_id=cell_id, step=step, replicated_state=exp)
-            new = tree_map(lambda x: x[0], exp)
+            # simply goes undetected (the paper's motivating failure mode).
+            # Only the struck leaf takes the replica axis: the others pass
+            # through as they are (a sharded cache leaf among them)
+            leaves, treedef = tree_flatten(new)
+            if (fault.cell_id, fault.step) == (cell_id, step) and 0 <= fault.leaf < len(leaves):
+                one = dataclasses.replace(fault, leaf=0)
+                hit = inject(one, cell_id=cell_id, step=step,
+                             replicated_state=[leaves[fault.leaf].unsqueeze(0)])
+                leaves[fault.leaf] = hit[0][0]
+                new = tree_unflatten(treedef, leaves)
         return new, zero_report()
 
     new = replicated_transition(

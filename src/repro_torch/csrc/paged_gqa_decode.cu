@@ -61,6 +61,13 @@
 //     masked lanes would give 0 / 0, so the block detects the case from the
 //     page row and pos and takes that uniform mean explicitly (score 0 on
 //     every lane, unmapped lanes weighing 1 with V = 0).
+// The partials entry point (paged_gqa_partials_*) runs the same split
+// kernel without the uniform case (a slot with no valid lane gives an
+// empty partial: m = -inf, l = 0), then merge_partials_kernel, which
+// merges the splits but does not divide: each row's (acc, m, l) over the
+// lanes it was given.  A member of a sequence-sharded mesh passes its own
+// lanes with pos shifted by its first lane, and the members' partials are
+// combined by the flash-decoding collectives (distributed/decode.py).
 // The scores and the page rows never live in shared memory, so neither
 // max_len nor the page size is bounded by it; Dk must be a multiple of 8
 // and at most 256.
@@ -136,7 +143,8 @@ __global__ void __launch_bounds__(kThreads)
                  const T* __restrict__ v_pool, const int* __restrict__ pages,
                  const int* __restrict__ pos, float* __restrict__ part, int Hq, int Hkv, int Dk,
                  int ps, int P, int N, long long page_stride, long long head_stride,
-                 int split_lanes, int nsplit, int nchunk, float scale_log2, int tpr) {
+                 int split_lanes, int nsplit, int nchunk, float scale_log2, int tpr,
+                 int allow_uniform) {
   extern __shared__ float smem[];  // warp partials: m, l (kWarps * Gc each), acc
   const int G = Hq / Hkv;
   const int b = blockIdx.x, h = blockIdx.y / nchunk, split = blockIdx.z;
@@ -174,7 +182,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 8; ++e) qv[g][e] = x[e] * scale_log2;
   }
-  const bool uniform = !__syncthreads_or(has_valid);
+  const bool none_valid = !__syncthreads_or(has_valid);
+  const bool uniform = allow_uniform && none_valid;
   const int S = P * ps;
   const int L0 = split * split_lanes;
   const int Lend = min(S, L0 + split_lanes);
@@ -302,11 +311,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// out != null: the normalised output (merge_kernel); else the partials
+// acc / m / l (merge_partials_kernel), with no uniform case.
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* pages,
            const void* pos, void* out, void* part, int B, int Hq, int Hkv, int Dk, int ps, int P,
            int N, long long page_stride, long long head_stride, int split_lanes, float scale,
-           void* stream) {
+           void* stream, float* acc = nullptr, float* m_out = nullptr, float* l_out = nullptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
   int tpr = 1;
@@ -329,7 +340,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* pa
 #define GQA_SPLIT(KG)                                                                       \
   split_kernel<T, KG><<<grid, kThreads, smem, s>>>(qq, kp, vp, pg, pp, pt, Hq, Hkv, Dk, ps, P, \
                                                    N, page_stride, head_stride, split_lanes,  \
-                                                   nsplit, nchunk, sl, tpr)
+                                                   nsplit, nchunk, sl, tpr, out != nullptr)
   if (Gc == 1)
     GQA_SPLIT(1);
   else if (Gc == 2)
@@ -340,7 +351,11 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* pa
     GQA_SPLIT(8);
 #undef GQA_SPLIT
   if (const int e = (int)cudaGetLastError()) return e;
-  merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(pt, static_cast<T*>(out), B * Hq, Dk, nsplit);
+  if (out)
+    merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(pt, static_cast<T*>(out), B * Hq, Dk, nsplit);
+  else
+    merge_partials_kernel<<<B * Hq, kMergeThreads, 0, s>>>(pt, acc, m_out, l_out, B * Hq, Dk,
+                                                            nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -371,4 +386,29 @@ extern "C" int paged_gqa_decode_bf16(const void* q, const void* k_pool, const vo
                                      int split_lanes, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k_pool, v_pool, pages, pos, out, part, B, Hq, Hkv, Dk, ps, P,
                                N, page_stride, head_stride, split_lanes, scale, stream);
+}
+
+// The partials of the same attention (see the header): acc (B,Hq,Dk) f32,
+// m and l (B,Hq) f32, contiguous; pos may be negative (no valid lane).
+extern "C" int paged_gqa_partials_f32(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* pages, const void* pos, void* acc, void* m,
+                                      void* l, void* part, int B, int Hq, int Hkv, int Dk, int ps,
+                                      int P, int N, long long page_stride, long long head_stride,
+                                      int split_lanes, float scale, void* stream) {
+  if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k_pool, v_pool, pages, pos, nullptr, part, B, Hq, Hkv, Dk, ps, P, N,
+                       page_stride, head_stride, split_lanes, scale, stream,
+                       static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l));
+}
+
+extern "C" int paged_gqa_partials_bf16(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* pages, const void* pos, void* acc, void* m,
+                                       void* l, void* part, int B, int Hq, int Hkv, int Dk, int ps,
+                                       int P, int N, long long page_stride, long long head_stride,
+                                       int split_lanes, float scale, void* stream) {
+  if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(q, k_pool, v_pool, pages, pos, nullptr, part, B, Hq, Hkv, Dk, ps,
+                               P, N, page_stride, head_stride, split_lanes, scale, stream,
+                               static_cast<float*>(acc), static_cast<float*>(m),
+                               static_cast<float*>(l));
 }

@@ -56,4 +56,37 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
+// The same merge without the division: one block per row bh writes the
+// merged unnormalised context acc[bh * Dk ...], its softmax max m[bh] in
+// natural units (the split kernel keeps log2 units) and its sum l[bh]:
+// the row's partial, for a caller that combines it with partials of other
+// lanes (flash-decoding across the members of a mesh).  A row no split
+// saw writes acc 0, m -inf, l 0.
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_partials_kernel(const float* __restrict__ part, float* __restrict__ acc,
+                          float* __restrict__ m_out, float* __restrict__ l_out, int BH, int Dk,
+                          int nsplit) {
+  const int bh = blockIdx.x;
+  const Partials pt(const_cast<float*>(part), BH, nsplit, Dk);
+  const float* m = pt.m + (size_t)bh * nsplit;
+  const float* l = pt.l + (size_t)bh * nsplit;
+  float M = -INFINITY;
+  for (int s = 0; s < nsplit; ++s)
+    if (l[s] > 0.f) M = fmaxf(M, m[s]);
+  for (int d = threadIdx.x; d < Dk; d += blockDim.x) {
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      if (!(l[s] > 0.f)) continue;
+      const float f = exp2f(m[s] - M);
+      L += l[s] * f;
+      A += pt.acc[((size_t)bh * nsplit + s) * Dk + d] * f;
+    }
+    acc[(size_t)bh * Dk + d] = A;
+    if (d == 0) {
+      m_out[bh] = M == -INFINITY ? -INFINITY : M * 0.69314718055994531f;  // log2 -> natural
+      l_out[bh] = L;
+    }
+  }
+}
+
 }  // namespace

@@ -23,10 +23,16 @@ i64) travels bit-exactly in one array:
     a leading replica axis (the TMR bitwise vote; temporal readers of a
     spatial cell).
 
+Model-axis collectives (``distributed/decode.py``, ``models/moe.py``'s
+expert-parallel paths): ``psum``, ``pmax``, ``pmean``, ``all_gather``
+(stacked, or ``tiled``), ``all_to_all`` (split 0 / concat 0, untiled);
+a member's ``axis_index`` is ``Mesh.axis_index``.  They reduce in member
+order, so two runs of one layout compute the same bits.
+
 Gradient collectives: ``compressed_psum_int8`` (the two-hop int8 mean
 with error feedback) and ``psum_mean``.  Their trainer user
-(``grad_compression="int8_ef"``) comes with the model-parallel half of
-the port (ROADMAP item 7b).
+(``grad_compression="int8_ef"``) comes with the training half of the
+model-parallel port (ROADMAP item 7b-ii).
 
 Words are held as the port holds them everywhere: fingerprints as u32
 values in ``int64`` masked with ``M32``, streams as ``int32`` bits.
@@ -82,10 +88,47 @@ def psum_delta(hs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return [(_to(total, h.device) - 2 * h) & M32 for h in hs]
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def all_gather(xs: Sequence[torch.Tensor], *, tiled: bool = False) -> list[torch.Tensor]:
     """Every member receives all members' tensors stacked on a new leading
-    axis (``jax.lax.all_gather``)."""
-    return _per_device(xs, lambda dev: torch.stack([_to(x, dev) for x in xs]))
+    axis (``jax.lax.all_gather``), or with ``tiled`` concatenated along
+    axis 0 (``tiled=True``)."""
+    join = torch.cat if tiled else torch.stack
+    return _per_device(xs, lambda dev: join([_to(x, dev) for x in xs]))
+
+
+# --------------------------------------------------------------------------
+# model-axis collectives
+# --------------------------------------------------------------------------
+def _reduce(xs: Sequence[torch.Tensor], op) -> list[torch.Tensor]:
+    home = xs[0].device
+    total = xs[0]
+    for x in xs[1:]:
+        total = op(total, _to(x, home))
+    return _per_device(xs, lambda dev: _to(total, dev))
+
+
+def psum(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The members' sum (``jax.lax.psum``), member by member in order."""
+    return _reduce(xs, torch.add)
+
+
+def pmax(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The members' elementwise maximum (``jax.lax.pmax``)."""
+    return _reduce(xs, torch.maximum)
+
+
+def pmean(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The members' mean (``jax.lax.pmean``): their ordered sum over their
+    count."""
+    return [x / len(xs) for x in psum(xs)]
+
+
+def all_to_all(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=False)`` over n members: member j's (n, ...) tensor is split
+    along axis 0 and piece i goes to member i, which stacks what it
+    receives in source order, (n src, ...)."""
+    return [torch.stack([_to(x[i], dst.device) for x in xs]) for i, dst in enumerate(xs)]
 
 
 def bcast_pytree(trees: Sequence[Tree], src) -> list[Tree]:

@@ -1,0 +1,311 @@
+"""Flash-decoding over a tensor-parallel mesh: keep decode caches sharded,
+always (a port of ``repro/distributed/decode.py``).
+
+The JAX package runs these bodies under ``shard_map``; here one
+controller runs every member's body on the member's own cache shard (a
+``Sharded`` leaf, ``distributed/sharding.py``) and combines the members
+with the collectives of ``distributed/collectives.py``, in member order:
+
+  * the cache never moves: each member updates its own slice (a local
+    write masked to the owning member);
+  * attention runs as a partial softmax per member (flash-decoding, the
+    "split-KV" axis being the model axis of the mesh);
+  * members combine with three small collectives: pmax(m), psum(l),
+    psum(ctx).
+
+Two cache layouts, matching ``sharding.cache_pspecs``:
+  * head-sharded (n_kv_heads % tp == 0): update and attention are local
+    to each member; on the card each member's attention is the paged GQA
+    kernel (K5) over its own contiguous shard (``dense_gqa_view``);
+  * seq-sharded (cache length % tp == 0): each member's ``(ctx, m, l)``
+    over its lanes ``[lo, lo + S_l)``; on the card from K5's split
+    kernel (``paged_gqa_partials``), then the flash-decoding combine.
+Anything else returns None, and the caller decodes each data member's
+rows on its own (``local_decode``; the cache then has no model axis).
+MLA's latent cache is sequence-sharded; each member's partial is the
+plain torch math of JAX's ``mla_decode`` body (no Pallas kernel there
+either), on the card as on the CPU.  Where the model axis does not
+divide the lanes (or is 1, or ``tp_off``), ``mla_decode`` returns None
+and ``local_mla_decode`` decodes each data member's rows over its own
+latent block, on the card through K6 as the unsharded decode does.
+The members of a model group combine in ``_combine_partials``.
+
+The caller's activations are ordinary tensors on the controller's
+device (``q`` (B, Hq, 1, D) with every head): a member reads its rows
+(and heads), and the output is assembled there again.  The cache is
+written in place: ``decode_step`` hands every layer views of a fresh
+copy of the members' shards.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels.paged_decode import (NEG_INF, attend, dense_decode_on_card, dense_gqa_view,
+                                    dense_mla_decode, gate, paged_gqa_attention,
+                                    paged_gqa_partials, ring_lane_pos)
+from . import collectives as C
+
+
+def _tp(ctx) -> tuple[Optional[str], int]:
+    if ctx.tp_off or ctx.mesh is None:
+        return None, 1
+    ma = ctx.model_axis
+    return ma, ctx.mesh.shape[ma]
+
+
+def _groups(x, ma: str) -> list[list[tuple]]:
+    """The model-axis groups of ``x``'s members whose shards have not
+    been seen yet (members on one device that share their shards, such
+    as the data members of a cache replicated over data, are one
+    group)."""
+    seen, out = set(), []
+    for c in x.coords():
+        if c[x.mesh.axis_names.index(ma)] != 0 or id(x.local(c)) in seen:
+            continue
+        group = x.mesh.members(c, ma)
+        seen.update(id(x.local(g)) for g in group)
+        out.append(group)
+    return out
+
+
+# ===========================================================================
+# GQA / MQA / MHA / SWA
+# ===========================================================================
+def gqa_decode(q, k_new, v_new, cache, pos, *, cfg, ctx, active=None):
+    """q (B,Hq,1,D); k_new/v_new (B,Hkv,D); cache {"k","v","slot_pos"} of
+    ``Sharded`` leaves laid out by ``cache_pspecs``.  ``active`` is the
+    serving batcher's per-slot mask (B, bool): inactive slots keep their
+    cache bytes.  Returns (out (B,Hq,1,D), cache) with the cache still
+    sharded (written in place), or None when no layout divides."""
+    B, Hq, _, Dk = q.shape
+    Hkv = k_new.shape[1]
+    S = cache["k"].shape[2]
+    ma, tp = _tp(ctx)
+    head_ok = tp > 1 and Hkv % tp == 0 and Hq % tp == 0
+    seq_ok = tp > 1 and S % tp == 0
+    if ctx.mesh is None or tp == 1 or not (head_ok or seq_ok):
+        return None  # caller falls back to each data member's rows
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=q.device)
+    if head_ok:
+        return local_decode(q, k_new, v_new, cache, pos, cfg=cfg, active=active), cache
+    return _seq_decode(q, k_new, v_new, cache, pos, cfg=cfg, ctx=ctx, active=active), cache
+
+
+def local_decode(q, k_new, v_new, cache, pos, *, cfg, active):
+    """Each member updates and attends over its own cache block (its rows
+    and kv heads, all lanes): the head-sharded body, and with a cache
+    that has no model axis the per-data-member fallback.  Members that
+    share one tensor compute once.  Returns out (B,Hq,1,D)."""
+    kc, vc, sp = cache["k"], cache["v"], cache["slot_pos"]
+    G = q.shape[1] // k_new.shape[1]
+    out = torch.empty_like(q)
+    for c, kt in kc.distinct():
+        rows, heads = kc.block(c)[:2]
+        qh = slice(heads.start * G, heads.stop * G)
+        dev = kt.device
+        qm, pm, am = (t.to(dev) for t in (q[rows, qh], pos[rows], active[rows]))
+        spt = sp.local(c)
+        _update_local_slot(kt, vc.local(c), spt, k_new[rows, heads].to(dev),
+                           v_new[rows, heads].to(dev), pm, active=am)
+        o = _softmax_attend(qm, kt, vc.local(c), spt, pm, cfg.window)
+        out[rows, qh] = o.to(out.device)
+    return out
+
+
+def _seq_decode(q, k_new, v_new, cache, pos, *, cfg, ctx, active):
+    """Seq-sharded cache: each member writes the lane it owns and gives
+    its partial softmax over its lanes; the model group combines them."""
+    ma, tp = _tp(ctx)
+    kc, vc, sp = cache["k"], cache["v"], cache["slot_pos"]
+    B, Hq, _, Dk = q.shape
+    Hkv, Dv = k_new.shape[1], vc.shape[-1]
+    S = kc.shape[2]
+    scale = Dk**-0.5
+    out = torch.empty_like(q)
+    for group in _groups(kc, ma):
+        rows = kc.block(group[0])[0]
+        ctxs, ms, ls = [], [], []
+        for c in group:
+            kt, vt = kc.local(c), vc.local(c)
+            dev = kt.device
+            lo, S_l = kc.block(c)[2].start, kt.shape[2]
+            qm, pm, am = (t.to(dev) for t in (q[rows], pos[rows], active[rows]))
+            spv = sp.local(c)[:, lo: lo + S_l]  # the member's lanes of the replicated table
+            _update_local_slot(kt, vt, spv, k_new[rows].to(dev), v_new[rows].to(dev), pm,
+                               lo=lo, tp=tp, active=am)
+            if dense_decode_on_card(dev):
+                bound = (ring_lane_pos(pm, S) - lo).to(torch.int32).contiguous()
+                a, m, l = paged_gqa_partials(qm[:, :, 0].contiguous(), *dense_gqa_view(kt, vt),
+                                             bound, scale=scale)
+                B_l = a.shape[0]
+                a, m, l = (a.reshape(B_l, Hkv, Hq // Hkv, Dv), m.reshape(B_l, Hkv, -1),
+                           l.reshape(B_l, Hkv, -1))
+            else:
+                a, m, l = _partial_attend(qm, kt, vt, spv, pm, cfg.window, scale)
+            ctxs.append(a)
+            ms.append(m)
+            ls.append(l)
+        o = _combine_partials(ctxs, ms, ls)
+        out[rows] = o.reshape(o.shape[0], Hq, 1, Dv).to(q.dtype).to(out.device)
+    return out
+
+
+def _combine_partials(ctxs, ms, ls):
+    """The flash-decoding combine of one model group's partials, in member
+    order, as JAX's: ``m_g = pmax(m)``, ``alpha = exp(m - m_g)``, ``l_g =
+    psum(l * alpha)``, ``ctx_g = psum(ctx * alpha)``, then ``ctx_g /
+    max(l_g, 1e-30)``.  ``ctxs`` (..., D), ``ms`` and ``ls`` (...), one
+    each a member.  ``m_g`` is held at ``NEG_INF`` or above: K5's empty
+    partial has m = -inf, and a row that is empty on every member (an
+    inactive slot) then combines to 0 rather than NaN."""
+    m_g = [g.clamp(min=NEG_INF) for g in C.pmax(ms)]
+    alpha = [torch.exp(m - g) for m, g in zip(ms, m_g)]
+    l_g = C.psum([l * a for l, a in zip(ls, alpha)])[0]
+    ctx_g = C.psum([x * a[..., None] for x, a in zip(ctxs, alpha)])[0]
+    return ctx_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def _update_local_slot(kc, vc, sp, k_new, v_new, pos, lo=None, tp=1, active=None):
+    """Write the new token into ring slot pos % S on the owning member
+    only, in place.  kc/vc (B,H,S_l,D); sp (B,S_l); k_new/v_new (B,H,D);
+    pos (B,).  Head-local (``lo`` None): the local seq axis is the full
+    ring.  Seq-sharded: the global ring has length S_l * tp; only the
+    member whose range [lo, lo + S_l) holds the slot writes.  ``active``
+    (B, bool) masks the write per slot."""
+    B, S_l = kc.shape[0], kc.shape[2]
+    if lo is None:
+        slot = pos % S_l
+        hit = torch.ones((B,), dtype=torch.bool, device=kc.device)
+        local_slot = slot
+    else:
+        slot = pos % (S_l * tp)
+        hit = (slot >= lo) & (slot < lo + S_l)
+        local_slot = (slot - lo).clamp(0, S_l - 1)
+    if active is not None:
+        hit = hit & active
+    bidx = torch.arange(B, device=kc.device)
+    local_slot = local_slot.long()
+    kc[bidx, :, local_slot] = gate(hit, k_new.to(kc.dtype), kc[bidx, :, local_slot])
+    vc[bidx, :, local_slot] = gate(hit, v_new.to(vc.dtype), vc[bidx, :, local_slot])
+    sp[bidx, local_slot] = gate(hit, pos.to(sp.dtype), sp[bidx, local_slot])
+
+
+def _softmax_attend(q, kc, vc, sp, pos, window, scale=None):
+    """Full (local) softmax of a member: q (B,Hq,1,D) over its cache
+    block (B,Hkv,S,D).  On the card, K5 over the block read in place
+    (``dense_gqa_view``, masked by lane at ``ring_lane_pos``); on the
+    CPU, JAX's math masked by ``slot_pos``."""
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    if dense_decode_on_card(q.device):
+        out = paged_gqa_attention(q[:, :, 0].contiguous(), *dense_gqa_view(kc, vc),
+                                  ring_lane_pos(pos, kc.shape[2]).contiguous(), scale=scale)
+        return out[:, :, None]
+    return attend(q[:, :, 0], kc, vc, _valid_mask(sp, pos, window), scale)[:, :, None]
+
+
+def _valid_mask(sp, pos, window):
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    if window is not None:
+        valid &= sp > (pos[:, None] - window)
+    return valid
+
+
+def _partial_attend(q, kc, vc, sp, pos, window, scale):
+    """Partial-softmax accumulators over the local KV slice (JAX's math).
+    Returns (ctx (B,Hkv,G,Dv) f32, m (B,Hkv,G) f32, l (B,Hkv,G) f32)."""
+    B, Hq, _, Dk = q.shape
+    Hkv = kc.shape[1]
+    qf = q.reshape(B, Hkv, Hq // Hkv, Dk).float() * scale
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, kc.float())
+    s = torch.where(_valid_mask(sp, pos, window)[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    ctx = torch.einsum("bhgs,bhsd->bhgd", e, vc.float())
+    return ctx, m, e.sum(dim=-1)
+
+
+# ===========================================================================
+# MLA (latent cache)
+# ===========================================================================
+def mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, pos, *, cfg, ctx, active=None):
+    """Absorbed MLA decode over a sequence-sharded latent cache.
+
+    q_lat (B,1,h,lora), q_rope (B,1,h,r); ckv_new (B,lora), krope_new
+    (B,r); cache {"ckv" (B,S,lora), "krope" (B,S,r), "slot_pos" (B,S)}
+    of ``Sharded`` leaves.  ``active`` (B, bool): inactive slots' cache
+    is never written.  Returns (ctx_lat (B,1,h,lora) f32, cache) or None
+    (no model axis divides the lanes)."""
+    B = q_lat.shape[0]
+    S = cache["ckv"].shape[1]
+    ma, tp = _tp(ctx)
+    if ctx.mesh is None or tp == 1 or S % tp != 0:
+        return None
+    m_cfg = cfg.mla
+    scale = (m_cfg.qk_nope_dim + m_cfg.qk_rope_dim) ** -0.5
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=q_lat.device)
+    ckv_s, krope_s, sp = cache["ckv"], cache["krope"], cache["slot_pos"]
+    out = torch.empty((*q_lat.shape[:3], ckv_s.shape[-1]), dtype=torch.float32,
+                      device=q_lat.device)
+    for group in _groups(ckv_s, ma):
+        rows = ckv_s.block(group[0])[0]
+        ctxs, ms, ls = [], [], []
+        for c in group:
+            ckv, krope = ckv_s.local(c), krope_s.local(c)
+            dev = ckv.device
+            B_l, S_l = ckv.shape[:2]
+            lo = ckv_s.block(c)[1].start
+            ql, qr, pm, am = (t.to(dev) for t in (q_lat[rows], q_rope[rows], pos[rows],
+                                                  active[rows]))
+            spv = sp.local(c)[:, lo: lo + S_l]
+            slot = pm % (S_l * tp)
+            hit = (slot >= lo) & (slot < lo + S_l) & am
+            ls_ = (slot - lo).clamp(0, S_l - 1).long()
+            bidx = torch.arange(B_l, device=dev)
+            ckv[bidx, ls_] = gate(hit, ckv_new[rows].to(dev, ckv.dtype), ckv[bidx, ls_])
+            krope[bidx, ls_] = gate(hit, krope_new[rows].to(dev, krope.dtype), krope[bidx, ls_])
+            spv[bidx, ls_] = gate(hit, pm.to(spv.dtype), spv[bidx, ls_])
+            ckvf = ckv.float()
+            s = torch.einsum("bshl,btl->bhst", ql.float(), ckvf)
+            s = s + torch.einsum("bshr,btr->bhst", qr.float(), krope.float())
+            s = s * scale                                   # (B,h,1,S_l)
+            valid = (spv >= 0) & (spv <= pm[:, None])
+            s = torch.where(valid[:, None, None, :], s, NEG_INF)
+            m = s.amax(dim=-1)                              # (B,h,1)
+            e = torch.exp(s - m[..., None])
+            ls.append(e.sum(dim=-1))
+            ms.append(m)
+            ctxs.append(torch.einsum("bhst,btl->bhsl", e, ckvf))
+        # (B,h,1,lora) -> (B,1,h,lora)
+        out[rows] = _combine_partials(ctxs, ms, ls).transpose(1, 2).to(out.device)
+    return out, cache
+
+
+def local_mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, pos, *, cfg, active):
+    """JAX's fallback when ``mla_decode`` returns None: each data member
+    updates and attends over its own latent block (its rows, every lane:
+    the cache has no model axis), as the unsharded decode does
+    (``kernels.paged_decode.dense_mla_decode``: K6 over the block in
+    place on a card).  Members that share one tensor compute once.
+    Arguments as ``mla_decode``'s; returns ctx_lat (B,1,h,lora) f32."""
+    m_cfg = cfg.mla
+    scale = (m_cfg.qk_nope_dim + m_cfg.qk_rope_dim) ** -0.5
+    ckv_s, krope_s, sp = cache["ckv"], cache["krope"], cache["slot_pos"]
+    out = torch.empty((*q_lat.shape[:3], ckv_s.shape[-1]), dtype=torch.float32,
+                      device=q_lat.device)
+    for c, ckv in ckv_s.distinct():
+        rows, lanes = ckv_s.block(c)[:2]
+        if lanes.stop - lanes.start != ckv_s.shape[1]:
+            raise ValueError(f"local MLA decode needs every lane on a member; {ckv_s!r} "
+                             "splits them")
+        dev = ckv.device
+        ql, qr, cn, kn, pm, am = (t[rows].to(dev) for t in (q_lat, q_rope, ckv_new, krope_new,
+                                                             pos, active))
+        blk = {"ckv": ckv, "krope": krope_s.local(c), "slot_pos": sp.local(c)}
+        lat = dense_mla_decode(ql[:, 0], qr[:, 0], cn, kn, blk, pm, active=am, scale=scale)
+        out[rows] = lat[:, None].to(out.device)
+    return out

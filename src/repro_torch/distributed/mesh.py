@@ -134,6 +134,29 @@ class Mesh:
                     x.record_stream(cur)
         return tree
 
+    # -- member addressing ------------------------------------------------
+    def device_at(self, coord) -> torch.device:
+        """The device of the member at grid index ``coord``."""
+        return self.devices[tuple(coord)]
+
+    def axis_index(self, coord, axis: str) -> int:
+        """``jax.lax.axis_index(axis)`` of the member at ``coord``."""
+        return int(coord[self.axis_names.index(axis)])
+
+    def members(self, coord, axes) -> list[tuple]:
+        """The members that differ from ``coord`` only along ``axes`` (a
+        name or a tuple of names, the first major), in their index order:
+        the group a collective over ``axes`` runs in."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [self.axis_names.index(a) for a in axes]
+        out = []
+        for idx in np.ndindex(*(self.shape[a] for a in axes)):
+            c = list(coord)
+            for p, i in zip(pos, idx):
+                c[p] = i
+            out.append(tuple(c))
+        return out
+
     def __repr__(self) -> str:
         grid = ", ".join(f"{a}={n}" for a, n in self.shape.items())
         return f"Mesh({grid}; devices={[str(d) for d in self.devices.flat]})"

@@ -33,6 +33,18 @@ table ``b``).  Both kernels split a slot's lanes at multiples of
 so a dense view and a paged pool holding the same values give the same
 bits: the paged-vs-dense token parity of the engine holds on the card.
 
+``paged_gqa_partials`` is the GQA kernel's second entry point: the same
+split pass, then a merge that does not divide, so it returns each row's
+flash-decoding partial ``(acc, m, l)`` over the lanes it is given, and a
+row with no valid lane is an empty partial (no uniform mean).  A member
+of a sequence-sharded mesh reads its own cache shard through it
+(``distributed/decode.py``).
+
+The dense-cache decode pieces that the model's layers and the sharded
+decode (``distributed/decode.py``) share live here too, below both:
+``dense_decode_on_card``, ``ring_lane_pos``, the serving slot ``gate``
+and ``dense_mla_decode``.
+
 Each wrapper takes its plain version for CPU tensors only; a CUDA tensor
 reaches the kernel or an exception.  ``launches`` on a wrapper counts
 its kernel launches: one a call (each kernel's split pass and merge
@@ -136,8 +148,9 @@ def dense_gqa_view(k: torch.Tensor, v: torch.Tensor):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_gqa_decode")
-    for fn in (lib.paged_gqa_decode_f32, lib.paged_gqa_decode_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+    for fn, ptrs in ((lib.paged_gqa_decode_f32, 7), (lib.paged_gqa_decode_bf16, 7),
+                     (lib.paged_gqa_partials_f32, 9), (lib.paged_gqa_partials_bf16, 9)):
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -232,6 +245,66 @@ def paged_gqa_attention(q, k_pool, v_pool, pages, pos, *, scale=None) -> torch.T
 
 
 paged_gqa_attention.launches = 0
+
+
+def paged_gqa_partials_plain(q, k_pool, v_pool, pages, pos, *, scale=None):
+    """The plain version of ``paged_gqa_partials``: over the lanes of
+    mapped pages at or before ``pos``, the f32 scores' max ``m`` (B, Hq),
+    ``l = sum exp(s - m)`` (B, Hq) and ``acc = sum exp(s - m) V`` (B, Hq,
+    Dv); a row with no valid lane gives m = -inf, l = 0, acc = 0."""
+    B, Hq, Dk = q.shape
+    Hkv = k_pool.shape[1]
+    scale = (Dk**-0.5) if scale is None else scale
+    valid = paged_valid(pages, pos, k_pool.shape[2])[:, None, None, :]
+    k, v = paged_gather(k_pool, pages).float(), paged_gather(v_pool, pages).float()
+    qf = q.reshape(B, Hkv, Hq // Hkv, Dk).float() * scale
+    s = torch.where(valid, torch.einsum("bhgd,bhsd->bhgs", qf, k), -torch.inf)
+    m = s.amax(dim=-1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhgs,bhsd->bhgd", e, v)
+    return acc.reshape(B, Hq, v.shape[-1]), m.reshape(B, Hq), e.sum(dim=-1).reshape(B, Hq)
+
+
+def paged_gqa_partials(q, k_pool, v_pool, pages, pos, *, scale=None):
+    """Single-query GQA over a page table as a flash-decoding partial:
+    ``(acc (B,Hq,Dk) f32, m (B,Hq) f32, l (B,Hq) f32)``, the unnormalised
+    context, the scores' max (natural units) and the softmax sum over the
+    valid lanes (``acc / l`` is ``paged_gqa_attention``'s output where a
+    lane is valid).  The inputs are ``paged_gqa_attention``'s; ``pos``
+    may be negative, and a row without a valid lane gives m = -inf, l =
+    0.  The kernel's splits follow ``gqa_split_lanes`` and are merged in
+    order, so equal inputs give equal bits.  CPU tensors take
+    ``paged_gqa_partials_plain``."""
+    if q.device.type == "cpu":
+        return paged_gqa_partials_plain(q, k_pool, v_pool, pages, pos, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_gqa_partials runs on cuda or cpu, not {q.device}")
+    _check(q, k_pool, v_pool, pages, pos)
+    B, Hq, Dk = q.shape
+    N, Hkv, ps, _ = k_pool.shape
+    P = pages.shape[1]
+    scale = (Dk**-0.5) if scale is None else scale
+    lib = _lib()
+    fn = lib.paged_gqa_partials_f32 if q.dtype == torch.float32 else lib.paged_gqa_partials_bf16
+    chunks = -(-(Hq // Hkv) // GQA_CHUNK)
+    split_lanes = gqa_split_lanes(B, Hkv * chunks, P * ps, build.sm_count(q.device.index))
+    n_split = -(-P * ps // split_lanes)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, Hq, Dk), **f32)
+    m, l = torch.empty((B, Hq), **f32), torch.empty((B, Hq), **f32)
+    part = torch.empty(B * Hq * n_split * (Dk + 2), **f32)
+    with torch.cuda.device(q.device):  # the C launch uses the current device
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
+                 pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+                 B, Hq, Hkv, Dk, ps, P, N, k_pool.stride(0), k_pool.stride(1), split_lanes,
+                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_gqa_partials launch failed: cudaError {err}")
+    paged_gqa_partials.launches += 1
+    return acc, m, l
+
+
+paged_gqa_partials.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -419,3 +492,53 @@ def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scal
 
 
 paged_mla_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# dense-cache decode: the pieces the model's layers and the sharded decode
+# (``distributed/decode.py``) share
+# --------------------------------------------------------------------------
+def dense_decode_on_card(device: torch.device) -> bool:
+    """Does dense decode on ``device`` run the paged kernels?  True on a
+    card, False on the CPU (plain torch)."""
+    return device.type == "cuda"
+
+
+def ring_lane_pos(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """The lane bound the kernels mask a dense cache of ``S`` lanes by:
+    lanes ``0..min(pos, S-1)``.  A sliding window's ring holds S =
+    min(max_len, window) lanes written at ``pos % S``, so once the write
+    of ``pos`` has landed, the lanes ``slot_pos`` selects (filled, at most
+    ``pos``, inside the window) are exactly these; a full cache never
+    reaches ``pos > S-1``."""
+    return pos.clamp(max=S - 1)
+
+
+def gate(active, new, old):
+    """The serving slot mask on a decode write: an inactive slot (``active``
+    False) keeps its old bytes."""
+    if active is None:
+        return new
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def dense_mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, pos, *, active, scale: float):
+    """One absorbed-MLA decode step over a dense latent cache: q_lat (B,
+    h, lora), q_rope (B, h, rope); the new lane ``ckv_new`` (B, lora) /
+    ``krope_new`` (B, rope) written INTO ``cache`` {"ckv" (B, S, lora),
+    "krope" (B, S, rope), "slot_pos" (B, S)} at ``pos % S`` (``active``
+    gates it), then attention: on a card K6 over the cache read in place
+    (``dense_mla_view``), on the CPU the JAX package's math masked by
+    ``slot_pos`` (``attend_mla``).  Returns the f32 latent context (B, h,
+    lora)."""
+    B = q_lat.shape[0]
+    slot = pos % cache["ckv"].shape[1]
+    bidx = torch.arange(B, device=q_lat.device)
+    for key, new in (("ckv", ckv_new), ("krope", krope_new), ("slot_pos", pos)):
+        cache[key][bidx, slot] = gate(active, new.to(cache[key].dtype), cache[key][bidx, slot])
+    if dense_decode_on_card(q_lat.device):
+        return paged_mla_attention(q_lat.contiguous(), q_rope.contiguous(),
+                                   *dense_mla_view(cache["ckv"], cache["krope"]),
+                                   pos.contiguous(), scale=scale)
+    valid = (cache["slot_pos"] >= 0) & (cache["slot_pos"] <= pos[:, None])
+    return attend_mla(q_lat, q_rope, cache["ckv"], cache["krope"], valid, scale)

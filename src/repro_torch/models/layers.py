@@ -21,6 +21,17 @@ keys and layouts.  Attention has three execution paths:
     lane bound is ``min(pos, S-1)``, ``ring_lane_pos``), and the kernels
     reduce a dense view and a paged pool in the same order, so paged and
     dense decode give the same bits.
+
+Under a ``ShardCtx`` with a mesh the weights are ``Sharded`` leaves
+(``distributed/sharding.py``) and every product with one goes through
+``matmul``: column-parallel where the output dimension is sharded (the
+members' outputs concatenated), row-parallel where the input dimension
+is (the members' partial products summed in member order), both for a
+weight sharded two ways.  Activations stay ordinary tensors on the
+controller's device.  Decode over a sharded dense cache goes through
+``distributed/decode.py`` (after the paged branch, as in JAX, and only
+under ``ctx.decode_shardmap``: the port has no partitioner for JAX's
+other route).
 """
 
 from __future__ import annotations
@@ -30,11 +41,56 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.paged_decode import (NEG_INF, attend, attend_mla, dense_gqa_view, dense_mla_view,
-                                    paged_gqa_attention, paged_mla_attention)
+from ..distributed import decode as DD
+from ..distributed.sharding import Sharded
+from ..kernels.paged_decode import NEG_INF, attend, dense_decode_on_card, dense_gqa_view, dense_mla_decode
+from ..kernels.paged_decode import gate as _gate
+from ..kernels.paged_decode import paged_gqa_attention, paged_mla_attention, ring_lane_pos
 from .config import MLAConfig, ModelConfig
 
 Params = dict
+
+
+# --------------------------------------------------------------------------
+# sharded weights
+# --------------------------------------------------------------------------
+def value(w):
+    """A parameter leaf as a tensor: a ``Sharded`` leaf's global value
+    (a replicated one read in place; a sharded bias or norm gathered)."""
+    return w.full() if isinstance(w, Sharded) else w
+
+
+def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
+    """``x @ w`` (``x @ w.T`` with ``transpose``) for a plain or a
+    ``Sharded`` 2-D weight.  Sharded: each distinct block of ``w`` (its
+    rows over the contraction, its columns over the output) multiplies
+    the matching columns of ``x`` on its member's device; the blocks of
+    one output range are summed in member order in f32 and cast once
+    (row-parallel: ``wo``, ``w2``, an FSDP-sharded input dimension), and
+    the output ranges are concatenated (column-parallel: ``wq``, ``w1``,
+    the vocab-sharded ``lm_head``).  A replicated weight is one
+    product."""
+    if not isinstance(w, Sharded):
+        return x @ (w.T if transpose else w)
+    kdim, ndim_ = (1, 0) if transpose else (0, 1)
+    cols: dict = {}
+    for c in w.coords():
+        blk = w.block(c)
+        ks, ns = blk[kdim], blk[ndim_]
+        parts = cols.setdefault((ns.start, ns.stop), {})
+        parts.setdefault((ks.start, ks.stop), w.local(c))
+    outs = []
+    for _, parts in sorted(cols.items()):
+        acc = None
+        for (k0, k1), t in sorted(parts.items()):
+            xk = x if len(parts) == 1 else x[..., k0:k1]
+            y = xk.to(t.device) @ (t.T if transpose else t)
+            if len(parts) == 1:
+                acc = y.to(x.device)
+            else:
+                acc = y.float().to(x.device) if acc is None else acc + y.float().to(x.device)
+        outs.append(acc.to(x.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -49,10 +105,10 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, scale=None):
 # --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (n * w.float()).to(x.dtype)
+    return (n * value(w).float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -138,22 +194,6 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
-def dense_decode_on_card(device: torch.device) -> bool:
-    """Does dense decode on ``device`` run the paged kernels?  True on a
-    card, False on the CPU (plain torch)."""
-    return device.type == "cuda"
-
-
-def ring_lane_pos(pos: torch.Tensor, S: int) -> torch.Tensor:
-    """The lane bound the kernels mask a dense cache of ``S`` lanes by:
-    lanes ``0..min(pos, S-1)``.  A sliding window's ring holds S =
-    min(max_len, window) lanes written at ``pos % S``, so once the write
-    of ``pos`` has landed, the lanes ``slot_pos`` selects (filled, at most
-    ``pos``, inside the window) are exactly these; a full cache never
-    reaches ``pos > S-1``."""
-    return pos.clamp(max=S - 1)
-
-
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, 1, Dk)
     k_cache: torch.Tensor,  # (B, Hkv, S, Dk)
@@ -225,16 +265,19 @@ def gqa_attention(
     active: Optional[torch.Tensor] = None,  # (B,) serving slot mask (decode)
     pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
     rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
+    ctx=None,  # ShardCtx: a mesh -> sharded weights and cache
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """GQA attention.  Decode (``cache`` given) writes the new K/V lane
     INTO ``cache`` in place and returns it: ``decode_step`` hands every
     layer views of a fresh copy of the stacked cache, so the caller's
-    previous buffer (kept for the §IV replay) is never written."""
+    previous buffer (kept for the §IV replay) is never written.  Under
+    a ``ctx`` with a mesh the dense-cache decode runs through
+    ``distributed/decode.py``."""
     B, S, _ = x.shape
     dh = cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if cfg.use_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + value(p["bq"]), k + value(p["bk"]), v + value(p["bv"])
     q = q.reshape(B, S, cfg.n_heads, dh)
     k = k.reshape(B, S, cfg.n_kv_heads, dh)
     v = v.reshape(B, S, cfg.n_kv_heads, dh)
@@ -245,7 +288,7 @@ def gqa_attention(
 
     if cache is None:
         out = blockwise_attention(q, k, v, causal=True, window=cfg.window, block_k=block_k)
-        return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], None
+        return matmul(out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh), p["wo"]), None
     if S != 1:
         raise ValueError("decode path handles one token at a time")
     pos = (positions[0] if cfg.mrope_sections else positions)[:, 0]
@@ -263,7 +306,16 @@ def gqa_attention(
         out = paged_gqa_attention(
             q[:, :, 0].contiguous(), cache["k"], cache["v"], pages, pos.contiguous()
         )
-        return out.reshape(B, S, cfg.n_heads * dh) @ p["wo"], cache
+        return matmul(out.reshape(B, S, cfg.n_heads * dh), p["wo"]), cache
+    if isinstance(cache["k"], Sharded):
+        _require_decode_shardmap(ctx)
+        res = DD.gqa_decode(q, k[:, :, 0], v[:, :, 0], cache, pos, cfg=cfg, ctx=ctx,
+                            active=active)
+        if res is None:  # no layout divides: each data member's rows on their own
+            act = torch.ones((B,), dtype=torch.bool, device=x.device) if active is None else active
+            res = DD.local_decode(q, k[:, :, 0], v[:, :, 0], cache, pos, cfg=cfg, active=act), cache
+        out, cache = res
+        return matmul(out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh), p["wo"]), cache
     Sc = cache["k"].shape[2]
     slot = pos % Sc
     bidx = torch.arange(B, device=x.device)
@@ -271,15 +323,17 @@ def gqa_attention(
     cache["v"][bidx, :, slot] = _gate(active, v[:, :, 0].to(cache["v"].dtype), cache["v"][bidx, :, slot])
     cache["slot_pos"][bidx, slot] = _gate(active, pos.to(torch.int32), cache["slot_pos"][bidx, slot])
     out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=cfg.window)
-    return out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh) @ p["wo"], cache
+    return matmul(out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh), p["wo"]), cache
 
 
-def _gate(active, new, old):
-    """The serving slot mask on a decode write: an inactive slot (``active``
-    False) keeps its old bytes."""
-    if active is None:
-        return new
-    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+def _require_decode_shardmap(ctx) -> None:
+    """A sharded decode cache is decoded through ``distributed/decode.py``
+    only: JAX's other route (``decode_shardmap`` False) is its
+    partitioner, which the port does not have."""
+    if ctx is None or not ctx.decode_shardmap or ctx.mesh is None:
+        raise ValueError("decode over a sharded cache needs a ShardCtx with a mesh and "
+                         "decode_shardmap=True (the flash-decoding layout); the port has no "
+                         "partitioner to take JAX's other route")
 
 
 def paged_write_rows(pages, pos, active, n_pages: int, page_size: int):
@@ -342,7 +396,7 @@ def mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     """The latent cache rows of ``x``: the normalised ``ckv`` (B, S, lora)
     and the RoPE'd shared key ``krope`` (B, S, rope)."""
     m = cfg.mla or MLAConfig()
-    ckv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    ckv, k_rope = matmul(x, p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     cos, sin = rope_cos_sin(positions, m.qk_rope_dim, cfg.rope_theta)
     return rmsnorm(ckv, p["kv_norm"], cfg.rms_eps), apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
 
@@ -358,6 +412,7 @@ def mla_attention(
     active: Optional[torch.Tensor] = None,  # (B,) serving slot mask (decode)
     pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
     rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
+    ctx=None,  # ShardCtx: a mesh -> sharded weights and latent cache
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """MLA.  Prefill (no cache) expands per-head keys (width qk_nope +
     qk_rope) and values (width v_head) from the latent and runs
@@ -372,12 +427,12 @@ def mla_attention(
     nope, rope, lora, dv = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank, m.v_head_dim
     scale = (nope + rope) ** -0.5
 
-    q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps) @ p["wq_b"]
+    q = matmul(rmsnorm(matmul(x, p["wq_a"]), p["q_norm"], cfg.rms_eps), p["wq_b"])
     q_nope, q_rope = q.reshape(B, S, h, nope + rope).split([nope, rope], dim=-1)
     cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     ckv, k_rope = mla_latent(p, x, cfg, positions)  # (B, S, lora) / (B, S, rope)
-    wkv_b = p["wkv_b"].reshape(lora, h, nope + dv)
+    wkv_b = value(p["wkv_b"]).reshape(lora, h, nope + dv)
     w_uk, w_uv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]  # (lora, h, nope) / (lora, h, v)
 
     if cache is None:
@@ -388,34 +443,36 @@ def mla_attention(
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = blockwise_attention(qfull.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=True, scale=scale, block_k=block_k)  # (B, h, S, v)
-        return out.transpose(1, 2).reshape(B, S, h * dv) @ p["wo"], None
+        return matmul(out.transpose(1, 2).reshape(B, S, h * dv), p["wo"]), None
     if S != 1:
         raise ValueError("decode path handles one token at a time")
     # absorbed path (decode): attend in the latent space
     pos = positions[:, 0]
     q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_uk)  # (B, h, lora)
+    if pages is None and isinstance(cache["ckv"], Sharded):
+        _require_decode_shardmap(ctx)
+        res = DD.mla_decode(q_lat[:, None], q_rope, ckv[:, 0], k_rope[:, 0], cache, pos,
+                            cfg=cfg, ctx=ctx, active=active)
+        if res is None:  # no model axis divides the lanes: each data member's rows on their own
+            act = torch.ones((B,), dtype=torch.bool, device=x.device) if active is None else active
+            res = DD.local_mla_decode(q_lat[:, None], q_rope, ckv[:, 0], k_rope[:, 0], cache,
+                                      pos, cfg=cfg, active=act), cache
+        ctx_lat, cache = res
+        out = torch.einsum("bhl,lhv->bhv", ctx_lat[:, 0].to(x.dtype), w_uv)
+        return matmul(out.reshape(B, S, h * dv), p["wo"]), cache
     if pages is not None:
         if rows_lanes is None:
             rows_lanes = paged_write_rows(pages, pos, active, cache["ckv"].shape[0], cache["ckv"].shape[1])
         rows, lanes, sel = rows_lanes
         cache["ckv"][rows, lanes] = ckv[sel, 0].to(cache["ckv"].dtype)
         cache["krope"][rows, lanes] = k_rope[sel, 0].to(cache["krope"].dtype)
-        ctx = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["ckv"],
+        lat = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["ckv"],
                                   cache["krope"], pages, pos.contiguous(), scale=scale)
     else:
-        slot = pos % cache["ckv"].shape[1]
-        bidx = torch.arange(B, device=x.device)
-        for key, new in (("ckv", ckv[:, 0]), ("krope", k_rope[:, 0]), ("slot_pos", pos)):
-            cache[key][bidx, slot] = _gate(active, new.to(cache[key].dtype), cache[key][bidx, slot])
-        if dense_decode_on_card(x.device):
-            ctx = paged_mla_attention(q_lat.contiguous(), q_rope[:, 0].contiguous(),
-                                      *dense_mla_view(cache["ckv"], cache["krope"]),
-                                      pos.contiguous(), scale=scale)
-        else:
-            valid = (cache["slot_pos"] >= 0) & (cache["slot_pos"] <= pos[:, None])
-            ctx = attend_mla(q_lat, q_rope[:, 0], cache["ckv"], cache["krope"], valid, scale)
-    out = torch.einsum("bhl,lhv->bhv", ctx.to(x.dtype), w_uv)
-    return out.reshape(B, S, h * dv) @ p["wo"], cache
+        lat = dense_mla_decode(q_lat, q_rope[:, 0], ckv[:, 0], k_rope[:, 0], cache, pos,
+                               active=active, scale=scale)
+    out = torch.einsum("bhl,lhv->bhv", lat.to(x.dtype), w_uv)
+    return matmul(out.reshape(B, S, h * dv), p["wo"]), cache
 
 
 # --------------------------------------------------------------------------
@@ -432,9 +489,9 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device) -> Params:
 
 
 def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p["w1"]
+    h = matmul(x, p["w1"])
     if act == "swiglu":
-        h = F.silu(h) * (x @ p["w3"])
+        h = F.silu(h) * matmul(x, p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["w2"]
+    return matmul(h, p["w2"])

@@ -34,6 +34,7 @@ import torch
 from .. import prng
 from ..core import CellType, MisoProgram
 from ..data.pipeline import DataConfig, data_cell
+from ..distributed.sharding import LOCAL, ShardCtx, cache_pspecs, param_pspecs, shard
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import transformer as T
@@ -235,23 +236,42 @@ def prefill_bucket_ladder(scfg: ServeConfig) -> tuple:
     return tuple(ladder)
 
 
-def make_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
+def place_params(cfg: ModelConfig, params: dict, ctx: ShardCtx) -> dict:
+    """``params`` laid out on ``ctx.mesh`` by ``param_pspecs``, or as they
+    are without a mesh.  Consumes ``params``: its containers are emptied
+    as the leaves are sharded, so each full leaf can be freed on the way
+    (the peak is the model and one leaf's shards)."""
+    if ctx.mesh is None:
+        return params
+    return shard(params, param_pspecs(ctx, params, cfg), ctx.mesh, release=True)
+
+
+def place_cache(cfg: ModelConfig, cache: dict, ctx: ShardCtx) -> dict:
+    """A decode cache laid out on ``ctx.mesh`` by ``cache_pspecs``."""
+    if ctx.mesh is None:
+        return cache
+    return shard(cache, cache_pspecs(ctx, cache, cfg), ctx.mesh)
+
+
+def make_serve_program(cfg: ModelConfig, scfg: ServeConfig, ctx: ShardCtx = LOCAL) -> MisoProgram:
     """The fixed-batch serve program (``launch/serve.py --static``): a
     static ``weights`` cell and a ``decoder`` cell holding the whole
     batch's cache, its last tokens ((B, 1), or (B, 1, K) for K codebooks)
     and the step count; one greedy ``T.decode_step`` of every row a
     transition.  The weights draw from their own generator seeded from
-    the program's seed and ``param_seed``, as the slot program's do."""
+    the program's seed and ``param_seed``, as the slot program's do.
+    Under a ``ctx`` with a mesh the weights and the cache are sharded
+    leaves (``place_params`` / ``place_cache``)."""
 
     def w_init(gen, device):
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + scfg.param_seed)
-        return {"params": T.init_params(cfg, g, device)}
+        return {"params": place_params(cfg, T.init_params(cfg, g, device), ctx)}
 
     weights = CellType(name="weights", init=w_init, transition=lambda prev: prev["weights"])
 
     def d_init(gen, device):
         return {
-            "cache": T.init_cache(cfg, scfg.batch, scfg.max_len, device),
+            "cache": place_cache(cfg, T.init_cache(cfg, scfg.batch, scfg.max_len, device), ctx),
             "tokens": torch.zeros((scfg.batch, 1, *token_dims(cfg)), dtype=torch.int32,
                                   device=device),
             "n_decoded": torch.zeros((), dtype=torch.int32, device=device),
@@ -259,7 +279,8 @@ def make_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
 
     def d_transition(prev):
         st = prev["decoder"]
-        logits, cache = T.decode_step(cfg, prev["weights"]["params"], st["cache"], st["tokens"])
+        logits, cache = T.decode_step(cfg, prev["weights"]["params"], st["cache"], st["tokens"],
+                                      ctx=ctx)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)  # greedy
         return {"cache": cache, "tokens": nxt, "n_decoded": st["n_decoded"] + 1}
 
@@ -413,7 +434,8 @@ def spec_k_eff(spec_k, budget, n_decoded, pos, max_len: int, draft_len: int):
     return torch.clamp(torch.minimum(spec_k, room), 0, draft_len)
 
 
-def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
+def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
+                            ctx: ShardCtx = LOCAL) -> MisoProgram:
     """The serving engine's resident program: a static ``weights`` cell
     plus a *slot-masked* ``decoder`` cell.  The decoder gates every state
     write on the per-slot ``active`` mask, and each batch row's math is
@@ -434,9 +456,19 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
                       later read and overwritten before use).
 
     Everything is inside the transition, so a §IV replay of the tick
-    reproduces the accept and the rollback bit for bit."""
+    reproduces the accept and the rollback bit for bit.
+
+    Under a ``ctx`` with a mesh the weights and the dense cache are
+    sharded leaves (a slot's rows on its data member) and every step runs
+    ``T.decode_step(..., ctx=ctx)``.  Paged pools, speculation and
+    spatial placement are not ported onto a mesh and raise."""
     from ..serving.slots import infer_slot_axes, mask_slots
 
+    if ctx.mesh is not None and (scfg.paged or scfg.spec is not None
+                                 or scfg.placement != "temporal"):
+        raise NotImplementedError(
+            "serving under a ShardCtx with a mesh takes the dense cache, no speculation and "
+            "temporal placement (paged pools, drafts and pods are not sharded yet)")
     spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
     dcfg = resolve_draft_config(cfg, spec) if spec else None
     K = spec.draft_len if spec else 0
@@ -448,7 +480,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
         # program's seed and ``param_seed``; the draft from another, drawn
         # after, so the target's weights are a plain engine's
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + scfg.param_seed)
-        st = {"params": T.init_params(cfg, g, device)}
+        st = {"params": place_params(cfg, T.init_params(cfg, g, device), ctx)}
         if dcfg is not None:
             gd = torch.Generator(device=device).manual_seed(gen.initial_seed() + d_seed)
             st["draft"] = T.init_params(dcfg, gd, device)
@@ -476,7 +508,9 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
         mask_fn = mask_slots
 
         def d_init(gen, device):
-            return slot_decoder_init(cfg, scfg.batch, scfg.max_len, device, dcfg, K)
+            st = slot_decoder_init(cfg, scfg.batch, scfg.max_len, device, dcfg, K)
+            st["cache"] = place_cache(cfg, st["cache"], ctx)
+            return st
 
     # bounded k-token prefill walk: prefill_chunk > 1 drains up to k
     # pending prompt tokens per tick (k sub-steps; non-walking slots step
@@ -504,7 +538,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig) -> MisoProgram:
         # proposal, stashed in ``tokens`` below; the others their last argmax
         tok_in = torch.where(wmask, nxt_p, st["tokens"])
         logits, cache = T.decode_step(
-            cfg, weights_params, st["cache"], tok_in, active=elig, pages=st.get("pages")
+            cfg, weights_params, st["cache"], tok_in, ctx=ctx, active=elig, pages=st.get("pages")
         )
         # (B, 1, V) -> (B, 1); (B, 1, K, V) -> (B, 1, K)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)
@@ -626,6 +660,7 @@ def prefill_slot_state(
     params,
     prompt: torch.Tensor,
     *,
+    ctx: ShardCtx = LOCAL,
     prompt_len=None,
     pending=None,
     n_pending=None,
@@ -645,7 +680,9 @@ def prefill_slot_state(
     zero-padded + its length.  ``spec_k``/
     ``budget`` (speculating engines; not None = speculating) land in the
     spec leaves, and a real draft (``draft_cfg``/``draft_params``) runs
-    its own prefill of the same head into its own dense cache.  Returns
+    its own prefill of the same head into its own dense cache.  Under a
+    ``ctx`` with a mesh the prefill reads the sharded weights, and the
+    slot state comes back unsharded (joining it places it).  Returns
     ``(slot_state, first_token)``."""
     dev = prompt.device
     tokens = prompt[None]
@@ -654,8 +691,8 @@ def prefill_slot_state(
     if cfg.n_vision_tokens:
         vision = torch.zeros((1, min(cfg.n_vision_tokens, tokens.shape[1]), cfg.d_model),
                              dtype=cfg.compute_dtype, device=dev)
-    logits, cache = T.forward(cfg, params, tokens, vision_embeds=vision, fill_cache=True,
-                              prompt_len=prompt_len)
+    logits, cache = T.forward(cfg, params, tokens, ctx=ctx, vision_embeds=vision,
+                              fill_cache=True, prompt_len=prompt_len)
     full = T.init_cache(cfg, 1, scfg.max_len, dev)
     tail = token_dims(cfg)
     # (1, 1), or (1, 1, K)

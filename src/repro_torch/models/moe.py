@@ -1,12 +1,24 @@
 """Mixture-of-Experts: top-k token-choice routing with capacity-based
-dispatch (a port of the single-shard path of ``repro/models/moe.py``).
+dispatch and expert parallelism (a port of ``repro/models/moe.py``).
 
-``_moe_local`` scatters the routed tokens into (E, C, d) capacity
-buffers, runs every expert's FFN over its buffer as a batched GEMM, and
-gathers and combines the results; ``moe_block`` adds the shared experts.
-The JAX package computes these products outside any Pallas kernel, and
-so does this port (``torch.bmm``).  The expert-parallel ``_moe_spmd``
-waits for the model-parallel half of the mesh work (ROADMAP item 7b).
+Two implementations of the same math:
+
+  * ``_moe_local`` scatters the routed tokens into (E, C, d) capacity
+    buffers, runs every expert's FFN over its buffer as a batched GEMM,
+    and gathers and combines the results.  One device, and the oracle.
+  * ``_moe_spmd``, the expert-parallel path over a mesh's members
+    (JAX's ``shard_map`` bodies, run member by member by one controller
+    with ``distributed/collectives.py``), in three layouts: tokens over
+    (data x seq over model) and an all-to-all of the capacity buffers
+    (``local_fn``); decode's replicated tokens, each model member's
+    experts and a sum over the model axis (``local_fn_ar``); the serve
+    layout, one expert slice a member with the tokens gathered over
+    the data axes (``local_fn_ep2d``).
+
+``moe_block`` takes the expert-parallel path when its ``ctx`` has a
+mesh, and adds the shared experts.  The JAX package computes these
+products outside any Pallas kernel, and so does this port
+(``torch.bmm``).
 
 Routing: softmax top-k (granite) or sigmoid with normalized top-k gates
 (deepseek-v3), plus the standard load-balance auxiliary loss.  The
@@ -18,8 +30,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import math
+
+import numpy as np
+
+from ..distributed import collectives as coll
+from ..distributed.sharding import Sharded
 from .config import ModelConfig, MoEConfig
-from .layers import dense_init, mlp, mlp_init
+from .layers import dense_init, mlp, mlp_init, value
 
 Params = dict
 
@@ -135,23 +153,176 @@ def _expert_ffn(p: Params, buf_e: torch.Tensor, act: str) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # single-shard path
 # --------------------------------------------------------------------------
-def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _router_logits(xf: torch.Tensor, router) -> torch.Tensor:
+    """Router logits in f32: the activations upcast, the f32 router.
+    (JAX's ``_moe_spmd`` rounds the router to the activations' dtype
+    instead, to keep its wire transfers in bf16; in bf16 that routes some
+    tokens differently from its own ``_moe_local``.  Here both paths use
+    this one product, so the sharded routing is the unsharded routing,
+    and in f32 the two packages' products agree.)"""
+    return xf.float() @ value(router)
+
+
+def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *, with_idx: bool = False):
+    """Returns (y, aux), and with ``with_idx`` the routing (B, S, k)."""
     moe = cfg.moe
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    logits = xf.float() @ p["router"]
-    gates, idx, aux = _route(logits, moe)
+    gates, idx, aux = _route(_router_logits(xf, p["router"]), moe)
     C = _capacity(T, moe)
     buf, slot, keep = _dispatch(xf, idx, moe.n_experts, C)
     h = _expert_ffn(p, buf.reshape(moe.n_experts, C, d), cfg.mlp_act)
     y = _combine(h.reshape(-1, d), slot, keep, gates, T, moe.top_k)
-    return y.reshape(B, S, d), aux
+    out = (y.reshape(B, S, d), aux)
+    return out + (idx.reshape(B, S, -1),) if with_idx else out
 
 
-def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Returns (y, aux_loss).  Adds the shared-expert path if configured."""
-    y, aux = _moe_local(p, x, cfg)
+# --------------------------------------------------------------------------
+# expert-parallel path
+# --------------------------------------------------------------------------
+def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bool = False):
+    """Expert parallelism over ``ctx.mesh``'s members, JAX's three
+    ``shard_map`` layouts:
+
+      local_fn       seq % |model| == 0 (prefill, training): member
+                     (data d, model m) routes its tokens (batch block d,
+                     sequence block m), an all-to-all over the model axis
+                     sends each member its E/|model| experts' buffers
+                     from every source, and another brings them back;
+                     aux is the pmean over every member;
+      local_fn_ar    decode (S = 1), ``serve_ep2d`` off: the data block's
+                     tokens are routed once, member m runs its experts on
+                     them and the combine is summed over the model axis;
+                     aux is the pmean over the data axes;
+      local_fn_ep2d  decode with ``serve_ep2d``: the tokens are gathered
+                     over the data axes, the member of EP rank r =
+                     axis_index(model) + sum axis_index(a) * stride (data
+                     axes, the first major) runs its E/(|data| |model|)
+                     experts on all of them, and the combine is summed
+                     over every member in rank order.
+
+    The expert weights a member needs are its own shard when the leaf is
+    laid out for the path (``param_pspecs``), else gathered from the
+    members that hold them.  Sums run in member order.  Returns (y,
+    aux), and with ``with_idx`` the routing (B, S, k) in token order."""
+    moe = cfg.moe
+    mesh = ctx.mesh
+    ma = ctx.model_axis
+    dp = tuple(ctx.data_axes)
+    nm = mesh.shape[ma]
+    E, k = moe.n_experts, moe.top_k
+    if E % nm:
+        raise ValueError(f"{E} experts do not divide over the {nm} members of {ma!r}")
+    E_l = E // nm
+    dp_shape = [mesh.shape[a] for a in dp]
+    dp_size = math.prod(dp_shape)
+    n_ep = dp_size * nm
+    E_l2 = E // n_ep if E % n_ep == 0 else 0
+    B, S, d = x.shape
+    if B % dp_size:
+        raise ValueError(f"batch {B} does not divide over the data axes {dp} ({dp_size})")
+    B_l = B // dp_size
+    seq_shardable = S % nm == 0
+    use_ep2d = not seq_shardable and ctx.serve_ep2d and E_l2 > 0
+
+    def coord(rd: int, m: int) -> tuple:
+        """The member of data rank ``rd`` (first data axis major) and
+        model index ``m``; 0 on any other axis."""
+        idx = dict(zip(dp, np.unravel_index(rd, dp_shape)))
+        idx[ma] = m
+        return tuple(int(idx.get(a, 0)) for a in mesh.axis_names)
+
+    def experts(c, lo: int, hi: int) -> dict:
+        out = {}
+        for name in ("w1", "w2", "w3"):
+            if name in p:
+                w = p[name]
+                out[name] = (w.region((slice(lo, hi), slice(None), slice(None)), coord=c)
+                             if isinstance(w, Sharded) else w[lo:hi])
+        return out
+
+    def ffn(c, lo: int, hi: int, tok):
+        pl = experts(c, lo, hi)
+        dev = pl["w1"].device
+        return _expert_ffn(pl, tok.to(dev), cfg.mlp_act).to(x.device)
+
+    y = torch.empty_like(x)
+    idx_all = torch.empty((B, S, k), dtype=torch.int64, device=x.device)
+    if use_ep2d:
+        xf = coll.all_gather([x[rd * B_l:(rd + 1) * B_l].reshape(B_l * S, d)
+                              for rd in range(dp_size)], tiled=True)[0]  # (T, d)
+        T = xf.shape[0]
+        gates, idx, aux = _route(_router_logits(xf, p["router"]), moe)
+        C = _capacity(T, moe)
+        buf, slot, keep = _dispatch(xf, idx, E, C)
+        parts = []
+        for r in range(n_ep):  # rank order: data ranks major, model minor
+            lo = r * E_l2
+            h_full = torch.zeros((E, C, d), dtype=buf.dtype, device=x.device)
+            h_full[lo:lo + E_l2] = ffn(coord(r // nm, r % nm), lo, lo + E_l2,
+                                       buf.reshape(E, C, d)[lo:lo + E_l2])
+            parts.append(_combine(h_full.reshape(E * C, d), slot, keep, gates, T, k))
+        y = coll.psum(parts)[0].reshape(B, S, d)
+        idx_all = idx.reshape(B, S, k)
+    elif seq_shardable:
+        S_l = S // nm
+        auxes = []
+        for rd in range(dp_size):
+            rows = slice(rd * B_l, (rd + 1) * B_l)
+            sends, metas = [], []
+            for m in range(nm):
+                xf = x[rows, m * S_l:(m + 1) * S_l].reshape(B_l * S_l, d)
+                gates, idx, aux = _route(_router_logits(xf, p["router"]), moe)
+                auxes.append(aux)
+                C = _capacity(B_l * S_l, moe)
+                buf, slot, keep = _dispatch(xf, idx, E, C)
+                # member m sends expert block j's buffers to member j
+                sends.append(buf.reshape(nm, E_l * C, d))
+                metas.append((slot, keep, gates))
+                idx_all[rows, m * S_l:(m + 1) * S_l] = idx.reshape(B_l, S_l, k)
+            recv = coll.all_to_all(sends)
+            backs = []
+            for m in range(nm):
+                # (nm src, E_l, C, d) -> (E_l, nm * C, d)
+                tok = recv[m].reshape(nm, E_l, C, d).transpose(0, 1).reshape(E_l, nm * C, d)
+                h = ffn(coord(rd, m), m * E_l, (m + 1) * E_l, tok)
+                backs.append(h.reshape(E_l, nm, C, d).transpose(0, 1).reshape(nm, E_l * C, d))
+            ret = coll.all_to_all(backs)
+            for m in range(nm):
+                slot, keep, gates = metas[m]
+                ym = _combine(ret[m].reshape(E * C, d), slot, keep, gates, B_l * S_l, k)
+                y[rows, m * S_l:(m + 1) * S_l] = ym.reshape(B_l, S_l, d)
+        aux = coll.pmean(auxes)[0]
+    else:
+        auxes = []
+        for rd in range(dp_size):
+            rows = slice(rd * B_l, (rd + 1) * B_l)
+            xf = x[rows].reshape(B_l * S, d)
+            gates, idx, aux = _route(_router_logits(xf, p["router"]), moe)
+            auxes.append(aux)
+            C = _capacity(B_l * S, moe)
+            buf, slot, keep = _dispatch(xf, idx, E, C)
+            parts = []
+            for m in range(nm):
+                lo = m * E_l
+                h_full = torch.zeros((E, C, d), dtype=buf.dtype, device=x.device)
+                h_full[lo:lo + E_l] = ffn(coord(rd, m), lo, lo + E_l,
+                                          buf.reshape(E, C, d)[lo:lo + E_l])
+                parts.append(_combine(h_full.reshape(E * C, d), slot, keep, gates, B_l * S, k))
+            y[rows] = coll.psum(parts)[0].reshape(B_l, S, d)
+            idx_all[rows] = idx.reshape(B_l, S, k)
+        aux = coll.pmean(auxes)[0]
+    return (y, aux, idx_all) if with_idx else (y, aux)
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """Returns (y, aux_loss).  Expert-parallel when ``ctx`` has a mesh.
+    Adds the shared-expert path if configured."""
+    if ctx is not None and ctx.mesh is not None:
+        y, aux = _moe_spmd(p, x, cfg, ctx)
+    else:
+        y, aux = _moe_local(p, x, cfg)
     if cfg.moe.n_shared_experts:
         y = y + mlp(p["shared"], x, cfg.mlp_act)
     return y, aux

@@ -23,6 +23,17 @@ Entry points:
                     multi-codebook mean, the MTP head's 0.1 term, the
                     MoE load-balance aux) and its metrics
   decode_step(...)  one-token serve step over a dense or paged KV cache
+
+``forward``, ``decode_step``, ``embed_tokens`` and ``unembed`` take a
+``ShardCtx`` (``ctx``, default ``LOCAL``).  Under one with a mesh the
+params are ``Sharded`` leaves (``shard(params, param_pspecs(...))``)
+and a decode cache is too (``cache_pspecs``): every product follows its
+weight's spec (``layers.matmul``), the vocab-sharded embedding is a
+masked lookup summed over the members (exact: each row has one
+non-zero contribution), the vocab-sharded head concatenates the members'
+logits, decode attention runs through ``distributed/decode.py`` and MoE
+through ``moe._moe_spmd``.  Mamba2 and Zamba2 segments refuse a mesh
+(``NotImplementedError``, ROADMAP item 7c).
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..distributed.sharding import LOCAL, ShardCtx, Sharded, shard_leaf
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import layers as L
 from .config import ModelConfig
@@ -158,34 +171,68 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 # --------------------------------------------------------------------------
 # embedding / unembedding
 # --------------------------------------------------------------------------
-def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _lookup(table, tokens: torch.Tensor, onehot: bool) -> torch.Tensor:
+    """Rows of a (V, d) table at ``tokens``: a gather, or with ``onehot``
+    the one-hot product (JAX's ``embed_strategy="onehot"``; the same
+    bits).  A vocab-sharded table gives each member's rows of the tokens
+    it holds, zero elsewhere, summed over the members in order."""
+    if not isinstance(table, Sharded):
+        if onehot:
+            return F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) @ table
+        return table[tokens.long()]
+    blocks: dict = {}
+    for c in table.coords():
+        rows = table.block(c)[0]
+        blocks.setdefault((rows.start, rows.stop), table.local(c))
+    out = None
+    for (v0, v1), t in sorted(blocks.items()):
+        local = (tokens.long() - v0).to(t.device)
+        inside = (local >= 0) & (local < v1 - v0)
+        if onehot:  # an id outside the block has no one-hot column here
+            rows = (local[..., None] == torch.arange(v1 - v0, device=t.device)).to(t.dtype) @ t
+        else:
+            rows = torch.where(inside[..., None], t[local.clamp(0, v1 - v0 - 1)],
+                               torch.zeros((), dtype=t.dtype, device=t.device))
+        rows = rows.to(tokens.device)
+        out = rows if out is None else out + rows
+    return out
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardCtx = LOCAL) -> torch.Tensor:
     """tokens (B, S) -> (B, S, d); a multi-codebook model's (B, S, K)
     sum their K codebooks' rows, in codebook order as JAX does."""
     table = params["embed"]
+    onehot = ctx.embed_strategy == "onehot"
     if cfg.n_codebooks > 1:
-        out = table[0][tokens[..., 0].long()]
+        out = _lookup(table[0], tokens[..., 0], onehot)
         for k in range(1, cfg.n_codebooks):
-            out = out + table[k][tokens[..., k].long()]
+            out = out + _lookup(table[k], tokens[..., k], onehot)
         return out
-    return table[tokens.long()]
+    return _lookup(table, tokens, onehot)
 
 
-def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """h (B, S, d) -> logits (B, S, V), or (B, S, K, V) for K codebooks."""
+def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig,
+            ctx: ShardCtx = LOCAL) -> torch.Tensor:
+    """h (B, S, d) -> logits (B, S, V), or (B, S, K, V) for K codebooks.
+    A vocab-sharded head is a column-parallel product: the members'
+    logits, concatenated."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if cfg.n_codebooks > 1:
+        if isinstance(w, Sharded):
+            return torch.stack([L.matmul(h, w[k], transpose=cfg.tie_embeddings)
+                                for k in range(cfg.n_codebooks)], dim=-2)
         if cfg.tie_embeddings:
-            return torch.einsum("bsd,kvd->bskv", h, params["embed"])
-        return torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
-    if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+            return torch.einsum("bsd,kvd->bskv", h, w)
+        return torch.einsum("bsd,kdv->bskv", h, w)
+    return L.matmul(h, w, transpose=cfg.tie_embeddings)
 
 
 # --------------------------------------------------------------------------
 # layer bodies
 # --------------------------------------------------------------------------
 def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None,
-               prompt_len=None, pages=None, rows_lanes=None):
+               prompt_len=None, pages=None, rows_lanes=None, ctx: ShardCtx = LOCAL):
     """Returns (out, cache_out): the updated cache (decode), the filled
     cache (fill_cache), or None.  ``prompt_len`` masks the fill for
     bucket-padded prefill: entries at positions >= prompt_len are
@@ -194,8 +241,8 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
     fn = L.mla_attention if cfg.attn_type == "mla" else L.gqa_attention
     if cache is not None:
         return fn(p, x, cfg, positions=positions, cache=cache, active=active, pages=pages,
-                  rows_lanes=rows_lanes)
-    out, _ = fn(p, x, cfg, positions=positions, cache=None)
+                  rows_lanes=rows_lanes, ctx=ctx)
+    out, _ = fn(p, x, cfg, positions=positions, cache=None, block_k=ctx.block_k)
     if not fill_cache:
         return out, None
     # re-derive the kv projections to populate a decode cache
@@ -210,11 +257,11 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
             sp = torch.where(keep, sp, -1)
         return out, {"ckv": ckv, "krope": k_rope, "slot_pos": sp}
     dh = cfg.head_dim
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    k = L.matmul(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
+    v = L.matmul(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
     if cfg.use_bias:
-        k = k + p["bk"].reshape(cfg.n_kv_heads, dh)
-        v = v + p["bv"].reshape(cfg.n_kv_heads, dh)
+        k = k + L.value(p["bk"]).reshape(cfg.n_kv_heads, dh)
+        v = v + L.value(p["bv"]).reshape(cfg.n_kv_heads, dh)
     cos, sin = L.rope_cos_sin(positions, dh, cfg.rope_theta, cfg.mrope_sections)
     kc = L.apply_rope(k, cos, sin).transpose(1, 2)
     vc = v.transpose(1, 2)
@@ -248,12 +295,20 @@ def _shared_attn_apply(shared: Params, xin, cfg: ModelConfig, positions, cache, 
     return h, kv
 
 
+#: the ROADMAP item that ports the sharded recurrent segments
+SHARDED_RECURRENT_ITEM = "ROADMAP item 7c (sharded Mamba2/Zamba2)"
+
+
 def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fill_cache,
                  shared: Optional[Params] = None, e0=None, active=None, prompt_len=None,
-                 pages=None, rows_lanes=None):
+                 pages=None, rows_lanes=None, ctx: ShardCtx = LOCAL):
     """One layer (one unit for ``zamba_unit``).  Returns (h, cache_out,
     aux): the MoE load-balance loss, 0.0 for the other kinds."""
     aux = 0.0
+    if kind in ("mamba", "zamba_unit") and ctx.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} segments do not run under a ShardCtx with a mesh yet; "
+            f"{SHARDED_RECURRENT_ITEM} ports them")
     if kind == "mamba":
         y, cout = mamba_block(p["mamba"], L.rmsnorm(h, p["norm"], cfg.rms_eps), cfg,
                               cache=cache, fill_cache=fill_cache)
@@ -278,11 +333,11 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
     # attn_mlp / attn_moe
     a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
                          positions, cache, fill_cache, active, prompt_len,
-                         pages, rows_lanes)
+                         pages, rows_lanes, ctx)
     h = h + a
     x2 = L.rmsnorm(h, p["ln2"], cfg.rms_eps)
     if kind == "attn_moe":
-        y, aux = moe_block(p["moe"], x2, cfg)
+        y, aux = moe_block(p["moe"], x2, cfg, ctx)
     else:
         y = L.mlp(p["mlp"], x2, cfg.mlp_act)
     return h + y, cout, aux
@@ -296,6 +351,7 @@ def forward(
     params: Params,
     tokens: torch.Tensor,  # (B, S), or (B, S, K) for K codebooks
     *,
+    ctx: ShardCtx = LOCAL,
     positions: Optional[torch.Tensor] = None,
     vision_embeds: Optional[torch.Tensor] = None,
     fill_cache: bool = False,
@@ -325,7 +381,7 @@ def forward(
         positions = torch.arange(S, device=tokens.device)[None, :]
         if cfg.mrope_sections:
             positions = positions[None].expand(3, 1, S)
-    h = embed_tokens(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg, ctx)
     if vision_embeds is not None and cfg.n_vision_tokens:
         h = torch.cat([vision_embeds.to(h.dtype), h[:, cfg.n_vision_tokens:]], dim=1)
     e0 = h if cfg.shared_attn_every else None
@@ -337,12 +393,12 @@ def forward(
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
             h, cout, aux = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
-                                        shared, e0, prompt_len=prompt_len)
+                                        shared, e0, prompt_len=prompt_len, ctx=ctx)
             aux_total = aux_total + aux
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    logits = unembed(params, h, cfg)
+    logits = unembed(params, h, cfg, ctx)
     cache_out = None
     if fill_cache:
         cache_out = {
@@ -361,7 +417,10 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> tor
     """Masked mean next-token cross-entropy in f32.  The label's logit is
     a gather: every row gathers one column, so its backward writes each
     element once and is deterministic (the §IV replicas must agree bit
-    for bit).  JAX's one-hot branch serves a vocab-sharded mesh only."""
+    for bit).  JAX picks a one-hot product here for its vocab-sharded
+    mesh, where the partitioner keeps the logits sharded; the port's
+    vocab-sharded head (``unembed``) concatenates the members' logits
+    first, so the gather serves the sharded layout too."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
@@ -451,6 +510,7 @@ def decode_step(
     cache: dict,
     tokens: torch.Tensor,
     *,
+    ctx: ShardCtx = LOCAL,
     active: Optional[torch.Tensor] = None,
     pages: Optional[torch.Tensor] = None,
 ):
@@ -465,12 +525,21 @@ def decode_step(
     buffer of the §IV replay.  Attention caches (a whole segment's, or a
     zamba unit's ``attn``) are copied once and every layer writes its new
     lane into the copy; mamba states are stacked new from the per-layer
-    states the recurrence returns."""
-    pos = cache["pos"]
+    states the recurrence returns.
+
+    Under a ``ctx`` with a mesh the cache is ``Sharded`` (``shard(cache,
+    cache_pspecs(ctx, cache, cfg), mesh)``) and comes back so: each
+    member's shard is copied once and written in place by its layers,
+    and ``pos`` stays laid out over the data axes."""
+    pos_leaf = cache["pos"]
+    pos = L.value(pos_leaf)
+    if pages is not None and isinstance(pos_leaf, Sharded):
+        raise NotImplementedError("paged decode under a ShardCtx with a mesh is not ported; "
+                                  "serve the dense cache")
     positions = pos[:, None]
     if cfg.mrope_sections:
         positions = positions[None].expand(3, -1, 1)
-    h = embed_tokens(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg, ctx)
     e0 = h if cfg.shared_attn_every else None
     shared = params.get("shared_attn")
     rows_lanes = None
@@ -495,7 +564,7 @@ def decode_step(
             else:
                 lc = lattn
             h, cout, _ = _layer_apply(lp, h, cfg, seg.kind, positions, lc, False, shared, e0,
-                                      active, None, pages, rows_lanes)
+                                      active, None, pages, rows_lanes, ctx)
             if seg.kind in ("mamba", "zamba_unit"):
                 states.append(cout if seg.kind == "mamba" else cout["mamba"])
         if seg.kind == "mamba":
@@ -505,6 +574,8 @@ def decode_step(
         else:
             new_segs.append(attn)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    logits = unembed(params, h, cfg)
+    logits = unembed(params, h, cfg, ctx)
     new_pos = pos + 1 if active is None else pos + active.to(pos.dtype)
+    if isinstance(pos_leaf, Sharded):
+        new_pos = shard_leaf(new_pos, pos_leaf.spec, pos_leaf.mesh)
     return logits, {"segments": new_segs, "pos": new_pos}

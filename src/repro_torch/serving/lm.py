@@ -17,6 +17,16 @@ inside the resident transition.  Speculation (``ServeConfig.spec``)
 falls back to plain decode on archs that cannot roll back, as paging
 does on archs without pages; a request's ``spec.draft_len`` is clamped
 to the engine's.
+
+Under a ``ShardCtx`` with a mesh (``launch.mesh.make_ctx``) the program
+holds sharded weights and a sharded dense cache, and every prefill and
+decode step runs the model-parallel path; the engine needs nothing new,
+since the slot surgery reads the sharded leaves::
+
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cuda:0"] * 8)
+    ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                   decode_shardmap=True)
+    prog, adapter = lm_engine_parts(cfg, ServeConfig(batch=8, max_len=512), ctx)
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.executor import resolve_device
+from ..distributed.sharding import LOCAL, ShardCtx
 from ..models.config import ModelConfig
 from ..models.lm_cells import (
     ServeConfig,
@@ -46,12 +57,14 @@ from .request import Request
 from .slots import infer_slot_axes
 
 
-def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> EngineParts:
+def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, ctx: ShardCtx = LOCAL, *,
+                    device="cuda") -> EngineParts:
     """``EngineParts(program, adapter)`` for ``repro_torch.api.serve``:
     the resident slot-masked LM serve program plus the glue the engine
-    needs to run it.  ``device`` must be the engine's device."""
+    needs to run it.  ``device`` must be the engine's device (the mesh's
+    first device under a ``ctx`` with one)."""
     dev = resolve_device(device)
-    prog = make_slot_serve_program(cfg, scfg)
+    prog = make_slot_serve_program(cfg, scfg, ctx)
     paged = scfg.paged and paged_serving_supported(cfg)
     # speculation falls back to plain decode where the cache cannot roll back
     spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
@@ -87,6 +100,7 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, *, device="cuda") -> En
             scfg,
             states["weights"]["params"],
             torch.from_numpy(head).to(dev),
+            ctx=ctx,
             prompt_len=c0 if bucketable else None,
             pending=torch.from_numpy(pend).to(dev),
             n_pending=n_pending,

@@ -13,6 +13,14 @@ between ticks and evicting finished ones:
     *slot-axis* tree (``infer_slot_axes``), because the batch axis is not
     in the same position on every leaf.  Writes are out of place: the
     engine keeps the tick's input buffer for the §IV replay.
+
+A decoder served under a ``ShardCtx`` with a mesh holds ``Sharded``
+cache leaves (``distributed/sharding.py``), a slot's rows on its data
+member: surgery then writes only the members whose block holds the
+slot (the others keep their tensors), reads a slot back as one full
+width-1 tensor, and fingerprints the gathered rows, so a slot's 128-bit
+fingerprint is the one the unsharded engine computes for the same
+bytes.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..core.redundancy import bit_mismatch_elems, fingerprint_rows
+from ..distributed.sharding import Sharded, map_blocks
 from ..tree import tree_leaves, tree_map
 
 Tree = Any
@@ -62,15 +71,31 @@ def _bcast(mask: torch.Tensor, ndim: int, ax: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # slot surgery (pure: every result is a new tensor)
 # --------------------------------------------------------------------------
+def _mask_leaf(active: torch.Tensor, n, o, ax: int):
+    if isinstance(n, Sharded):
+        return map_blocks(lambda blk, nt, ot: torch.where(
+            _bcast(active[blk[ax]].to(nt.device), nt.dim(), ax), nt, ot), n, o)
+    return torch.where(_bcast(active, n.dim(), ax), n, o)
+
+
 def mask_slots(active: torch.Tensor, new: Tree, old: Tree, axes: Tree) -> Tree:
     """Per-slot select: active slots take ``new``, inactive keep ``old``
     bit-for-bit.  The writeback gate of the slot-masked decoder."""
-    return tree_map(lambda n, o, ax: torch.where(_bcast(active, n.dim(), ax), n, o), new, old, axes)
+    return tree_map(lambda n, o, ax: _mask_leaf(active, n, o, ax), new, old, axes)
 
 
-def put_slot(dst: torch.Tensor, src: torch.Tensor, slot: int, ax: int) -> torch.Tensor:
+def put_slot(dst, src: torch.Tensor, slot: int, ax: int):
     """A copy of ``dst`` with its width-1 slice at ``slot`` along ``ax``
-    replaced by ``src``."""
+    replaced by ``src``.  A ``Sharded`` ``dst`` copies only the members
+    whose block holds the slot, each taking its part of ``src``."""
+    if isinstance(dst, Sharded):
+        def put(blk, t):
+            if not blk[ax].start <= slot < blk[ax].stop:
+                return t
+            part = src[tuple(slice(None) if i == ax else s for i, s in enumerate(blk))]
+            return put_slot(t, part.to(t.device), slot - blk[ax].start, ax)
+
+        return map_blocks(put, dst)
     out = dst.clone()
     out.narrow(ax, slot, 1).copy_(src.to(dst.dtype))
     return out
@@ -81,9 +106,17 @@ def join_slot(state: Tree, slot_state: Tree, slot: int, axes: Tree) -> Tree:
     return tree_map(lambda d, s, ax: put_slot(d, s, slot, ax), state, slot_state, axes)
 
 
+def _read_leaf(x, slot: int, ax: int):
+    if isinstance(x, Sharded):
+        return x.region(tuple(slice(slot, slot + 1) if i == ax else slice(None)
+                              for i in range(x.dim())))
+    return x.narrow(ax, slot, 1)
+
+
 def read_slot(state: Tree, slot: int, axes: Tree) -> Tree:
-    """The width-1 view of batch slot ``slot`` (inverse of ``join_slot``)."""
-    return tree_map(lambda x, ax: x.narrow(ax, slot, 1), state, axes)
+    """The width-1 view of batch slot ``slot`` (inverse of ``join_slot``);
+    a ``Sharded`` leaf's slot comes back as one gathered tensor."""
+    return tree_map(lambda x, ax: _read_leaf(x, slot, ax), state, axes)
 
 
 def copy_slot(state: Tree, src: int, dst: int, axes: Tree) -> Tree:
@@ -96,7 +129,8 @@ def slot_fingerprints(state: Tree, axes: Tree) -> torch.Tensor:
     slot's view of the state (the JAX package's ``vmap(fingerprint)``).
     Replica slots of one request are bitwise-equal by construction, so
     equal fingerprints <=> healthy."""
-    moved = tree_map(lambda x, ax: x.movedim(ax, 0), state, axes)
+    moved = tree_map(lambda x, ax: (x.full() if isinstance(x, Sharded) else x).movedim(ax, 0),
+                     state, axes)
     return fingerprint_rows(moved, tree_leaves(moved)[0].shape[0])
 
 

@@ -104,7 +104,9 @@ def test_every_kernel_and_model_module_is_checked():
                 "repro_torch.analysis.parity", "repro_torch.analysis.contracts",
                 "repro_torch.analysis.dag", "repro_torch.analysis.diagnostics",
                 "repro_torch.analysis.ir_lint", "repro_torch.analysis.registry",
-                "repro_torch.analysis.cli", "repro_torch.analysis.__main__"):
+                "repro_torch.analysis.cli", "repro_torch.analysis.__main__",
+                "repro_torch.distributed.sharding", "repro_torch.distributed.decode",
+                "repro_torch.launch.mesh"):
         assert mod in MODULES
 
 

@@ -1,10 +1,13 @@
 """Spatially placed serving in the port against the JAX package's
 TEMPORAL engine.
 
-JAX's own spatial engine does not run under the installed jax (its
-tests fail with a sharding-type error), so the property its
-``tests/test_serving_spatial.py`` asserts -- spatial placement serves
-exactly what temporal placement serves -- is held across the packages:
+The property the reference's ``tests/test_serving_spatial.py`` asserts --
+spatial placement serves exactly what temporal placement serves -- is
+held across the packages here, on the LM engine.  (JAX's spatial engine
+runs only on a mesh with Auto axes, which ``jax.make_mesh`` alone does
+not give under the installed jax; ``test_torch_spatial_serving_jax.py``
+asks for them and holds the port's spatial engine to JAX's spatial
+engine on the reference's toy scenario, field for field.)  Here:
 the port's engine with ``EngineConfig(placement="spatial")`` on 2- and
 3-pod CPU meshes, started from the JAX engine's weights, must emit the
 JAX temporal engine's tokens for a staggered none/DMR(/TMR) stream, and
