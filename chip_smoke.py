@@ -299,7 +299,14 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  partials entry point against its plain version at
                  granite-20b's member shape (and four members combined
                  against K5 over 512 lanes), timed beside SDPA's
-                 memory-efficient call with its log-sum-exp, then granite-20b at full
+                 memory-efficient call with its log-sum-exp (gate:
+                 faster) and an empty kernel launched alike (one device
+                 kernel a bf16 call is gated by torch.profiler after
+                 phase 2), equal rows in equal
+                 bits at any batch index and B, and the route sweep
+                 (``PARTIAL_SWEEP``: both routes held to the plain
+                 version at 1e-4 and timed, with every split count of
+                 the tensor-core kernel), then granite-20b at full
                  width and depth seq-sharded on (1, 4): prefill, 16
                  steps unsharded, the weights resharded in place (one
                  copy at a time), 16 steps sharded: logits at the bound,
@@ -365,7 +372,7 @@ def flop_rate(dtype) -> float:
     return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
 SEED = 0
 KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention",
-           "paged_mla_decode"]
+           "paged_mla_decode", "paged_gqa_partials"]
 
 
 def log(msg: str) -> None:
@@ -455,20 +462,31 @@ def dense_and_shuffled(dtype, gen, B=8, Hq=16, Hkv=8, S=512, D=128, ps=16):
     the same values in a pool through a shuffled page table: (q, k, v,
     pos, view, pools, pages); pos covers lane 0, page edges and the last
     lane."""
-    P = S // ps
     q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
     pos = torch.linspace(0, S - 1, B, device="cuda").to(torch.int32)
     pos[1] = ps - 1
+    kp, vp, pages = shuffled_pool(k, v, gen, ps)
+    from repro_torch.kernels.paged_decode import dense_gqa_view
+
+    return q, k, v, pos, dense_gqa_view(k, v), [kp, vp], pages
+
+
+def shuffled_pool(k, v, gen, ps=16):
+    """The dense cache (B, Hkv, S, D) in a pool of pages of ``ps`` through
+    a shuffled table, the last page zero-padded past S: (k_pool, v_pool,
+    pages)."""
+    B, Hkv, S, D = k.shape
+    P = -(-S // ps)
     pages = torch.randperm(B * P, generator=gen, device="cuda").reshape(B, P).to(torch.int32)
     pools = []
     for x in (k, v):
-        pool = torch.empty((B * P, Hkv, ps, D), dtype=dtype, device="cuda")
-        pool[pages.long()] = x.reshape(B, Hkv, P, ps, D).permute(0, 2, 1, 3, 4)
+        xp = torch.zeros((B, Hkv, P * ps, D), dtype=x.dtype, device="cuda")
+        xp[:, :, :S] = x
+        pool = torch.empty((B * P, Hkv, ps, D), dtype=x.dtype, device="cuda")
+        pool[pages.long()] = xp.reshape(B, Hkv, P, ps, D).permute(0, 2, 1, 3, 4)
         pools.append(pool)
-    from repro_torch.kernels.paged_decode import dense_gqa_view
-
-    return q, k, v, pos, dense_gqa_view(k, v), pools, pages
+    return pools[0], pools[1], pages
 
 
 def ptxas_lines(build_log: Path) -> list[str]:
@@ -4189,6 +4207,11 @@ MP_MOE_STEPS = 4
 #: local lane bounds below, at and past a member's 128 lanes
 PARTIAL_POS = (-5, 0, 1, 63, 64, 100, 127, 400)
 PARTIAL_TOL = 1e-3  # relative to the largest value; f32 math, another summation order
+#: the partials' route sweep: query groups, head dims and member lanes,
+#: each route the plan allows held to the plain version at PARTIAL_SWEEP_TOL
+#: (atol = rtol) and timed; kv heads 48 // G, so Hq stays near 48
+PARTIAL_SWEEP = {"G": (1, 2, 4, 7, 12, 48), "Dk": (64, 80, 120, 128), "lanes": (64, 128, 1000, 2048)}
+PARTIAL_SWEEP_TOL = 1e-4
 MP_F32_TOL = 1e-4  # 9d's whole model with f32 weights (the f32 bound of the CPU's sharded decode)
 
 
@@ -4372,10 +4395,15 @@ def mp_9a() -> dict:
 def mp_partials_check(cfg) -> dict:
     """K5's partials entry point against its plain version at 9b's member
     shape (8 slots, the 48 query heads of one kv head, a 128-lane shard),
-    timed beside its bound and beside the library's one call for the same
-    partial; and four members' partials combined (``decode.py``'s
-    ``_combine_partials``) against K5 over the whole 512-lane cache."""
+    timed beside its bound, the empty-kernel floor and the library's one
+    call for the same partial (gate: faster than the library); four
+    members' partials combined (``decode.py``'s ``_combine_partials``)
+    against K5 over the whole 512-lane cache; gates: equal rows in equal
+    bits (``partials_rows_bitwise``) and the route sweep
+    (``partials_sweep``).  The count of device kernels a call is
+    ``partials_profile``'s, taken after phase 2."""
     from repro_torch.distributed import decode as DD
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged_decode as pd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
@@ -4414,23 +4442,32 @@ def mp_partials_check(cfg) -> dict:
     # time and bound at the served member shape (every lane of the shard valid)
     tpos = torch.full((B,), S_l - 1, dtype=torch.int32, device="cuda")
     targs = (q, *pd.dense_gqa_view(*shards[0]), tpos)
+    plan = pd.gqa_partials_plan(B, Hkv, Hq // Hkv, S_l, D, q.dtype, build.sm_count(0))
+    if plan.route != "tc":
+        raise AssertionError(f"K5 partials: 9b's member shape takes {plan}, not the tensor cores")
     ms = graph_ms(lambda: pd.paged_gqa_partials(*targs))
+    floor_ms = graph_ms(lambda: pd.partials_empty_launch(plan, q, S_l, Hkv))
     plain_ms = graph_ms(lambda: pd.paged_gqa_partials_plain(*targs))
     library = partials_library(q, *shards[0], tpos, D**-0.5, targs)
+    if library["ms"] is not None and not ms < library["ms"]:
+        raise AssertionError(f"K5 partials: {ms:.4f} ms, not faster than the library's "
+                             f"{library['ms']:.4f} ms")
+    rows = partials_rows_bitwise()
+    sweep = partials_sweep()
     pd.paged_gqa_partials.launches = launches0  # comparison launches do not count
-    n_valid = B * S_l
-    nbytes = q.numel() * 2 + 2 * n_valid * Hkv * D * 2 + 8 + B * 4 + B * Hq * (D + 2) * 4
-    flops = 4 * n_valid * Hq * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate(q.dtype)
-    bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = partials_bound(q, Hkv, B * S_l)
+    ptxas = [ln for ln in ptxas_lines(build.library_path("paged_gqa_partials").with_suffix(".log"))
+             if ln.startswith("partials_kernel")]
     log(f"model_parallel: paged_gqa_partials bf16 B={B} Hq={Hq} Hkv={Hkv} D={D} {S_l}-lane "
-        f"shard: max abs err {err:.3e} over local bounds {PARTIAL_POS}, 4 members combined vs "
-        f"K5 over {MP_MAX_LEN} lanes {comb_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library['ms']} ms ({library['note']}), bound {bound_ms:.4f} ms ({bound_by})")
+        f"shard, plan {tuple(plan)}: max abs err {err:.3e} over local bounds {PARTIAL_POS}, 4 "
+        f"members combined vs K5 over {MP_MAX_LEN} lanes {comb_err:.3e}; kernel {ms:.4f} ms, "
+        f"empty-kernel floor {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, library {library['ms']} "
+        f"ms ({library['note']}), bound {bound_ms:.6f} ms ({bound_by}); rows bitwise at batch "
+        f"index 0 / 5 and B = 1: {rows}; ptxas: {'; '.join(ptxas)}")
     return {
         "name": "paged_gqa_partials",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_gqa_decode.cu",
+        "source": "src/repro_torch/csrc/paged_gqa_partials.cu",
         "replaces": "src/repro/kernels/paged_decode.py:144",
         "launches": None,
         "max_abs_err": err,
@@ -4441,8 +4478,174 @@ def mp_partials_check(cfg) -> dict:
         "bound_by": bound_by,
         "library_ms": library["ms"],
         "library_note": library["note"],
+        "floor_ms": floor_ms,
+        "plan": list(plan),
+        "rows_bitwise": rows,
+        "ptxas": ptxas,
         "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "lanes": S_l},
+        "sweep": sweep,
     }
+
+
+def partials_bound(q, Hkv: int, n_valid: int) -> tuple[float, str]:
+    """Least time of a partials call with ``n_valid`` valid (slot, lane)
+    pairs: q, the valid K/V lanes, pos and the f32 outputs once over HBM,
+    or the products at the peak rate of q's type."""
+    B, Hq, D = q.shape
+    item = q.element_size()
+    nbytes = q.numel() * item + 2 * n_valid * Hkv * D * item + B * 4 + B * Hq * (D + 2) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * n_valid * Hq * D / flop_rate(q.dtype)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def partials_profile() -> dict:
+    """Gate: a bf16 call of K5's partials at 9b's member shape (8 slots,
+    48 query heads on one kv head, 128 lanes of 128) runs one device
+    kernel, the tensor-core ``partials_kernel``, by torch.profiler.  Run
+    after phase 2: in a whole run of this script on the H100 the
+    profiler recorded device events in phases 2d-3l but none by phase
+    9b, while 9b run alone recorded them."""
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 94)
+    q = torch.randn((8, 48, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((8, 1, 128, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    args = (q, *pd.dense_gqa_view(k, v), torch.full((8,), 127, dtype=torch.int32, device="cuda"))
+    launches0 = pd.paged_gqa_partials.launches
+    per_call, names = kernels_per_call(lambda: pd.paged_gqa_partials(*args))
+    pd.paged_gqa_partials.launches = launches0  # comparison launches do not count
+    if per_call != 1 or not all("partials_kernel" in n for n in names):
+        raise AssertionError(f"K5 partials: a bf16 call ran {per_call} device kernels ({names}), "
+                             "not the one tensor-core kernel")
+    log(f"partials: torch.profiler at 9b's member shape: {per_call} device kernel a bf16 call "
+        f"({'; '.join(names)})")
+    return {"profiler_kernels_per_call": per_call, "profiler_kernel_names": names}
+
+
+def kernels_per_call(fn, calls: int = 10) -> tuple[float, list]:
+    """Device kernels a call of ``fn`` runs, from torch.profiler over
+    ``calls`` calls after a warm one, and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    short = sorted({re.sub(r"[(<].*", "", n.replace("(anonymous namespace)::", "")) for n in names})
+    return len(names) / calls, short
+
+
+def partials_rows_bitwise() -> dict:
+    """Gate: a row of the partials gives the same bits at batch index 0
+    and 5 of one call and in a B = 1 call, at 128 lanes (one split) and
+    2048 (a cluster of 8 merging)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 92)
+    out = {}
+    for S in (128, 2048):
+        q = torch.randn((8, 48, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((8, 1, S, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        q[5], k[5], v[5] = q[0], k[0], v[0]
+        pos = torch.tensor([S - 30, 3, S - 1, 40, 64, S - 30, 0, 90], dtype=torch.int32,
+                           device="cuda")
+        eight = pd.paged_gqa_partials(q, *pd.dense_gqa_view(k, v), pos)
+        one = pd.paged_gqa_partials(q[:1].contiguous(), *pd.dense_gqa_view(
+            k[:1].contiguous(), v[:1].contiguous()), pos[:1])
+        out[f"lanes_{S}"] = all(torch.equal(a[0], a[5]) and torch.equal(a[0], b[0])
+                                for a, b in zip(eight, one))
+    if not all(out.values()):
+        raise AssertionError(f"K5 partials: equal rows give different bits ({out})")
+    return out
+
+
+def partials_sweep() -> list:
+    """Each route the plan allows (bf16: "tc" and "split") over
+    ``PARTIAL_SWEEP``: held to the plain version at ``PARTIAL_SWEEP_TOL``
+    with its finite pattern on a dense view (pos below, inside and past
+    the lanes) and on a shuffled pool with unmapped pages and a row past
+    its end, a dense view and the same values in pages bitwise equal;
+    then timed with every lane valid beside the empty-kernel floor, the
+    plain version, the library and the bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 93)
+    B, sms, rows = 8, build.sm_count(0), []
+    for G in PARTIAL_SWEEP["G"]:
+        for D in PARTIAL_SWEEP["Dk"]:
+            for S in PARTIAL_SWEEP["lanes"]:
+                Hkv = max(1, 48 // G)
+                Hq = G * Hkv
+                q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+                k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+                        for _ in range(2))
+                pos = torch.tensor([-3, 0, 5, 63, 64, S // 2, S - 1, S + 400], dtype=torch.int32,
+                                   device="cuda")
+                kp, vp, pages = shuffled_pool(k, v, gen)
+                holes = pages.clone()
+                holes[1, holes.shape[1] // 2:] = -1
+                holes[3, ::3] = -1
+                holes[5, 0] = kp.shape[0] + 9
+                inputs = {"dense": (q, *pd.dense_gqa_view(k, v), pos),
+                          "paged": (q, kp, vp, holes, pos)}
+                plan = pd.gqa_partials_plan(B, Hkv, G, S, D, q.dtype, sms)
+                tc = pd.tc_partials_plan(Hkv, G, S, D)
+                split = pd.PartialsPlan("split", pd.gqa_split_lanes(B, Hkv * -(-G // pd.GQA_CHUNK),
+                                                                    S, sms), 1)
+                row = {"G": G, "Hkv": Hkv, "Dk": D, "lanes": S, "plan": list(plan)}
+                for name, route in (("tc", tc), ("split", split)):
+                    err = 0.0
+                    for label, args in inputs.items():
+                        got, want = pd.launch_partials(route, *args), pd.paged_gqa_partials_plain(*args)
+                        for a, b in zip(got, want):
+                            fin = torch.isfinite(b)
+                            if not (torch.equal(torch.isfinite(a), fin) and torch.allclose(
+                                    a[fin], b[fin], rtol=PARTIAL_SWEEP_TOL, atol=PARTIAL_SWEEP_TOL)):
+                                raise AssertionError(f"K5 partials {name} G={G} Dk={D} {S} lanes "
+                                                     f"{label}: not within {PARTIAL_SWEEP_TOL}")
+                            err = max(err, float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0)
+                    lane_pos = pos.clamp(max=S - 1)
+                    a = pd.launch_partials(route, q, *pd.dense_gqa_view(k, v), lane_pos)
+                    b = pd.launch_partials(route, q, kp, vp, pages, lane_pos)
+                    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                        raise AssertionError(f"K5 partials {name} G={G} Dk={D} {S} lanes: the "
+                                             "dense view and the paged pool differ")
+                    row[f"{name}_max_abs_err"] = err
+                tpos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+                targs = (q, *pd.dense_gqa_view(k, v), tpos)
+                row["tc_ms"] = graph_ms(lambda: pd.launch_partials(tc, *targs))
+                row["tc_ms_by_splits"] = {}  # the split counts the rule did not take
+                tiles = -(-S // pd.SPLIT_QUANTUM)
+                for n in (1, 2, 4, 8):
+                    lanes = pd.SPLIT_QUANTUM * -(-tiles // n)
+                    alt = pd.PartialsPlan("tc", lanes, -(-S // lanes))
+                    if n <= tiles and alt != tc:
+                        row["tc_ms_by_splits"][alt.cluster] = graph_ms(
+                            lambda: pd.launch_partials(alt, *targs))
+                row["split_ms"] = graph_ms(lambda: pd.launch_partials(split, *targs))
+                row["floor_ms"] = graph_ms(lambda: pd.partials_empty_launch(tc, q, S, Hkv))
+                row["plain_ms"] = graph_ms(lambda: pd.paged_gqa_partials_plain(*targs))
+                row["library_ms"] = partials_library(q, k, v, tpos, D**-0.5, targs)["ms"]
+                row["bound_ms"], row["bound_by"] = partials_bound(q, Hkv, B * S)
+                rows.append(row)
+                log(f"model_parallel: partials sweep G={G} Hkv={Hkv} Dk={D} {S} lanes, plan "
+                    f"{plan.route}: tc {row['tc_ms']:.4f} ms ({tc.split_lanes}-lane splits, "
+                    f"cluster {tc.cluster}), split {row['split_ms']:.4f}, floor "
+                    f"{row['floor_ms']:.4f}, plain {row['plain_ms']:.4f}, library "
+                    f"{row['library_ms']}, bound {row['bound_ms']:.6f} ({row['bound_by']}); tc by "
+                    f"cluster {row['tc_ms_by_splits']}; max abs err tc "
+                    f"{row['tc_max_abs_err']:.2e}, split {row['split_max_abs_err']:.2e}")
+    wins = {G: all(r["tc_ms"] < r["split_ms"] for r in rows if r["G"] == G) for G in PARTIAL_SWEEP["G"]}
+    log(f"model_parallel: partials sweep, tc faster than split at every Dk and lane count: {wins}; "
+        f"the plan takes tc from G = {pd.TC_MIN_GROUP}")
+    return rows
 
 
 def partials_library(q, ks, vs, pos, scale, targs) -> dict:
@@ -4785,6 +4988,7 @@ def main() -> int:
     for name, path in paths.items():
         log(f"build: {name}: {'; '.join(ptxas_lines(path.with_suffix('.log')))}")
     record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
+    partials_prof = partials_profile()
     epi = epilogue_phase()
     loop = loop_phase(epi)
     torch.cuda.empty_cache()  # hand the 4K states' memory back
@@ -4885,6 +5089,7 @@ def main() -> int:
                          (mla, "mp_9c_unsharded", mp["9c"]["launches"]["unsharded"]["k6"])):
         rec["launches_by_path"][path] = n
         rec["launches"] += n
+    partials.update(partials_prof)
     partials["launches"] = mp["9b"]["launches"]["sharded"]["k5_partials"]
     partials["launches_by_path"] = {"mp_9b": partials["launches"]}
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)

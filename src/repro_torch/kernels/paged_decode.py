@@ -33,12 +33,15 @@ table ``b``).  Both kernels split a slot's lanes at multiples of
 so a dense view and a paged pool holding the same values give the same
 bits: the paged-vs-dense token parity of the engine holds on the card.
 
-``paged_gqa_partials`` is the GQA kernel's second entry point: the same
-split pass, then a merge that does not divide, so it returns each row's
-flash-decoding partial ``(acc, m, l)`` over the lanes it is given, and a
-row with no valid lane is an empty partial (no uniform mean).  A member
-of a sequence-sharded mesh reads its own cache shard through it
-(``distributed/decode.py``).
+``paged_gqa_partials`` is the GQA kernel's second entry point: each
+row's flash-decoding partial ``(acc, m, l)`` over the lanes it is given,
+a row with no valid lane an empty partial (no uniform mean).  A member of
+a sequence-sharded mesh reads its own cache shard through it
+(``distributed/decode.py``).  ``gqa_partials_plan`` picks its kernel by
+the shapes alone: bf16 groups from ``TC_MIN_GROUP`` heads on (and Dk up
+to 128) take ``csrc/paged_gqa_partials.cu``, one tensor-core launch whose
+splits merge in a thread-block cluster; f32 and smaller groups take the
+GQA kernel's split pass and a merge that does not divide.
 
 The dense-cache decode pieces that the model's layers and the sharded
 decode (``distributed/decode.py``) share live here too, below both:
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,6 +77,26 @@ GQA_CHUNK = 8
 #: multiples of it, so their reduction order is a function of the lane
 #: index alone (a dense view and any page size give the same bits)
 SPLIT_QUANTUM = 64
+#: bf16 query groups of at least this many heads take the partials'
+#: tensor-core kernel (``csrc/paged_gqa_partials.cu``); smaller groups
+#: take the split pass and merge.  The route sweep of ``chip_smoke.py``
+#: phase 9b (PERF.md section 6, the K5 partials row): from G = 2 the
+#: tensor cores win at every head dim and lane count; at G = 1, where 63
+#: of the 64 wgmma rows idle, they do not.
+TC_MIN_GROUP = 2
+#: widest head dim of the partials' tensor-core kernel (rows zero-padded
+#: to 64 or 128 columns)
+TC_MAX_HEAD_DIM = 128
+#: most splits of the tensor-core kernel: one thread-block cluster of the
+#: portable size merges them
+TC_MAX_CLUSTER = 8
+#: fewest 64-lane tiles a split of the tensor-core kernel takes where the
+#: lanes allow (one tile a split re-reads Q and merges more for no overlap)
+TC_MIN_TILES = 2
+#: most blocks of the tensor-core kernel a slot (kv heads x head groups x
+#: splits) at 128 padded columns, twice as many at 64 (half the shared
+#: memory a block): the split counts of phase 9b's sweep
+TC_SLOT_BLOCKS = 24
 
 
 def attend(q, k, v, valid, scale: float) -> torch.Tensor:
@@ -130,6 +154,47 @@ def gqa_split_lanes(B: int, blocks: int, S: int, sms: int) -> int:
     return SPLIT_QUANTUM * -(-quanta // n)
 
 
+class PartialsPlan(NamedTuple):
+    """How ``paged_gqa_partials`` runs: ``route`` "tc" (the tensor-core
+    kernel, one launch) or "split" (the split pass and the merge),
+    ``split_lanes`` lanes a split (a multiple of ``SPLIT_QUANTUM``) and
+    ``cluster`` the splits one cluster merges ("tc": all of them; 1 for
+    "split", which merges in a second pass)."""
+
+    route: str
+    split_lanes: int
+    cluster: int
+
+
+def gqa_partials_plan(B: int, Hkv: int, G: int, S: int, Dk: int, dtype, sms: int) -> PartialsPlan:
+    """The partials' kernel for these shapes, by the shapes alone: bf16
+    with G >= ``TC_MIN_GROUP`` and Dk <= ``TC_MAX_HEAD_DIM`` takes
+    ``tc_partials_plan``, which reads neither B nor the SM count, so a row
+    gives the same bits in a call of any batch size; anything else
+    "split", at ``gqa_split_lanes``."""
+    if dtype != torch.bfloat16 or G < TC_MIN_GROUP or Dk > TC_MAX_HEAD_DIM:
+        chunks = -(-G // GQA_CHUNK)
+        return PartialsPlan("split", gqa_split_lanes(B, Hkv * chunks, S, sms), 1)
+    return tc_partials_plan(Hkv, G, S, Dk)
+
+
+def tc_partials_plan(Hkv: int, G: int, S: int, Dk: int) -> PartialsPlan:
+    """The tensor-core route over S lanes: the most splits, a power of two
+    up to ``TC_MAX_CLUSTER``, that leave each split ``TC_MIN_TILES``
+    64-lane tiles and a slot at most ``TC_SLOT_BLOCKS`` blocks (twice as
+    many at Dk <= 64), all in one cluster.  One split of 128 lanes at
+    granite-20b's 128-lane member, 8 of 256 at 2048 lanes; 2 of 1024 with
+    8 kv heads of 128."""
+    tiles = -(-S // SPLIT_QUANTUM)
+    per_split = Hkv * -(-G // 64)  # a slot's blocks for each split
+    cap = TC_SLOT_BLOCKS * (2 if Dk <= 64 else 1)
+    n = 1
+    while 2 * n <= TC_MAX_CLUSTER and 2 * n * TC_MIN_TILES <= tiles and per_split * 2 * n <= cap:
+        n *= 2
+    lanes = SPLIT_QUANTUM * -(-tiles // n)
+    return PartialsPlan("tc", lanes, -(-S // lanes))
+
+
 def dense_gqa_view(k: torch.Tensor, v: torch.Tensor):
     """A dense cache (B, Hkv, S, D) seen as a pool for the paged kernel,
     read in place: views (N, Hkv, S, D) with strides (S D, S D, D, 1), so
@@ -152,6 +217,18 @@ def _lib() -> ctypes.CDLL:
                      (lib.paged_gqa_partials_f32, 9), (lib.paged_gqa_partials_bf16, 9)):
         fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _partials_lib() -> ctypes.CDLL:
+    lib = build.load("paged_gqa_partials")
+    lib.paged_gqa_partials_tc.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                          + [ctypes.c_longlong] * 2
+                                          + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.paged_gqa_partials_tc_empty.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in (lib.paged_gqa_partials_tc, lib.paged_gqa_partials_tc_empty):
         fn.restype = ctypes.c_int
     return lib
 
@@ -272,7 +349,7 @@ def paged_gqa_partials(q, k_pool, v_pool, pages, pos, *, scale=None):
     valid lanes (``acc / l`` is ``paged_gqa_attention``'s output where a
     lane is valid).  The inputs are ``paged_gqa_attention``'s; ``pos``
     may be negative, and a row without a valid lane gives m = -inf, l =
-    0.  The kernel's splits follow ``gqa_split_lanes`` and are merged in
+    0.  The kernel follows ``gqa_partials_plan`` and merges its splits in
     order, so equal inputs give equal bits.  CPU tensors take
     ``paged_gqa_partials_plain``."""
     if q.device.type == "cpu":
@@ -281,27 +358,56 @@ def paged_gqa_partials(q, k_pool, v_pool, pages, pos, *, scale=None):
         raise ValueError(f"paged_gqa_partials runs on cuda or cpu, not {q.device}")
     _check(q, k_pool, v_pool, pages, pos)
     B, Hq, Dk = q.shape
+    _, Hkv, ps, _ = k_pool.shape
+    plan = gqa_partials_plan(B, Hkv, Hq // Hkv, pages.shape[1] * ps, Dk, q.dtype,
+                             build.sm_count(q.device.index))
+    return launch_partials(plan, q, k_pool, v_pool, pages, pos, scale=scale)
+
+
+def launch_partials(plan: PartialsPlan, q, k_pool, v_pool, pages, pos, *, scale=None):
+    """One launch of the partials' kernel along ``plan`` on inputs
+    ``paged_gqa_partials`` has checked; ``paged_gqa_partials`` passes
+    ``gqa_partials_plan``'s, and ``chip_smoke.py`` times the other route
+    through it.  Counts the launch on ``paged_gqa_partials.launches``."""
+    B, Hq, Dk = q.shape
     N, Hkv, ps, _ = k_pool.shape
     P = pages.shape[1]
     scale = (Dk**-0.5) if scale is None else scale
-    lib = _lib()
-    fn = lib.paged_gqa_partials_f32 if q.dtype == torch.float32 else lib.paged_gqa_partials_bf16
-    chunks = -(-(Hq // Hkv) // GQA_CHUNK)
-    split_lanes = gqa_split_lanes(B, Hkv * chunks, P * ps, build.sm_count(q.device.index))
-    n_split = -(-P * ps // split_lanes)
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty((B, Hq, Dk), **f32)
     m, l = torch.empty((B, Hq), **f32), torch.empty((B, Hq), **f32)
-    part = torch.empty(B * Hq * n_split * (Dk + 2), **f32)
+    ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, pages, pos, acc, m, l)]
+    sizes = (B, Hq, Hkv, Dk, ps, P, N, k_pool.stride(0), k_pool.stride(1), plan.split_lanes,
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):  # the C launch uses the current device
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
-                 pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
-                 B, Hq, Hkv, Dk, ps, P, N, k_pool.stride(0), k_pool.stride(1), split_lanes,
-                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        if plan.route == "tc":
+            if q.dtype != torch.bfloat16:
+                raise TypeError("the partials' tensor-core kernel takes bfloat16")
+            err = _partials_lib().paged_gqa_partials_tc(*ptrs, *sizes)
+        else:
+            lib = _lib()
+            fn = lib.paged_gqa_partials_f32 if q.dtype == torch.float32 else lib.paged_gqa_partials_bf16
+            n_split = -(-P * ps // plan.split_lanes)
+            # per split and query head: the unnormalised f32 context, then (m, l)
+            part = torch.empty(B * Hq * n_split * (Dk + 2), **f32)
+            err = fn(*ptrs, part.data_ptr(), *sizes)
     if err:
         raise RuntimeError(f"paged_gqa_partials launch failed: cudaError {err}")
     paged_gqa_partials.launches += 1
     return acc, m, l
+
+
+def partials_empty_launch(plan: PartialsPlan, q, S: int, Hkv: int) -> None:
+    """The launch floor of the tensor-core partials: an empty kernel with
+    ``plan``'s grid, cluster and shared memory for ``q`` (B, Hq, Dk) over
+    S lanes on Hkv kv heads.  For ``chip_smoke.py``'s timing; counts no
+    launch."""
+    B, Hq, Dk = q.shape
+    with torch.cuda.device(q.device):
+        err = _partials_lib().paged_gqa_partials_tc_empty(
+            B, Hq, Hkv, Dk, S, plan.split_lanes, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_gqa_partials_tc_empty launch failed: cudaError {err}")
 
 
 paged_gqa_partials.launches = 0
