@@ -327,19 +327,43 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  reaches, in bf16 and with f32 weights (where at least
                  half the tokens and steps must be reached by none, and
                  their logits be within 1e-4).
+  * phase 10   -- model-parallel training and sharded recurrent decode
+                 on (data, model) meshes of cuda:0: (10a) internlm2-1.8b
+                 at full width and depth, phase 5a's setting, trained 10
+                 steps ZeRO-1 + FSDP on (2, 4) after the unsharded
+                 trainer from the same init and batches (step 0's loss
+                 within 1e-2, every step's within 3e-2 relative; every
+                 member's block its own allocation, replicated leaves
+                 once), the state after step 5 checkpointed and its files
+                 held byte for byte to an unsharded save's; (10b)
+                 ``int8_ef`` on its first 8 layers against the
+                 uncompressed sharded trainer (3e-2), each step's
+                 compressed mean within its int8 rounding bound of the
+                 exact mean, the data members' EF buffers non-zero and
+                 different; (10c) the step-5 checkpoint resumed onto
+                 (4, 2): every leaf bitwise, 5 steps within 3e-2 of the
+                 uninterrupted run; (10d) mamba2-2.7b and zamba2-2.7b at
+                 full width and depth, in bf16 and with f32 weights, 8
+                 prompts of 48 tokens prefilled and decoded 16 steps
+                 unsharded, then sharded on (2, 4) teacher-forced:
+                 logits with f32 weights within 1e-4 (bf16's recorded:
+                 64 layers amplify the products' other blocking past
+                 3e-2), K8 at a member's shape (4 rows, 20 heads) within
+                 phase 2d's limits, K8 = mamba layers x 8 members and K5
+                 = shared-block calls x 16 x 8.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
 phases' (``train``), the launchers' (``launch``), the analyzer's
-(``analysis``), phase 8's (``spatial``), phase 9's (``model_parallel``)
-and the kernels' JSON records
+(``analysis``), phase 8's (``spatial``), phase 9's (``model_parallel``),
+phase 10's (``model_parallel_training``) and the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
 also 5b, the examples and 8a, K2 also 6c and the examples, K5 phases 3,
-3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a and 9b's unsharded
-twin, K5's partials 9b, K6 phases 3c, 3d, 3i and 9c's unsharded twin,
-K8 phases 3b, 3g and 6c), the card's name and power limit, and
+3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a, 9b's unsharded
+twin and 10d, K5's partials 9b, K6 phases 3c, 3d, 3i and 9c's unsharded
+twin, K8 phases 3b, 3g, 6c and 10d), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4967,6 +4991,489 @@ def model_parallel_phase() -> tuple[dict, dict]:
     return out, partials
 
 
+# --------------------------------------------------------------------------
+# phase 10: model-parallel training and sharded recurrent decode
+# --------------------------------------------------------------------------
+MPT_STEPS = 10  # 10a, 10b: trainer steps
+MPT_CKPT = 5  # 10c: the checkpoint after this many steps of 10a
+MPT_TOL0, MPT_TOL = 1e-2, 3e-2  # step 0's loss; every step's (JAX's bf16 bound)
+EF_LAYERS = 8  # 10b: the first 8 of 24 layers at full width (the reckoning: PERF.md)
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+# 10d's logits: with f32 weights within ``MP_F32_TOL`` of the unsharded
+# run (9d's f32 bound, far inside JAX's bf16 3e-2).  In bf16, 64 layers
+# amplify the rounding of a product computed in other blocks (a member's
+# columns, a member's rows summed) past 3e-2 of the unsharded run (mamba2
+# on an H100: 5.4e-2), so each bf16 run is held against an f32 reference
+# (the unsharded model on the same weights upcast, fed the same tokens):
+# the sharded run may lie at most ``MP_BF16_RATIO`` times as far from it
+# as the unsharded bf16 run does.  On an H100 sound runs read 1.00
+# (mamba2) and 1.04 (zamba2); a sharded mamba2 whose members read their
+# neighbour head's decay read 2.41, one whose members' outputs were
+# rolled by a head 25.8
+MP_BF16_RATIO = 1.5
+
+
+def mpt_run(exe, box: list, steps: int, start: int = 0, at=None):
+    """``steps`` steps of a trainer program one at a time from
+    ``start``, each between CUDA events; ``at(t, states)`` after each
+    with the state after step t.  The states come in a one-item list,
+    which is emptied: a caller's reference to the first state would
+    hold a third state beside the step's two (72 GB at 10a's size).
+    Returns (states, losses, ms a step)."""
+    states = box.pop()
+    losses, ms = [], []
+    for t in range(start, start + steps):
+        states, dt = timed(lambda t=t: exe.run(states, 1, start_step=t).states)
+        losses.append(float(states["trainer"]["metrics"]["loss"]))
+        ms.append(dt)
+        if at is not None:
+            at(t + 1, states)
+    return states, losses, ms
+
+
+def rel_losses(got, want) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def one_leaf(path, leaf):
+    """A tree holding ``leaf`` alone at ``path`` (earlier list entries
+    empty), so its checkpoint file has the name the whole tree gives it."""
+    node = leaf
+    for k in reversed(path):
+        node = {k: node} if isinstance(k, str) else [None] * k + [node]
+    return node
+
+
+def mp_10a(root: Path) -> tuple[dict, list, object]:
+    """10a: internlm2-1.8b at full width and depth, 5a's setting, laid out
+    ZeRO/FSDP on a (2, 4) mesh of cuda:0, 10 steps beside the unsharded
+    trainer (one after the other: the two states, 47.7 GB each with
+    their next buffers, do not fit one card together); the state after
+    step 5 checkpointed, its files held to an unsharded save's.
+    Returns (record, the sharded losses, the step-5 state on the host)."""
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed.sharding import unshard
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+    from repro_torch.tree import tree_map, tree_paths
+
+    args = L.parser().parse_args(train_argv("--steps", str(MPT_STEPS)))
+    cfg, tcfg, _ = L.build(args)
+    exe = api.compile(make_train_program(cfg, tcfg), backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states, want, ms_u = mpt_run(exe, [exe.init(args.seed)], MPT_STEPS)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ctx = mp_ctx(cfg, (2, 4), fsdp=True)
+    exe = api.compile(make_train_program(cfg, tcfg, ctx), backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states = exe.init(args.seed)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    layout = mp_layout(states["trainer"])
+    saved, box = {}, [states]
+    del states
+
+    def at(t, st):
+        if t != MPT_CKPT:
+            return
+        t0 = time.perf_counter()
+        ckpt.save(root / "sharded", t, st)
+        saved["save_s"] = time.perf_counter() - t0
+        step_dir = root / "sharded" / f"step_{t:08d}"
+        saved["gb"] = sum(f.stat().st_size for f in step_dir.glob("*.npy")) / 1e9
+        host = tree_map(lambda x: x.detach().cpu(), unshard(st, "cpu"))
+        # the unsharded state's files, written a leaf at a time beside
+        twin_root = root / "twin"
+        t0 = time.perf_counter()
+        same = 0
+        for path, leaf in zip(tree_paths(host), _leaves(host)):
+            ckpt.save(twin_root, t, one_leaf(path, leaf))
+            name = "_".join(str(k) for k in path) + ".npy"
+            twin = twin_root / f"step_{t:08d}" / name
+            if (step_dir / name).read_bytes() != twin.read_bytes():
+                raise AssertionError(f"10c: {name} differs from the unsharded save's file")
+            twin.unlink()
+            same += 1
+        saved["twin_s"] = time.perf_counter() - t0
+        shutil.rmtree(twin_root, ignore_errors=True)
+        saved["files_equal"] = same
+        saved["host"] = host
+
+    states, got, ms = mpt_run(exe, box, MPT_STEPS, at=at)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = mp_layout(states["trainer"])
+    layout = {k: (layout[k] and final[k]) if isinstance(layout[k], bool) else layout[k]
+              for k in layout}
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = rel_losses(got, want)
+    if not all(np.isfinite(got)) or rel[0] > MPT_TOL0 or max(rel) > MPT_TOL:
+        raise AssertionError(f"10a: sharded losses {got} against unsharded {want} (rel {rel})")
+    if not (layout["distinct"] and layout["replicated_once"]):
+        raise AssertionError(f"10a: a member's block is not its own allocation ({layout})")
+    med, med_u = float(np.median(ms[1:])), float(np.median(ms_u[1:]))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": [2, 4], "fsdp": True,
+           "steps": MPT_STEPS, "losses": got, "losses_unsharded": want, "loss_rel": rel,
+           "ms_per_step_median": med, "ms_per_step_unsharded_median": med_u,
+           "ms_per_step": ms, "ms_per_step_unsharded": ms_u, "peak_gb": peak,
+           "peak_gb_unsharded": peak_u, "state_gb": state_gb, "layout": layout,
+           "ckpt_gb": saved["gb"], "ckpt_save_s": saved["save_s"],
+           "ckpt_twin_s": saved["twin_s"], "ckpt_files_equal": saved["files_equal"]}
+    log(f"mp_train 10a: {cfg.name} {cfg.n_layers} layers, (2, 4) members of cuda:0, ZeRO-1 + "
+        f"FSDP, batch {TRAIN_BATCH} x {TRAIN_SEQ} bigram, {MPT_STEPS} steps: median "
+        f"{med:.1f} ms/step sharded, {med_u:.1f} unsharded (device clock); losses "
+        f"{', '.join(f'{x:.4f}' for x in got)} (unsharded {', '.join(f'{x:.4f}' for x in want)}; "
+        f"max rel {max(rel):.2e}, step 0 {rel[0]:.2e}); state {state_gb:.2f} GB, peak "
+        f"{peak:.2f} GB (unsharded {peak_u:.2f}); member (0, 0) holds "
+        f"{layout['member_bytes'] / 1e9:.3f} GB; checkpoint at step {MPT_CKPT}: "
+        f"{saved['gb']:.2f} GB in {saved['save_s']:.1f} s, {saved['files_equal']} files "
+        f"bitwise an unsharded save's ({saved['twin_s']:.1f} s)")
+    return rec, got, saved["host"]
+
+
+def mp_10c(root: Path, uninterrupted: list, host) -> dict:
+    """10c: 10a's step-5 checkpoint resumed onto a (4, 2) mesh of cuda:0
+    through ``elastic_resume``: every leaf bitwise the saved one, then 5
+    more steps against the uninterrupted (2, 4) run's losses."""
+    from repro_torch import api
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.ft import elastic
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(train_argv("--steps", str(MPT_STEPS)))
+    cfg, tcfg, _ = L.build(args)
+    ctx = mp_ctx(cfg, (4, 2), fsdp=True)
+    exe = api.compile(make_train_program(cfg, tcfg, ctx), backend="host", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, step = elastic.elastic_resume(str(root / "sharded"), exe, ctx, generator=args.seed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != MPT_CKPT:
+        raise AssertionError(f"10c: restored step {step} != {MPT_CKPT}")
+    n = 0
+    for got, want in zip(_leaves(states), _leaves(host)):
+        if isinstance(got, Sharded):
+            if got.mesh is not ctx.mesh:
+                raise AssertionError("10c: a restored leaf is not on the new mesh")
+            for blk, t in got.blocks():
+                if not torch.equal(t, want[blk].to(t.device)):
+                    raise AssertionError("10c: a restored block differs from the saved state")
+        elif not torch.equal(got.cpu(), want):
+            raise AssertionError("10c: a restored leaf differs from the saved state")
+        n += 1
+    layout = mp_layout(states["trainer"])
+    box = [states]
+    del states
+    states, got, ms = mpt_run(exe, box, MPT_STEPS - MPT_CKPT, start=MPT_CKPT)
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = rel_losses(got, uninterrupted[MPT_CKPT:])
+    if not all(np.isfinite(got)) or max(rel) > MPT_TOL:
+        raise AssertionError(f"10c: resumed losses {got} against {uninterrupted[MPT_CKPT:]}")
+    if not (layout["distinct"] and layout["replicated_once"]):
+        raise AssertionError(f"10c: a member's block is not its own allocation ({layout})")
+    log(f"mp_train 10c: step-{MPT_CKPT} checkpoint restored onto (4, 2) members in "
+        f"{restore_s:.1f} s, {n} leaves bitwise the saved state; member (0, 0) holds "
+        f"{layout['member_bytes'] / 1e9:.3f} GB; steps {MPT_CKPT}-{MPT_STEPS - 1}: losses "
+        f"{', '.join(f'{x:.4f}' for x in got)} against the uninterrupted (2, 4) run's "
+        f"(max rel {max(rel):.2e}), median {float(np.median(ms)):.1f} ms/step")
+    return {"mesh": [4, 2], "restore_s": restore_s, "leaves_bitwise": n, "losses": got,
+            "loss_rel": rel, "ms_per_step": ms, "layout": layout}
+
+
+def ef_bound_check(cfg, ctx, st) -> float:
+    """The compressed mean of the state ``st``'s step against the exact
+    mean of each data member's ``flat + ef``: the worst block's error
+    over its int8 rounding bound (``collectives.int8_mean_error``)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import lm_cells as TL
+
+    loss_ctx = dataclasses.replace(ctx, manual_axes=tuple(ctx.data_axes))
+    ef = st["trainer"]["ef"]
+    flats, _ = TL.member_flats(lambda p, b: TL._value_and_grad(cfg, p, b, loss_ctx),
+                               st["trainer"]["params"], {"tokens": st["data"]["tokens"]},
+                               ef.shape[0], ctx)
+    efs = [ef.local((d, 0)) for d in range(2)]
+    return C.int8_mean_error(flats, efs, C.compressed_psum_int8(flats, efs)[0][0])
+
+
+def mp_10b() -> dict:
+    """10b: ``int8_ef`` at full width, internlm2's first ``EF_LAYERS``
+    layers (``--d-model 2048 --layers N``, uniform tokens) on a (2, 4)
+    mesh of cuda:0, 10 steps against the uncompressed sharded trainer
+    at the same depth; each step's compressed mean held to the int8
+    rounding bound of the exact mean."""
+    from repro_torch import api
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(cut_argv(EF_LAYERS, "--steps", str(MPT_STEPS),
+                                          "--data", "uniform"))
+    cfg, tcfg, _ = L.build(args)
+    ctx = mp_ctx(cfg, (2, 4))
+    runs = {}
+    for comp in ("none", "int8_ef"):
+        t = dataclasses.replace(tcfg, grad_compression=comp)
+        exe = api.compile(make_train_program(cfg, t, ctx), backend="host", device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        states = exe.init(args.seed)
+        ratios = []
+        if comp == "int8_ef":
+            n = sum(x.numel() for x in _leaves(states["trainer"]["params"]))
+            losses, ms = [], []
+            for step in range(MPT_STEPS):
+                ratios.append(ef_bound_check(cfg, ctx, states))
+                box = [states]
+                del states
+                states, l_, m_ = mpt_run(exe, box, 1, start=step)
+                losses += l_
+                ms += m_
+            ef = states["trainer"]["ef"]
+            bufs = [ef.local((d, 0)) for d in range(2)]
+            if not all(float(b.abs().sum()) > 0 for b in bufs) or torch.equal(*bufs):
+                raise AssertionError("10b: the data members' EF buffers are zero or equal")
+            ef_gb = 2 * ef.numel() * 4 / 1e9
+        else:
+            box = [states]
+            del states
+            states, losses, ms = mpt_run(exe, box, MPT_STEPS)
+        runs[comp] = {"losses": losses, "ms_per_step": ms, "ratios": ratios,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del states, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = rel_losses(runs["int8_ef"]["losses"], runs["none"]["losses"])
+    worst = max(runs["int8_ef"]["ratios"])
+    if not all(np.isfinite(runs["int8_ef"]["losses"])) or max(rel) > MPT_TOL:
+        raise AssertionError(f"10b: int8_ef losses {runs['int8_ef']['losses']} against "
+                             f"{runs['none']['losses']}")
+    if worst > 1.0:
+        raise AssertionError(f"10b: a compressed mean is past its int8 bound ({worst:.3f})")
+    log(f"mp_train 10b: int8_ef, {cfg.name} first {EF_LAYERS} layers at d_model 2048, "
+        f"{n / 1e9:.3f} B params, (2, 4) members of cuda:0, {MPT_STEPS} steps: losses "
+        f"{', '.join(f'{x:.4f}' for x in runs['int8_ef']['losses'])} against uncompressed "
+        f"(max rel {max(rel):.2e}); worst block of the compressed mean at {worst:.3f} of its "
+        f"int8 bound; EF buffers {ef_gb:.2f} GB (2 data members, f32); median ms/step "
+        f"{float(np.median(runs['int8_ef']['ms_per_step'][1:])):.1f} int8_ef, "
+        f"{float(np.median(runs['none']['ms_per_step'][1:])):.1f} uncompressed; peak GB "
+        f"{runs['int8_ef']['peak_gb']:.2f} / {runs['none']['peak_gb']:.2f}")
+    return {"layers": EF_LAYERS, "params": n, "loss_rel": rel, "bound_ratio_worst": worst,
+            "ef_gb": ef_gb, **{f"{k}_{c}": v for c, r in runs.items() for k, v in r.items()}}
+
+
+def mp_k8_member(cfg, gen) -> dict:
+    """K8 at a (data, model) member's shape of the sharded prefill: 4 rows
+    of 48 tokens, 20 of 80 heads, in the config's dtype, against its
+    plain version."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    s = cfg.ssm
+    x, dt, a, bm, cm, _ = ssd_inputs(MP_PROMPT, gen, cfg.compute_dtype, B=4, H=20, P=s.headdim,
+                                     G=s.ngroups, N=s.state)
+    launches = ks.ssd_scan.launches
+    y, h = ks.ssd_scan(x, dt, a, bm, cm, chunk=s.chunk)
+    yr, hr = ks.ssd_scan_plain(x, dt, a, bm, cm, chunk=s.chunk)
+    ks.ssd_scan.launches = launches  # a check, not the main path
+    kind = "y_bf16" if cfg.compute_dtype == torch.bfloat16 else "y_f32"
+    ok_y, err_y, _, row_y = ssd_verdict(y, yr, kind)
+    ok_h, err_h, _, row_h = ssd_verdict(h, hr, "state")
+    if not (ok_y and ok_h):
+        raise AssertionError(f"10d: K8 at the member shape: y {err_y} (row {row_y}), "
+                             f"state {err_h} (row {row_h})")
+    return {"shape": [4, MP_PROMPT, 20, s.headdim, s.state], "y_err": err_y,
+            "state_err": err_h, "y_row_l2": row_y, "state_row_l2": row_h}
+
+
+def mp_k5_member(cfg, gen) -> dict:
+    """K5 at a (data, model) member's shape of zamba2's sharded shared
+    block: 4 rows, a quarter of the query and KV heads, the member's
+    dense cache block of ``MP_MAX_LEN`` lanes read in place (bitwise the
+    same values through a shuffled page table), in f32 and bf16, against
+    its plain version at K5's limits."""
+    from repro_torch.kernels import paged_decode as pd
+
+    Hq, Hkv, Dk = cfg.n_heads // 4, cfg.n_kv_heads // 4, cfg.head_dim
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # atol = rtol
+    launches = pd.paged_gqa_attention.launches
+    errs = {}
+    for dtype in tol:
+        q, _, _, pos, view, pools, pages = dense_and_shuffled(dtype, gen, B=4, Hq=Hq, Hkv=Hkv,
+                                                              S=MP_MAX_LEN, D=Dk)
+        got = pd.paged_gqa_attention(q, *view, pos)
+        paged = pd.paged_gqa_attention(q, *pools, pages, pos)
+        ref = pd.paged_gqa_plain(q, *view, pos).float()
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs()
+        errs[str(dtype).split(".")[-1]] = float(err.max())
+        if not (torch.equal(got, paged) and bool(torch.isfinite(got.float()).all())
+                and bool((err <= tol[dtype] + tol[dtype] * ref.abs()).all())):
+            raise AssertionError(f"10d: K5 at the member shape, {dtype}: max abs err "
+                                 f"{float(err.max())} (dense view == pages: "
+                                 f"{torch.equal(got, paged)})")
+    pd.paged_gqa_attention.launches = launches  # a check, not the main path
+    return {"shape": [4, Hq, Hkv, Dk, MP_MAX_LEN], "max_abs_err": errs}
+
+
+def mp_10d_arch(name: str, dtype: str) -> dict:
+    """One recurrent arch at full width and depth: 8 prompts of 48 tokens
+    prefilled and decoded 16 greedy steps unsharded, then the same
+    prefilled and decoded sharded on a (2, 4) mesh of cuda:0,
+    teacher-forced with the unsharded tokens; K8 and K5 counted from 0
+    around each run.  Logits gated as the note at ``MP_BF16_RATIO`` says
+    (in bf16 the f32 reference is a third run, fed the same tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_cells import install_prefill, place_cache, place_params
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(name), dtype=dtype)
+    ctx = mp_ctx(cfg, (2, 4))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    k8 = mp_k8_member(cfg, gen)
+    plan = T.segment_plan(cfg)
+    calls = sum(s.count for s in plan if s.kind == "zamba_unit")
+    k5 = mp_k5_member(cfg, gen) if calls else None
+    params = T.init_params(cfg, gen, "cuda")
+    B = 8
+    toks = torch.randint(0, cfg.vocab_size, (B, MP_PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    counters = {"k8": ks.ssd_scan, "k5": pd.paged_gqa_attention}
+    out, fed, counts, ms, pre_ms, peak = {}, [], {}, {}, {}, {}
+    labels = ("unsharded", "reference", "sharded") if dtype == "bfloat16" else ("unsharded", "sharded")
+    for label in labels:
+        c, run_cfg, run_params = None, cfg, params
+        if label == "sharded":
+            c = ctx
+            params = run_params = place_params(cfg, params, ctx)
+        elif label == "reference":
+            run_cfg = dataclasses.replace(cfg, dtype="float32")
+            run_params = tree_map(lambda x: x.float() if x.is_floating_point() else x, params)
+        kw = {} if c is None else {"ctx": c}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():  # counts start here
+            w.launches = 0
+        t0 = time.perf_counter()
+        logits, filled = T.forward(run_cfg, run_params, toks, fill_cache=True, **kw)
+        torch.cuda.synchronize()
+        pre_ms[label] = (time.perf_counter() - t0) * 1e3
+        cache = install_prefill(run_cfg, T.init_cache(run_cfg, B, MP_MAX_LEN, "cuda"), filled,
+                                MP_PROMPT)
+        if c is not None:
+            cache = place_cache(cfg, cache, ctx)
+        lgs = [logits[:, -1:].float()]
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        del logits, filled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MP_STEPS):
+            if label == "unsharded":
+                fed.append(tok)
+            lg, cache = T.decode_step(run_cfg, run_params, cache, fed[i], **kw)
+            lgs.append(lg.float())
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) / MP_STEPS * 1e3
+        if label != "reference":
+            counts[label] = {k: w.launches for k, w in counters.items()}  # and are read here
+        peak[label] = torch.cuda.max_memory_allocated() / 1e9
+        out[label] = torch.stack(lgs)
+        if c is not None:
+            layout = {"params": mp_layout(params), "cache": mp_layout(cache)}
+        del cache, run_params
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    want, got = out["unsharded"], out["sharded"]
+    max_rel = rel(got, want)
+    # the sharded run's greedy choice against the token the unsharded run fed next
+    picks = got[:-1].argmax(-1)[:, :, 0]
+    share = float((picks == torch.stack(fed)[:, :, 0]).float().mean())
+    ref = {}
+    if "reference" in out:
+        ref = {"unsharded_rel": rel(want, out["reference"]), "sharded_rel": rel(got, out["reference"])}
+        ref["ratio"] = ref["sharded_rel"] / ref["unsharded_rel"]
+    n_mamba = sum(s.count * (s.sub if s.kind == "zamba_unit" else 1)
+                  for s in plan if s.kind in ("mamba", "zamba_unit"))
+    members = 8
+    expect = {"unsharded": {"k8": n_mamba, "k5": calls * MP_STEPS},
+              "sharded": {"k8": n_mamba * members, "k5": calls * MP_STEPS * members}}
+    rec = {"arch": name, "dtype": dtype, "max_rel": max_rel, "greedy_share": share,
+           "reference": ref, "ms_per_step": ms, "prefill_ms": pre_ms, "peak_gb": peak,
+           "launches": counts, "expect": expect, "layout": layout, "k8_member": k8,
+           "k5_member": k5}
+    log(f"mp_train 10d: {name} {dtype} {cfg.n_layers} layers ({n_mamba} mamba, {calls} shared-block "
+        f"calls), 8 prompts of {MP_PROMPT} then {MP_STEPS} decode steps, (2, 4) members of "
+        f"cuda:0: logits max_rel {max_rel:.3e}, greedy share {share:.4f}"
+        + (f"; against the f32 reference: unsharded {ref['unsharded_rel']:.3e}, sharded "
+           f"{ref['sharded_rel']:.3e} (ratio {ref['ratio']:.3f}, bound {MP_BF16_RATIO})"
+           if ref else "")
+        + f"; prefill ms {pre_ms['sharded']:.1f} sharded / {pre_ms['unsharded']:.1f} unsharded; "
+        f"ms/step {ms['sharded']:.2f} / {ms['unsharded']:.2f}; peak GB {peak['sharded']:.2f} / "
+        f"{peak['unsharded']:.2f}; launches {counts}; K8 at the member shape "
+        f"{k8['shape']}: y err {k8['y_err']:.2e}, state err {k8['state_err']:.2e}"
+        + (f"; K5 at the member shape {k5['shape']}: max abs err {k5['max_abs_err']}" if k5 else ""))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"10d {name} {dtype}: sharded logits not finite")
+    if dtype == "float32" and max_rel >= MP_F32_TOL:
+        raise AssertionError(f"10d {name} {dtype}: sharded logits max_rel {max_rel} "
+                             f"(bound {MP_F32_TOL} with f32 weights)")
+    if ref and not ref["ratio"] <= MP_BF16_RATIO:
+        raise AssertionError(f"10d {name} {dtype}: the sharded logits lie {ref['ratio']:.3f} times "
+                             f"as far from the f32 reference as the unsharded ones (bound "
+                             f"{MP_BF16_RATIO}): {ref}")
+    if counts != expect:
+        raise AssertionError(f"10d {name} {dtype}: launches {counts} != {expect}")
+    if not (layout["params"]["distinct"] and layout["cache"]["distinct"]
+            and layout["params"]["replicated_once"]):
+        raise AssertionError(f"10d {name} {dtype}: a member's block is not its own allocation")
+    return rec
+
+
+def mp_training_phase() -> dict:
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="miso_mp_ckpt_"))
+    try:
+        out = {}
+        out["10a"], losses, host = mp_10a(root)
+        out["10c"] = mp_10c(root, losses, host)
+        del host
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["10b"] = mp_10b()
+    out["10d"] = {}
+    for name in SSM_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            out["10d"][f"{name} {dtype}"] = mp_10d_arch(name, dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mp_train: phase 10 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -5089,6 +5596,14 @@ def main() -> int:
                          (mla, "mp_9c_unsharded", mp["9c"]["launches"]["unsharded"]["k6"])):
         rec["launches_by_path"][path] = n
         rec["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpt = mp_training_phase()
+    for rec, key, counter in ((ssd, "mp_10d", "k8"), (record, "mp_10d", "k5")):
+        for suffix, label in (("", "sharded"), ("_unsharded", "unsharded")):
+            n = sum(r["launches"][label][counter] for r in mpt["10d"].values())
+            rec["launches_by_path"][key + suffix] = n
+            rec["launches"] += n
     partials.update(partials_prof)
     partials["launches"] = mp["9b"]["launches"]["sharded"]["k5_partials"]
     partials["launches_by_path"] = {"mp_9b": partials["launches"]}
@@ -5105,6 +5620,7 @@ def main() -> int:
     print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"spatial": spatial}), flush=True)
     print(json.dumps({"model_parallel": mp}), flush=True)
+    print(json.dumps({"model_parallel_training": mpt}), flush=True)
     print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,14 @@ is detected.  numpy has no bfloat16 without ``ml_dtypes``, which this
 package does not use: a bf16 leaf is written as its 16-bit words in a
 2-byte void dtype (what ``np.save`` makes of JAX's bf16 arrays) under the
 manifest dtype ``"bfloat16"``, and read back the same way.
+
+A state laid out on a device mesh (``Sharded`` leaves) is saved as its
+global tensors, so its files are the unsharded state's byte for byte (a
+leaf whose members hold diverging values, the trainer's error-feedback
+buffer, is saved as its first member's, as JAX's host view reads it).
+``restore(..., shardings=)`` lays each leaf out by a tree of
+``NamedSharding``s, in any mesh shape; without it each leaf is placed as
+``like``'s is.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import NamedSharding, Sharded, _flatten_up_to, shard_leaf
 from ..tree import tree_flatten, tree_paths, tree_unflatten
 
 Tree = Any
@@ -109,7 +118,8 @@ def save(directory, step: int, state: Tree, *, blocking: bool = True,
     d = pathlib.Path(directory) / f"step_{step:08d}"
     d.mkdir(parents=True, exist_ok=True)
     leaves, _ = tree_flatten(state)
-    host = [_to_numpy(x.detach().cpu()) for x in leaves]
+    host = [_to_numpy((x.full() if isinstance(x, Sharded) else x).detach().cpu())
+            for x in leaves]
     names = _names(state)
     treedef = _treedef_str(state)
 
@@ -155,15 +165,24 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _place(t: torch.Tensor, like, sharding) -> Any:
+    """A restored leaf laid out by ``sharding`` (a ``NamedSharding``), or
+    as ``like`` is (its spec and mesh, or its device)."""
+    if isinstance(sharding, NamedSharding):
+        return shard_leaf(t, sharding.spec, sharding.mesh)
+    if isinstance(like, Sharded):
+        return shard_leaf(t, like.spec, like.mesh)
+    return t.to(like.device)
+
+
 def restore(directory, like: Tree, *, step: Optional[int] = None, shardings=None,
             verify: bool = True) -> tuple[Tree, int]:
-    """Restore into the structure of ``like``, each leaf on the device of
-    ``like``'s.  ``shardings`` (placement onto a mesh) waits for the
-    sharding rules of the model-parallel slice."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings needs the sharding rules of the "
-            "model-parallel slice (ROADMAP Queue 1 item 7b)")
+    """Restore into the structure of ``like``.  ``shardings``: a tree of
+    ``NamedSharding`` (or None, for a leaf placed as ``like``'s) in
+    ``like``'s structure, laying each leaf out on its mesh (elastic
+    restore onto another mesh shape); without it each leaf is placed as
+    ``like``'s: by its spec and mesh if ``Sharded``, else on its
+    device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -172,13 +191,15 @@ def restore(directory, like: Tree, *, step: Optional[int] = None, shardings=None
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {m["name"]: m for m in manifest["leaves"]}
     leaves_like, treedef = tree_flatten(like)
+    shard_leaves = (_flatten_up_to(like, shardings) if shardings is not None
+                    else [None] * len(leaves_like))
     out = []
-    for name, leaf in zip(_names(like), leaves_like):
+    for name, leaf, sharding in zip(_names(like), leaves_like, shard_leaves):
         arr = np.load(d / f"{name}.npy")
         meta = by_name[name]
         if verify:
             crc = _crc32(arr)
             if crc != meta["crc32"]:
                 raise IOError(f"checkpoint leaf {name} corrupted (crc {crc} != {meta['crc32']})")
-        out.append(_from_numpy(arr, meta["dtype"]).reshape(meta["shape"]).to(leaf.device))
+        out.append(_place(_from_numpy(arr, meta["dtype"]).reshape(meta["shape"]), leaf, sharding))
     return tree_unflatten(treedef, out), step

@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from ..distributed.sharding import REPLICATED_SHARDED_ITEM, Sharded
 from ..kernels import ops
 from ..kernels.state_hash import M32, MIX, PHI, mul32
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -148,6 +149,10 @@ def replicate_state(state: Tree, level: int) -> Tree:
     ``level`` (real copies: replicas are written independently)."""
     if level == 1:
         return state
+    if any(isinstance(x, Sharded) for x in tree_leaves(state)):
+        raise NotImplementedError(
+            f"a level-{level} replicated cell whose state is laid out on a mesh is not "
+            f"ported; {REPLICATED_SHARDED_ITEM} ports it")
     return tree_map(lambda x: x.unsqueeze(0).repeat(level, *([1] * x.dim())), state)
 
 

@@ -250,6 +250,24 @@ def compressed_psum_int8(
     return out
 
 
+def int8_mean_error(flats: Sequence[torch.Tensor], efs: Sequence[torch.Tensor],
+                    mean: torch.Tensor) -> float:
+    """How far ``mean``, ``compressed_psum_int8``'s for the members'
+    ``flats`` and ``efs``, lies from the exact mean of their ``flat +
+    ef``: the worst 512-element block's error over the bound its two
+    roundings give, half the members' mean hop-1 scale plus half the
+    hop-2 scale (hop 2 rounds the hop-1 mean, whose block maximum is at
+    most half a hop-1 scale past the exact one's), plus f32 slop.  At
+    most 1 for a sound reduction."""
+    x = [f + e for f, e in zip(flats, efs)]
+    exact = sum(x) / len(x)
+    blocks = lambda t: t.reshape(-1, _QBLOCK)
+    s1 = sum(blocks(xi).abs().amax(1) / 127 for xi in x) / len(x)
+    s2 = (blocks(exact).abs().amax(1) + s1 / 2) / 127
+    bound = (s1 + s2) / 2 + 1e-6 * float(exact.abs().max())
+    return float((blocks(mean.to(exact.device) - exact).abs().amax(1) / bound).max())
+
+
 def psum_mean(flats: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """The members' mean (``jax.lax.pmean``): their sum, member by member
     in order, divided by their count."""

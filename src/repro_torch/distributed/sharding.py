@@ -204,6 +204,11 @@ _UNHONOURED = {"seq_shard_acts": False, "remat": "full", "pallas": None, "unroll
 
 LOCAL = ShardCtx()
 
+#: the ROADMAP item that ports a replicated (DMR/TMR) cell whose state
+#: holds ``Sharded`` leaves (JAX's dry-run prepends a replica axis to
+#: their specs)
+REPLICATED_SHARDED_ITEM = "ROADMAP item 7d (a replicated trainer on a mesh)"
+
 
 # --------------------------------------------------------------------------
 # parameter rules (matched on the last path component)
@@ -488,7 +493,8 @@ class Sharded:
 
     def map(self, fn, shape=None, spec=None) -> "Sharded":
         """``fn`` once per distinct tensor (sharing kept), as a new
-        ``Sharded`` of global ``shape`` (default: unchanged)."""
+        ``Sharded`` of global ``shape`` (default: unchanged) and of the
+        results' dtype."""
         made: dict = {}
         out = np.empty(self.shards.shape, dtype=object)
         for c in self.coords():
@@ -496,8 +502,10 @@ class Sharded:
             if id(t) not in made:
                 made[id(t)] = fn(t)
             out[c] = made[id(t)]
+        first = out.flat[0]
         return Sharded(self.mesh, self.spec if spec is None else spec,
-                       self.shape if shape is None else shape, self.dtype, out)
+                       self.shape if shape is None else shape,
+                       first.dtype if isinstance(first, torch.Tensor) else self.dtype, out)
 
     def __getitem__(self, i):
         if not isinstance(i, int):
@@ -525,17 +533,30 @@ class Sharded:
             out[tuple(slice(a, b) for a, b in key)] = t.to(dev)
         return out
 
-    def region(self, index: tuple, coord=None) -> torch.Tensor:
-        """The global region ``index`` (one slice a dimension): member
-        ``coord``'s own tensor, uncopied, when its block is exactly the
-        region; else assembled on that member's device from the blocks
-        that cover it."""
+    def blocks(self) -> list:
+        """``(block, tensor)`` for each distinct block of the global
+        tensor, from its first member: every element once."""
+        seen, out = set(), []
+        for c in self.coords():
+            blk = self.block(c)
+            if _key(blk) not in seen:
+                seen.add(_key(blk))
+                out.append((blk, self.shards[c]))
+        return out
+
+    def region(self, index: tuple, coord=None, device=None) -> torch.Tensor:
+        """The global region ``index`` (one slice a dimension) on member
+        ``coord``'s device (or on ``device``; default the mesh's first):
+        a member's own tensor there, uncopied, when its block is exactly
+        the region (``coord``'s own first); else assembled there from the
+        blocks that cover it."""
         index = tuple(slice(*s.indices(n)[:2]) for s, n in zip(index, self.shape))
         coords = ([tuple(coord)] if coord is not None else []) + self.coords()
+        dev = (torch.device(device) if device is not None
+               else self.mesh.devices[coords[0]])
         for c in coords:
-            if _key(self.block(c)) == _key(index):
+            if _key(self.block(c)) == _key(index) and self.shards[c].device == dev:
                 return self.shards[c]
-        dev = self.mesh.devices[coords[0]]
         out = torch.empty([s.stop - s.start for s in index], dtype=self.dtype, device=dev)
         done = set()
         for c in self.coords():
@@ -564,7 +585,49 @@ def map_blocks(fn, x: Sharded, *others: Sharded) -> Sharded:
         if id(t) not in made:
             made[id(t)] = fn(x.block(c), t, *(o.local(c) for o in others))
         out[c] = made[id(t)]
-    return Sharded(x.mesh, x.spec, x.shape, x.dtype, out)
+    return Sharded(x.mesh, x.spec, x.shape, out.flat[0].dtype, out)
+
+
+def stack(xs) -> "Sharded":
+    """``torch.stack`` of ``Sharded`` leaves of one layout along a new
+    leading (unsharded) axis, member by member; members that share every
+    tensor share the stacked one."""
+    x0 = xs[0]
+    made: dict = {}
+    out = np.empty(x0.shards.shape, dtype=object)
+    for c in x0.coords():
+        ts = [x.local(c) for x in xs]
+        key = tuple(id(t) for t in ts)
+        if key not in made:
+            made[key] = torch.stack(ts)
+        out[c] = made[key]
+    return Sharded(x0.mesh, P(None, *tuple(x0.spec)), (len(xs),) + tuple(x0.shape), x0.dtype, out)
+
+
+def reshard(x, spec, mesh=None) -> Sharded:
+    """``x`` (a tensor, or a ``Sharded`` leaf of any layout) laid out by
+    ``spec`` on ``mesh`` (default: ``x``'s).  From a ``Sharded`` leaf each
+    new block is a member's own tensor where its block is already that
+    region on that device, else assembled on the member's device from
+    the old blocks that cover it: a slice where the new layout divides
+    the old (the local half of a reduce-scatter), a concatenation where
+    it joins blocks (an all-gather).  Members with equal new blocks on
+    one device share one tensor."""
+    if not isinstance(x, Sharded):
+        return shard_leaf(x, spec, mesh)
+    mesh = x.mesh if mesh is None else mesh
+    spec = P(*tuple(spec)) if not isinstance(spec, PartitionSpec) else spec
+    out = np.empty(mesh.devices.shape, dtype=object)
+    made: dict = {}
+    for c in np.ndindex(*mesh.devices.shape):
+        dev = mesh.devices[c]
+        blk = spec_block(mesh, spec, x.shape, c)
+        key = (_key(blk), str(dev))
+        if key not in made:
+            own = c if mesh is x.mesh else None
+            made[key] = x.region(blk, coord=own, device=dev)
+        out[c] = made[key]
+    return Sharded(mesh, spec, x.shape, x.dtype, out)
 
 
 def shard_leaf(x: torch.Tensor, spec, mesh) -> Sharded:

@@ -11,10 +11,12 @@ back to any executor to continue with ``exe.run(states, n,
 start_step=step)``.  The data cell's PRNG-keyed stream makes the replay
 deterministic, so a resumed run is bitwise an uninterrupted one.
 
-The JAX package re-places the state under a *new* mesh (``new_ctx``,
-``pspec_fn``); here a ``device`` takes their place, and restoring onto a
-mesh waits for the model-parallel half of the port (sharding rules,
-ROADMAP item 7b).
+``elastic_restore`` / ``elastic_resume`` re-place the state under a
+*new* mesh as the JAX package's do (``new_ctx``, ``pspec_fn``: e.g. a
+(2, 4) data x model mesh restored onto (4, 2)); the port also takes a
+device in ``new_ctx``'s place, and without ``pspec_fn`` places each leaf
+as ``like``'s is (an executor compiled for the new mesh lays its own
+``init`` out).
 
 Stragglers: under spatial DMR (``spatial_lockstep``) the two pods compute
 identical transitions; ``StragglerPolicy("first_wins")`` lets the runtime
@@ -30,42 +32,53 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
+
+import torch
 
 from ..checkpoint import ckpt
 from ..core.executor import _as_fault_list, _fault_in_window, _on_host
+from ..distributed.sharding import ShardCtx, named
 from ..tree import tree_map
 
 Tree = Any
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring onto a device mesh needs the sharding rules of the "
-            "model-parallel slice (ROADMAP Queue 1 item 7b)")
-
-
-def elastic_restore(directory: str, like: Tree, device=None, *, mesh=None,
+def elastic_restore(directory: str, like: Tree, new_ctx=None,
+                    pspec_fn: Optional[Callable[[ShardCtx, Tree], Tree]] = None,
                     step: Optional[int] = None):
-    """Restore a checkpoint into the structure of ``like`` on ``device``
-    (None: where ``like``'s leaves are).  Returns (states, step)."""
-    _no_mesh(mesh)
+    """Restore a checkpoint onto a (possibly different) mesh.  Returns
+    (states, step).
+
+    ``new_ctx``: a ``ShardCtx``; with a mesh and ``pspec_fn(ctx, like) ->
+    PartitionSpec tree`` each leaf is laid out on ``new_ctx.mesh`` by its
+    spec (JAX's ``shardings``).  Otherwise each leaf is placed as
+    ``like``'s is: ``Sharded`` by its spec and mesh, a tensor on its
+    device.  ``new_ctx`` may also be a device (or None: where ``like``'s
+    leaves are), every leaf then placed there."""
+    if isinstance(new_ctx, ShardCtx):
+        shardings = None
+        if new_ctx.mesh is not None and pspec_fn is not None:
+            shardings = named(new_ctx, pspec_fn(new_ctx, like))
+        return ckpt.restore(directory, like, step=step, shardings=shardings)
     states, step = ckpt.restore(directory, like, step=step)
-    if device is not None:
-        states = tree_map(lambda x: x.to(device), states)
+    if new_ctx is not None:
+        states = tree_map(lambda x: x.to(new_ctx) if isinstance(x, torch.Tensor) else x, states)
     return states, step
 
 
-def elastic_resume(directory: str, exe, *, generator=None, mesh=None,
+def elastic_resume(directory: str, exe, new_ctx=None, *, generator=None,
+                   pspec_fn: Optional[Callable[[ShardCtx, Tree], Tree]] = None,
                    step: Optional[int] = None) -> tuple[Tree, int]:
-    """Restore a checkpoint into an executor's state structure on its
-    device, ready for ``exe.run(states, n, start_step=step)``.  The
-    structure comes from ``exe.init`` (replica axes, optimizer slots and
-    all match the policies ``exe`` was compiled with)."""
-    _no_mesh(mesh)
+    """Restore a checkpoint into an executor's state structure, re-placed
+    under ``new_ctx`` (see ``elastic_restore``; None: on the executor's
+    device, each leaf as ``exe.init`` places it), ready for
+    ``exe.run(states, n, start_step=step)``.  The structure comes from
+    ``exe.init`` (replica axes, optimizer slots and layout all match the
+    policies and mesh ``exe`` was compiled with)."""
     like = exe.init(generator if generator is not None else 0)
-    return elastic_restore(directory, like, exe.device, step=step)
+    return elastic_restore(directory, like, exe.device if new_ctx is None else new_ctx,
+                           pspec_fn=pspec_fn, step=step)
 
 
 @dataclasses.dataclass

@@ -29,16 +29,21 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import prng
 from ..core import CellType, MisoProgram
 from ..data.pipeline import DataConfig, data_cell
-from ..distributed.sharding import LOCAL, ShardCtx, cache_pspecs, param_pspecs, shard
+from ..distributed.collectives import compressed_psum_int8, psum_mean
+from ..distributed.sharding import (LOCAL, P, ShardCtx, Sharded, cache_pspecs, map_blocks,
+                                    param_pspecs, shard, zero_pspecs)
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
-from ..tree import tree_flatten, tree_map, tree_unflatten
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import transformer as T
 from .config import ModelConfig
+from .layers import value
 
 
 # --------------------------------------------------------------------------
@@ -49,7 +54,7 @@ class TrainConfig:
     data: DataConfig
     opt: OptConfig = OptConfig()
     microbatches: int = 1
-    grad_compression: str = "none"  # none | int8_ef (needs a mesh: not ported)
+    grad_compression: str = "none"  # none | int8_ef (needs a data mesh)
     param_seed: int = 0
 
 
@@ -78,36 +83,215 @@ def make_data_cell(cfg: ModelConfig, tcfg: TrainConfig) -> CellType:
                     instances=base.instances)
 
 
-def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
+def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict, ctx: ShardCtx = LOCAL):
     """(metrics, grads) of ``T.loss_fn`` by ``torch.autograd.grad`` over
     the params tree.  The leaves are detached aliases: ``params`` (the
-    previous buffer) is neither written nor marked."""
+    previous buffer) is neither written nor marked.  A ``Sharded`` leaf's
+    gradient is taken over its distinct block tensors and comes back in
+    its layout (a block that several members share on one device is one
+    tensor, so it receives their cotangents summed, once; copies of a
+    block on several devices each receive the sum of their gradients)."""
     leaves, treedef = tree_flatten(params)
-    xs = [p.detach().requires_grad_() for p in leaves]
+    xs, targets = [], []
+    for p in leaves:
+        if isinstance(p, Sharded):
+            a = p.map(lambda t: t.detach().requires_grad_())
+            targets.extend(t for _, t in a.distinct())
+        else:
+            a = p.detach().requires_grad_()
+            targets.append(a)
+        xs.append(a)
     with torch.enable_grad():
-        loss, metrics = T.loss_fn(cfg, tree_unflatten(treedef, xs), batch)
-        gs = torch.autograd.grad(loss, xs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, gs)]
+        loss, metrics = T.loss_fn(cfg, tree_unflatten(treedef, xs), batch, ctx=ctx)
+        gs = torch.autograd.grad(loss, targets, allow_unused=True)
+    got = {id(t): torch.zeros_like(t) if g is None else g for t, g in zip(targets, gs)}
+    grads = [_sum_copies(x.map(lambda t: got[id(t)])) if isinstance(x, Sharded) else got[id(x)]
+             for x in xs]
     metrics = tree_map(lambda m: m.detach() if isinstance(m, torch.Tensor) else m, metrics)
     return metrics, tree_unflatten(treedef, grads)
 
 
-def make_trainer_cell(cfg: ModelConfig, tcfg: TrainConfig, *, data_name: str = "data") -> CellType:
+def _sum_copies(g: Sharded) -> Sharded:
+    """Each block's gradient summed over the block's copies on distinct
+    devices (what an all-reduce over a replicated weight gives); a block
+    held once is left as it is."""
+    copies: dict = {}
+    for c, t in g.distinct():
+        copies.setdefault(tuple((s.start, s.stop) for s in g.block(c)), []).append(t)
+    if all(len(ts) == 1 for ts in copies.values()):
+        return g
+    summed = {}
+    for ts in copies.values():
+        total = ts[0]
+        for t in ts[1:]:
+            total = total + t.to(total.device)
+        for t in ts:
+            summed[id(t)] = total.to(t.device)
+    return g.map(lambda t: summed[id(t)])
+
+
+def _lmap(fn, *xs):
+    """``fn`` over one leaf of each tree: member by member on
+    ``Sharded`` leaves of one layout."""
+    if isinstance(xs[0], Sharded):
+        return map_blocks(lambda _, *ts: fn(*ts), *xs)
+    return fn(*xs)
+
+
+def _dp_size(ctx: ShardCtx) -> int:
+    n = 1
+    if ctx.mesh is not None:
+        for a in ctx.data_axes:
+            n *= ctx.mesh.shape[a]
+    return n
+
+
+def _data_index(ctx: ShardCtx, coord) -> int:
+    """The data member of mesh member ``coord``: its index over the data
+    axes, first axis major (JAX's order for ``P(dp)``)."""
+    names = ctx.mesh.axis_names
+    d = 0
+    for a in ctx.data_axes:
+        d = d * ctx.mesh.shape[a] + coord[names.index(a)]
+    return d
+
+
+def _data_homes(ctx: ShardCtx) -> list:
+    """The first mesh member of each data member, in data order."""
+    homes: dict = {}
+    for c in np.ndindex(*ctx.mesh.devices.shape):
+        homes.setdefault(_data_index(ctx, c), c)
+    return [homes[d] for d in range(len(homes))]
+
+
+def per_data_member(bufs: list, ctx: ShardCtx) -> Sharded:
+    """One buffer a data member as a replicated-spec (``P()``) leaf whose
+    members hold their data member's buffer: the error-feedback state.
+    JAX declares it ``P()`` with ``check_vma=False`` while every data
+    member writes its own send error into it, so its host view (and a
+    checkpoint) is data member 0's buffer; here ``full()`` reads the
+    first member's, data member 0's, too."""
+    out, made = np.empty(ctx.mesh.devices.shape, dtype=object), {}
+    for c in np.ndindex(*ctx.mesh.devices.shape):
+        dev = ctx.mesh.devices[c]
+        d = _data_index(ctx, c)
+        if (d, str(dev)) not in made:
+            made[(d, str(dev))] = bufs[d] if bufs[d].device == dev else bufs[d].to(dev)
+        out[c] = made[(d, str(dev))]
+    b = bufs[0]
+    return Sharded(ctx.mesh, P(), b.shape, b.dtype, out)
+
+
+def train_state_pspecs(cfg: ModelConfig, ctx: ShardCtx, trainer: dict) -> dict:
+    """The trainer state's layout, as the JAX dry-run lays it out: params
+    by ``param_pspecs``, ``opt`` by ``zero_pspecs`` (ZeRO-1; FSDP too
+    with ``ctx.fsdp_axes``), metrics and ``ef`` replicated (``ef`` holds
+    one buffer a data member, ``per_data_member``)."""
+    pspec = param_pspecs(ctx, trainer["params"], cfg)
+    out = {"params": pspec, "opt": zero_pspecs(ctx, pspec, trainer["opt"], trainer["params"]),
+           "metrics": tree_map(lambda _: P(), trainer["metrics"])}
+    if "ef" in trainer:
+        out["ef"] = P()
+    return out
+
+
+def place_train_state(cfg: ModelConfig, ctx: ShardCtx, trainer: dict) -> dict:
+    """A trainer state laid out on ``ctx.mesh`` by ``train_state_pspecs``
+    (each data member's ``ef`` a copy of the given buffer), or as it is
+    without a mesh.  Consumes ``trainer``'s params and optimizer state:
+    each full leaf can be freed once it is sharded."""
+    if ctx.mesh is None:
+        return trainer
+    specs = train_state_pspecs(cfg, ctx, trainer)
+    out = {"opt": shard(trainer["opt"], specs["opt"], ctx.mesh, release=True),
+           "params": shard(trainer["params"], specs["params"], ctx.mesh, release=True),
+           "metrics": trainer["metrics"]}  # on the controller, as every activation
+    if "ef" in trainer:
+        ef = trainer["ef"]
+        out["ef"] = per_data_member(
+            [ef.to(ctx.mesh.devices[h], copy=True) for h in _data_homes(ctx)], ctx)
+    return out
+
+
+def member_flats(gfn, params, batch, n: int, ctx: ShardCtx) -> tuple[list, list]:
+    """Each data member's metrics and grads on its own rows of ``batch``
+    (JAX's ``P(dp, None)``), the grads flattened to f32 and padded to
+    ``n`` elements on the member's first device: (flats, metrics), in
+    data order.  The inputs of the int8 reduction."""
+    homes = _data_homes(ctx)
+    B = batch["tokens"].shape[0]
+    if B % len(homes):
+        raise ValueError(f"batch {B} does not split over {len(homes)} data members")
+    rows = B // len(homes)
+    flats, mets = [], []
+    for d, home in enumerate(homes):
+        m, g = gfn(params, {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()})
+        flat = torch.cat([value(x).to(torch.float32).reshape(-1) for x in tree_leaves(g)])
+        pad = n - flat.shape[0]
+        flats.append(F.pad(flat, (0, pad)).to(ctx.mesh.devices[home]) if pad else
+                     flat.to(ctx.mesh.devices[home]))
+        mets.append(m)
+        del g
+    return flats, mets
+
+
+def _compressed_grads(gfn, params, batch, ef: Sharded, ctx: ShardCtx):
+    """Each data member's grads on its own rows (``member_flats``),
+    reduced through ``compressed_psum_int8`` with the member's
+    error-feedback buffer; the metrics ``pmean``ed over the data members.
+    Returns (grads as the mean's slices, metrics, new ``ef``: each data
+    member's own send error)."""
+    leaves, treedef = tree_flatten(params)
+    flats, mets = member_flats(gfn, params, batch, ef.shape[0], ctx)
+    outs = compressed_psum_int8(flats, [ef.local(h) for h in _data_homes(ctx)])
+    metrics = tree_map(lambda *xs: psum_mean(list(xs))[0], *mets)
+    mean = outs[0][0]
+    grads, off = [], 0
+    for x in leaves:
+        grads.append(mean[off:off + x.numel()].reshape(x.shape))
+        off += x.numel()
+    return tree_unflatten(treedef, grads), metrics, per_data_member([o[1] for o in outs], ctx)
+
+
+def make_trainer_cell(cfg: ModelConfig, tcfg: TrainConfig, ctx: ShardCtx = LOCAL, *,
+                      data_name: str = "data") -> CellType:
     """The trainer cell: forward, backward and AdamW over the data cell's
     previous batch.  ``microbatches > 1`` accumulates f32 grads over row
-    slices of the batch (the metrics are their mean), as JAX's scan."""
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} reduces grads across a data "
-            "mesh (distributed/collectives.py::compressed_psum_int8); the data-parallel "
-            "trainer waits for the model-parallel slice (ROADMAP Queue 1 item 7b)")
+    slices of the batch (the metrics are their mean), as JAX's scan.
+
+    Under a ``ctx`` with a mesh, ``init`` lays the state out as
+    ``train_state_pspecs`` says (``Sharded`` leaves: one allocation a
+    distinct block), the loss runs under ``ctx`` (activations on the
+    controller's device, every product by its weight's spec) and AdamW
+    updates block by block.  ``grad_compression="int8_ef"`` needs a data
+    mesh: each data member's grads on its rows of the batch (JAX's
+    ``P(dp, None)``) are reduced with an int8 wire format and error
+    feedback (``ef``: one buffer a data member)."""
+    if tcfg.grad_compression not in ("none", "int8_ef"):
+        raise ValueError(f"grad_compression={tcfg.grad_compression!r}: none | int8_ef")
+    if tcfg.grad_compression == "int8_ef" and ctx.mesh is None:
+        raise ValueError("grad_compression='int8_ef' reduces each data member's grads over "
+                         "a data mesh; give make_trainer_cell a ShardCtx with a mesh")
+    loss_ctx = ctx
+    if tcfg.grad_compression == "int8_ef":
+        # JAX runs this loss inside a shard_map over the data axes
+        loss_ctx = dataclasses.replace(ctx, manual_axes=tuple(ctx.data_axes))
 
     def init(gen, device):
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + tcfg.param_seed)
         params = T.init_params(cfg, g, device)
         z = torch.zeros((), dtype=torch.float32, device=device)
-        return {"params": params, "opt": init_opt_state(params, tcfg.opt),
-                "metrics": {"loss": z, "grad_norm": z.clone(), "lr": z.clone()}}
+        st = {"params": params, "opt": init_opt_state(params, tcfg.opt),
+              "metrics": {"loss": z, "grad_norm": z.clone(), "lr": z.clone()}}
+        del params
+        if tcfg.grad_compression == "int8_ef":
+            n = sum(x.numel() for x in tree_leaves(st["params"]))
+            pad = (-n) % (512 * _dp_size(ctx))
+            st["ef"] = torch.zeros((n + pad,), dtype=torch.float32, device=device)
+        return place_train_state(cfg, ctx, st)
+
+    def grads_plain(params, batch):
+        return _value_and_grad(cfg, params, batch, loss_ctx)
 
     def grads_microbatched(params, batch):
         mb = tcfg.microbatches
@@ -117,36 +301,43 @@ def make_trainer_cell(cfg: ModelConfig, tcfg: TrainConfig, *, data_name: str = "
         n = B // mb
         acc, ms = None, []
         for i in range(mb):
-            m, g = _value_and_grad(cfg, params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
-            g = tree_map(lambda x: x.to(torch.float32) / mb, g)
-            acc = g if acc is None else tree_map(torch.add, acc, g)
+            m, g = _value_and_grad(cfg, params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()},
+                                   loss_ctx)
+            g = tree_map(lambda x: _lmap(lambda t: t.to(torch.float32) / mb, x), g)
+            acc = g if acc is None else tree_map(lambda a, b: _lmap(torch.add, a, b), acc, g)
             ms.append(m)
         metrics = tree_map(lambda *xs: torch.mean(torch.stack(
             [torch.as_tensor(x, dtype=torch.float32) for x in xs])), *ms)
         return metrics, acc
 
+    gfn = grads_microbatched if tcfg.microbatches > 1 else grads_plain
+
     def transition(prev):
         st = prev["trainer"]
         batch = _make_batch(cfg, prev[data_name])
-        if tcfg.microbatches > 1:
-            metrics, grads = grads_microbatched(st["params"], batch)
+        new_ef = None
+        if tcfg.grad_compression == "int8_ef":
+            grads, metrics, new_ef = _compressed_grads(gfn, st["params"], batch, st["ef"], ctx)
         else:
-            metrics, grads = _value_and_grad(cfg, st["params"], batch)
+            metrics, grads = gfn(st["params"], batch)
         new_params, new_opt, info = apply_updates(st["params"], grads, st["opt"], tcfg.opt)
-        return {
+        out = {
             "params": new_params,
             "opt": new_opt,
             "metrics": {"loss": metrics["loss"].to(torch.float32),
                         "grad_norm": info["grad_norm"], "lr": info["lr"]},
         }
+        if new_ef is not None:
+            out["ef"] = new_ef
+        return out
 
     return CellType(name="trainer", init=init, transition=transition, reads=(data_name,))
 
 
-def make_train_program(cfg: ModelConfig, tcfg: TrainConfig) -> MisoProgram:
+def make_train_program(cfg: ModelConfig, tcfg: TrainConfig, ctx: ShardCtx = LOCAL) -> MisoProgram:
     prog = MisoProgram()
     prog.add(make_data_cell(cfg, tcfg))
-    prog.add(make_trainer_cell(cfg, tcfg))
+    prog.add(make_trainer_cell(cfg, tcfg, ctx))
     return prog
 
 

@@ -7,6 +7,20 @@ Projections and depthwise convs are stored per component (z, x, BC, dt),
 as in the JAX package, so the parameter trees match leaf for leaf.
 ``a_log``, ``dt_bias`` and ``d_skip`` are f32; every other leaf is in the
 compute dtype.
+
+Under a ``ShardCtx`` with a mesh (``mamba_block(..., ctx=)``) the layout
+is the JAX package's rules: ``w_z``/``w_x`` column-parallel over the
+model axis, ``conv_x``/``conv_x_b`` channels and the SSM state's heads
+over it, ``out_proj`` row-parallel, ``w_bc``/``w_dt``/``conv_bc`` and the
+f32 leaves replicated; the decode cache's rows over the data axes
+(``cache_pspecs``).  Activations stay on the controller's device, as
+everywhere in the port: the projections are ``layers.matmul``'s, and the
+convs and the recurrence run once for each distinct block of their
+state's layout, the member's rows and channels or heads: in prefill one
+K8 launch a member (a member's heads hold whole B/C groups), in decode
+the step recurrence on the member's state block, written out as its new
+block.  The gated norm reads the whole ``d_inner`` width, so it runs on
+the members' outputs put together, as JAX's partitioner gathers them.
 """
 
 from __future__ import annotations
@@ -17,7 +31,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
+from ..distributed.sharding import LOCAL, ShardCtx, Sharded, cache_pspecs, spec_block
 from ..kernels import ops as kops
+from . import layers as L
 from .config import ModelConfig, SSMConfig
 from .layers import dense_init, rmsnorm
 
@@ -97,32 +115,70 @@ def _dwconv_step(hist: torch.Tensor, new: torch.Tensor, w, b):
     return out, full[:, 1:]
 
 
+def _conv(seq: torch.Tensor, w, b, k: int, hist: Optional[torch.Tensor]):
+    """The depthwise conv of ``seq`` (B, S, C): causal over a prompt
+    (``hist`` None) -> (out, None), or one decode step after ``hist``
+    (B, k-1, C) -> (out, new hist)."""
+    if hist is None:
+        return _causal_dwconv(seq, w, b, k), None
+    return _dwconv_step(hist, seq, w, b)
+
+
+def _ssm(xh, dt, a, bh, ch, d_skip, group, h0, chunk: int):
+    """The selective SSM of some heads: xh (B, S, h, P), dt (B, S, h) f32,
+    a and d_skip (h,), bh/ch (B, S, g, N) the B/C groups those heads
+    read, ``group`` (h,) each head's group among them.  A prompt (``h0``
+    None) in one K8 launch -> (y, final state, None); a decode step from
+    ``h0`` (B, h, N, P) -> (y, None, new state).  y (B, S, h, P), in xh's
+    dtype, includes the d_skip term."""
+    if h0 is None:
+        y, h_final = kops.ssd(xh.contiguous(), dt.contiguous(), a.contiguous(),
+                              bh.contiguous(), ch.contiguous(), chunk=chunk)
+        h1 = None
+    else:
+        bhh, chh = bh[:, 0][:, group], ch[:, 0][:, group]  # (B, h, N)
+        da = torch.exp(dt[:, 0] * a[None, :])  # (B, h)
+        upd = dt[:, 0][..., None, None] * bhh[..., :, None] * xh[:, 0][..., None, :].float()
+        h1 = h0 * da[..., None, None] + upd
+        y = torch.einsum("bhn,bhnp->bhp", chh.float(), h1)[:, None].to(xh.dtype)
+        h_final = None
+    return y + xh * d_skip[None, None, :, None].to(xh.dtype), h_final, h1
+
+
+def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The gated norm over the whole ``d_inner`` width, then out_proj."""
+    y = rmsnorm(y * F.silu(z.float()).to(z.dtype), p["norm"], cfg.rms_eps)
+    return L.matmul(y, p["out_proj"])
+
+
 def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                cache: Optional[dict] = None, fill_cache: bool = False):
+                cache: Optional[dict] = None, fill_cache: bool = False,
+                ctx: ShardCtx = LOCAL):
     """x (B, S, d) -> (y, new_cache).  new_cache is None unless decoding
     (``cache`` given, S == 1) or prefilling with ``fill_cache``.  The
     recurrence writes nothing into ``cache``: every new state is a new
-    tensor."""
+    tensor.  Under a ``ctx`` with a mesh it runs member by member
+    (``_mamba_sharded``, on the same convs and recurrence): a decode
+    cache is then ``Sharded`` and comes back so, a prefill's filled cache
+    whole, as an unsharded one."""
     s, d_inner, H = _dims(cfg)
     B, S, _ = x.shape
+    if cache is not None and S != 1:
+        raise ValueError(f"a decode step takes one token, not {S}")
+    if ctx.mesh is not None:
+        return _mamba_sharded(p, x, cfg, cache, fill_cache, ctx)
     k = s.conv_kernel
     z = x @ p["w_z"]
     xc = x @ p["w_x"]
     bcc = x @ p["w_bc"]
     dtr = x @ p["w_dt"]
-
-    if cache is None:
-        xs = _causal_dwconv(xc, p["conv_x"], p["conv_x_b"], k)
-        bcs = _causal_dwconv(bcc, p["conv_bc"], p["conv_bc_b"], k)
+    hist = (None, None) if cache is None else (cache["conv_x"], cache["conv_bc"])
+    xs, new_conv_x = _conv(xc, p["conv_x"], p["conv_x_b"], k, hist[0])
+    bcs, new_conv_bc = _conv(bcc, p["conv_bc"], p["conv_bc_b"], k, hist[1])
+    if cache is None and fill_cache:
         # a prompt shorter than k - 1 keeps fewer rows than the cache leaf;
         # install_prefill pads them at the end, as the JAX package does
-        new_conv_x = xc[:, -(k - 1):] if fill_cache else None
-        new_conv_bc = bcc[:, -(k - 1):] if fill_cache else None
-    else:
-        if S != 1:
-            raise ValueError(f"a decode step takes one token, not {S}")
-        xs, new_conv_x = _dwconv_step(cache["conv_x"], xc, p["conv_x"], p["conv_x_b"])
-        bcs, new_conv_bc = _dwconv_step(cache["conv_bc"], bcc, p["conv_bc"], p["conv_bc_b"])
+        new_conv_x, new_conv_bc = xc[:, -(k - 1):], bcc[:, -(k - 1):]
 
     xh = xs.reshape(B, S, H, s.headdim)
     bh, ch = torch.chunk(bcs, 2, dim=-1)
@@ -130,25 +186,141 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ch = ch.reshape(B, S, s.ngroups, s.state)
     dt = softplus(dtr.float() + p["dt_bias"])  # (B, S, H)
     a = -torch.exp(p["a_log"])  # (H,)
-
-    if cache is None:
-        y, h_final = kops.ssd(xh, dt, a, bh.contiguous(), ch.contiguous(), chunk=s.chunk)
-        new_ssm = h_final if fill_cache else None
-    else:
-        h0 = cache["ssm"]  # (B, H, N, P)
-        rep = H // s.ngroups
-        bhh = bh[:, 0].repeat_interleave(rep, dim=1)  # (B, H, N)
-        chh = ch[:, 0].repeat_interleave(rep, dim=1)
-        da = torch.exp(dt[:, 0] * a[None, :])  # (B, H)
-        upd = dt[:, 0][..., None, None] * bhh[..., :, None] * xh[:, 0][..., None, :].float()
-        h1 = h0 * da[..., None, None] + upd
-        y = torch.einsum("bhn,bhnp->bhp", chh.float(), h1)[:, None].to(x.dtype)
-        new_ssm = h1
-
-    y = y + xh * p["d_skip"][None, None, :, None].to(x.dtype)
-    y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.rms_eps)
-    out = y @ p["out_proj"]
+    group = torch.arange(H, device=x.device) // (H // s.ngroups)
+    y, h_final, h1 = _ssm(xh, dt, a, bh, ch, p["d_skip"], group,
+                          None if cache is None else cache["ssm"], s.chunk)
+    out = _gated_out(y.reshape(B, S, d_inner), z, p, cfg)
     if cache is None and not fill_cache:
         return out, None
-    return out, {"conv_x": new_conv_x, "conv_bc": new_conv_bc, "ssm": new_ssm}
+    return out, {"conv_x": new_conv_x, "conv_bc": new_conv_bc,
+                 "ssm": h1 if cache is not None else h_final}
+
+
+# --------------------------------------------------------------------------
+# under a mesh
+# --------------------------------------------------------------------------
+def _layout(ctx: ShardCtx, cache, name: str, shape) -> tuple:
+    """(mesh, spec, shape) of the recurrence's ``name`` state: the cache
+    leaf's when it is ``Sharded``, else the decode cache's rule
+    (``cache_pspecs``) for a leaf of ``shape``, which lays out a
+    prefill's convs and recurrence too."""
+    leaf = cache[name] if cache is not None else None
+    if isinstance(leaf, Sharded):
+        return leaf.mesh, leaf.spec, tuple(leaf.shape)
+    spec = cache_pspecs(ctx, {name: torch.empty(shape, device="meta")})[name]
+    return ctx.mesh, spec, tuple(shape)
+
+
+def _per_block(layout, fn) -> tuple[list, Optional[Sharded]]:
+    """``fn(coord, block) -> (out, new_state)`` once for each distinct
+    block of ``layout`` on each device, on its first member there.
+    Returns ([(block, out)], a block once; the new states as a
+    ``Sharded`` leaf of ``layout``, or None when ``fn`` gives none)."""
+    mesh, spec, shape = layout
+    done, seen, parts = {}, set(), []
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    for c in np.ndindex(*mesh.devices.shape):
+        blk = spec_block(mesh, spec, shape, c)
+        bkey = tuple((b.start, b.stop) for b in blk)
+        key = (bkey, str(mesh.devices[c]))
+        if key not in done:
+            out, done[key] = fn(c, blk)
+            if bkey not in seen:
+                seen.add(bkey)
+                parts.append((blk, out))
+        grid[c] = done[key]
+    first = grid.flat[0]
+    if first is None:
+        return parts, None
+    return parts, Sharded(mesh, spec, shape, first.dtype, grid)
+
+
+def _assemble(parts, shape, like: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of ``shape`` on ``like``'s device and of its
+    dtype from the members' ``(index, piece)``s, which tile it."""
+    full = torch.empty(shape, dtype=like.dtype, device=like.device)
+    for idx, piece in parts:
+        full[idx] = piece.to(like.device)
+    return full
+
+
+def _cols(w, cols: slice, device) -> torch.Tensor:
+    """Channels ``cols`` (the last axis) of a (k, C) or (C,) weight on
+    ``device``: a member's own block where it is exactly those."""
+    index = (slice(None),) * (w.dim() - 1) + (cols,)
+    if isinstance(w, Sharded):
+        return w.region(index, device=device)
+    return w[index].to(device)
+
+
+def _groups(heads: slice, rep: int) -> slice:
+    """The B/C groups that the heads ``heads`` read (``rep`` heads a
+    group): a member holds whole groups, or heads of one group."""
+    g0, g1 = heads.start // rep, (heads.stop - 1) // rep + 1
+    if g1 - g0 > 1 and (heads.start % rep or heads.stop % rep):
+        raise ValueError(f"heads {heads.start}:{heads.stop} cut a group of {rep} heads")
+    return slice(g0, g1)
+
+
+def _mamba_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cache, fill_cache: bool,
+                   ctx: ShardCtx):
+    s, d_inner, H = _dims(cfg)
+    B, S, _ = x.shape
+    k, Pd, G = s.conv_kernel, s.headdim, s.ngroups
+    gn = 2 * G * s.state
+    z = L.matmul(x, p["w_z"])
+    xc = L.matmul(x, p["w_x"])
+    bcc = L.matmul(x, p["w_bc"])
+    dtr = L.matmul(x, p["w_dt"])
+    wbc, bbc = L.value(p["conv_bc"]), L.value(p["conv_bc_b"])
+    a = -torch.exp(L.value(p["a_log"]))
+    dt_bias, d_skip = L.value(p["dt_bias"]), L.value(p["d_skip"])
+    every = slice(None)
+
+    def local(name, c):
+        return None if cache is None else cache[name].local(c)
+
+    # the depthwise convs: a member's rows (and channels) at a time
+    def conv_x(c, blk):
+        dev = ctx.mesh.devices[c]
+        w, b = _cols(p["conv_x"], blk[2], dev), _cols(p["conv_x_b"], blk[2], dev)
+        return _conv(xc[blk[0], :, blk[2]].to(dev), w, b, k, local("conv_x", c))
+
+    def conv_bc(c, blk):
+        dev = ctx.mesh.devices[c]
+        return _conv(bcc[blk[0]].to(dev), wbc.to(dev), bbc.to(dev), k, local("conv_bc", c))
+
+    xparts, new_cx = _per_block(_layout(ctx, cache, "conv_x", (B, k - 1, d_inner)), conv_x)
+    bparts, new_cb = _per_block(_layout(ctx, cache, "conv_bc", (B, k - 1, gn)), conv_bc)
+    xs = _assemble([((b[0], every, b[2]), o) for b, o in xparts], (B, S, d_inner), xc)
+    bcs = _assemble([((b[0], every, every), o) for b, o in bparts], (B, S, gn), bcc)
+    xh = xs.reshape(B, S, H, Pd)
+    bh, ch = torch.chunk(bcs, 2, dim=-1)
+    bh = bh.reshape(B, S, G, s.state)
+    ch = ch.reshape(B, S, G, s.state)
+    dt = softplus(dtr.float() + dt_bias)  # (B, S, H)
+    rep = H // G
+
+    # the recurrence: a member's rows and heads at a time
+    def recur(c, blk):
+        dev = ctx.mesh.devices[c]
+        rows, heads = blk[0], blk[1]
+        gs = _groups(heads, rep)
+        group = torch.arange(heads.start, heads.stop, device=dev) // rep - gs.start
+        y, h_final, h1 = _ssm(xh[rows, :, heads].to(dev), dt[rows, :, heads].to(dev),
+                              a[heads].to(dev), bh[rows, :, gs].to(dev), ch[rows, :, gs].to(dev),
+                              d_skip[heads].to(dev), group, local("ssm", c), s.chunk)
+        return (y.reshape(y.shape[0], S, -1), h_final), h1
+
+    rparts, new_ssm = _per_block(_layout(ctx, cache, "ssm", (B, H, s.state, Pd)), recur)
+    # a member's heads are d_inner's channels heads.start * Pd onwards
+    y = _assemble([((b[0], every, slice(b[1].start * Pd, b[1].stop * Pd)), o[0])
+                   for b, o in rparts], (B, S, d_inner), x)
+    out = _gated_out(y, z, p, cfg)
+    if cache is not None:
+        return out, {"conv_x": new_cx, "conv_bc": new_cb, "ssm": new_ssm}
+    if not fill_cache:
+        return out, None
+    h_final = _assemble([(b, o[1]) for b, o in rparts], (B, H, s.state, Pd),
+                        torch.empty((), dtype=torch.float32, device=x.device))
+    return out, {"conv_x": xc[:, -(k - 1):], "conv_bc": bcc[:, -(k - 1):], "ssm": h_final}

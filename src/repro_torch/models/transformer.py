@@ -31,9 +31,10 @@ and a decode cache is too (``cache_pspecs``): every product follows its
 weight's spec (``layers.matmul``), the vocab-sharded embedding is a
 masked lookup summed over the members (exact: each row has one
 non-zero contribution), the vocab-sharded head concatenates the members'
-logits, decode attention runs through ``distributed/decode.py`` and MoE
-through ``moe._moe_spmd``.  Mamba2 and Zamba2 segments refuse a mesh
-(``NotImplementedError``, ROADMAP item 7c).
+logits, decode attention runs through ``distributed/decode.py``, MoE
+through ``moe._moe_spmd``, and a Mamba2 layer runs its recurrence on
+each member's rows and heads (``ssm.mamba_block``).  ``loss_fn`` takes
+the same ``ctx``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import LOCAL, ShardCtx, Sharded, shard_leaf
+from ..distributed.sharding import LOCAL, ShardCtx, Sharded, shard_leaf, stack
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import layers as L
 from .config import ModelConfig
@@ -285,18 +286,20 @@ def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None
 
 
 def _shared_attn_apply(shared: Params, xin, cfg: ModelConfig, positions, cache, fill_cache,
-                       active=None):
+                       active=None, ctx: ShardCtx = LOCAL):
     """The Zamba2 weight-shared transformer block (attention + MLP)."""
     h = xin
     a, kv = _attention(shared["attn"], L.rmsnorm(h, shared["ln1"], cfg.rms_eps), cfg, positions,
-                       cache, fill_cache, active)
+                       cache, fill_cache, active, ctx=ctx)
     h = h + a
     h = h + L.mlp(shared["mlp"], L.rmsnorm(h, shared["ln2"], cfg.rms_eps), cfg.mlp_act)
     return h, kv
 
 
-#: the ROADMAP item that ports the sharded recurrent segments
-SHARDED_RECURRENT_ITEM = "ROADMAP item 7c (sharded Mamba2/Zamba2)"
+def _stack(*xs):
+    """``torch.stack`` of one leaf's per-layer values: plain tensors, or
+    ``Sharded`` leaves of one layout (a sharded recurrent state)."""
+    return stack(xs) if isinstance(xs[0], Sharded) else torch.stack(xs)
 
 
 def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fill_cache,
@@ -305,13 +308,9 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
     """One layer (one unit for ``zamba_unit``).  Returns (h, cache_out,
     aux): the MoE load-balance loss, 0.0 for the other kinds."""
     aux = 0.0
-    if kind in ("mamba", "zamba_unit") and ctx.mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} segments do not run under a ShardCtx with a mesh yet; "
-            f"{SHARDED_RECURRENT_ITEM} ports them")
     if kind == "mamba":
         y, cout = mamba_block(p["mamba"], L.rmsnorm(h, p["norm"], cfg.rms_eps), cfg,
-                              cache=cache, fill_cache=fill_cache)
+                              cache=cache, fill_cache=fill_cache, ctx=ctx)
         return h + y, cout, aux
     if kind == "zamba_unit":
         mcaches = []
@@ -319,16 +318,17 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
             pi = tree_map(lambda x, i=i: x[i], p["mamba"])
             ci = tree_map(lambda x, i=i: x[i], cache["mamba"]) if cache is not None else None
             y, c = mamba_block(pi, L.rmsnorm(h, p["norms"][i], cfg.rms_eps), cfg,
-                               cache=ci, fill_cache=fill_cache)
+                               cache=ci, fill_cache=fill_cache, ctx=ctx)
             h = h + y
             mcaches.append(c)
-        xin = torch.cat([h, e0], dim=-1) @ p["in_proj"]
+        xin = L.matmul(torch.cat([h, e0], dim=-1), p["in_proj"])
         xin = L.rmsnorm(xin, p["attn_norm"], cfg.rms_eps)
         u, kv = _shared_attn_apply(shared, xin, cfg, positions,
-                                   cache["attn"] if cache is not None else None, fill_cache, active)
+                                   cache["attn"] if cache is not None else None, fill_cache, active,
+                                   ctx)
         cout = None
         if mcaches[0] is not None or kv is not None:
-            cout = {"mamba": tree_map(lambda *xs: torch.stack(xs), *mcaches), "attn": kv}
+            cout = {"mamba": tree_map(_stack, *mcaches), "attn": kv}
         return h + u, cout, aux
     # attn_mlp / attn_moe
     a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
@@ -428,12 +428,13 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> tor
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ShardCtx = LOCAL):
     """batch: tokens (B, S[, K]) int32, optional loss_mask (B, S),
-    optional vision_embeds / positions.  Returns (loss, metrics)."""
+    optional vision_embeds / positions.  Returns (loss, metrics).  Under
+    a ``ctx`` with a mesh the forward runs on the sharded params."""
     tokens = batch["tokens"]
     logits, _, (aux, h) = forward(
-        cfg, params, tokens, positions=batch.get("positions"),
+        cfg, params, tokens, ctx=ctx, positions=batch.get("positions"),
         vision_embeds=batch.get("vision_embeds"), with_aux=True,
     )
     aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
@@ -450,10 +451,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
     metrics = {"xent": loss, "aux": aux}
     if cfg.mtp:
         # predict t+2 from (h_t, embed(tok_{t+1})): the simplified MTP head
-        emb_next = embed_tokens(params, tokens[:, 1:], cfg)
-        h_mtp = torch.cat([h[:, :-1], emb_next], dim=-1) @ params["mtp_proj"]
+        emb_next = embed_tokens(params, tokens[:, 1:], cfg, ctx)
+        h_mtp = L.matmul(torch.cat([h[:, :-1], emb_next], dim=-1), params["mtp_proj"])
         h_mtp = L.rmsnorm(h_mtp, params["mtp_norm"], cfg.rms_eps)
-        logits2 = unembed(params, h_mtp, cfg)
+        logits2 = unembed(params, h_mtp, cfg, ctx)
         mtp_loss = _xent(logits2[:, :-1], tokens[:, 2:], mask[:, 2:])
         metrics["mtp"] = mtp_loss
         loss = loss + 0.1 * mtp_loss
@@ -568,9 +569,9 @@ def decode_step(
             if seg.kind in ("mamba", "zamba_unit"):
                 states.append(cout if seg.kind == "mamba" else cout["mamba"])
         if seg.kind == "mamba":
-            new_segs.append(tree_map(lambda *xs: torch.stack(xs), *states))
+            new_segs.append(tree_map(_stack, *states))
         elif seg.kind == "zamba_unit":
-            new_segs.append({"mamba": tree_map(lambda *xs: torch.stack(xs), *states), "attn": attn})
+            new_segs.append({"mamba": tree_map(_stack, *states), "attn": attn})
         else:
             new_segs.append(attn)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)

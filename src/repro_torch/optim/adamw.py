@@ -8,6 +8,21 @@ one fp32 scale per 256-element block along the last axis (Dettmers-style
 dynamic blockwise quantization), dequantized, updated and requantized
 inside the step.  Every function returns new tensors: the optimizer
 state it reads is the trainer's immutable previous buffer.
+
+On a device mesh the leaves are ``Sharded`` (``distributed/sharding.py``):
+params by ``param_pspecs``, moments and the f32 master by
+``zero_pspecs`` (ZeRO-1: the param's layout plus the data axes; FSDP
+shards the params over the data axes too).  The update is elementwise,
+so it runs block by block on the moments' layout: each gradient block is
+the moment block's region of the gradient (the reduce-scatter), and the
+new params are gathered back from the updated blocks into their own
+layout (the all-gather).  A quantized moment's blocks run along the last
+axis, which tensor parallelism may cut below one 256-element block: its
+update runs over whole rows (the scale's layout, which ``zero_pspecs``
+leaves unsharded on its last axis) and each member keeps its slice.
+Every element is computed as the unsharded update computes it, so the
+bits are the unsharded step's; ``global_norm`` sums each distinct block
+once, in another order than one tensor's sum.
 """
 
 from __future__ import annotations
@@ -16,8 +31,10 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
+from ..distributed.sharding import P, Sharded, reshard, shard_leaf, spec_block
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
@@ -113,16 +130,103 @@ def init_opt_state(params: Tree, cfg: OptConfig) -> dict:
 
 
 def global_norm(grads: Tree) -> torch.Tensor:
+    """The L2 norm of every gradient element; a ``Sharded`` leaf's
+    distinct blocks each once, summed on the mesh's first device."""
     total = 0
     for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        if isinstance(g, Sharded):
+            for _, t in g.blocks():
+                total = total + torch.sum(torch.square(t.to(torch.float32))).to(g.device)
+        else:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
     return torch.sqrt(total)
+
+
+def _region(x, blk, coord, device) -> torch.Tensor:
+    """``x``'s region ``blk`` on ``device``: a ``Sharded`` leaf's (its
+    member's own tensor where the blocks agree), or a plain tensor's
+    slice (the int8 path's gradients are whole tensors)."""
+    if isinstance(x, Sharded):
+        return x.region(blk, coord=coord, device=device)
+    return x[blk].to(device)
+
+
+def _sharded_update(p, master, g, m, v, step_fn, cfg: OptConfig):
+    """One leaf's update on a mesh.  ``step_fn(gf, mf, vf, base) ->
+    (newf, mf, vf)`` is the elementwise AdamW step of ``apply_updates``.
+    Returns (new param, new master or None, new m, new v), each laid
+    out as its input."""
+    q = cfg.quantized_state and isinstance(m, dict)
+    lead = m["scale"] if q else m  # the layout the update runs on
+    mesh = lead.mesh
+    made, out_f = {}, np.empty(mesh.devices.shape, dtype=object)
+    for c in lead.coords():
+        dev = mesh.devices[c]
+        blk = lead.block(c)
+        if q:  # whole rows: the scale's rows, every column
+            blk = blk[:-1] + (slice(0, p.shape[-1]),)
+        key = (tuple((s.start, s.stop) for s in blk), str(dev))
+        if key not in made:
+            gf = _region(g, blk, c, dev)
+            base = _region(master, blk, c, dev)
+            if q:
+                mf = _dequantize({"q": m["q"].region(blk, device=dev), "scale": m["scale"].local(c)},
+                                 gf.shape)
+                vf = _dequantize({"q": v["q"].region(blk, device=dev), "scale": v["scale"].local(c)},
+                                 gf.shape)
+            else:
+                mf, vf = m.local(c), v.local(c)
+            made[key] = step_fn(gf, mf, vf, base)
+        out_f[c] = made[key]
+    spec = lead.spec if not q else P(*(tuple(lead.spec)[:-1] + (None,)))
+    # the f32 results on the update's layout, then each output in its own
+    newf = Sharded(mesh, spec, p.shape, torch.float32, _pick(out_f, 0))
+    new_p = reshard(newf.map(lambda t: t.to(p.dtype)), p.spec, mesh)
+    new_master = reshard(newf, master.spec, mesh) if cfg.master_fp32 else None
+    if q:
+        new_m = _requantize(Sharded(mesh, spec, p.shape, torch.float32, _pick(out_f, 1)), m)
+        new_v = _requantize(Sharded(mesh, spec, p.shape, torch.float32, _pick(out_f, 2)), v)
+    else:
+        new_m = Sharded(mesh, m.spec, m.shape, torch.float32, _pick(out_f, 1))
+        new_v = Sharded(mesh, v.spec, v.shape, torch.float32, _pick(out_f, 2))
+    return new_p, new_master, new_m, new_v
+
+
+def _pick(grid: np.ndarray, i: int) -> np.ndarray:
+    """The ``i``-th item of each member's result tuple (sharing kept)."""
+    out = np.empty(grid.shape, dtype=object)
+    for c in np.ndindex(*grid.shape):
+        out[c] = grid[c][i]
+    return out
+
+
+def _requantize(rows: Sharded, like: dict) -> dict:
+    """A moment updated over whole rows, quantized and laid out as
+    ``like`` (``{"q", "scale"}``): the scale on its rows' layout, each
+    member's ``q`` the slice of its rows' int8 tensor that its block
+    names."""
+    qs = rows.map(_quantize).shards  # a {"q", "scale"} dict a member, shared as rows is
+    mesh, qspec = rows.mesh, like["q"].spec
+    scales = np.empty(mesh.devices.shape, dtype=object)
+    out, made = np.empty(mesh.devices.shape, dtype=object), {}
+    for c in np.ndindex(*mesh.devices.shape):
+        scales[c] = qs[c]["scale"]
+        blk = spec_block(mesh, qspec, rows.shape, c)
+        row_q = qs[c]["q"]
+        key = (id(row_q), blk[-1].start, blk[-1].stop)
+        if key not in made:
+            whole = blk[-1].start == 0 and blk[-1].stop == rows.shape[-1]
+            made[key] = row_q if whole else row_q[..., blk[-1]].contiguous()
+        out[c] = made[key]
+    scale = Sharded(mesh, like["scale"].spec, like["scale"].shape, torch.float32, scales)
+    return {"q": Sharded(mesh, qspec, rows.shape, torch.int8, out), "scale": scale}
 
 
 def apply_updates(params: Tree, grads: Tree, state: dict, cfg: OptConfig):
     """Returns (new_params, new_state, info)."""
     q = cfg.quantized_state
-    step = state["step"] + 1
+    st = state["step"]
+    step = (st.full() if isinstance(st, Sharded) else st) + 1
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
     lr = schedule(cfg, step)
@@ -130,17 +234,24 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: OptConfig):
     c1 = 1.0 - torch.pow(cfg.b1, stepf)
     c2 = 1.0 - torch.pow(cfg.b2, stepf)
 
-    def upd(p, master, g, m, v):
-        gf = g.to(torch.float32) * scale
-        mf = _moment_read(m, p.shape, q)
-        vf = _moment_read(v, p.shape, q)
+    def step_fn(g, mf, vf, base, wd):
+        dev = g.device
+        gf = g.to(torch.float32) * scale.to(dev)
         mf = cfg.b1 * mf + (1 - cfg.b1) * gf
         vf = cfg.b2 * vf + (1 - cfg.b2) * gf * gf
-        mhat = mf / c1
-        vhat = vf / c2
-        base = master.to(torch.float32)
+        mhat = mf / c1.to(dev)
+        vhat = vf / c2.to(dev)
+        base = base.to(torch.float32)
+        newf = base - lr.to(dev) * (mhat / (torch.sqrt(vhat) + cfg.eps) + wd * base)
+        return newf, mf, vf
+
+    def upd(p, master, g, m, v):
         wd = cfg.weight_decay if p.dim() >= 2 else 0.0
-        newf = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + wd * base)
+        if isinstance(p, Sharded):
+            return _sharded_update(p, master, g, m, v,
+                                   lambda *xs: step_fn(*xs, wd), cfg)
+        newf, mf, vf = step_fn(g, _moment_read(m, p.shape, q), _moment_read(v, p.shape, q),
+                               master, wd)
         return (newf.to(p.dtype), newf if cfg.master_fp32 else None,
                 _moment_write(mf, q), _moment_write(vf, q))
 
@@ -151,7 +262,7 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: OptConfig):
     new_state = {
         "m": tree_unflatten(tdef, [o[2] for o in outs]),
         "v": tree_unflatten(tdef, [o[3] for o in outs]),
-        "step": step,
+        "step": shard_leaf(step, st.spec, st.mesh) if isinstance(st, Sharded) else step,
     }
     if cfg.master_fp32:
         new_state["master"] = tree_unflatten(tdef, [o[1] for o in outs])

@@ -130,13 +130,37 @@ def test_only_committed_checkpoints_count(tmp_path):
     assert ckpt.latest_step(tmp_path) == 4
 
 
-def test_meshes_wait_for_the_multi_device_port(tmp_path):
+def test_restore_lays_leaves_out_on_a_mesh(tmp_path):
+    """``restore(shardings=)`` lays each leaf out by its NamedSharding (a
+    None leaves it as ``like``'s), bitwise; ``elastic_restore`` with a
+    ``ShardCtx`` and ``pspec_fn`` does the same on the ctx's mesh, and a
+    sharded state saves the unsharded files.  (Whole trainers on meshes:
+    ``tests/test_torch_elastic_mesh.py``.)"""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import P, NamedSharding, ShardCtx, Sharded, unshard
+    from repro_torch.tree import tree_map
+
     st = bridge.states_from_numpy(numpy_state(), device="cpu")
     ckpt.save(tmp_path, 0, st)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ckpt.restore(tmp_path, st, shardings=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        elastic.elastic_restore(str(tmp_path), st, mesh=object())
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
+    specs = tree_map(lambda _: None, st)
+    specs["trainer"]["params"]["embed"] = NamedSharding(mesh, P("data", "model"))
+    specs["trainer"]["opt"]["q"] = NamedSharding(mesh, P(None, ("data", "model")))
+    got, _ = ckpt.restore(tmp_path, st, shardings=specs)
+    emb = got["trainer"]["params"]["embed"]
+    assert isinstance(emb, Sharded) and tuple(emb.local((1, 3)).shape) == (8, 2)
+    assert got["trainer"]["opt"]["q"].local((1, 3)).shape == (4, 32)
+    assert not isinstance(got["trainer"]["opt"]["step"], Sharded)
+    assert bits_equal(unshard(got), st)
+    ctx = ShardCtx(mesh=mesh)
+    got2, _ = elastic.elastic_restore(str(tmp_path), st, ctx,
+                                      lambda c, like: tree_map(
+                                          lambda x: P("data") if x.dim() and x.shape[0] % 2 == 0
+                                          else P(), like))
+    assert bits_equal(unshard(got2), st) and got2["data"]["tokens"].spec == P("data")
+    ckpt.save(tmp_path / "again", 0, got2)
+    for leaf in (tmp_path / "step_00000000").iterdir():
+        assert leaf.read_bytes() == (tmp_path / "again" / "step_00000000" / leaf.name).read_bytes()
 
 
 def train_program():

@@ -55,6 +55,9 @@ CASES = {
     "mla": ("deepseek-v3-671b", {}, False),
     "moe_ep2d": ("granite-moe-1b-a400m", {}, True),
     "mla_local": ("deepseek-v3-671b", {}, False),
+    # test_torch_decode_spmd_ssm.py: the recurrent archs' reduced configs
+    "mamba2": ("mamba2-2.7b", {}, False),
+    "zamba2": ("zamba2-2.7b", {}, False),
 }
 #: case -> mesh shape, where it is not (2, 4): a model axis of 1 gives
 #: MLA's latent cache no model axis, so both packages fall back to each

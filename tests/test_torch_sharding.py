@@ -250,13 +250,24 @@ def f32(arch, **over):
     return dataclasses.replace(tget(arch), dtype="float32", **over)
 
 
-def test_mamba_under_a_mesh_refuses_naming_the_item():
+def test_mamba_under_a_mesh_runs_and_its_decode_stays_sharded():
+    """A mamba2 forward under a mesh gives the unsharded logits (1e-4);
+    a decode step keeps every cache leaf ``Sharded`` in its layout.
+    (Against JAX's sharded decode: ``tests/test_torch_decode_spmd_ssm.py``.)"""
     cfg = f32("mamba2-2.7b")
     mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
     ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, decode_shardmap=True)
-    params = place_params(cfg, T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7c"):
-        T.forward(cfg, params, torch.zeros((2, 4), dtype=torch.int32), ctx=ctx)
+    local = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 4), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    want, _ = T.forward(cfg, local, toks)
+    params = place_params(cfg, tree_map(lambda x: x, local), ctx)
+    got, _ = T.forward(cfg, params, toks, ctx=ctx)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    cache = place_cache(cfg, T.init_cache(cfg, 2, 8, "cpu"), ctx)
+    _, new = T.decode_step(cfg, params, cache, toks[:, :1], ctx=ctx)
+    for a, b in zip(tree_leaves(cache), tree_leaves(new)):
+        assert isinstance(b, S.Sharded) and b.spec == a.spec and b.shape == a.shape
 
 
 def test_engine_options_not_sharded_refuse():

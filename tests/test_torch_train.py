@@ -12,7 +12,8 @@ JAX-initialised states carried over through ``repro_torch.bridge``:
   * DMR with the launcher's strike: recoveries and ledger bitwise JAX's,
     and the repaired state the unstruck run's;
   * microbatches=2 against 1 within 1e-5, and against JAX's;
-  * ``grad_compression="int8_ef"`` refused (it needs a data mesh);
+  * ``grad_compression="int8_ef"`` refused without a mesh (it reduces
+    over a data mesh: ``test_torch_train_int8ef.py``);
   * F4: on the card K8 and K7 refuse inputs that require grad (marked
     ``cuda``; skips without a card)."""
 
@@ -170,10 +171,12 @@ def test_microbatches_two_against_one_and_jax():
 
 
 def test_int8_ef_is_refused():
+    """Without a mesh: the compressed reduction runs over a data mesh
+    (``tests/test_torch_train_int8ef.py`` runs it on one)."""
     _, tc = configs("internlm2-1.8b")
     tt = TL.TrainConfig(data=DataConfig(batch=2, seq_len=8, vocab=tc.vocab_size),
                         grad_compression="int8_ef")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="data mesh"):
         TL.make_trainer_cell(tc, tt)
 
 
