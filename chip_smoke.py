@@ -329,7 +329,8 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  their logits be within 1e-4).
   * phase 10   -- model-parallel training and sharded recurrent decode
                  on (data, model) meshes of cuda:0: (10a) internlm2-1.8b
-                 at full width and depth, phase 5a's setting, trained 10
+                 at full width, its first 12 layers (phase 5a's setting
+                 cut in depth to keep the run near 1100 s), trained 8
                  steps ZeRO-1 + FSDP on (2, 4) after the unsharded
                  trainer from the same init and batches (step 0's loss
                  within 1e-2, every step's within 3e-2 relative; every
@@ -341,7 +342,7 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  compressed mean within its int8 rounding bound of the
                  exact mean, the data members' EF buffers non-zero and
                  different; (10c) the step-5 checkpoint resumed onto
-                 (4, 2): every leaf bitwise, 5 steps within 3e-2 of the
+                 (4, 2): every leaf bitwise, 3 steps within 3e-2 of the
                  uninterrupted run; (10d) mamba2-2.7b and zamba2-2.7b at
                  full width and depth, in bf16 and with f32 weights, 8
                  prompts of 48 tokens prefilled and decoded 16 steps
@@ -351,16 +352,39 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  3e-2), K8 at a member's shape (4 rows, 20 heads) within
                  phase 2d's limits, K8 = mamba layers x 8 members and K5
                  = shared-block calls x 16 x 8.
+  * phase 11   -- replicated trainers on a mesh, remat, and the dry-run:
+                 (11a) phase 5b's cut (internlm2-1.8b, 4 layers at full
+                 width) trained FSDP with its replica axis prepended:
+                 DMR temporal on ``host`` on (2, 4), 6 steps, the strike
+                 at step 3 repaired through K4 (launches = devices x
+                 tie-breaks), the final state bitwise the unstruck run's,
+                 the sharded fingerprint bitwise its unshard's, every
+                 distinct block its own allocation; DMR spatial on
+                 ``lockstep`` on (2, 2, 2), the replica axis on ``pod``:
+                 the strike seen at step 3 as the struck pod's bit; TMR
+                 temporal on ``lockstep`` on (2, 4): voted away, the final
+                 state bitwise the unstruck DMR run's; ms/step beside 5b's;
+                 (11b) 5a's cell for 3 steps under ``remat`` full and
+                 none: losses and params bitwise equal, peak GB and
+                 ms/step of each; (11c) the dry-run
+                 (``repro_torch.launch.dryrun``) of 10a's and 11a's cells:
+                 member (0, 0)'s trainer bytes, as laid out and from the
+                 specs alone, equal to the card's to the byte, the roofline bound beside the measured ms/step,
+                 under 1 MB of device memory growth; and internlm2-1.8b
+                 train_4k on the 256-card single mesh, in a process of
+                 its own (started before phase 10, it runs beside phases
+                 10-11), its record printed.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
 (``engine_spec``), phases 3e-3l's (``engine_archs``), the training
 phases' (``train``), the launchers' (``launch``), the analyzer's
 (``analysis``), phase 8's (``spatial``), phase 9's (``model_parallel``),
-phase 10's (``model_parallel_training``) and the kernels' JSON records
+phase 10's (``model_parallel_training``), phase 11's
+(``replicated_training``) and the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
-also 5b, the examples and 8a, K2 also 6c and the examples, K5 phases 3,
+also 5b, the examples, 8a and 11a, K2 also 6c and the examples, K5 phases 3,
 3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a, 9b's unsharded
 twin and 10d, K5's partials 9b, K6 phases 3c, 3d, 3i and 9c's unsharded
 twin, K8 phases 3b, 3g, 6c and 10d), the card's name and power limit, and
@@ -384,10 +408,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+from repro_torch.launch.analysis import HW  # noqa: E402  (the card's datasheet table)
+
+HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
-BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+BF16_FLOP_PER_S = HW["peak_flops"]  # H100 SXM dense bf16 on the tensor cores
 
 
 def flop_rate(dtype) -> float:
@@ -4994,7 +5020,13 @@ def model_parallel_phase() -> tuple[dict, dict]:
 # --------------------------------------------------------------------------
 # phase 10: model-parallel training and sharded recurrent decode
 # --------------------------------------------------------------------------
-MPT_STEPS = 10  # 10a, 10b: trainer steps
+MPT_STEPS = 8  # 10a, 10b: trainer steps (10 until phase 11 came; the run stays under 1100 s)
+MPT_LAYERS = 12  # 10a-10c: the first 12 of 24 layers at full width (24 until phase 11 came)
+
+
+def mpt_argv(*extra) -> list:
+    """10a-10c's flags: 5a's setting cut to ``MPT_LAYERS`` layers."""
+    return cut_argv(MPT_LAYERS, "--steps", str(MPT_STEPS), *extra)
 MPT_CKPT = 5  # 10c: the checkpoint after this many steps of 10a
 MPT_TOL0, MPT_TOL = 1e-2, 3e-2  # step 0's loss; every step's (JAX's bf16 bound)
 EF_LAYERS = 8  # 10b: the first 8 of 24 layers at full width (the reckoning: PERF.md)
@@ -5045,11 +5077,12 @@ def one_leaf(path, leaf):
 
 
 def mp_10a(root: Path) -> tuple[dict, list, object]:
-    """10a: internlm2-1.8b at full width and depth, 5a's setting, laid out
-    ZeRO/FSDP on a (2, 4) mesh of cuda:0, 10 steps beside the unsharded
-    trainer (one after the other: the two states, 47.7 GB each with
-    their next buffers, do not fit one card together); the state after
-    step 5 checkpointed, its files held to an unsharded save's.
+    """10a: internlm2-1.8b at full width, 5a's setting cut to its first
+    ``MPT_LAYERS`` layers, laid out ZeRO/FSDP on a (2, 4) mesh of cuda:0,
+    ``MPT_STEPS`` steps beside the unsharded trainer (one after the
+    other: at full depth the two states, 47.7 GB each with their next
+    buffers, do not fit one card together); the state after step 5
+    checkpointed, its files held to an unsharded save's.
     Returns (record, the sharded losses, the step-5 state on the host)."""
     import shutil
 
@@ -5060,7 +5093,7 @@ def mp_10a(root: Path) -> tuple[dict, list, object]:
     from repro_torch.models.lm_cells import make_train_program
     from repro_torch.tree import tree_map, tree_paths
 
-    args = L.parser().parse_args(train_argv("--steps", str(MPT_STEPS)))
+    args = L.parser().parse_args(mpt_argv())
     cfg, tcfg, _ = L.build(args)
     exe = api.compile(make_train_program(cfg, tcfg), backend="host", device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -5149,7 +5182,7 @@ def mp_10c(root: Path, uninterrupted: list, host) -> dict:
     from repro_torch.launch import train as L
     from repro_torch.models.lm_cells import make_train_program
 
-    args = L.parser().parse_args(train_argv("--steps", str(MPT_STEPS)))
+    args = L.parser().parse_args(mpt_argv())
     cfg, tcfg, _ = L.build(args)
     ctx = mp_ctx(cfg, (4, 2), fsdp=True)
     exe = api.compile(make_train_program(cfg, tcfg, ctx), backend="host", device="cuda")
@@ -5474,6 +5507,350 @@ def mp_training_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: replicated trainers on a mesh, remat on the card, the dry-run
+# --------------------------------------------------------------------------
+RT_STEPS = 6  # 11a: 5b's steps and strike (DMR_STRIKE)
+RT_SPATIAL_STEPS = DMR_STRIKE + 1  # 11a's spatial run stops at the strike
+REMAT_STEPS = 3  # 11b
+DRYRUN_GROWTH_BYTES = 1 << 20  # 11c: device memory the dry-run may leave behind
+DRYRUN_PROD_TIMEOUT_S = 600
+
+
+def rt_mesh(shape, axes):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh(shape, axes, devices=["cuda:0"] * math.prod(shape))
+
+
+def rt_setting(level: int, placement: str, shape, axes):
+    """11a's cell: 5b's cut (internlm2-1.8b, the first 4 layers at full
+    width) trained FSDP on a mesh of cuda:0 under ``level`` replicas."""
+    from repro_torch.core import RedundancyPolicy
+    from repro_torch.launch import train as L
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(cut_argv(DMR_LAYERS, "--steps", str(RT_STEPS)))
+    cfg, tcfg, _ = L.build(args)
+    ctx = make_ctx(rt_mesh(shape, axes), fsdp=True, vocab_size=cfg.vocab_size,
+                   d_model=cfg.d_model, pod_role="replica" if placement == "spatial" else "data")
+    policy = RedundancyPolicy(level=level, placement=placement)
+    prog = make_train_program(cfg, tcfg, ctx).with_policies({"trainer": policy})
+    return args, cfg, tcfg, ctx, policy, prog
+
+
+def rt_run(prog, backend: str, steps: int, seed: int, strike=None, keep=None) -> dict:
+    """``steps`` steps of a replicated trainer on ``backend`` (one
+    ``step`` call each, between CUDA events), the K4 counter set to 0
+    just before and read just after.  ``keep(states)`` reads the final
+    states before they are let go."""
+    from repro_torch import api
+    from repro_torch.core import FaultLedger
+    from repro_torch.kernels import tmr_vote as tv
+
+    kw = {"ledger": FaultLedger()} if backend == "host" else {}
+    exe = api.compile(prog, backend=backend, device="cuda", **kw)
+    torch.cuda.reset_peak_memory_stats()
+    states = exe.init(seed)
+    reports, ms = [], []
+    tv.tmr_vote.launches = 0
+    for t in range(steps):
+        fault = strike if strike is not None and t == strike.step else None
+        (states, rep), dt = timed(lambda t=t, f=fault: exe.step(states, step_idx=t, fault=f))
+        reports.append({k: float(v["events"]) for k, v in rep.items()})
+        ms.append(dt)
+    torch.cuda.synchronize()
+    out = {"k4_launches": tv.tmr_vote.launches, "recoveries": list(getattr(exe, "recoveries", [])),
+           "events": exe.ledger.totals.get("trainer", {}).get("events", 0.0),
+           "event_steps": list(exe.ledger.recent.get("trainer", [])),
+           "per_replica": exe.ledger.totals.get("trainer", {}).get("per_replica"),
+           "ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if keep is not None:
+        out.update(keep(states))
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rt_final(states, fingerprint: bool = True) -> dict:
+    """Replica 0 of the final trainer state, gathered, on the host; the
+    layout facts of the replicated state; its fingerprint on the card
+    against its unshard's."""
+    from repro_torch.core import redundancy as R
+    from repro_torch.distributed.sharding import unshard
+
+    tr = states["trainer"]
+    layout = mp_layout(tr)
+    out = {"layout": layout, "member_bytes": layout["member_bytes"]}
+    if fingerprint:
+        fp = R.fingerprint(tr)
+        full = unshard(tr)
+        out["fingerprint_equal"] = bool(torch.equal(fp, R.fingerprint(full)))
+        del full
+    r0 = unshard(R.canonical_state(tr, tr["params"]["embed"].shape[0]))
+    out["final"] = host_bits(r0)
+    return out
+
+
+def rt_pod_bits(strike):
+    """Reads, from a spatially replicated state, the struck element of
+    pod 0's and pod 1's blocks (their XOR, which the strike sets)."""
+    from repro_torch.core.fault import bitcast_int
+    from repro_torch.tree import tree_leaves
+
+    def read(states) -> dict:
+        x = tree_leaves(states["trainer"])[strike.leaf]
+        shape = tuple(x.shape[1:])
+        at = np.unravel_index(strike.index, shape)
+        vals = {}
+        for p in range(2):
+            v = x[p]
+            for c in v.coords():
+                blk = v.block(c)
+                if all(b.start <= g < b.stop for b, g in zip(blk, at)):
+                    t = v.local(c)
+                    local = tuple(int(g - b.start) for b, g in zip(blk, at))
+                    vals[p] = int(bitcast_int(t)[local].item())
+                    break
+        return {"pod_xor": vals[0] ^ vals[1], "spec": tuple(x.spec)}
+
+    return read
+
+
+def mp_11a(train: dict) -> dict:
+    """11a: a replicated trainer on a mesh of cuda:0.  DMR temporal on
+    ``host`` on (2, 4): the unstruck run has no event and the struck one
+    one recovery at (3, trainer), K4 launched once a tie-break a device
+    (one here), the final state bitwise the unstruck run's, the sharded
+    fingerprint bitwise its unshard's, every distinct block (each holding
+    both replicas) its own allocation.  DMR spatial on ``lockstep`` on
+    (2, 2, 2), the replica axis on ``pod``: the strike detected at step 3,
+    as one element, set in the struck replica's pod.  TMR temporal on
+    ``lockstep`` on (2, 4): the strike voted away at step 3 and charged
+    to the struck replica, the final state bitwise the unstruck DMR run's
+    (each replica computes the same bits at any level).  ms/step beside
+    5b's unsharded DMR twin of the same call."""
+    from repro_torch.launch import train as L
+
+    out = {}
+    args, cfg, tcfg, ctx, policy, prog = rt_setting(2, "temporal", (2, 4), ("data", "model"))
+    strike = L.strike(prog, DMR_STRIKE)
+    clean = rt_run(prog, "host", RT_STEPS, args.seed, keep=rt_final)
+    struck = rt_run(prog, "host", RT_STEPS, args.seed, strike, keep=rt_final)
+    unstruck = clean["final"]
+    if clean["events"] or clean["recoveries"] or clean["k4_launches"]:
+        raise AssertionError(f"11a dmr: the unstruck run saw events at {clean['event_steps']}")
+    if struck["recoveries"] != [(DMR_STRIKE, "trainer")] or struck["event_steps"] != [DMR_STRIKE]:
+        raise AssertionError(f"11a dmr: recoveries {struck['recoveries']}, events at "
+                             f"{struck['event_steps']}; want one at step {DMR_STRIKE}")
+    devices = len({str(d) for d in ctx.mesh.devices.flat})
+    if struck["k4_launches"] != devices * len(struck["recoveries"]):
+        raise AssertionError(f"11a dmr: K4 launched {struck['k4_launches']} times; want "
+                             f"{devices} device(s) x {len(struck['recoveries'])} tie-break(s)")
+    if not bits_equal(struck.pop("final"), clean.pop("final")):
+        raise AssertionError("11a dmr: the repaired final state differs from the unstruck run's")
+    for run in (clean, struck):
+        lay = run["layout"]
+        if not (run["fingerprint_equal"] and lay["distinct"] and lay["replicated_once"]):
+            raise AssertionError(f"11a dmr: fingerprint or layout fails: {run}")
+    out["dmr_temporal"] = {"clean": clean, "struck": struck, "k4_formula": "devices x tie-breaks",
+                           "devices": devices}
+    dmr_cell = (cfg, tcfg, policy)
+
+    args, cfg, tcfg, ctx, policy, prog = rt_setting(2, "spatial", (2, 2, 2),
+                                                    ("pod", "data", "model"))
+    strike = L.strike(prog, DMR_STRIKE)
+    sp = rt_run(prog, "lockstep", RT_SPATIAL_STEPS, args.seed, strike,
+                keep=lambda st: {**rt_pod_bits(strike)(st), "layout": mp_layout(st["trainer"])})
+    want_xor = 1 << strike.bit
+    if sp["event_steps"] != [DMR_STRIKE] or sp["pod_xor"] & 0xFFFFFFFF != want_xor \
+            or sp["spec"][0] != "pod":
+        raise AssertionError(f"11a spatial: events at {sp['event_steps']}, pods differ by "
+                             f"{sp['pod_xor']:#x} (want bit {strike.bit}), spec {sp['spec']}")
+    if not (sp["layout"]["distinct"] and sp["layout"]["replicated_once"]):
+        raise AssertionError(f"11a spatial: layout {sp['layout']}")
+    out["dmr_spatial"] = sp
+
+    args, cfg, tcfg, ctx, policy, prog = rt_setting(3, "temporal", (2, 4), ("data", "model"))
+    strike = L.strike(prog, DMR_STRIKE)
+    # the unstruck reference is the unstruck DMR run's replica 0: the same
+    # seed, batches and cut, and each replica computes the same bits
+    tstruck = rt_run(prog, "lockstep", RT_STEPS, args.seed, strike,
+                     keep=lambda st: rt_final(st, fingerprint=False))
+    if tstruck["event_steps"] != [DMR_STRIKE] or tstruck["per_replica"] != [1.0, 0.0, 0.0]:
+        raise AssertionError(f"11a tmr: struck events at {tstruck['event_steps']}, per "
+                             f"replica {tstruck['per_replica']}")
+    if not bits_equal(tstruck.pop("final"), unstruck):
+        raise AssertionError("11a tmr: the voted final state differs from the unstruck run's")
+    del unstruck
+    out["tmr_temporal"] = {"struck": tstruck}
+
+    med = float(np.median(clean["ms_per_step"][1:]))
+    twin = train["5b"]["ms_per_step_median"]
+    out.update(ms_per_step_median=med, twin_5b_ms_per_step_median=twin,
+               k4_launches=struck["k4_launches"], cell=dmr_cell)
+    log(f"mp_11a: {cfg.name} first {DMR_LAYERS} layers at full width, FSDP on (2, 4) of cuda:0, "
+        f"DMR temporal on host: unstruck 0 events; strike at step {DMR_STRIKE} -> recoveries "
+        f"{struck['recoveries']}, K4 launches {struck['k4_launches']} ({devices} device x 1 "
+        f"tie-break), final state bitwise the unstruck run's, sharded fingerprint bitwise its "
+        f"unshard's, member (0, 0) holds {clean['member_bytes'] / 1e9:.3f} GB (both replicas); "
+        f"median {med:.1f} ms/step beside 5b's unsharded DMR {twin:.1f} (not gated), peak "
+        f"{struck['peak_gb']:.2f} GB; DMR spatial on lockstep (2, 2, 2): events at "
+        f"{sp['event_steps']}, pods differ by bit {strike.bit} (replica {strike.replica}'s pod "
+        f"struck), {np.median(sp['ms_per_step'][1:]):.1f} ms/step; TMR temporal on lockstep: "
+        f"events at {tstruck['event_steps']}, per replica {tstruck['per_replica']}, final "
+        f"state bitwise the unstruck DMR run's, "
+        f"{np.median([m for i, m in enumerate(tstruck['ms_per_step']) if i not in (0, DMR_STRIKE)]):.1f}"
+        f" ms/step, peak {tstruck['peak_gb']:.2f} GB")
+    return out
+
+
+def mp_11b() -> dict:
+    """11b: 5a's cell (internlm2-1.8b, 24 layers, batch 4 x 512) for 3
+    steps with ``remat="full"`` (the default) and ``"none"``: the losses
+    and the params after 3 steps bitwise equal; peak GB and ms/step of
+    each."""
+    from repro_torch import api
+    from repro_torch.distributed.sharding import LOCAL
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(train_argv("--steps", str(REMAT_STEPS)))
+    cfg, tcfg, _ = L.build(args)
+    runs = {}
+    for remat in ("full", "none"):
+        prog = make_train_program(cfg, tcfg, dataclasses.replace(LOCAL, remat=remat))
+        exe = api.compile(prog, backend="host", device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        states, losses, ms = mpt_run(exe, [exe.init(args.seed)], REMAT_STEPS)
+        runs[remat] = {"losses": losses, "ms_per_step": ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "params": host_bits(states["trainer"]["params"])}
+        del states, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+    full, none = runs["full"], runs["none"]
+    if full["losses"] != none["losses"] or not bits_equal(full.pop("params"), none.pop("params")):
+        raise AssertionError(f"11b: remat full and none differ: losses {full['losses']} / "
+                             f"{none['losses']}")
+    log(f"mp_11b: {cfg.name} {cfg.n_layers} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{REMAT_STEPS} steps: losses and params bitwise equal under remat full and none; "
+        f"full {np.median(full['ms_per_step'][1:]):.1f} ms/step peak {full['peak_gb']:.2f} GB, "
+        f"none {np.median(none['ms_per_step'][1:]):.1f} ms/step peak {none['peak_gb']:.2f} GB")
+    return runs
+
+
+def dryrun_prod_start(tmp: Path):
+    """The production cell's dry-run (internlm2-1.8b train_4k on the
+    256-card single mesh) in a process of its own on the host's CPU,
+    hidden from the card and at the lowest priority: it runs beside
+    phases 10 and 11 and launches nothing."""
+    import os
+
+    import ctypes
+    import signal
+
+    def child():
+        os.nice(19)
+        # PR_SET_PDEATHSIG: the kernel kills it when this process ends
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "internlm2-1.8b",
+           "--shape", "train_4k", "--mesh", "single", "--out", str(tmp), "--tag", "chip"]
+    with open(tmp / "dryrun.log", "w") as out:
+        return subprocess.Popen(cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                preexec_fn=child)
+
+
+def mp_11c(mpt: dict, a: dict, proc, tmp: Path) -> dict:
+    """11c: the port's dry-run against the card.  For 10a's cell and
+    11a's DMR cell, the dry-run's per-member trainer-state bytes, both
+    as laid out and as computed from its specs alone, equal
+    ``mp_layout(...)["member_bytes"]`` measured on the card, to the
+    byte; its roofline bound and FLOPs a card beside the measured ms/step
+    (not gated); device memory grows by under 1 MB across the calls; the
+    production cell's record (its own process) printed."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as L
+    from repro_torch.models.config import ShapeSpec
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    stand_in = lambda shape, axes: make_mesh(shape, axes, devices=["cpu"] * math.prod(shape))
+    shape = ShapeSpec("train_chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    args = L.parser().parse_args(mpt_argv())
+    cfg, tcfg, _ = L.build(args)
+    cells = {}
+    cells["10a"] = D.run_cell(cfg.name, shape, multi_pod=False, cfg=cfg, opt=tcfg.opt, fsdp=True,
+                              mesh=stand_in((2, 4), ("data", "model")), verbose=False,
+                              full_budget_s=0)
+    acfg, atcfg, apolicy = a.pop("cell")
+    cells["11a"] = D.run_cell(acfg.name, shape, multi_pod=False, cfg=acfg, opt=atcfg.opt,
+                              fsdp=True, policy=apolicy, verbose=False, full_budget_s=0,
+                              mesh=stand_in((2, 4), ("data", "model")))
+    measured = {"10a": (mpt["10a"]["layout"]["member_bytes"], mpt["10a"]["ms_per_step_median"]),
+                "11a": (a["dmr_temporal"]["clean"]["member_bytes"], a["ms_per_step_median"])}
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - before
+    out = {"device_growth_bytes": growth}
+    for k, rec in cells.items():
+        if not rec["ok"]:
+            raise AssertionError(f"11c {k}: the dry-run failed: {rec.get('error')}")
+        want, ms = measured[k]
+        got, spec = rec["trainer_member_bytes"], rec["trainer_spec_bytes"]
+        roof = rec["roofline"]
+        out[k] = {"dryrun_member_bytes": got, "spec_member_bytes": spec,
+                  "card_member_bytes": want, "ms_per_step": ms,
+                  "bound_s": roof["bound_s"], "flops_per_chip": roof["flops_per_chip"],
+                  "dominant": roof["dominant"], "seconds": rec["seconds"]}
+        if got != want or spec != want:
+            raise AssertionError(f"11c {k}: the dry-run says member (0, 0) holds {got} bytes of "
+                                 f"the trainer state ({spec} from its specs), the card holds "
+                                 f"{want}")
+    if growth >= DRYRUN_GROWTH_BYTES:
+        raise AssertionError(f"11c: device memory grew {growth} bytes across the dry-run calls")
+    proc.wait(timeout=DRYRUN_PROD_TIMEOUT_S)
+    files = list(tmp.glob("chip_*.json"))
+    if proc.returncode != 0 or len(files) != 1:
+        raise AssertionError(f"11c: the production dry-run failed: "
+                             f"{(tmp / 'dryrun.log').read_text()[-2000:]}")
+    prod = json.loads(files[0].read_text())
+    if not prod["ok"]:
+        raise AssertionError(f"11c: the production cell failed: {prod.get('error')}")
+    out["production"] = prod
+    for k in ("10a", "11a"):
+        r = out[k]
+        log(f"mp_11c {k}: dry-run member (0, 0) trainer bytes {r['dryrun_member_bytes']} = "
+            f"from its specs {r['spec_member_bytes']} = card {r['card_member_bytes']}; roofline bound {r['bound_s'] * 1e3:.3f} ms "
+            f"({r['dominant']}), {r['flops_per_chip']:.4g} FLOPs a card, beside the measured "
+            f"{r['ms_per_step']:.1f} ms/step on one card (not gated); {r['seconds']:.1f} s")
+    roof = prod["roofline"]
+    log(f"mp_11c production: internlm2-1.8b train_4k on {prod['mesh']} (256 H100s): bound "
+        f"{roof['bound_s'] * 1e3:.2f} ms ({roof['dominant']}; compute {roof['compute_s'] * 1e3:.2f}, "
+        f"memory {roof['memory_s'] * 1e3:.2f}, collective {roof['collective_s'] * 1e3:.2f}), "
+        f"argument {prod['memory']['argument_gib']:.3f} GiB a card, {prod['seconds']:.1f} s "
+        f"in its own process; device memory growth across 11c {growth} bytes")
+    return out
+
+
+def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path) -> dict:
+    """Phase 11; ``proc`` is the production cell's dry-run, started by
+    ``dryrun_prod_start(tmp)`` before phase 10 so that it runs beside
+    it on the host's CPU."""
+    t0 = time.perf_counter()
+    out = {"11a": mp_11a(train)}
+    out["11b"] = mp_11b()
+    out["11c"] = mp_11c(mpt, out["11a"], proc, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"replicated_training: phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -5598,12 +5975,23 @@ def main() -> int:
         rec["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="miso_dryrun_"))
+    proc = dryrun_prod_start(tmp)  # beside phases 10 and 11; it dies with this process
     mpt = mp_training_phase()
     for rec, key, counter in ((ssd, "mp_10d", "k8"), (record, "mp_10d", "k5")):
         for suffix, label in (("", "sharded"), ("_unsharded", "unsharded")):
             n = sum(r["launches"][label][counter] for r in mpt["10d"].values())
             rec["launches_by_path"][key + suffix] = n
             rec["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = replicated_training_phase(mpt, train, proc, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    epi["tmr_vote"]["launches_by_path"]["mp_11a"] = rt["11a"]["k4_launches"]
+    epi["tmr_vote"]["launches"] += rt["11a"]["k4_launches"]
     partials.update(partials_prof)
     partials["launches"] = mp["9b"]["launches"]["sharded"]["k5_partials"]
     partials["launches_by_path"] = {"mp_9b": partials["launches"]}
@@ -5621,6 +6009,7 @@ def main() -> int:
     print(json.dumps({"spatial": spatial}), flush=True)
     print(json.dumps({"model_parallel": mp}), flush=True)
     print(json.dumps({"model_parallel_training": mpt}), flush=True)
+    print(json.dumps({"replicated_training": rt}), flush=True)
     print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

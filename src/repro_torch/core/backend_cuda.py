@@ -26,6 +26,10 @@ dtypes, coarser for packed bf16, int8 or bool leaves.  So this back-end
 equals JAX's ``lockstep_pallas``, and its counts can differ from this
 package's ``lockstep``; events never do.
 
+A replicated cell whose state is laid out on a mesh (``Sharded``
+leaves) is refused, as JAX's ``lockstep_pallas`` has no mesh path; the
+``lockstep`` and ``host`` back-ends run it.
+
 On a CUDA executor the kernels run; on the CPU their plain versions do
 (``metrics()["interpret"]`` is True), which the CPU tests hold bitwise
 against ``lockstep_pallas`` in Pallas interpret mode.
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import Sharded
 from ..kernels import ops
 from ..kernels.fused_step import dmr_compare, pick_block, tmr_step
 from ..tree import tree_leaves
@@ -95,6 +100,14 @@ def compile_step_cuda(program: MisoProgram, *, with_compare: bool = True):
         new_states, reports = {}, {}
         for cid, name in enumerate(names):
             cell = program.cells[name]
+            if cell.redundancy.level > 1 and any(
+                    isinstance(x, Sharded) for x in tree_leaves(states[name])):
+                raise NotImplementedError(
+                    f"cell {name!r}: lockstep_cuda fuses the epilogue over one word stream "
+                    "of the replicas; a replicated state laid out on a mesh (Sharded leaves) "
+                    "has no such stream, and JAX's lockstep_pallas "
+                    "(src/repro/core/backend_pallas.py) has no mesh path either: use "
+                    "backend='lockstep' or 'host'")
             fused = cell.redundancy.level > 1 and ops.word_layout(states[name]).total > 0
             run = fused_transition if fused else run_transition
             new_states[name], reports[name] = run(

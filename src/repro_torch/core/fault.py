@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.sharding import Sharded, map_blocks
 from ..tree import tree_flatten, tree_unflatten
 
 _UINT = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32, 8: torch.uint64}
@@ -84,7 +85,9 @@ def inject(spec: FaultSpec, *, cell_id: int, step: int, replicated_state):
 
     ``replicated_state``: tree whose leaves have a leading replica axis R.
     Out of place: the struck leaf is copied, every other leaf is passed
-    through.  Element addressing matches the JAX package exactly: the flat
+    through; of a ``Sharded`` leaf, every member tensor that holds the
+    element is copied and flipped (as a global array element changes in
+    every device copy of it), the others are passed through.  Element addressing matches the JAX package exactly: the flat
     index is split into per-dimension coordinates with C-style div/rem,
     so an index past the leaf's end wraps and a negative one hits nothing.
     """
@@ -103,16 +106,29 @@ def inject(spec: FaultSpec, *, cell_id: int, step: int, replicated_state):
     coords.reverse()
     if any(c < 0 for c in coords):
         return replicated_state
-    nbits = bitcast_uint(leaf).element_size() * 8
+    nbits = (1 if leaf.dtype == torch.bool else leaf.dtype.itemsize) * 8
     bit = spec.bit % nbits
     mask = 1 << bit
     if mask >= 1 << (nbits - 1):
         mask -= 1 << nbits  # the same bit in the signed view
-    flipped = bitcast_int(leaf).clone()
-    flipped[(rep, *coords)] ^= mask
-    leaves[spec.leaf] = (
-        flipped.to(torch.bool) if leaf.dtype == torch.bool else flipped.view(leaf.dtype)
-    )
+
+    def flip(t: torch.Tensor, at: tuple) -> torch.Tensor:
+        flipped = bitcast_int(t).clone()
+        flipped[at] ^= mask
+        return flipped.to(torch.bool) if t.dtype == torch.bool else flipped.view(t.dtype)
+
+    at = (rep, *coords)
+    if isinstance(leaf, Sharded):
+        # the global element changes once, in every member copy of it:
+        # each distinct tensor whose block holds it is copied and flipped
+        def member(block, t):
+            if all(b.start <= g < b.stop for b, g in zip(block, at)):
+                return flip(t, tuple(g - b.start for b, g in zip(block, at)))
+            return t
+
+        leaves[spec.leaf] = map_blocks(member, leaf)
+    else:
+        leaves[spec.leaf] = flip(leaf, at)
     return tree_unflatten(treedef, leaves)
 
 

@@ -73,7 +73,7 @@ class MisoProgram:
         states = {}
         for name, cell in self.cells.items():
             base = cell.init(generator, device)
-            states[name] = replicate_state(base, cell.redundancy.level)
+            states[name] = replicate_state(base, cell.redundancy.level, cell.redundancy.placement)
         return states
 
     def unreplicated_specs(self, states: Mapping[str, Tree]) -> dict:

@@ -20,11 +20,12 @@ torch has no uint32 ``+``/``>>``; the same code runs on the card.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Optional
 
 import torch
 
-from ..distributed.sharding import REPLICATED_SHARDED_ITEM, Sharded
+from ..distributed.sharding import Sharded, map_blocks, stack
 from ..kernels import ops
 from ..kernels.state_hash import M32, MIX, PHI, mul32
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -39,62 +40,124 @@ MAX_REPLICAS = 3
 # --------------------------------------------------------------------------
 # comparison primitives
 # --------------------------------------------------------------------------
+def _blocks(*xs) -> list:
+    """``(block, tensors)`` of ``Sharded`` leaves: each distinct block of
+    the first once, with the same member's tensor of the others (or the
+    region they hold of it, when their layout differs), so a block that
+    several members share is read once."""
+    x0 = xs[0]
+    out = []
+    for blk, t in x0.blocks():
+        c = next(c for c in x0.coords() if x0.local(c) is t)
+        out.append((blk, (t,) + tuple(
+            x.local(c) if tuple(x.spec) == tuple(x0.spec) else x.region(blk, coord=c)
+            for x in xs[1:])))
+    return out
+
+
 def bit_mismatch_elems(a: Tree, b: Tree) -> torch.Tensor:
-    """Number of elements whose bit patterns differ (float32 scalar)."""
+    """Number of elements whose bit patterns differ (float32 scalar).  On
+    ``Sharded`` leaves each distinct block is compared once."""
     total = None
     for la, lb in zip(tree_leaves(a), tree_leaves(b)):
-        n = (bitcast_int(la) != bitcast_int(lb)).sum(dtype=torch.float32)
-        total = n if total is None else total + n
+        if isinstance(la, Sharded):
+            n = None
+            for _, (ta, tb) in _blocks(la, lb):
+                k = (bitcast_int(ta) != bitcast_int(tb)).sum()
+                n = k if n is None else n + k.to(n.device)
+            n = n.to(torch.float32)
+        else:
+            n = (bitcast_int(la) != bitcast_int(lb)).sum(dtype=torch.float32)
+        total = n if total is None else total + n.to(total.device)
     return total if total is not None else torch.zeros((), dtype=torch.float32)
 
 
 def majority_vote(a: Tree, b: Tree, c: Tree) -> Tree:
     """Elementwise bitwise 2-of-3 majority (exact for replicated
-    transitions)."""
+    transitions); member by member on ``Sharded`` leaves of one layout."""
 
     def vote(x, y, z):
         ux, uy, uz = bitcast_int(x), bitcast_int(y), bitcast_int(z)
         v = (ux & uy) | (ux & uz) | (uy & uz)
         return v.to(torch.bool) if x.dtype == torch.bool else bitcast_back(v, x.dtype)
 
-    return tree_map(vote, a, b, c)
+    def leaf(x, y, z):
+        if isinstance(x, Sharded):
+            return map_blocks(lambda _, *ts: vote(*ts), x, y, z)
+        return vote(x, y, z)
+
+    return tree_map(leaf, a, b, c)
 
 
 _FNV = 16777619
 
 
-def _words(leaf: torch.Tensor, rows: int) -> torch.Tensor:
-    """(rows, n) int64 holding each element's bits as a uint32 word:
-    narrow types zero-extend, 64-bit types keep their low word (the JAX
-    package's ``bitcast_uint(x).astype(uint32)``)."""
+def _words(leaf: torch.Tensor) -> torch.Tensor:
+    """int64 of ``leaf``'s shape holding each element's bits as a uint32
+    word: narrow types zero-extend, 64-bit types keep their low word (the
+    JAX package's ``bitcast_uint(x).astype(uint32)``)."""
     s = bitcast_int(leaf)
     nbytes = s.element_size()
     mask = M32 if nbytes >= 4 else (1 << (8 * nbytes)) - 1
-    return s.reshape(rows, -1).to(torch.int64) & mask
+    return s.to(torch.int64) & mask
+
+
+def _leaf_sums(v: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows, 4) int64: the four accumulators' wraparound sums over each
+    row of ``v`` (words) weighted by ``idx`` (each word's position in its
+    row, broadcast to ``v``), not yet masked."""
+    w = (mul32(idx, MIX) + PHI) & M32
+    wphi = mul32(w, PHI)
+    parts = [mul32(v, w), mul32(v ^ w, MIX), mul32(v ^ wphi, _FNV), ((v + w) & M32) ^ (v >> 7)]
+    return torch.stack([x.expand(v.shape).reshape(rows, -1).sum(dim=1) for x in parts], dim=1)
+
+
+def _sharded_sums(x: Sharded, rows: int, lead: int) -> torch.Tensor:
+    """``_leaf_sums`` of a ``Sharded`` leaf from its distinct blocks, each
+    word weighted by its *global* position (per-dimension iotas, as the
+    JAX package's ``fingerprint`` weights a leaf it never flattens): the
+    sums are those of the unsharded leaf, since wraparound sums do not
+    depend on order.  ``lead`` is 1 when the leaf leads with ``rows``."""
+    inner = tuple(x.shape)[lead:]
+    strides = [math.prod(inner[d + 1:]) for d in range(len(inner))]
+    acc = torch.zeros((rows, 4), dtype=torch.int64, device=x.device)
+    for blk, (t,) in _blocks(x):
+        idx = torch.zeros((), dtype=torch.int64, device=t.device)
+        for d, (sl, st) in enumerate(zip(blk[lead:], strides)):
+            a = torch.arange(sl.start, sl.stop, dtype=torch.int64, device=t.device) * st
+            idx = idx + a.reshape([-1 if j == d else 1 for j in range(len(inner))])
+        r = blk[0] if lead else slice(0, 1)
+        v = _words(t).reshape(r.stop - r.start, *t.shape[lead:])
+        acc[r] += _leaf_sums(v, idx & M32, r.stop - r.start).to(acc.device)
+    return acc
+
+
+def _fingerprint(state: Tree, rows: int, lead: int) -> torch.Tensor:
+    h = None
+    for k, leaf in enumerate(tree_leaves(state)):
+        if isinstance(leaf, Sharded):
+            sums = _sharded_sums(leaf, rows, lead)
+        else:
+            v = _words(leaf).reshape(rows, -1)
+            idx = torch.arange(v.shape[1], dtype=torch.int64, device=v.device) & M32
+            sums = _leaf_sums(v, idx, rows)
+        leaf_h = sums & M32
+        if h is None:
+            h = torch.zeros_like(leaf_h)
+        h = mul32(h, _FNV) ^ ((leaf_h.to(h.device) + (k + 1)) & M32)
+    if h is None:
+        return torch.zeros((rows, 4), dtype=torch.int64)
+    return h
 
 
 def fingerprint_rows(state: Tree, rows: int) -> torch.Tensor:
     """(rows, 4) int64 of uint32 words: the 128-bit ``fingerprint`` of
     each row's view of ``state``, whose leaves all lead with a ``rows``
     axis.  Row r's result equals ``fingerprint`` of the state sliced at
-    r (the JAX package's ``vmap(fingerprint)``)."""
-    h = None
-    for k, leaf in enumerate(tree_leaves(state)):
-        v = _words(leaf, rows)
-        idx = torch.arange(v.shape[1], dtype=torch.int64, device=v.device) & M32
-        w = (mul32(idx, MIX) + PHI) & M32
-        wphi = mul32(w, PHI)
-        h1 = mul32(v, w).sum(dim=1)
-        h2 = mul32(v ^ w, MIX).sum(dim=1)
-        h3 = mul32(v ^ wphi, _FNV).sum(dim=1)
-        h4 = (((v + w) & M32) ^ (v >> 7)).sum(dim=1)
-        leaf_h = torch.stack([h1, h2, h3, h4], dim=1) & M32
-        if h is None:
-            h = torch.zeros_like(leaf_h)
-        h = mul32(h, _FNV) ^ ((leaf_h + (k + 1)) & M32)
-    if h is None:
-        return torch.zeros((rows, 4), dtype=torch.int64)
-    return h
+    r (the JAX package's ``vmap(fingerprint)``).  A ``Sharded`` leaf is
+    read block by block, each distinct block once, and gives the bits of
+    its unsharded value."""
+    return _fingerprint(state, rows, 1)
 
 
 def fingerprint(state: Tree) -> torch.Tensor:
@@ -102,8 +165,9 @@ def fingerprint(state: Tree) -> torch.Tensor:
     of a state tree: four modular accumulators over position-weighted
     words, chained over leaves with the leaf index as salt.  Bitwise equal
     to ``repro.core.redundancy.fingerprint`` (the per-leaf definition, not
-    the flat-stream ``state_hash``)."""
-    return fingerprint_rows(tree_map(lambda x: x.reshape(1, *x.shape), state), 1)[0]
+    the flat-stream ``state_hash``); a ``Sharded`` leaf gives the
+    fingerprint of its unsharded value."""
+    return _fingerprint(state, 1, 0)[0]
 
 
 # --------------------------------------------------------------------------
@@ -144,16 +208,53 @@ def zero_report(device=None) -> dict:
 # --------------------------------------------------------------------------
 # replication helpers
 # --------------------------------------------------------------------------
-def replicate_state(state: Tree, level: int) -> Tree:
+def replica_entry(x, level: int, placement: str = "temporal"):
+    """The spec entry of a replicated ``Sharded`` leaf's replica axis, as
+    the JAX dry-run lays it (``launch/dryrun.py::train_state_specs``):
+    None under temporal placement (each member holds every replica of
+    its block), ``"pod"`` under spatial placement (pod p's members hold
+    replica p's blocks), which needs a ``pod`` axis whose size divides
+    ``level``."""
+    if placement != "spatial":
+        return None
+    pods = x.mesh.shape.get("pod")
+    if pods is None or level % pods:
+        raise ValueError(
+            f"a spatially placed level-{level} state on {x.mesh!r} needs a 'pod' axis "
+            f"whose size divides {level}")
+    return "pod"
+
+
+def stack_replicas(reps: list, placement: str = "temporal", *, copy: bool = True) -> Tree:
+    """The replicas' trees stacked on a leading replica axis, leaf by
+    leaf, each replica's leaf let go once stacked (``reps`` is a list of
+    flat leaf lists, emptied as it goes): the peak is the replicas and
+    one stacked leaf, not twice the replicas.  A ``Sharded`` leaf keeps
+    its layout with the replica entry prepended (``replica_entry``);
+    with ``copy=False`` a member that holds one replica takes a view of
+    it."""
+    stacked = []
+    for i in range(len(reps[0])):
+        xs = [r[i] for r in reps]
+        if isinstance(xs[0], Sharded):
+            stacked.append(stack(xs, replica_entry(xs[0], len(xs), placement), copy=copy))
+        else:
+            stacked.append(torch.stack(xs))
+        del xs
+        for r in reps:
+            r[i] = None
+    return stacked
+
+
+def replicate_state(state: Tree, level: int, placement: str = "temporal") -> Tree:
     """Duplicate the memory contents -> leading replica axis of size
-    ``level`` (real copies: replicas are written independently)."""
+    ``level`` (real copies: replicas are written independently).  A
+    ``Sharded`` leaf is copied member by member into its replicated
+    layout (``replica_entry``)."""
     if level == 1:
         return state
-    if any(isinstance(x, Sharded) for x in tree_leaves(state)):
-        raise NotImplementedError(
-            f"a level-{level} replicated cell whose state is laid out on a mesh is not "
-            f"ported; {REPLICATED_SHARDED_ITEM} ports it")
-    return tree_map(lambda x: x.unsqueeze(0).repeat(level, *([1] * x.dim())), state)
+    leaves, treedef = tree_flatten(state)
+    return tree_unflatten(treedef, stack_replicas([list(leaves) for _ in range(level)], placement))
 
 
 def canonical_state(state: Tree, level: int) -> Tree:
@@ -197,7 +298,8 @@ def replicated_transition(
     transition per replica, reading replica r of every read cell that is
     replicated at the same level (broadcast otherwise), then the armed
     fault.  (The JAX package vmaps over the replica axis; a loop gives
-    the same per-replica results.)"""
+    the same per-replica results.)  ``Sharded`` leaves are laid out with
+    the replica entry prepended (``replica_entry``)."""
     R = cell.redundancy.level
     canon = _canonical_reads(cell, prevs, levels)
     outs = []
@@ -208,14 +310,9 @@ def replicated_transition(
         }
         leaves, treedef = tree_flatten(_call(cell, reads))
         outs.append(leaves)
-    # stack leaf by leaf, letting each replica's leaf go once stacked: the
-    # peak is the replicas and one stacked leaf, not twice the replicas
-    stacked = []
-    for i in range(len(outs[0])):
-        stacked.append(torch.stack([o[i] for o in outs]))
-        for o in outs:
-            o[i] = None
-    new = tree_unflatten(treedef, stacked)
+    # a Sharded replica is handed to its pod as a view under spatial
+    # placement (it is a fresh allocation), stacked member by member else
+    new = tree_unflatten(treedef, stack_replicas(outs, cell.redundancy.placement, copy=False))
     if fault is not None:
         new = inject(fault, cell_id=cell_id, step=step, replicated_state=new)
     return new
@@ -249,8 +346,9 @@ def run_transition(
             leaves, treedef = tree_flatten(new)
             if (fault.cell_id, fault.step) == (cell_id, step) and 0 <= fault.leaf < len(leaves):
                 one = dataclasses.replace(fault, leaf=0)
-                hit = inject(one, cell_id=cell_id, step=step,
-                             replicated_state=[leaves[fault.leaf].unsqueeze(0)])
+                x = leaves[fault.leaf]
+                lead = stack([x], copy=False) if isinstance(x, Sharded) else x.unsqueeze(0)
+                hit = inject(one, cell_id=cell_id, step=step, replicated_state=[lead])
                 leaves[fault.leaf] = hit[0][0]
                 new = tree_unflatten(treedef, leaves)
         return new, zero_report()
@@ -274,21 +372,39 @@ def run_transition(
         report["events"] = (diff > 0).to(torch.float32)
         return new, report
 
-    # R == 3: correction by vote
+    # R == 3: correction by vote; the replicas are re-synchronized to the
+    # voted value (prevents divergence)
     if policy.compare == "hash":
         h = torch.stack([fingerprint(r) for r in reps])
         _, idx, per = fingerprint_majority(h)
-        voted = tree_map(lambda x: x[idx], new)
+        out = replicate_state(tree_map(lambda x: x[idx], new), R, policy.placement)
     else:
-        voted = majority_vote(*reps)
-        per = torch.stack([bit_mismatch_elems(r, voted) for r in reps])
+        # leaf by leaf, each replicated leaf let go once voted and
+        # re-replicated: the peak is the replicas and one leaf's vote, not
+        # the replicas, the whole vote and its replicas (a TMR trainer's
+        # state is tens of GB); the counts add up in leaf order, as
+        # bit_mismatch_elems over the whole tree adds them
+        del reps
+        leaves, treedef = tree_flatten(new)
+        del new
+        per = torch.zeros((R,), dtype=torch.float32, device=device)
+        voted = []
+        for i in range(len(leaves)):
+            rs = [leaves[i][r] for r in range(R)]
+            leaves[i] = None
+            v = majority_vote(*rs)
+            n = torch.stack([bit_mismatch_elems([r], [v]) for r in rs])
+            per = n.to(device) if i == 0 else per + n.to(device)
+            del rs
+            voted.append(replicate_state(v, R, policy.placement))
+            del v
+        out = tree_unflatten(treedef, voted)
     if not compare_now:
         per = torch.zeros_like(per)
     report["per_replica"] = (per > 0).to(torch.float32) * torch.clamp(per, min=1.0)
     report["mismatch_elems"] = per.sum()
     report["events"] = (per.sum() > 0).to(torch.float32)
-    # re-synchronize replicas to the voted value (prevents divergence)
-    return replicate_state(voted, R), report
+    return out, report
 
 
 def make_tiebreak(cell: CellType, levels: Mapping[str, int]):
@@ -321,7 +437,7 @@ def make_tiebreak(cell: CellType, levels: Mapping[str, int]):
             pair = box.pop()
             voted = majority_vote(tree_map(lambda x: x[0], pair), tree_map(lambda x: x[1], pair),
                                   third(prevs))
-        return replicate_state(voted, cell.redundancy.level)
+        return replicate_state(voted, cell.redundancy.level, cell.redundancy.placement)
 
     return tiebreak
 

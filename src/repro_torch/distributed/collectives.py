@@ -34,6 +34,9 @@ with error feedback) and ``psum_mean``.  Their trainer user
 (``grad_compression="int8_ef"``) comes with the training half of the
 model-parallel port (ROADMAP item 7b-ii).
 
+Every function records its movement in an active ``wire`` meter (the
+dry-run's collective term; ``wire.py``).
+
 Words are held as the port holds them everywhere: fingerprints as u32
 values in ``int64`` masked with ``M32``, streams as ``int32`` bits.
 """
@@ -47,6 +50,7 @@ import torch
 from ..kernels import ops
 from ..kernels.state_hash import M32
 from ..tree import tree_leaves, tree_map
+from . import wire
 
 Tree = Any
 
@@ -81,6 +85,9 @@ def psum_delta(hs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Over a 2-member axis, ``psum(h) - 2h`` per member: nonzero exactly
     at the words where the two members' values differ.  ``hs[p]`` holds
     u32 words in ``int64`` (``redundancy.fingerprint``); the result too."""
+    if wire.active():
+        wire.record("all-reduce", wire.nbytes(hs[0]), len(hs), members=len(hs),
+                    site="collectives")
     home = hs[0].device
     total = hs[0]
     for h in hs[1:]:
@@ -93,6 +100,9 @@ def all_gather(xs: Sequence[torch.Tensor], *, tiled: bool = False) -> list[torch
     axis (``jax.lax.all_gather``), or with ``tiled`` concatenated along
     axis 0 (``tiled=True``)."""
     join = torch.cat if tiled else torch.stack
+    if wire.active():
+        wire.record("all-gather", wire.nbytes(list(xs)), len(xs), members=len(xs),
+                    site="collectives")
     return _per_device(xs, lambda dev: join([_to(x, dev) for x in xs]))
 
 
@@ -100,6 +110,9 @@ def all_gather(xs: Sequence[torch.Tensor], *, tiled: bool = False) -> list[torch
 # model-axis collectives
 # --------------------------------------------------------------------------
 def _reduce(xs: Sequence[torch.Tensor], op) -> list[torch.Tensor]:
+    if wire.active():
+        wire.record("all-reduce", wire.nbytes(xs[0]), len(xs), members=len(xs),
+                    site="collectives")
     home = xs[0].device
     total = xs[0]
     for x in xs[1:]:
@@ -128,6 +141,9 @@ def all_to_all(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     tiled=False)`` over n members: member j's (n, ...) tensor is split
     along axis 0 and piece i goes to member i, which stacks what it
     receives in source order, (n src, ...)."""
+    if wire.active():
+        wire.record("all-to-all", wire.nbytes(xs[0]), len(xs), members=len(xs),
+                    site="collectives")
     return [torch.stack([_to(x[i], dst.device) for x in xs]) for i, dst in enumerate(xs)]
 
 
@@ -140,6 +156,8 @@ def bcast_pytree(trees: Sequence[Tree], src) -> list[Tree]:
     lose -0.0 signs and NaN payloads) and needs no host synchronisation.
     Each member gets its own copy, also on a shared card."""
     layout = ops.word_layout(trees[0])
+    wire.record("collective-permute", 4 * layout.total, len(trees), members=len(trees) - 1,
+                site="collectives")
     if isinstance(src, torch.Tensor):
         flats = [ops.flatten_to_u32(t, layout=layout) for t in trees]
         home = flats[0].device
@@ -159,6 +177,7 @@ def exchange_pytree(trees: Sequence[Tree]) -> list[Tree]:
     if len(trees) != 2:
         raise ValueError(f"exchange_pytree swaps a pair; got {len(trees)} members")
     layout = ops.word_layout(trees[0])
+    wire.record("collective-permute", 4 * layout.total, 2, members=2, site="collectives")
     flats = [ops.flatten_to_u32(t, layout=layout) for t in trees]
     return [ops.unflatten_from_u32(_to(flats[1 - p], _device(t)), t, layout=layout)
             for p, t in enumerate(trees)]
@@ -169,6 +188,7 @@ def gather_words(trees: Sequence[Tree], dev: torch.device) -> torch.Tensor:
     received streams of ``gather_replicas``, before they are unpacked;
     the spatial TMR vote reads them as they are."""
     layout = ops.word_layout(trees[0])
+    wire.record("all-gather", 4 * layout.total * len(trees), len(trees), site="collectives")
     return torch.stack([_to(ops.flatten_to_u32(t, layout=layout), dev) for t in trees])
 
 
@@ -183,7 +203,10 @@ def gather_replicas(trees: Sequence[Tree]) -> list[Tree]:
         reps = [ops.unflatten_from_u32(g[r], trees[0], layout=layout) for r in range(len(trees))]
         return tree_map(lambda *xs: torch.stack(xs), *reps)
 
-    return _per_device(trees, make)
+    wire.record("all-gather", 4 * layout.total * len(trees), len(trees), members=len(trees),
+                site="collectives")
+    with wire.paused():
+        return _per_device(trees, make)
 
 
 # --------------------------------------------------------------------------
@@ -222,6 +245,10 @@ def compressed_psum_int8(
     if n % (n_dev * _QBLOCK):
         raise ValueError(f"gradient of {n} elements is not a multiple of {n_dev} x {_QBLOCK}")
     c = n // n_dev
+    # each hop moves the int8 codes and one f32 scale a block
+    hop = n + 4 * (n // _QBLOCK)
+    wire.record("all-to-all", hop, n_dev, members=n_dev, site="collectives")
+    wire.record("all-gather", hop, n_dev, members=n_dev, site="collectives")
     sends, errs = [], []
     for flat, ef in zip(flats, efs):
         x = flat + ef
@@ -271,6 +298,9 @@ def int8_mean_error(flats: Sequence[torch.Tensor], efs: Sequence[torch.Tensor],
 def psum_mean(flats: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """The members' mean (``jax.lax.pmean``): their sum, member by member
     in order, divided by their count."""
+    if wire.active():
+        wire.record("all-reduce", wire.nbytes(flats[0]), len(flats), members=len(flats),
+                    site="collectives")
     home = flats[0].device
     total = flats[0]
     for f in flats[1:]:

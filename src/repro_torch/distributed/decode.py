@@ -47,6 +47,7 @@ from ..kernels.paged_decode import (NEG_INF, attend, dense_decode_on_card, dense
                                     dense_mla_decode, gate, paged_gqa_attention,
                                     paged_gqa_partials, ring_lane_pos)
 from . import collectives as C
+from . import wire
 
 
 def _tp(ctx) -> tuple[Optional[str], int]:
@@ -162,10 +163,11 @@ def _combine_partials(ctxs, ms, ls):
     each a member.  ``m_g`` is held at ``NEG_INF`` or above: K5's empty
     partial has m = -inf, and a row that is empty on every member (an
     inactive slot) then combines to 0 rather than NaN."""
-    m_g = [g.clamp(min=NEG_INF) for g in C.pmax(ms)]
-    alpha = [torch.exp(m - g) for m, g in zip(ms, m_g)]
-    l_g = C.psum([l * a for l, a in zip(ls, alpha)])[0]
-    ctx_g = C.psum([x * a[..., None] for x, a in zip(ctxs, alpha)])[0]
+    with wire.over((wire.MODEL_AXIS,)):
+        m_g = [g.clamp(min=NEG_INF) for g in C.pmax(ms)]
+        alpha = [torch.exp(m - g) for m, g in zip(ms, m_g)]
+        l_g = C.psum([l * a for l, a in zip(ls, alpha)])[0]
+        ctx_g = C.psum([x * a[..., None] for x, a in zip(ctxs, alpha)])[0]
     return ctx_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 

@@ -31,6 +31,7 @@ does the work of the partitioner explicitly, by the same specs
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..tree import tree_flatten, tree_paths, tree_unflatten
+from . import wire
 
 Pytree = Any
 
@@ -104,8 +106,12 @@ class ShardCtx:
         layers raise otherwise), and a layout that neither divides falls
         back to each data member's own rows, as JAX's ``None`` does;
       * ``manual_axes`` are dropped from ``constrain``'s spec, as in JAX;
-      * ``seq_shard_acts``, ``remat``, ``pallas`` and ``unroll`` steer
-        JAX's partitioner and compiler (the port's layers run as a Python
+      * ``remat`` is honoured: with grad enabled ``transformer.forward``
+        checkpoints each layer as JAX does (``"full"``: nothing saved,
+        ``"dots"``: the outputs of products with no batch dimension
+        saved, ``"none"``: every activation kept);
+      * ``seq_shard_acts``, ``pallas`` and ``unroll`` steer JAX's
+        partitioner and compiler (the port's layers run as a Python
         loop, activations live on the controller's device, and the
         kernels are chosen by device).  The port does not honour them,
         and a value other than the default raises ``NotImplementedError``.
@@ -129,6 +135,8 @@ class ShardCtx:
                                      # enclosing shard_map)
 
     def __post_init__(self):
+        if self.remat not in ("full", "dots", "none"):
+            raise ValueError(f"ShardCtx.remat={self.remat!r}: full | dots | none")
         for name, default in _UNHONOURED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -200,14 +208,10 @@ class ShardCtx:
 
 
 #: the fields the port does not honour, with the defaults it accepts
-_UNHONOURED = {"seq_shard_acts": False, "remat": "full", "pallas": None, "unroll": False}
+_UNHONOURED = {"seq_shard_acts": False, "pallas": None, "unroll": False}
 
 LOCAL = ShardCtx()
 
-#: the ROADMAP item that ports a replicated (DMR/TMR) cell whose state
-#: holds ``Sharded`` leaves (JAX's dry-run prepends a replica axis to
-#: their specs)
-REPLICATED_SHARDED_ITEM = "ROADMAP item 7d (a replicated trainer on a mesh)"
 
 
 # --------------------------------------------------------------------------
@@ -414,14 +418,21 @@ def spec_block(mesh, spec, shape, coord) -> tuple:
     """The block (one slice a dimension) of a global ``shape`` that the
     member at ``coord`` (a mesh-grid index) holds under ``spec``.  An
     entry of several axes splits its dimension first axis major."""
+    names = tuple(mesh.axis_names)
+    return _spec_block(names, tuple(mesh.shape[a] for a in names), tuple(spec), tuple(shape),
+                       tuple(int(c) for c in coord))
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _spec_block(names, sizes, spec, shape, coord) -> tuple:
     out = []
     for d, n in enumerate(shape):
         axes = _entry_axes(spec[d]) if d < len(spec) else ()
         k, idx = 1, 0
         for a in axes:
-            size = mesh.shape[a]
-            idx = idx * size + coord[mesh.axis_names.index(a)]
-            k *= size
+            i = names.index(a)
+            idx = idx * sizes[i] + coord[i]
+            k *= sizes[i]
         if n % k:
             raise ValueError(f"dimension {d} of {tuple(shape)} does not divide over {axes}")
         out.append(slice(idx * (n // k), (idx + 1) * (n // k)))
@@ -430,6 +441,19 @@ def spec_block(mesh, spec, shape, coord) -> tuple:
 
 def _key(block: tuple) -> tuple:
     return tuple((s.start, s.stop) for s in block)
+
+
+def _itemsize(dtype) -> int:
+    return 1 if dtype == torch.bool else dtype.itemsize
+
+
+def _foreign(index: tuple, own: tuple) -> int:
+    """Elements of the region ``index`` that the block ``own`` does not
+    hold (what a member must receive to assemble it)."""
+    n = math.prod(s.stop - s.start for s in index)
+    both = math.prod(max(0, min(s.stop, b.stop) - max(s.start, b.start))
+                     for s, b in zip(index, own))
+    return n - both
 
 
 class Sharded:
@@ -443,7 +467,7 @@ class Sharded:
     is ``full()``; ``x[i]`` indexes an unsharded leading axis (a stacked
     layer), giving views of the members' tensors."""
 
-    __slots__ = ("mesh", "spec", "shape", "dtype", "shards")
+    __slots__ = ("mesh", "spec", "shape", "dtype", "shards", "_blocks")
 
     def __init__(self, mesh, spec, shape, dtype, shards: np.ndarray):
         self.mesh = mesh
@@ -451,6 +475,7 @@ class Sharded:
         self.shape = torch.Size(shape)
         self.dtype = dtype
         self.shards = shards
+        self._blocks = None
 
     # -- tensor-like surface ---------------------------------------------
     @property
@@ -508,11 +533,30 @@ class Sharded:
                        first.dtype if isinstance(first, torch.Tensor) else self.dtype, out)
 
     def __getitem__(self, i):
-        if not isinstance(i, int):
-            raise TypeError("a Sharded leaf is indexed by an int on its leading axis only")
-        if len(self.spec) and self.spec[0] is not None:
-            raise ValueError(f"the leading axis of {self!r} is sharded")
-        return self.map(lambda t: t[i], shape=self.shape[1:], spec=P(*tuple(self.spec)[1:]))
+        """Index ``i`` (an int, or a 0-d integer tensor) of the leading
+        axis.  Unsharded there (a stacked layer, a temporal replica
+        axis): views of the members' tensors.  Sharded there (a replica
+        axis on ``"pod"``): every member takes the view of the member
+        that differs from it only along the leading entry's axes and
+        holds row ``i`` (pod i's blocks), so the result is laid out by
+        the rest of the spec with its tensors where row ``i`` lives."""
+        rest = P(*tuple(self.spec)[1:])
+        if not len(self.spec) or self.spec[0] is None:
+            if not isinstance(i, (int, torch.Tensor)):
+                raise TypeError("a Sharded leaf is indexed by an int on its leading axis only")
+            return self.map(lambda t: t[i], shape=self.shape[1:], spec=rest)
+        i = int(i)
+        out, made = np.empty(self.shards.shape, dtype=object), {}
+        for c in self.coords():
+            for m in self.mesh.members(c, _entry_axes(self.spec[0])):
+                lead = self.block(m)[0]
+                if lead.start <= i < lead.stop:
+                    t = self.shards[m]
+                    if (id(t), i) not in made:
+                        made[(id(t), i)] = t[i - lead.start]
+                    out[c] = made[(id(t), i)]
+                    break
+        return Sharded(self.mesh, rest, self.shape[1:], self.dtype, out)
 
     def clone(self) -> "Sharded":
         return self.map(torch.clone)
@@ -528,6 +572,9 @@ class Sharded:
         if len(blocks) == 1:
             t = next(iter(blocks.values()))[1]
             return t if t.device == dev else t.to(dev)
+        if wire.active():
+            wire.record("all-gather", self.numel() * _itemsize(self.dtype), len(blocks),
+                        site="full", axes=wire.spec_axes(*self.spec))
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for key, (_, t) in blocks.items():
             out[tuple(slice(a, b) for a, b in key)] = t.to(dev)
@@ -536,13 +583,15 @@ class Sharded:
     def blocks(self) -> list:
         """``(block, tensor)`` for each distinct block of the global
         tensor, from its first member: every element once."""
-        seen, out = set(), []
-        for c in self.coords():
-            blk = self.block(c)
-            if _key(blk) not in seen:
-                seen.add(_key(blk))
-                out.append((blk, self.shards[c]))
-        return out
+        if self._blocks is None:
+            seen, out = set(), []
+            for c in self.coords():
+                blk = self.block(c)
+                if _key(blk) not in seen:
+                    seen.add(_key(blk))
+                    out.append((blk, self.shards[c]))
+            self._blocks = out
+        return list(self._blocks)
 
     def region(self, index: tuple, coord=None, device=None) -> torch.Tensor:
         """The global region ``index`` (one slice a dimension) on member
@@ -557,18 +606,17 @@ class Sharded:
         for c in coords:
             if _key(self.block(c)) == _key(index) and self.shards[c].device == dev:
                 return self.shards[c]
+        if wire.active():
+            wire.record("collective-permute",
+                        _foreign(index, self.block(coords[0])) * _itemsize(self.dtype), 2,
+                        site="region", axes=wire.spec_axes(*self.spec))
         out = torch.empty([s.stop - s.start for s in index], dtype=self.dtype, device=dev)
-        done = set()
-        for c in self.coords():
-            blk = self.block(c)
-            if _key(blk) in done:
-                continue
+        for blk, t in self.blocks():
             lo = [max(s.start, b.start) for s, b in zip(index, blk)]
             hi = [min(s.stop, b.stop) for s, b in zip(index, blk)]
             if any(a >= b for a, b in zip(lo, hi)):
                 continue
-            done.add(_key(blk))
-            src = self.shards[c][tuple(slice(a - b.start, z - b.start) for a, z, b in zip(lo, hi, blk))]
+            src = t[tuple(slice(a - b.start, z - b.start) for a, z, b in zip(lo, hi, blk))]
             out[tuple(slice(a - s.start, z - s.start) for a, z, s in zip(lo, hi, index))] = src.to(dev)
         return out
 
@@ -588,20 +636,27 @@ def map_blocks(fn, x: Sharded, *others: Sharded) -> Sharded:
     return Sharded(x.mesh, x.spec, x.shape, out.flat[0].dtype, out)
 
 
-def stack(xs) -> "Sharded":
+def stack(xs, entry=None, *, copy: bool = True) -> "Sharded":
     """``torch.stack`` of ``Sharded`` leaves of one layout along a new
-    leading (unsharded) axis, member by member; members that share every
-    tensor share the stacked one."""
+    leading axis laid out by ``entry`` (None: unsharded, every member
+    holds every item; a mesh axis such as ``"pod"``: member c holds the
+    items of its block of the new axis), member by member; members that
+    share every tensor they stack share the stacked one.  With
+    ``copy=False`` a block of one item is a view of that item's tensor
+    (no copy; a freshly computed replica handed over to its pod)."""
     x0 = xs[0]
+    spec = P(entry, *tuple(x0.spec))
+    shape = (len(xs),) + tuple(x0.shape)
     made: dict = {}
     out = np.empty(x0.shards.shape, dtype=object)
     for c in x0.coords():
-        ts = [x.local(c) for x in xs]
-        key = tuple(id(t) for t in ts)
+        lead = spec_block(x0.mesh, spec, shape, c)[0]
+        ts = [x.local(c) for x in xs[lead.start:lead.stop]]
+        key = (lead.start,) + tuple(id(t) for t in ts)
         if key not in made:
-            made[key] = torch.stack(ts)
+            made[key] = ts[0].unsqueeze(0) if len(ts) == 1 and not copy else torch.stack(ts)
         out[c] = made[key]
-    return Sharded(x0.mesh, P(None, *tuple(x0.spec)), (len(xs),) + tuple(x0.shape), x0.dtype, out)
+    return Sharded(x0.mesh, spec, shape, x0.dtype, out)
 
 
 def reshard(x, spec, mesh=None) -> Sharded:
@@ -619,14 +674,22 @@ def reshard(x, spec, mesh=None) -> Sharded:
     spec = P(*tuple(spec)) if not isinstance(spec, PartitionSpec) else spec
     out = np.empty(mesh.devices.shape, dtype=object)
     made: dict = {}
+    moved = 0
+    metered = wire.active() and mesh is x.mesh
     for c in np.ndindex(*mesh.devices.shape):
         dev = mesh.devices[c]
         blk = spec_block(mesh, spec, x.shape, c)
+        if metered:
+            moved += _foreign(blk, x.block(c))
         key = (_key(blk), str(dev))
         if key not in made:
             own = c if mesh is x.mesh else None
-            made[key] = x.region(blk, coord=own, device=dev)
+            with wire.paused():
+                made[key] = x.region(blk, coord=own, device=dev)
         out[c] = made[key]
+    if metered:  # every member receives what its own old block does not hold
+        wire.record("collective-permute", moved * _itemsize(x.dtype), 2, site="reshard",
+                    axes=wire.spec_axes(*x.spec))
     return Sharded(mesh, spec, x.shape, x.dtype, out)
 
 

@@ -30,8 +30,10 @@ import dataclasses
 import functools
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
+from ..distributed.sharding import Sharded
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .flash_attention import flash_attention
 from .ssd_scan import ssd_scan
@@ -183,19 +185,79 @@ def tiebreak_vote(disagreeing: list, third_fn):
     packed into rows 0-1 of the word streams and the list is emptied, so
     that, when the caller holds no other reference, their memory returns
     before ``third_fn()`` computes the third transition into row 2.  Then
-    one K4 launch votes.  Returns (voted tree, counts (3,) int32)."""
+    K4 votes.  Returns (voted tree, counts (3,) int32).
+
+    The vote is by device: each device's distinct blocks (every block of
+    a ``Sharded`` leaf that some member holds there, once, and the plain
+    leaves on that device) are packed into that device's word streams,
+    so a block shared by several members is voted once and nothing
+    crosses between devices.  K4 launches = the number of distinct
+    devices holding the state (1 for a plain state or a mesh of one
+    card); the counts are summed over them."""
     leaves, treedef = tree_flatten(disagreeing[0])
-    layout = word_layout(disagreeing[0], lead=1)
-    like = tree_unflatten(treedef, [torch.empty(x.shape[1:], dtype=x.dtype, device="meta")
-                                    for x in leaves])
-    flats = torch.empty((3, layout.padded(VOTE_BLOCK)), dtype=torch.int32, device=leaves[0].device)
-    _pack_into(flats[:2], leaves, layout)
+    reps = [[x[r] for x in leaves] for r in (0, 1)]
     del leaves
+    pieces, layouts = _pieces(reps[0])
+    by_dev: dict = {}
+    for p in pieces:
+        by_dev.setdefault(_piece(reps[0], *p).device, []).append(p)
+    streams = {}
+    for dev, ps in by_dev.items():
+        ts = [_piece(reps[0], *p) for p in ps]
+        layout = word_layout(ts)
+        flats = torch.empty((3, layout.padded(VOTE_BLOCK)), dtype=torch.int32, device=dev)
+        _pack_into(flats[0:1], ts, layout)
+        _pack_into(flats[1:2], [_piece(reps[1], *p) for p in ps], layout)
+        likes = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in ts]
+        streams[dev] = (ps, layout, flats, likes)
+        del ts
+    del reps
     disagreeing.clear()
-    _pack_into(flats[2:], tree_leaves(third_fn()), layout)
-    voted, counts = tmr_vote(flats[0], flats[1], flats[2])
-    del flats
-    return unflatten_from_u32(voted, like, layout=layout), counts
+    third = tree_leaves(third_fn())
+    voted, counts = {}, None
+    for dev, (ps, layout, flats, likes) in streams.items():
+        _pack_into(flats[2:], [_piece(third, *p) for p in ps], layout)
+        v, cnt = tmr_vote(flats[0], flats[1], flats[2])
+        counts = cnt if counts is None else counts + cnt.to(counts.device)
+        for p, t in zip(ps, unflatten_from_u32(v, likes, layout=layout)):
+            voted[p] = t
+    del third, streams
+    out = []
+    for i, lay in enumerate(layouts):
+        if lay is None:
+            out.append(voted[(i, None)])
+            continue
+        mesh, spec, shape, dtype, owner = lay
+        shards = np.empty(owner.shape, dtype=object)
+        for c in np.ndindex(*owner.shape):
+            shards[c] = voted[(i, owner[c])]
+        out.append(Sharded(mesh, spec, shape, dtype, shards))
+    return tree_unflatten(treedef, out), counts
+
+
+def _pieces(leaves: list) -> tuple[list, list]:
+    """``tiebreak_vote``'s pieces, ``(leaf, coord)``: each plain leaf
+    (coord None) and each distinct block of a ``Sharded`` leaf; and each
+    leaf's layout (None for a plain leaf).  A function of its own so
+    that no loop variable keeps a replica's leaf alive past it."""
+    pieces, layouts = [], []
+    for i, x in enumerate(leaves):
+        if isinstance(x, Sharded):
+            first = {id(t): c for c, t in x.distinct()}
+            owner = np.empty(x.shards.shape, dtype=object)
+            for c in x.coords():
+                owner[c] = first[id(x.local(c))]
+            layouts.append((x.mesh, x.spec, x.shape, x.dtype, owner))
+            pieces += [(i, c) for c, _ in x.distinct()]
+        else:
+            layouts.append(None)
+            pieces.append((i, None))
+    return pieces, layouts
+
+
+def _piece(leaves: list, i: int, coord):
+    x = leaves[i]
+    return x if coord is None else x.local(coord)
 
 
 def fingerprint_fused(state: Tree) -> torch.Tensor:

@@ -181,3 +181,63 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> float:
         )
     total += d  # final norm
     return float(total)
+
+
+# --------------------------------------------------------------------------
+# the dry-run's cells (``launch/dryrun.py``)
+# --------------------------------------------------------------------------
+def segment_counts(cfg: ModelConfig) -> list[int]:
+    """Scan lengths of each homogeneous layer segment (mirrors
+    transformer.segment_plan)."""
+    if cfg.mixer_type == "mamba2":
+        if cfg.shared_attn_every:
+            return [cfg.n_layers // cfg.shared_attn_every]
+        return [cfg.n_layers]
+    if cfg.mixer_type == "moe" and cfg.moe and cfg.moe.n_dense_layers:
+        return [cfg.moe.n_dense_layers, cfg.n_layers - cfg.moe.n_dense_layers]
+    return [cfg.n_layers]
+
+
+def with_segment_counts(cfg: ModelConfig, counts: list[int]) -> ModelConfig:
+    """A config whose segments have the given (small) counts — used by the
+    dry-run's layer-differencing cost extraction."""
+    if cfg.mixer_type == "mamba2":
+        k = cfg.shared_attn_every or 1
+        return dataclasses.replace(cfg, n_layers=counts[0] * k)
+    if cfg.mixer_type == "moe" and cfg.moe and cfg.moe.n_dense_layers:
+        nd, nm = counts
+        return dataclasses.replace(
+            cfg, n_layers=nd + nm,
+            moe=dataclasses.replace(cfg.moe, n_dense_layers=nd),
+        )
+    return dataclasses.replace(cfg, n_layers=counts[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (input-shape) cell: what gets lowered in the dry-run."""
+
+    name: str           # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str           # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def sub_quadratic(cfg: ModelConfig) -> bool:
+    """Can this arch run long_500k? (SSM/hybrid state or sliding window.)"""
+    return cfg.mixer_type == "mamba2" or cfg.window is not None
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if sub_quadratic(cfg):
+        names.append("long_500k")
+    return names

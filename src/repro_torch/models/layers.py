@@ -36,12 +36,14 @@ other route).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed import decode as DD
+from ..distributed import wire
 from ..distributed.sharding import Sharded
 from ..kernels.paged_decode import NEG_INF, attend, dense_decode_on_card, dense_gqa_view, dense_mla_decode
 from ..kernels.paged_decode import gate as _gate
@@ -69,10 +71,13 @@ def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
     (row-parallel: ``wo``, ``w2``, an FSDP-sharded input dimension), and
     the output ranges are concatenated (column-parallel: ``wq``, ``w1``,
     the vocab-sharded ``lm_head``).  A replicated weight is one
-    product."""
+    product.  An active ``wire`` meter records what a deployment moves
+    for it (``_record_matmul``)."""
     if not isinstance(w, Sharded):
         return x @ (w.T if transpose else w)
     kdim, ndim_ = (1, 0) if transpose else (0, 1)
+    if wire.active():
+        _record_matmul(x, w, kdim, ndim_)
     cols: dict = {}
     for c in w.coords():
         blk = w.block(c)
@@ -80,7 +85,7 @@ def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
         parts = cols.setdefault((ns.start, ns.stop), {})
         parts.setdefault((ks.start, ks.stop), w.local(c))
     outs = []
-    for _, parts in sorted(cols.items()):
+    for (n0, n1), parts in sorted(cols.items()):
         acc = None
         for (k0, k1), t in sorted(parts.items()):
             xk = x if len(parts) == 1 else x[..., k0:k1]
@@ -90,7 +95,41 @@ def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
             else:
                 acc = y.float().to(x.device) if acc is None else acc + y.float().to(x.device)
         outs.append(acc.to(x.dtype))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat(outs, dim=-1)
+
+
+def _record_matmul(x: torch.Tensor, w: Sharded, kdim: int, ndim_: int) -> None:
+    """The movements of ``matmul``'s product with ``w`` as an FSDP and
+    tensor-parallel deployment makes them, by the axes of ``w``'s spec:
+
+      * the axes other than the model axis (FSDP): every member gathers
+        the weight block that the model axis leaves it, in the weight's
+        dtype (an all-gather over those axes, site ``fsdp``);
+      * the model axis on the contraction (row-parallel): the f32
+        partial products summed over it (an all-reduce, site ``matmul``);
+      * the model axis on the output (column-parallel): the output
+        ranges joined as the controller joins them (an all-gather, site
+        ``matmul``; a deployment that keeps them split into the next
+        row-parallel product moves nothing here).
+
+    Activations are the whole batch's (see ``wire``)."""
+    axes = [wire.spec_axes(w.spec[d] if len(w.spec) > d else None) for d in (kdim, ndim_)]
+    ways = lambda names: math.prod(w.mesh.shape[a] for a in names)
+    km, nm = (ways([a for a in ax if a == wire.MODEL_AXIS]) for ax in axes)
+    fsdp = tuple(a for ax in axes for a in ax if a != wire.MODEL_AXIS)
+    if fsdp:
+        gathered = w.shape[kdim] * w.shape[ndim_] / (km * nm) * w.dtype.itemsize
+        wire.record("all-gather", gathered, ways(fsdp), members=w.mesh.devices.size, site="fsdp",
+                    axes=fsdp)
+    out = (x.numel() // x.shape[-1]) * w.shape[ndim_]
+    model = (wire.MODEL_AXIS,)
+    if km > 1:
+        wire.record("all-reduce", 4 * out, km, members=km, site="matmul", axes=model)
+    if nm > 1:
+        wire.record("all-gather", out * x.element_size(), nm, members=nm, site="matmul",
+                    axes=model)
 
 
 # --------------------------------------------------------------------------

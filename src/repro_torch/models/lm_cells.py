@@ -28,6 +28,7 @@ decoder's transition.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from .. import prng
 from ..core import CellType, MisoProgram
 from ..data.pipeline import DataConfig, data_cell
+from ..distributed import wire
 from ..distributed.collectives import compressed_psum_int8, psum_mean
 from ..distributed.sharding import (LOCAL, P, ShardCtx, Sharded, cache_pspecs, map_blocks,
                                     param_pspecs, shard, zero_pspecs)
@@ -105,10 +107,37 @@ def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict, ctx: ShardCtx =
         loss, metrics = T.loss_fn(cfg, tree_unflatten(treedef, xs), batch, ctx=ctx)
         gs = torch.autograd.grad(loss, targets, allow_unused=True)
     got = {id(t): torch.zeros_like(t) if g is None else g for t, g in zip(targets, gs)}
+    if wire.active() and not ctx.manual_axes:  # int8_ef reduces through its collectives
+        for x in xs:
+            if isinstance(x, Sharded):
+                _record_grad_sums(x)
     grads = [_sum_copies(x.map(lambda t: got[id(t)])) if isinstance(x, Sharded) else got[id(x)]
              for x in xs]
     metrics = tree_map(lambda m: m.detach() if isinstance(m, torch.Tensor) else m, metrics)
     return metrics, tree_unflatten(treedef, grads)
+
+
+def _record_grad_sums(x: Sharded) -> None:
+    """The data-parallel reduction in a ``wire`` meter: each block's
+    gradient is the sum over the members that hold the block (one tensor
+    when they share it on a device, whose autograd sums their
+    cotangents; ``_sum_copies`` across devices), an all-reduce in a
+    group of those members.  A leaf split over axes other than the model
+    axis (FSDP) first has its gathered gradient reduce-scattered over
+    them, as ``layers.matmul`` gathered the weight (site ``fsdp``)."""
+    holders: dict = {}
+    for c in x.coords():
+        blk = x.block(c)
+        holders.setdefault(tuple((s.start, s.stop) for s in blk), [blk, 0])[1] += 1
+    used = wire.spec_axes(*x.spec)
+    axes = tuple(a for a in x.mesh.axis_names if a not in used)
+    fsdp = tuple(a for a in used if a != wire.MODEL_AXIS)
+    ways = math.prod(x.mesh.shape[a] for a in fsdp)
+    for blk, k in holders.values():
+        n = math.prod(s.stop - s.start for s in blk)
+        wire.record("reduce-scatter", n * x.dtype.itemsize, ways, members=k, site="fsdp",
+                    axes=fsdp)
+        wire.record("all-reduce", n * x.dtype.itemsize, k, members=k, site="grad", axes=axes)
 
 
 def _sum_copies(g: Sharded) -> Sharded:
@@ -182,26 +211,53 @@ def per_data_member(bufs: list, ctx: ShardCtx) -> Sharded:
     return Sharded(ctx.mesh, P(), b.shape, b.dtype, out)
 
 
-def train_state_pspecs(cfg: ModelConfig, ctx: ShardCtx, trainer: dict) -> dict:
+def _meta(x) -> torch.Tensor:
+    return torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
+
+
+def train_state_pspecs(cfg: ModelConfig, ctx: ShardCtx, trainer: dict, level: int = 1,
+                       placement: str = "temporal") -> dict:
     """The trainer state's layout, as the JAX dry-run lays it out: params
     by ``param_pspecs``, ``opt`` by ``zero_pspecs`` (ZeRO-1; FSDP too
     with ``ctx.fsdp_axes``), metrics and ``ef`` replicated (``ef`` holds
-    one buffer a data member, ``per_data_member``)."""
+    one buffer a data member, ``per_data_member``; JAX's dry-run declares
+    ``P(dp)``).  A replicated trainer (``level > 1``; ``trainer``'s
+    leaves lead with the replica axis) takes the specs of one replica
+    with the replica entry prepended: None under temporal placement,
+    ``"pod"`` under spatial (``dryrun.py::train_state_specs``)."""
+    if level > 1:
+        trainer = tree_map(lambda x: torch.empty(tuple(x.shape)[1:], dtype=x.dtype,
+                                                 device="meta"), trainer)
     pspec = param_pspecs(ctx, trainer["params"], cfg)
     out = {"params": pspec, "opt": zero_pspecs(ctx, pspec, trainer["opt"], trainer["params"]),
            "metrics": tree_map(lambda _: P(), trainer["metrics"])}
     if "ef" in trainer:
         out["ef"] = P()
+    if level > 1:
+        entry = "pod" if placement == "spatial" else None
+        out = tree_map(lambda sp: P(entry, *tuple(sp)), out)
     return out
 
 
-def place_train_state(cfg: ModelConfig, ctx: ShardCtx, trainer: dict) -> dict:
+def place_train_state(cfg: ModelConfig, ctx: ShardCtx, trainer: dict, level: int = 1,
+                      placement: str = "temporal") -> dict:
     """A trainer state laid out on ``ctx.mesh`` by ``train_state_pspecs``
     (each data member's ``ef`` a copy of the given buffer), or as it is
     without a mesh.  Consumes ``trainer``'s params and optimizer state:
-    each full leaf can be freed once it is sharded."""
+    each full leaf can be freed once it is sharded.  A replicated trainer
+    (``level > 1``, leaves leading with the replica axis: a carried-over
+    JAX state) is laid out replica by replica and stacked into the
+    replicated layout (``redundancy.stack_replicas``)."""
     if ctx.mesh is None:
         return trainer
+    if level > 1:
+        from ..core.redundancy import stack_replicas
+
+        leaves, treedef = tree_flatten(trainer)
+        reps = [tree_flatten(place_train_state(
+            cfg, ctx, tree_unflatten(treedef, [x[r] for x in leaves])))[0] for r in range(level)]
+        del leaves
+        return tree_unflatten(treedef, stack_replicas(reps, placement))
     specs = train_state_pspecs(cfg, ctx, trainer)
     out = {"opt": shard(trainer["opt"], specs["opt"], ctx.mesh, release=True),
            "params": shard(trainer["params"], specs["params"], ctx.mesh, release=True),
@@ -243,8 +299,9 @@ def _compressed_grads(gfn, params, batch, ef: Sharded, ctx: ShardCtx):
     member's own send error)."""
     leaves, treedef = tree_flatten(params)
     flats, mets = member_flats(gfn, params, batch, ef.shape[0], ctx)
-    outs = compressed_psum_int8(flats, [ef.local(h) for h in _data_homes(ctx)])
-    metrics = tree_map(lambda *xs: psum_mean(list(xs))[0], *mets)
+    with wire.over(ctx.data_axes):
+        outs = compressed_psum_int8(flats, [ef.local(h) for h in _data_homes(ctx)])
+        metrics = tree_map(lambda *xs: psum_mean(list(xs))[0], *mets)
     mean = outs[0][0]
     grads, off = [], 0
     for x in leaves:
@@ -377,13 +434,14 @@ class SpecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The JAX package's ``ServeConfig`` (see there), without the
-    dry-run's ``prefill_len``, which comes with the dry-run (ROADMAP
-    item 9)."""
+    """The JAX package's ``ServeConfig`` (see there), field for field."""
 
     batch: int
     max_len: int  # cache capacity
     param_seed: int = 0
+    #: > 0: the fixed-batch program's cache starts at this position (the
+    #: dry-run's warm decode cell, ``make_serve_program``)
+    prefill_len: int = 0
     #: the out-of-band prefill forward covers at most this many prompt
     #: tokens; the tail is walked inside the resident transition (0 =
     #: whole prompt)
@@ -451,8 +509,9 @@ def make_serve_program(cfg: ModelConfig, scfg: ServeConfig, ctx: ShardCtx = LOCA
     and the step count; one greedy ``T.decode_step`` of every row a
     transition.  The weights draw from their own generator seeded from
     the program's seed and ``param_seed``, as the slot program's do.
-    Under a ``ctx`` with a mesh the weights and the cache are sharded
-    leaves (``place_params`` / ``place_cache``)."""
+    With ``prefill_len`` the cache starts at that position (JAX's warm
+    decode cell).  Under a ``ctx`` with a mesh the weights and the cache
+    are sharded leaves (``place_params`` / ``place_cache``)."""
 
     def w_init(gen, device):
         g = torch.Generator(device=device).manual_seed(gen.initial_seed() + scfg.param_seed)
@@ -461,8 +520,12 @@ def make_serve_program(cfg: ModelConfig, scfg: ServeConfig, ctx: ShardCtx = LOCA
     weights = CellType(name="weights", init=w_init, transition=lambda prev: prev["weights"])
 
     def d_init(gen, device):
+        cache = T.init_cache(cfg, scfg.batch, scfg.max_len, device)
+        if scfg.prefill_len:
+            cache["pos"] = torch.full((scfg.batch,), scfg.prefill_len, dtype=torch.int32,
+                                      device=device)
         return {
-            "cache": place_cache(cfg, T.init_cache(cfg, scfg.batch, scfg.max_len, device), ctx),
+            "cache": place_cache(cfg, cache, ctx),
             "tokens": torch.zeros((scfg.batch, 1, *token_dims(cfg)), dtype=torch.int32,
                                   device=device),
             "n_decoded": torch.zeros((), dtype=torch.int32, device=device),

@@ -35,6 +35,7 @@ import math
 import numpy as np
 
 from ..distributed import collectives as coll
+from ..distributed import wire
 from ..distributed.sharding import Sharded
 from .config import ModelConfig, MoEConfig
 from .layers import dense_init, mlp, mlp_init, value
@@ -250,8 +251,9 @@ def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bo
     y = torch.empty_like(x)
     idx_all = torch.empty((B, S, k), dtype=torch.int64, device=x.device)
     if use_ep2d:
-        xf = coll.all_gather([x[rd * B_l:(rd + 1) * B_l].reshape(B_l * S, d)
-                              for rd in range(dp_size)], tiled=True)[0]  # (T, d)
+        with wire.over(tuple(dp)):
+            xf = coll.all_gather([x[rd * B_l:(rd + 1) * B_l].reshape(B_l * S, d)
+                                  for rd in range(dp_size)], tiled=True)[0]  # (T, d)
         T = xf.shape[0]
         gates, idx, aux = _route(_router_logits(xf, p["router"]), moe)
         C = _capacity(T, moe)
@@ -263,7 +265,8 @@ def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bo
             h_full[lo:lo + E_l2] = ffn(coord(r // nm, r % nm), lo, lo + E_l2,
                                        buf.reshape(E, C, d)[lo:lo + E_l2])
             parts.append(_combine(h_full.reshape(E * C, d), slot, keep, gates, T, k))
-        y = coll.psum(parts)[0].reshape(B, S, d)
+        with wire.over(tuple(dp) + (ma,)):
+            y = coll.psum(parts)[0].reshape(B, S, d)
         idx_all = idx.reshape(B, S, k)
     elif seq_shardable:
         S_l = S // nm
@@ -281,19 +284,22 @@ def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bo
                 sends.append(buf.reshape(nm, E_l * C, d))
                 metas.append((slot, keep, gates))
                 idx_all[rows, m * S_l:(m + 1) * S_l] = idx.reshape(B_l, S_l, k)
-            recv = coll.all_to_all(sends)
+            with wire.over((ma,)):
+                recv = coll.all_to_all(sends)
             backs = []
             for m in range(nm):
                 # (nm src, E_l, C, d) -> (E_l, nm * C, d)
                 tok = recv[m].reshape(nm, E_l, C, d).transpose(0, 1).reshape(E_l, nm * C, d)
                 h = ffn(coord(rd, m), m * E_l, (m + 1) * E_l, tok)
                 backs.append(h.reshape(E_l, nm, C, d).transpose(0, 1).reshape(nm, E_l * C, d))
-            ret = coll.all_to_all(backs)
+            with wire.over((ma,)):
+                ret = coll.all_to_all(backs)
             for m in range(nm):
                 slot, keep, gates = metas[m]
                 ym = _combine(ret[m].reshape(E * C, d), slot, keep, gates, B_l * S_l, k)
                 y[rows, m * S_l:(m + 1) * S_l] = ym.reshape(B_l, S_l, d)
-        aux = coll.pmean(auxes)[0]
+        with wire.over(tuple(dp)):
+            aux = coll.pmean(auxes)[0]
     else:
         auxes = []
         for rd in range(dp_size):
@@ -310,9 +316,11 @@ def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bo
                 h_full[lo:lo + E_l] = ffn(coord(rd, m), lo, lo + E_l,
                                           buf.reshape(E, C, d)[lo:lo + E_l])
                 parts.append(_combine(h_full.reshape(E * C, d), slot, keep, gates, B_l * S, k))
-            y[rows] = coll.psum(parts)[0].reshape(B_l, S, d)
+            with wire.over((ma,)):
+                y[rows] = coll.psum(parts)[0].reshape(B_l, S, d)
             idx_all[rows] = idx.reshape(B_l, S, k)
-        aux = coll.pmean(auxes)[0]
+        with wire.over(tuple(dp)):
+            aux = coll.pmean(auxes)[0]
     return (y, aux, idx_all) if with_idx else (y, aux)
 
 

@@ -6,7 +6,8 @@ both with a leading codebook axis for a multi-codebook model,
 ``shared_attn`` for Zamba2's weight-shared block, and
 ``mtp_proj``/``mtp_norm`` for a multi-token-prediction head), each
 segment's leaves carrying a leading layer axis.  Layers run as a Python
-loop over that axis.  Segment kinds:
+loop over that axis; with grad enabled each layer is checkpointed as
+``ctx.remat`` says (``_remat``: JAX's per-layer ``jax.checkpoint``).  Segment kinds:
 
   attn_mlp   -- [norm -> attention (GQA or MLA) -> residual]
                 [norm -> MLP -> residual]
@@ -40,6 +41,7 @@ the same ``ctx``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -344,6 +346,41 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
 
 
 # --------------------------------------------------------------------------
+# rematerialisation (``ShardCtx.remat``)
+# --------------------------------------------------------------------------
+def _save_dots(_ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+    products with no batch dimension (``mm``, ``addmm``; not ``bmm``),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` (one layer) under JAX's per-layer ``jax.checkpoint`` policy:
+    ``"full"`` saves nothing inside the layer and recomputes its forward
+    in the backward (``nothing_saveable``), ``"dots"`` saves only the
+    outputs of products with no batch dimension, ``"none"`` keeps every
+    activation.  Only where grad is enabled: a forward without a
+    backward (serving, prefill) keeps nothing either way.  The
+    recomputation runs the same operators on the same inputs, so the
+    grads are bitwise those of ``"none"``."""
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat={remat!r}: full | dots | none")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if remat == "full":
+        return lambda *a, **k: checkpoint(fn, *a, use_reentrant=False, **k)
+    policy = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a, **k: checkpoint(fn, *a, use_reentrant=False, context_fn=policy, **k)
+
+
+# --------------------------------------------------------------------------
 # forward / decode
 # --------------------------------------------------------------------------
 def forward(
@@ -388,12 +425,13 @@ def forward(
     shared = params.get("shared_attn")
     caches = []
     aux_total = 0.0
+    layer = _remat(_layer_apply, ctx.remat)
     for seg, sp in zip(segment_plan(cfg), params["segments"]):
         couts = []
         for i in range(seg.count):
             lp = tree_map(lambda x, i=i: x[i], sp)
-            h, cout, aux = _layer_apply(lp, h, cfg, seg.kind, positions, None, fill_cache,
-                                        shared, e0, prompt_len=prompt_len, ctx=ctx)
+            h, cout, aux = layer(lp, h, cfg, seg.kind, positions, None, fill_cache,
+                                 shared, e0, prompt_len=prompt_len, ctx=ctx)
             aux_total = aux_total + aux
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)

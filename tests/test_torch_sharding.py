@@ -204,8 +204,13 @@ def test_shard_release_lets_the_tree_go():
     sh = S.shard(tree, {"a": S.P("data", "model"), "b": [S.P()]}, mesh, release=True)
     assert tree == {} and torch.equal(S.unshard(sh)["a"], torch.arange(8.0).reshape(4, 2))
     assert sh["a"].local((1, 1)).tolist() == [[5.0], [7.0]]
-    with pytest.raises(ValueError, match="sharded"):
-        sh["a"][0]
+    # a sharded leading axis indexes too (a replica axis on "pod"): every
+    # member takes the view held by the member of its model column that
+    # holds the row
+    row = sh["a"][1]
+    assert tuple(row.spec) == ("model",) and row.full().tolist() == [2.0, 3.0]
+    assert all(row.local(c).data_ptr() == sh["a"].local((0, c[1]))[1].data_ptr()
+               for c in row.coords())
 
 
 def test_region_and_indexing():
@@ -332,12 +337,22 @@ def test_replicated_weights_are_one_tensor_on_one_device():
     assert sum(len(x.distinct()) for x in flat) < 8 * len(flat)
 
 
-@pytest.mark.parametrize("field,value", [("seq_shard_acts", True), ("remat", "dots"),
-                                         ("pallas", True), ("unroll", True)])
+@pytest.mark.parametrize("field,value", [("seq_shard_acts", True), ("pallas", True),
+                                         ("unroll", True)])
 def test_shard_ctx_refuses_fields_it_does_not_honour(field, value):
     JS.ShardCtx(**{field: value})  # JAX's knobs for its partitioner and compiler
     with pytest.raises(NotImplementedError, match=f"ShardCtx.{field}"):
         S.ShardCtx(**{field: value})
+
+
+@pytest.mark.parametrize("value", ["full", "dots", "none"])
+def test_shard_ctx_honours_remat(value):
+    """``remat`` is honoured (``transformer._remat``); LOCAL keeps JAX's
+    default, and a value JAX's forward would not know raises."""
+    assert JS.ShardCtx(remat=value).remat == S.ShardCtx(remat=value).remat == value
+    assert S.LOCAL.remat == JS.LOCAL.remat == "full"
+    with pytest.raises(ValueError, match="remat"):
+        S.ShardCtx(remat="all")
 
 
 def test_constrain_asserts_a_sharded_layout():

@@ -58,7 +58,6 @@ import torch
 from repro_torch import api as tmiso
 from repro_torch import bridge
 from repro_torch.configs import get_reduced as tget
-from repro_torch.core import RedundancyPolicy
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.distributed import make_mesh
 from repro_torch.distributed.sharding import Sharded, unshard
@@ -412,13 +411,6 @@ def test_state_layout(case):
         assert all(len(v) == 1 for v in ptrs.values())
         assert len({p for v in ptrs.values() for p in v}) == len(ptrs)
     assert not any(isinstance(x, Sharded) for x in tree_leaves(tr["metrics"]))
-
-
-def test_replicated_trainer_on_a_mesh_names_its_item():
-    cfg, tcfg, ctx = port_setup("zero1")
-    prog = TL.make_train_program(cfg, tcfg, ctx).with_policies({"trainer": RedundancyPolicy(level=2)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7d"):
-        tmiso.compile(prog, backend="host", device="cpu").init(0)
 
 
 def test_paths_are_the_unsharded_ones():
