@@ -238,9 +238,10 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   7. analysis -- the static analyzer (``repro_torch.analysis``), which
                  traces transitions to FX graphs on fake CPU tensors:
                  (7a) the CI lane, ``python -m repro_torch.analysis --all
-                 --json --fail-on warning --dag-out DIR``, and
-                 ``tools/validate_dag.py`` over the 23 exports, each a
-                 subprocess that must exit 0; (7b) the full-width
+                 --json --fail-on warning --dag-out DIR`` (a process on
+                 the host's CPU started after the build, beside phases
+                 2-6), and ``tools/validate_dag.py`` over the 23
+                 exports, each a subprocess that must exit 0; (7b) the full-width
                  programs of the phases above (internlm2-1.8b's paged
                  slot serve program with the decoder under DMR and under
                  TMR, granite-moe-1b-a400m's under DMR, mamba2-2.7b's,
@@ -329,8 +330,8 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  their logits be within 1e-4).
   * phase 10   -- model-parallel training and sharded recurrent decode
                  on (data, model) meshes of cuda:0: (10a) internlm2-1.8b
-                 at full width, its first 12 layers (phase 5a's setting
-                 cut in depth to keep the run near 1100 s), trained 8
+                 at full width, its first 8 layers (phase 5a's setting
+                 cut in depth to keep the run under 1100 s), trained 8
                  steps ZeRO-1 + FSDP on (2, 4) after the unsharded
                  trainer from the same init and batches (step 0's loss
                  within 1e-2, every step's within 3e-2 relative; every
@@ -374,6 +375,28 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  train_4k on the 256-card single mesh, in a process of
                  its own (started before phase 10, it runs beside phases
                  10-11), its record printed.
+  * phase 12   -- paged pools and speculation under a mesh (members
+                 allocations of cuda:0, pools laid out by
+                 ``cache_pspecs``), each engine on phase 3's traffic
+                 beside its unsharded twin (phase 3, 3e or 3d, run
+                 earlier in the script): (12a) internlm2-1.8b paged on
+                 (1, 4) (kv heads over model: K5 a member, the head
+                 route) and (2, 4) (pages over data: K5's partials a
+                 member, combined in page order); (12b) granite-20b
+                 paged on (1, 4) (one kv head: each member holds 4 lanes
+                 of every page), K5's partials at 4 lanes a page held to
+                 their plain version first; (12c) internlm2-1.8b on
+                 (2, 4) speculating, draft_len 4, self and a full-width
+                 draft from seed 1.  Gates: 0 clean-tick events, the
+                 strike on the twin's request and replica with its
+                 ledger entry, the page tables after every pre-tick the
+                 twin's, every member's block its own allocation,
+                 launches = layers x (ticks + replays) x members (x 5
+                 sub-steps in 12c; the draft's dense cache adds K5 as
+                 many), 12c's tokens bitwise 12a's (2, 4) stream; and
+                 teacher-forced through pages (``mp_turns``): logits at
+                 the bf16 bound, and with f32 weights (internlm2) at
+                 1e-4.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
@@ -381,12 +404,13 @@ loop's, the schedules', the three engines', the speculating engines'
 phases' (``train``), the launchers' (``launch``), the analyzer's
 (``analysis``), phase 8's (``spatial``), phase 9's (``model_parallel``),
 phase 10's (``model_parallel_training``), phase 11's
-(``replicated_training``) and the kernels' JSON records
+(``replicated_training``), phase 12's (``model_parallel_paged``) and
+the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
 also 5b, the examples, 8a and 11a, K2 also 6c and the examples, K5 phases 3,
 3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a, 9b's unsharded
-twin and 10d, K5's partials 9b, K6 phases 3c, 3d, 3i and 9c's unsharded
+twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, K6 phases 3c, 3d, 3i and 9c's unsharded
 twin, K8 phases 3b, 3g, 6c and 10d), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -395,6 +419,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import re
@@ -2394,12 +2419,23 @@ def drive(engine, reqs, strike: bool):
     return victim
 
 
-def serve_engine(cfg, scfg, tracer=None, mesh=None, ctx=None):
+def serve_engine(cfg, scfg, tracer=None, mesh=None, ctx=None, page_log=None):
+    """The engine of ``cfg``/``scfg`` (under ``ctx``, on the pods of
+    ``mesh``), started from ``SEED``.  ``page_log``: a list that receives
+    the page table (host numpy) after every pre-tick hook of a paged
+    engine."""
     from repro_torch import api
     from repro_torch.distributed.sharding import LOCAL
     from repro_torch.serving.lm import lm_engine_parts
 
     prog, adapter = lm_engine_parts(cfg, scfg, LOCAL if ctx is None else ctx)
+    if page_log is not None and adapter.pre_tick is not None:
+        def pre_tick(states, inner=adapter.pre_tick):
+            states = inner(states)
+            page_log.append(states["decoder"]["pages"].cpu().numpy())
+            return states
+
+        adapter = dataclasses.replace(adapter, pre_tick=pre_tick)
     config = api.EngineConfig(tracer=tracer) if mesh is None else api.EngineConfig(
         tracer=tracer, placement="spatial", mesh=mesh)
     engine = api.serve(prog, adapter, config)
@@ -2414,11 +2450,16 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
     counts to 0, drive the 8-request stream (each request asking for
     ``spec``) with its strike, read the counts, and check every request
     and the strike.  Returns (engine, run record, launch counts, each
-    request's tokens)."""
+    request's tokens).  The record holds the device memory peak from the
+    engine's build on, the strike's ledger entry and request index, and
+    the count and SHA-256 of a paged engine's page tables after every
+    pre-tick (the warm-up's included)."""
     from repro_torch.serving import DONE, Request
 
     t0 = time.perf_counter()
-    engine = serve_engine(cfg, scfg, tracer, mesh, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    page_log: list = []
+    engine = serve_engine(cfg, scfg, tracer, mesh, ctx, page_log=page_log)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(engine._states["weights"]))
     log(f"engine: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} vocab="
@@ -2500,6 +2541,15 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
                    spec_min_commit=m["spec_min_commit"])
     run["first_step"] = first_step
     run["victim"] = victim.id if strike else None
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if strike:
+        run["victim_ledger"] = m["fault_totals"][victim.id]
+        run["victim_index"] = list(engine.requests).index(victim.id)
+    digest = hashlib.sha256()
+    for table in page_log:
+        digest.update(table.tobytes())
+    run["page_tables"] = len(page_log)
+    run["page_tables_sha256"] = digest.hexdigest()
     return engine, run, launches, [list(results[r.id]["tokens"]) for r in reqs]
 
 
@@ -3648,31 +3698,53 @@ ACCUM_STEPS = 32
 ACCUM_N = 1 << 24  # 7d: one f32 row of 16 M values, every one added into index 0
 
 
-def analysis_7a() -> dict:
-    """7a: the CI lane, ``python -m repro_torch.analysis --all --json
-    --fail-on warning --dag-out DIR``, then ``tools/validate_dag.py`` over
-    every export, each a subprocess that must exit 0."""
+def analysis_7a_start():
+    """Start 7a's CI lane, ``python -m repro_torch.analysis --all --json
+    --fail-on warning --dag-out DIR``, in a process of its own on the
+    host's CPU (the analysis is abstract: it is hidden from the card), at
+    the lowest priority and ended with this process: ``main`` starts it
+    after the build, so it runs beside phases 2-6.  Returns what
+    ``analysis_7a`` waits on."""
+    import ctypes
     import os
+    import signal
     import tempfile
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+    def child():
+        os.nice(19)
+        # PR_SET_PDEATHSIG: the kernel kills it when this process ends
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+    tmp = tempfile.TemporaryDirectory()
+    dags = Path(tmp.name) / "dags"
+    dags.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(Path(tmp.name) / "out.json", "w") as out, open(Path(tmp.name) / "err", "w") as err:
+        proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.analysis", "--all", "--json", "--fail-on",
-             "warning", "--dag-out", tmp], capture_output=True, text=True, timeout=600, env=env,
-            cwd=str(ROOT))
+             "warning", "--dag-out", str(dags)], stdout=out, stderr=err, env=env,
+            cwd=str(ROOT), preexec_fn=child)
+    return proc, tmp, time.perf_counter()
+
+
+def analysis_7a(lane=None) -> dict:
+    """7a: the CI lane (started by ``analysis_7a_start``, here if
+    ``lane`` is None), then ``tools/validate_dag.py`` over every export,
+    each a subprocess that must exit 0."""
+    proc, tmp, t0 = analysis_7a_start() if lane is None else lane
+    with tmp:
+        proc.wait(timeout=600)
         lane_s = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise AssertionError(f"7a: the analyzer exited {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        doc = json.loads(proc.stdout)
-        exports = sorted(Path(tmp).glob("*.json"))
-        t0 = time.perf_counter()
+            err = (Path(tmp.name) / "err").read_text()
+            raise AssertionError(f"7a: the analyzer exited {proc.returncode}: {err[-2000:]}")
+        doc = json.loads((Path(tmp.name) / "out.json").read_text())
+        exports = sorted((Path(tmp.name) / "dags").glob("*.json"))
+        t1 = time.perf_counter()
         check = subprocess.run(
             [sys.executable, str(ROOT / "tools" / "validate_dag.py"), *map(str, exports)],
             capture_output=True, text=True, timeout=120, cwd=str(ROOT))
-        validate_s = time.perf_counter() - t0
+        validate_s = time.perf_counter() - t1
     if check.returncode != 0:
         raise AssertionError(f"7a: validate_dag.py exited {check.returncode}: "
                              f"{check.stdout[-2000:]}")
@@ -3681,10 +3753,11 @@ def analysis_7a() -> dict:
         raise AssertionError(f"7a: {summary}, {len(exports)} exports")
     codes = sorted({d["code"] for p in doc["programs"] for d in p["diagnostics"]})
     log(f"analysis 7a: --all --json --fail-on warning: exit 0, {summary['n_programs']} programs, "
-        f"counts {summary['counts']}, codes {codes}, {lane_s:.1f} s; validate_dag.py over "
-        f"{len(exports)} exports: exit 0, {validate_s:.1f} s")
+        f"counts {summary['counts']}, codes {codes}, {lane_s:.1f} s from its start"
+        + (" (beside phases 2-6)" if lane is not None else "")
+        + f"; validate_dag.py over {len(exports)} exports: exit 0, {validate_s:.1f} s")
     return {"seconds": lane_s, "validate_s": validate_s, "n_programs": summary["n_programs"],
-            "counts": summary["counts"], "codes": codes}
+            "counts": summary["counts"], "codes": codes, "beside_phases": lane is not None}
 
 
 def codes_by_cell(result) -> dict:
@@ -3954,9 +4027,11 @@ def analysis_7d(moe_codes) -> dict:
             "moe_decoder_codes": moe_codes}
 
 
-def analysis_phase() -> dict:
+def analysis_phase(lane=None) -> dict:
+    """Phase 7; ``lane``: 7a's CI lane from ``analysis_7a_start``, started
+    earlier (else it runs here)."""
     t0 = time.perf_counter()
-    out = {"7a": analysis_7a(), "7b": analysis_7b()}
+    out = {"7a": analysis_7a(lane), "7b": analysis_7b()}
     gc.collect()
     torch.cuda.empty_cache()
     out["7c"] = analysis_7c()
@@ -4312,13 +4387,37 @@ def mp_counters():
             "k6": pd.paged_mla_attention}
 
 
-def mp_turns(cfg, ctx, params, steps: int = MP_STEPS) -> tuple[dict, dict]:
+def paged_prefill(cfg, cache, page_size: int) -> tuple[dict, torch.Tensor]:
+    """A dense prefill cache (B slots of ``MP_MAX_LEN`` lanes) moved into
+    paged pools of ``page_size`` lanes: every slot's pages at rows of a
+    fixed random permutation of the B x P rows (so a slot's pages lie on
+    every data member of a mesh that splits them).  Returns (the paged
+    cache, the page table (B, P) on the card)."""
+    from repro_torch.models import transformer as T
+
+    B, P = cache["pos"].shape[0], MP_MAX_LEN // page_size
+    rows = torch.randperm(B * P, generator=torch.Generator().manual_seed(SEED + 12))
+    pool = T.init_paged_cache(cfg, B, B * P, page_size, "cuda")
+    idx = rows.to("cuda")
+    for seg, dense in zip(pool["segments"], cache["segments"]):
+        for name in seg:  # (L, B, Hkv, S, D) -> the pool's (L, B P, Hkv, ps, D)
+            x = dense[name]
+            L, _, H, _, D = x.shape
+            x = x.reshape(L, B, H, P, page_size, D).permute(0, 1, 3, 2, 4, 5)
+            seg[name][:, idx] = x.reshape(L, B * P, H, page_size, D)
+    pool["pos"] = cache["pos"]
+    return pool, rows.reshape(B, P).to(torch.int32).to("cuda")
+
+
+def mp_turns(cfg, ctx, params, steps: int = MP_STEPS, page_size: int = 0) -> tuple[dict, dict]:
     """Prefill 8 prompts unsharded, decode ``steps`` greedy steps
     unsharded, then lay the params out on ``ctx``'s mesh (consuming the
     unsharded ones: one copy of the weights at a time) and decode the
     same steps sharded, teacher-forced with the unsharded run's tokens.
-    Each run's kernel launches are counted from 0.  Returns (record, the
-    sharded params)."""
+    With ``page_size`` both runs decode through paged pools of that many
+    lanes (``paged_prefill``'s table), the sharded one laid out by
+    ``cache_pspecs``.  Each run's kernel launches are counted from 0.
+    Returns (record, the sharded params)."""
     from repro_torch.models import transformer as T
     from repro_torch.models.lm_cells import install_prefill, place_cache, place_params
 
@@ -4330,6 +4429,9 @@ def mp_turns(cfg, ctx, params, steps: int = MP_STEPS) -> tuple[dict, dict]:
     cache0 = install_prefill(cfg, T.init_cache(cfg, B, MP_MAX_LEN, "cuda"), filled, MP_PROMPT)
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
     del logits, filled
+    pages = None
+    if page_size:
+        cache0, pages = paged_prefill(cfg, cache0, page_size)
     counters, counts, ms, fed, logits_by = mp_counters(), {}, {}, [], {}
     for label in ("unsharded", "sharded"):
         if label == "sharded":
@@ -4346,10 +4448,10 @@ def mp_turns(cfg, ctx, params, steps: int = MP_STEPS) -> tuple[dict, dict]:
         for i in range(steps):
             if label == "unsharded":
                 fed.append(tok)
-                lg, cache = T.decode_step(cfg, params, cache, tok)
+                lg, cache = T.decode_step(cfg, params, cache, tok, pages=pages)
                 tok = lg[:, -1:].argmax(-1).to(torch.int32)
             else:
-                lg, cache = T.decode_step(cfg, params, cache, fed[i], ctx=ctx)
+                lg, cache = T.decode_step(cfg, params, cache, fed[i], ctx=ctx, pages=pages)
             out.append(lg.float())
         torch.cuda.synchronize()
         ms[label] = (time.perf_counter() - t0) / steps * 1e3
@@ -4364,12 +4466,13 @@ def mp_turns(cfg, ctx, params, steps: int = MP_STEPS) -> tuple[dict, dict]:
             "peak_gb": {k: v[1] for k, v in logits_by.items()}, "layout": layout}, params
 
 
-def mp_check_turns(tag: str, cfg, rec: dict, expect: dict) -> None:
-    """The gates of a ``mp_turns`` record: logits within the bf16 bound,
-    launches equal to ``expect`` (label -> counter -> count), every
-    member's block its own allocation, replicated weights held once."""
-    if not rec["finite"] or rec["max_rel"] >= MP_TOL:
-        raise AssertionError(f"{tag}: sharded logits max_rel {rec['max_rel']} (bound {MP_TOL})")
+def mp_check_turns(tag: str, cfg, rec: dict, expect: dict, tol: float = MP_TOL) -> None:
+    """The gates of a ``mp_turns`` record: logits within ``tol`` (the bf16
+    bound by default), launches equal to ``expect`` (label -> counter ->
+    count), every member's block its own allocation, replicated weights
+    held once."""
+    if not rec["finite"] or rec["max_rel"] >= tol:
+        raise AssertionError(f"{tag}: sharded logits max_rel {rec['max_rel']} (bound {tol})")
     for label, want in expect.items():
         if rec["launches"][label] != want:
             raise AssertionError(f"{tag} {label}: launches {rec['launches'][label]} != {want}")
@@ -5021,7 +5124,7 @@ def model_parallel_phase() -> tuple[dict, dict]:
 # phase 10: model-parallel training and sharded recurrent decode
 # --------------------------------------------------------------------------
 MPT_STEPS = 8  # 10a, 10b: trainer steps (10 until phase 11 came; the run stays under 1100 s)
-MPT_LAYERS = 12  # 10a-10c: the first 12 of 24 layers at full width (24 until phase 11 came)
+MPT_LAYERS = 8  # 10a-10c: the first 8 of 24 layers at full width (24 until phase 11 came, 12 until phase 12)
 
 
 def mpt_argv(*extra) -> list:
@@ -5851,6 +5954,296 @@ def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: paged pools and speculation under a mesh
+# --------------------------------------------------------------------------
+MPP_PAGE = 16  # 12a-12c: pages of 16 lanes, as phase 3
+MPP_DRAFT_LEN = 4  # 12c: the verify walk of phase 3d
+
+
+def mpp_scfg(spec=None):
+    from repro_torch.models.lm_cells import ServeConfig
+
+    return ServeConfig(batch=8, max_len=MP_MAX_LEN, paged=True, page_size=MPP_PAGE, spec=spec)
+
+
+def mpp_twin(cfg, scfg, *, spec=None, strike=True) -> dict:
+    """An unsharded twin's record, where phase 12 runs without the phase
+    whose engine it is (3, 3d or 3e)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    engine, run, _, tokens = serve_stream(cfg, scfg, [pd.paged_gqa_attention], spec=spec,
+                                          strike=strike)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "tokens": tokens}
+
+
+def unsharded_bytes(cfg, scfg, params_b: float) -> dict:
+    """The twin's weights (``params_b`` billion) and K/V pools, whole."""
+    from repro_torch.models.lm_cells import paged_pool_pages
+
+    item = cfg.compute_dtype.itemsize
+    pools = 2 * cfg.n_layers * paged_pool_pages(scfg) * cfg.n_kv_heads * scfg.page_size
+    return {"params": params_b * 1e9 * item, "cache": pools * cfg.head_dim * item}
+
+
+def mpp_stream(tag: str, cfg, scfg, ctx, twin: dict, per_step: dict, *, spec=None,
+               strike: bool = True, want=None) -> tuple[dict, list]:
+    """A sharded paged engine of phase 12 beside its unsharded twin's
+    record ``twin`` (a ``serve_stream`` record of the same config and
+    traffic): ``serve_stream``'s gates (every request DONE, 0 events on a
+    clean tick, the strike detected once on replica 1), and the strike on
+    the twin's request and replica with its ledger entry, the page tables
+    after every pre-tick the twin's, every member's block its own
+    allocation, replicated weights once, launches = ``per_step[counter]``
+    x (ticks + replays); with ``want`` (the same mesh's plain stream)
+    every request's tokens bitwise.  Returns (record, tokens)."""
+    counters = mp_counters()
+    engine, run, launches, tokens = serve_stream(cfg, scfg, list(counters.values()), spec=spec,
+                                                 strike=strike, ctx=ctx)
+    counts = dict(zip(counters, launches))
+    steps = run["ticks"] + run["replays"]
+    expect = {k: n * steps for k, n in per_step.items()}
+    if counts != expect:
+        raise AssertionError(f"{tag}: launches {counts} != {expect} ({per_step} x {steps} steps)")
+    if strike and (run["victim_index"], run["victim_ledger"]) != (twin["victim_index"],
+                                                                   twin["victim_ledger"]):
+        raise AssertionError(f"{tag}: strike ledger {run['victim_index']} "
+                             f"{run['victim_ledger']} != the twin's {twin['victim_index']} "
+                             f"{twin['victim_ledger']}")
+    pages = (run["page_tables"], run["page_tables_sha256"])
+    if pages != (twin["page_tables"], twin["page_tables_sha256"]):
+        raise AssertionError(f"{tag}: page tables {pages} != the twin's")
+    st = engine._states
+    lay = {"params": mp_layout(st["weights"]), "cache": mp_layout(st["decoder"]["cache"])}
+    if not (lay["params"]["distinct"] and lay["cache"]["distinct"]):
+        raise AssertionError(f"{tag}: two members' blocks share an allocation")
+    if not (lay["params"]["replicated_once"] and lay["params"]["replicated_leaves"]):
+        raise AssertionError(f"{tag}: a replicated weight is held more than once")
+    spec_pool = tuple(st["decoder"]["cache"]["segments"][0]["k"].spec)
+    if want is not None and tokens != want:
+        bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
+        raise AssertionError(f"{tag}: tokens of requests {bad} differ from the mesh's plain "
+                             "stream")
+    pairs = [(a, b) for ta, tb in zip(tokens, twin.get("tokens") or []) for a, b in zip(ta, tb)]
+    share = sum(a == b for a, b in pairs) / len(pairs) if pairs else None
+    whole = unsharded_bytes(cfg, scfg, run["params_b"])
+    log(f"model_parallel_paged {tag}: pool {spec_pool}; 0 clean-tick events, strike "
+        + (f"on the twin's request and replica ({run['victim_ledger']['per_replica']})"
+           if strike else "none")
+        + f", page tables the twin's ({run['page_tables']}); launches {counts}; sharded "
+        f"{run['tokens_per_s']:.1f} tok/s, {run['ms_per_tick']:.2f} ms/tick, peak "
+        f"{run['peak_gb']:.2f} GB; twin {twin['tokens_per_s']:.1f} tok/s, "
+        f"{twin['ms_per_tick']:.2f} ms/tick, peak {twin['peak_gb']:.2f} GB; member (0, 0) "
+        f"holds {lay['params']['member_bytes'] / 1e9:.3f} GB of weights and "
+        f"{lay['cache']['member_bytes'] / 1e6:.1f} MB of cache (whole: "
+        f"{whole['params'] / 1e9:.3f} GB, {whole['cache'] / 1e6:.1f} MB); tokens equal to the "
+        f"twin's {share}" + ("; bitwise the mesh's plain stream" if want is not None else ""))
+    twin_keys = ("tokens_per_s", "ms_per_tick", "peak_gb", "ticks", "replays")
+    rec = {**run, "launches": counts, "pool_spec": list(spec_pool), "layout": lay,
+           "whole_bytes": whole, "twin": {k: twin.get(k) for k in twin_keys},
+           "tokens_equal_twin_share": share}
+    del engine, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, tokens
+
+
+def mpp_forced(tag: str, cfg, shape, route: str) -> dict:
+    """``mp_turns`` through paged pools of ``MPP_PAGE`` lanes, unsharded
+    then on a ``shape`` mesh, with the gates of ``mp_check_turns``: logits
+    within the bf16 bound, or ``MP_F32_TOL`` with f32 weights; launches:
+    K5 a layer and step unsharded, and sharded K5 a member on the head
+    route, K5's partials a member on the split routes."""
+    from repro_torch.models import transformer as T
+
+    members = math.prod(shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, gen, "cuda")
+    rec, sparams = mp_turns(cfg, mp_ctx(cfg, shape), params, page_size=MPP_PAGE)
+    del sparams
+    n = cfg.n_layers * MP_STEPS
+    sharded = ({"k5": n * members, "k5_partials": 0, "k6": 0} if route == "head"
+               else {"k5": 0, "k5_partials": n * members, "k6": 0})
+    tol = MP_F32_TOL if cfg.compute_dtype == torch.float32 else MP_TOL
+    mp_check_turns(tag, cfg, rec, {"unsharded": {"k5": n, "k5_partials": 0, "k6": 0},
+                                   "sharded": sharded}, tol=tol)
+    log(f"model_parallel_paged {tag}: {cfg.name} {cfg.dtype} teacher-forced {MP_STEPS} steps "
+        f"through pages of {MPP_PAGE} on {shape} ({route} route): logits max_rel "
+        f"{rec['max_rel']:.3e} (bound {tol}); ms/step unsharded "
+        f"{rec['ms_per_step']['unsharded']:.2f}, sharded {rec['ms_per_step']['sharded']:.2f}; "
+        f"launches {rec['launches']['sharded']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**rec, "route": route, "tol": tol}
+
+
+def mpp_partials_lanes(cfg) -> dict:
+    """12b's instance of K5's partials: granite-20b's member of a (1, 4)
+    mesh whose one kv head cannot divide the model axis, so each member
+    holds 4 lanes of every 16-lane page: B 8, 48 query heads, 32 pages of
+    4 lanes, bf16, through each member's table and positions
+    (``decode.member_table``, engine-like positions and a shuffled page
+    table) against the plain version, then timed beside its bound.  The
+    check's launches do not count."""
+    from repro_torch.distributed import decode as DD
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 120)
+    B, Hq, Hkv, D, tp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 4
+    P, ps_l = MP_MAX_LEN // MPP_PAGE, MPP_PAGE // tp
+    N = B * P
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((N, Hkv, MPP_PAGE, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    pages = torch.randperm(N, generator=torch.Generator().manual_seed(SEED + 121)).reshape(B, P)
+    pages = pages.to(torch.int32).to("cuda")
+    pos = torch.tensor((0, 3, 4, 15, 16, 63, 100, 511), dtype=torch.int32, device="cuda")
+    launches0 = pd.paged_gqa_partials.launches
+    err, members = 0.0, []
+    for m in range(tp):
+        lanes = slice(m * ps_l, (m + 1) * ps_l)
+        block = (slice(0, N), slice(0, Hkv), lanes, slice(0, D))
+        table, lpos = DD.member_table(pages, pos, block, N, MPP_PAGE)
+        ks, vs = (x[:, :, lanes].contiguous() for x in (k, v))
+        args = (q, ks, vs, table, lpos)
+        got, want = pd.paged_gqa_partials(*args), pd.paged_gqa_partials_plain(*args)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, want, ("acc", "m", "l")):
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                raise AssertionError(f"12b: K5 partials member {m}: {name} finite pattern differs")
+            e = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+            scale = float(b[fin].abs().max()) if fin.any() else 1.0
+            if e > PARTIAL_TOL * max(scale, 1.0):
+                raise AssertionError(f"12b: K5 partials member {m} at {ps_l} lanes a page: "
+                                     f"{name} max abs err {e}")
+            err = max(err, e)
+        members.append(args)
+    # the four members combined against K5 over the whole pool
+    parts = [pd.paged_gqa_partials(*a) for a in members]
+    comb = DD._combine_partials(*([p[i] for p in parts] for i in range(3)))
+    whole = pd.paged_gqa_attention(q, k, v, pages, pos)
+    comb_err = float((comb.to(torch.bfloat16).float() - whole.float()).abs().max())
+    if comb_err > 2e-2:
+        raise AssertionError(f"12b: the combined members differ from K5 by {comb_err}")
+    # timed at an engine-like member: every slot at 40-100 tokens
+    tpos_g = torch.arange(40, 120, 10, dtype=torch.int32, device="cuda")[:B]
+    targs = (q, *members[0][1:3], *DD.member_table(pages, tpos_g, (
+        slice(0, N), slice(0, Hkv), slice(0, ps_l), slice(0, D)), N, MPP_PAGE))
+    plan = pd.gqa_partials_plan(B, Hkv, Hq // Hkv, P * ps_l, D, q.dtype, build.sm_count(0))
+    ms = graph_ms(lambda: pd.paged_gqa_partials(*targs))
+    plain_ms = graph_ms(lambda: pd.paged_gqa_partials_plain(*targs))
+    n_valid = int(pd.paged_valid(targs[3], targs[4], ps_l).sum())
+    bound_ms, bound_by = partials_bound(q, Hkv, n_valid)
+    pd.paged_gqa_partials.launches = launches0  # a check, not the main path
+    log(f"model_parallel_paged 12b: paged_gqa_partials at {ps_l} lanes a page (B {B}, Hq {Hq}, "
+        f"Hkv {Hkv}, {P} pages, bf16), plan {tuple(plan)}: max abs err {err:.3e} over positions "
+        f"{tuple(pos.tolist())}, 4 members combined vs K5 {comb_err:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {n_valid} valid lanes)")
+    return {"lanes_a_page": ps_l, "plan": list(plan), "max_abs_err": err,
+            "combined_vs_k5_max_abs_err": comb_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "n_valid": n_valid}
+
+
+def mpp_12a(twin) -> tuple[dict, list]:
+    """12a: internlm2-1.8b paged on (1, 4) (kv heads over model: the head
+    route, K5 a member) and (2, 4) (pages over data, kv heads over model:
+    K5's partials a member, combined in page order) beside phase 3's
+    engine; then the teacher-forced logits of both routes in bf16 and with
+    f32 weights.  Returns (record, the (2, 4) engine's tokens: 12c's plain
+    stream)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internlm2-1.8b")
+    scfg = mpp_scfg()
+    twin = twin or mpp_twin(cfg, scfg)
+    out, plain = {}, None
+    for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
+        members, n = math.prod(shape), cfg.n_layers
+        per = ({"k5": n * members, "k5_partials": 0, "k6": 0} if route == "head"
+               else {"k5": 0, "k5_partials": n * members, "k6": 0})
+        label = f"{shape[0]}x{shape[1]}"
+        out[label], tokens = mpp_stream(f"12a {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
+        out[label]["route"] = route
+        if shape == (2, 4):
+            plain = tokens
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
+            out[f"forced_{dtype}_{shape[0]}x{shape[1]}"] = mpp_forced(
+                f"12a forced {dtype} {shape}", c, shape, route)
+    return out, plain
+
+
+def mpp_12b(twin) -> dict:
+    """12b: granite-20b paged on (1, 4): one kv head, so each member holds
+    4 lanes of every page (K5's partials a member at that page size,
+    combined in lane order); the instance first, against its plain
+    version; beside phase 3e's engine; then teacher-forced bf16 logits."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-20b")
+    scfg = mpp_scfg()
+    out = {"partials_4_lanes": mpp_partials_lanes(cfg)}
+    twin = twin or mpp_twin(cfg, scfg)
+    per = {"k5": 0, "k5_partials": cfg.n_layers * 4, "k6": 0}
+    out["1x4"], _ = mpp_stream("12b 1x4", cfg, scfg, mp_ctx(cfg, (1, 4)), twin, per)
+    out["1x4"]["route"] = "lanes"
+    out["forced_granite_bfloat16_1x4"] = mpp_forced("12b forced", cfg, (1, 4), "lanes")
+    return out
+
+
+def mpp_12c(twins: dict, plain: list) -> dict:
+    """12c: internlm2-1.8b on (2, 4), paged, speculating (draft_len 4):
+    true self-speculation, then a full-width draft from seed 1 with a
+    strike, beside phase 3d (a) / (b); every request's tokens bitwise the
+    (2, 4) plain stream of 12a.  Launches: K5's partials = layers x 8
+    members x 5 sub-steps a tick; with the draft also K5 = as many (its
+    dense cache head-sharded, K5 a member)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm_cells import SpecConfig
+
+    cfg = get_config("internlm2-1.8b")
+    ctx = mp_ctx(cfg, (2, 4))
+    req = SpecConfig(draft_len=MPP_DRAFT_LEN)
+    n = cfg.n_layers * 8 * (MPP_DRAFT_LEN + 1)
+    out = {}
+    for label, spec, strike in (("self", req, False),
+                                ("draft", SpecConfig(draft_len=MPP_DRAFT_LEN,
+                                                     draft_param_seed=SEED + 1), True)):
+        scfg = mpp_scfg(spec)
+        twin = twins.get(label) or mpp_twin(cfg, scfg, spec=req, strike=strike)
+        per = {"k5": n if label == "draft" else 0, "k5_partials": n, "k6": 0}
+        out[label], _ = mpp_stream(f"12c {label}", cfg, scfg, ctx, twin, per, spec=req,
+                                   strike=strike, want=plain)
+        out[label]["twin"].update({k: twin.get(k) for k in ("spec_tokens_per_tick",
+                                                            "spec_min_commit")})
+    return out
+
+
+def mp_paged_phase(twins: dict) -> dict:
+    """Phase 12: paged pools and speculation under a mesh.  ``twins``:
+    the unsharded records of phases 3 (``"internlm2"``, with its
+    ``"tokens"``), 3e (``"granite"``) and 3d (``"self"``, ``"draft"``);
+    one that is missing is served here."""
+    t0 = time.perf_counter()
+    out = {}
+    out["12a"], plain = mpp_12a(twins.get("internlm2"))
+    t1 = time.perf_counter()
+    out["12b"] = mpp_12b(twins.get("granite"))
+    t2 = time.perf_counter()
+    out["12c"] = mpp_12c(twins, plain)
+    t3 = time.perf_counter()
+    out["seconds"] = {"12a": t1 - t0, "12b": t2 - t1, "12c": t3 - t2, "all": t3 - t0}
+    log("model_parallel_paged: phase 12 took " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["seconds"].items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -5871,6 +6264,7 @@ def main() -> int:
     log(f"build: {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log(f"build: {name}: {'; '.join(ptxas_lines(path.with_suffix('.log')))}")
+    lane = analysis_7a_start()  # phase 7a's CI lane, on the host's CPU beside phases 2-6
     record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
     partials_prof = partials_profile()
     epi = epilogue_phase()
@@ -5946,7 +6340,7 @@ def main() -> int:
         rec["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
-    analysis = analysis_phase()
+    analysis = analysis_phase(lane)
     for key, n in analysis["7c"]["launches"].items():
         epi[key]["launches_by_path"]["analysis_7c"] = n
         epi[key]["launches"] += n
@@ -5995,6 +6389,30 @@ def main() -> int:
     partials.update(partials_prof)
     partials["launches"] = mp["9b"]["launches"]["sharded"]["k5_partials"]
     partials["launches_by_path"] = {"mp_9b": partials["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpp = mp_paged_phase({"internlm2": {**eng, "tokens": plain_tokens},
+                          "granite": arch_engines["3e"],
+                          "self": {**spec["self"], "tokens": plain_tokens},
+                          "draft": {**spec["draft"], "tokens": plain_tokens}})
+    for key, run in (("mp_12a_1x4", mpp["12a"]["1x4"]), ("mp_12a_2x4", mpp["12a"]["2x4"]),
+                     ("mp_12b_1x4", mpp["12b"]["1x4"]), ("mp_12c_self", mpp["12c"]["self"]),
+                     ("mp_12c_draft", mpp["12c"]["draft"])):
+        for rec, counter in ((record, "k5"), (partials, "k5_partials")):
+            if run["launches"][counter]:
+                rec["launches_by_path"][key] = run["launches"][counter]
+                rec["launches"] += run["launches"][counter]
+    forced = {k: v for k, v in (*mpp["12a"].items(), *mpp["12b"].items())
+              if k.startswith("forced_")}
+    for key, run in forced.items():
+        for rec, counter in ((record, "k5"), (partials, "k5_partials")):
+            for label in ("sharded", "unsharded"):
+                n = run["launches"][label][counter]
+                if n:
+                    path = f"mp_12_{key}" + ("" if label == "sharded" else "_unsharded")
+                    rec["launches_by_path"][path] = n
+                    rec["launches"] += n
+    partials["lanes_4_instance"] = mpp["12b"]["partials_4_lanes"]
     print(json.dumps({"paged_dense_parity": parity, "ring_check": ring}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"schedules": schedules}), flush=True)
@@ -6010,6 +6428,7 @@ def main() -> int:
     print(json.dumps({"model_parallel": mp}), flush=True)
     print(json.dumps({"model_parallel_training": mpt}), flush=True)
     print(json.dumps({"replicated_training": rt}), flush=True)
+    print(json.dumps({"model_parallel_paged": mpp}), flush=True)
     print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

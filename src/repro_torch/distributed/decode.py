@@ -30,6 +30,20 @@ and ``local_mla_decode`` decodes each data member's rows over its own
 latent block, on the card through K6 as the unsharded decode does.
 The members of a model group combine in ``_combine_partials``.
 
+A paged pool (N, Hkv, ps, D) under a mesh (``paged_gqa_decode``) is laid
+out by the same ``cache_pspecs`` rule: pages over the data axes, and kv
+heads over the model axis when they divide, else each page's lanes.  The
+page table stays one global table; each decode step derives every
+member's writes, table and positions from it once (``paged_plan``).
+Where every member holds all pages and lanes (a (1, M) mesh whose kv
+heads divide) each member runs K5 over its kv heads; else each member
+runs K5's partials entry point over what it holds, and the partials
+combine over the splitting axes: by lane block in member order when only
+the lanes split, and by logical page when the pages split, so a slot's
+result never depends on which member holds its pages (DMR/TMR replica
+slots hold different rows and must agree bit for bit).  Paged MLA
+latent pools are not served under a mesh (``MLA_POOL_REFUSAL``).
+
 The caller's activations are ordinary tensors on the controller's
 device (``q`` (B, Hq, 1, D) with every head): a member reads its rows
 (and heads), and the output is assembled there again.  The cache is
@@ -39,7 +53,7 @@ copy of the members' shards.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +62,7 @@ from ..kernels.paged_decode import (NEG_INF, attend, dense_decode_on_card, dense
                                     paged_gqa_partials, ring_lane_pos)
 from . import collectives as C
 from . import wire
+from .sharding import _key
 
 
 def _tp(ctx) -> tuple[Optional[str], int]:
@@ -228,6 +243,214 @@ def _partial_attend(q, kc, vc, sp, pos, window, scale):
     e = torch.exp(s - m[..., None])
     ctx = torch.einsum("bhgs,bhsd->bhgd", e, vc.float())
     return ctx, m, e.sum(dim=-1)
+
+
+# ===========================================================================
+# GQA over a sharded page pool
+# ===========================================================================
+#: why a paged MLA latent pool is not served under a mesh: the member-wise
+#: route needs K6's partials, which the port does not have yet
+MLA_POOL_REFUSAL = ("a paged MLA latent pool under a ShardCtx with a mesh is not ported: a "
+                    "member-wise decode needs a partials entry point of K6 "
+                    "(paged_mla_attention), which the port does not have yet; serve the dense "
+                    "latent cache")
+
+
+class PagedMember(NamedTuple):
+    """One distinct block of a sharded pool (N, Hkv, ps, D) in one decode
+    step: its global ``block`` (rows, kv heads, lanes, D); the step's
+    writes that land in it (``rows``/``lanes`` local, ``sel`` the
+    writing slots); and the page table and positions its attention reads
+    (``member_table``'s or ``page_table``'s, by the plan's route)."""
+
+    block: tuple
+    rows: torch.Tensor
+    lanes: torch.Tensor
+    sel: torch.Tensor
+    pages: torch.Tensor
+    pos: torch.Tensor
+
+
+class PagedPlan(NamedTuple):
+    """One decode step's member plan of a sharded pool, shared by every
+    layer (every layer's pool has one layout): ``members`` keyed by block,
+    in member order; ``route`` "head" (every block holds every page and
+    lane: K5 a block), "lanes" (every page on every block, its lanes
+    split: a partial a slot, combined in lane order) or "pages" (the
+    pages split: a partial a page of a slot, combined in page order);
+    ``axes`` the mesh axes the partials combine over."""
+
+    members: dict
+    route: str
+    axes: tuple
+
+
+def _held(pages, block, n_pages: int):
+    """(global table with rows past the pool's end clamped to its last
+    row, as the unsharded gather reads them; the mask of the entries
+    ``block``'s rows hold)."""
+    rs = block[0]
+    g = torch.where(pages >= 0, pages.clamp(max=n_pages - 1), -1)
+    return g, (g >= rs.start) & (g < rs.stop)
+
+
+def member_table(pages, pos, block, n_pages: int, page_size: int):
+    """The page table (B, P) and positions (B,) a member holding ``block``
+    = (rows, heads, lanes, ...) reads on the "head" and "lanes" routes:
+    rows held elsewhere are -1 (K5 reads them as unmapped) and the rows it
+    holds are renumbered from 0; with the lanes split, a member holding
+    lanes ``[lo, lo + ps_l)`` of every page sees global position p as
+    ``(p // ps) ps_l + clamp(p % ps - lo, -1, ps_l - 1)``, so its lane j
+    of logical page i is valid exactly where global lane ``i ps + lo + j``
+    is at or before p (-1 on the first page: none)."""
+    g, held = _held(pages, block, n_pages)
+    rs, ls = block[0], block[2]
+    table = torch.where(held, g - rs.start, -1).to(torch.int32)
+    ps_l = ls.stop - ls.start
+    if ps_l == page_size:
+        return table.contiguous(), pos.to(torch.int32).contiguous()
+    page = torch.div(pos, page_size, rounding_mode="floor")
+    lane = torch.clamp(pos - page * page_size - ls.start, -1, ps_l - 1)
+    return table.contiguous(), (page * ps_l + lane).to(torch.int32).contiguous()
+
+
+def page_table(pages, pos, block, n_pages: int, page_size: int):
+    """The table (B P, 1) and positions (B P,) of the "pages" route: one
+    row a logical page of a slot, mapped to the member's local row where
+    ``block`` holds it (-1 elsewhere), with the position ``clamp(p - i ps
+    - lo, -1, ps_l - 1)`` of page i's lanes ``[lo, lo + ps_l)``."""
+    g, held = _held(pages, block, n_pages)
+    rs, ls = block[0], block[2]
+    B, P = pages.shape
+    table = torch.where(held, g - rs.start, -1).to(torch.int32).reshape(B * P, 1)
+    start = torch.arange(P, device=pos.device) * page_size + ls.start
+    lpos = torch.clamp(pos[:, None] - start[None, :], -1, ls.stop - ls.start - 1)
+    return table.contiguous(), lpos.reshape(B * P).to(torch.int32).contiguous()
+
+
+def paged_plan(pool, pages, pos, rows_lanes) -> PagedPlan:
+    """The member plan of one decode step over ``pool``, a ``Sharded``
+    layer pool (N, Hkv, ps, D) (or the stacked (L, N, Hkv, ps, D): every
+    layer's blocks are its blocks), laid out by ``cache_pspecs``: pages
+    over the data axes, and kv heads (when they divide) or each page's
+    lanes over the model axis.  ``pages`` (B, P) is the global table,
+    ``pos`` (B,) the global positions and ``rows_lanes`` the step's
+    global write (``layers.paged_write_rows``).  The route is the
+    layout's (``PagedPlan``)."""
+    N, ps = pool.shape[-4], pool.shape[-2]
+    lead = pool.dim() - 4
+    spec = tuple(pool.spec)[lead:] + (None,) * 4
+    first = pool.block(pool.coords()[0])[lead:]
+    if first[0].stop - first[0].start != N:
+        route, table_fn = "pages", page_table
+    elif first[2].stop - first[2].start != ps:
+        route, table_fn = "lanes", member_table
+    else:
+        route, table_fn = "head", member_table
+    rows, lanes, sel = rows_lanes
+    members = {}
+    for c in pool.coords():
+        block = pool.block(c)[lead:]
+        key = _key(block)
+        if key in members:
+            continue
+        rs, ls = block[0], block[2]
+        hit = (rows >= rs.start) & (rows < rs.stop) & (lanes >= ls.start) & (lanes < ls.stop)
+        idx = hit.nonzero()[:, 0]
+        members[key] = PagedMember(block, rows[idx] - rs.start, lanes[idx] - ls.start, sel[idx],
+                                   *table_fn(pages, pos, block, N, ps))
+    return PagedPlan(members, route, wire.spec_axes(spec[0], spec[2]))
+
+
+def _combine_units(acc, m, l):
+    """The flash-decoding combine of a slot's partials over their units
+    (dim 1: logical pages, each page's lane blocks in order), the same
+    arithmetic for every slot: acc (B, U, H, D), m and l (B, U, H) ->
+    (B, H, D) f32.  A result that depends on the logical pages alone, not
+    on the members holding them."""
+    m_g = m.amax(dim=1).clamp(min=NEG_INF)
+    alpha = torch.exp(m - m_g[:, None])
+    l_g = (l * alpha).sum(dim=1)
+    acc_g = (acc * alpha[..., None]).sum(dim=1)
+    return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def paged_gqa_decode(q, k_new, v_new, cache, plan: PagedPlan, *, scale=None):
+    """Paged decode over a sharded pool: q (B, Hq, Dk) with every head on
+    the controller's device; k_new/v_new (B, Hkv, D); cache {"k", "v"} of
+    ``Sharded`` layer pools (N, Hkv, ps, D) laid out as ``plan`` was made
+    for.  Each member writes the new lanes its block holds, in place (a
+    slot's lane lands on the member holding row ``pages[b, pos // ps]``
+    and lane ``pos % ps``; every copy of a replicated block is written).
+    Attention, one launch a distinct block:
+
+      * "head": K5 (``paged_gqa_attention``) over the block's kv heads of
+        every page, for their query heads, with the global table;
+      * "lanes": K5's partials (``paged_gqa_partials``) a slot over the
+        block's lanes of every page, combined over the lane blocks in
+        member order (``_combine_units``);
+      * "pages": K5's partials a logical page of a slot (one row a page),
+        over the pages and lanes the block holds.  The members holding
+        one kv-head and lane range join exactly (a page's partial is
+        nonzero on one member), then the units combine in page order,
+        lanes minor (``_combine_units``): replica slots, whose pages lie
+        on other members, get equal bits.
+
+    Returns (B, Hq, Dk) in q.dtype."""
+    kc, vc = cache["k"], cache["v"]
+    B, Hq, Dk = q.shape
+    G = Hq // k_new.shape[1]
+    for c, kt in kc.distinct():
+        mb = plan.members[_key(kc.block(c))]
+        if mb.sel.numel():
+            dev, heads = kt.device, mb.block[1]
+            r, ln, sl = (t.to(dev) for t in (mb.rows, mb.lanes, mb.sel))
+            kt[r, :, ln] = k_new[:, heads][sl.to(k_new.device)].to(dev, kt.dtype)
+            vc.local(c)[r, :, ln] = v_new[:, heads][sl.to(v_new.device)].to(dev, kt.dtype)
+    out = torch.empty_like(q) if plan.route == "head" else None
+    home = q.device
+    parts: dict = {}  # (query heads, lanes) -> [(acc, m, l)] in member order
+    seen = set()
+    for c in kc.coords():
+        key = _key(kc.block(c))
+        if key in seen:  # a block once, from its first member
+            continue
+        seen.add(key)
+        mb = plan.members[key]
+        heads, lanes = mb.block[1], mb.block[2]
+        qh = slice(heads.start * G, heads.stop * G)
+        kt = kc.local(c)
+        dev = kt.device
+        qm = q[:, qh].to(dev)
+        if plan.route == "pages":
+            qm = qm.repeat_interleave(mb.pages.shape[0] // B, dim=0)
+        args = (qm.contiguous(), kt, vc.local(c), mb.pages.to(dev), mb.pos.to(dev))
+        if plan.route == "head":
+            out[:, qh] = paged_gqa_attention(*args, scale=scale).to(home)
+            continue
+        part = tuple(t.to(home) for t in paged_gqa_partials(*args, scale=scale))
+        parts.setdefault((qh.start, qh.stop), {}).setdefault((lanes.start, lanes.stop), []).append(part)
+    if plan.route == "head":
+        return out
+    # the units of every query-head range, (B, U, heads, ...): logical
+    # pages ("pages"; one a slot on "lanes"), each page's lane blocks in
+    # order; the members holding one range's pages join exactly
+    groups = []
+    for _, by_lanes in sorted(parts.items()):
+        units = []
+        for _, held in sorted(by_lanes.items()):
+            acc, m, l = held[0]
+            for a2, m2, l2 in held[1:]:  # another member's pages: zero where it holds none
+                acc, m, l = acc + a2, torch.maximum(m, m2), l + l2
+            units.append((acc, m, l))
+        if wire.active():  # a deployment joins its members' partials over the split axes
+            members = sum(len(held) for held in by_lanes.values())
+            wire.record("all-reduce", sum(wire.nbytes(t) for t in held[0]), members,
+                        members=members, site="collectives", axes=plan.axes)
+        groups.append([torch.stack([u[i].reshape(B, -1, *u[i].shape[1:]) for u in units],
+                                   dim=2).flatten(1, 2) for i in range(3)])
+    acc, m, l = (torch.cat([g[i] for g in groups], dim=2) for i in range(3))
+    return _combine_units(acc, m, l).to(q.dtype)
 
 
 # ===========================================================================

@@ -310,8 +310,8 @@ def gqa_attention(
     INTO ``cache`` in place and returns it: ``decode_step`` hands every
     layer views of a fresh copy of the stacked cache, so the caller's
     previous buffer (kept for the §IV replay) is never written.  Under
-    a ``ctx`` with a mesh the dense-cache decode runs through
-    ``distributed/decode.py``."""
+    a ``ctx`` with a mesh the dense-cache decode, and the paged decode
+    over a ``Sharded`` pool, run through ``distributed/decode.py``."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
@@ -334,6 +334,15 @@ def gqa_attention(
     if pages is not None:
         if cfg.window:
             raise ValueError("paged decode excludes windowed archs")
+        if isinstance(cache["k"], Sharded):
+            # a pool laid out by ``cache_pspecs``: each member writes and
+            # attends over its own block (``distributed/decode.py``);
+            # ``decode_step`` hands every layer the step's member plan
+            plan = rows_lanes if isinstance(rows_lanes, DD.PagedPlan) else DD.paged_plan(
+                cache["k"], pages, pos,
+                paged_write_rows(pages, pos, active, cache["k"].shape[0], cache["k"].shape[2]))
+            out = DD.paged_gqa_decode(q[:, :, 0], k[:, :, 0], v[:, :, 0], cache, plan)
+            return matmul(out.reshape(B, S, cfg.n_heads * dh), p["wo"]), cache
         # the write lands at (row, lane) through the page table.  JAX drops
         # the scatter to an out-of-range row for inactive slots and
         # unmapped pages; torch would raise, so those rows are left out

@@ -37,10 +37,11 @@ import torch.nn.functional as F
 from .. import prng
 from ..core import CellType, MisoProgram
 from ..data.pipeline import DataConfig, data_cell
+from ..distributed import decode as DD
 from ..distributed import wire
 from ..distributed.collectives import compressed_psum_int8, psum_mean
 from ..distributed.sharding import (LOCAL, P, ShardCtx, Sharded, cache_pspecs, map_blocks,
-                                    param_pspecs, shard, zero_pspecs)
+                                    param_pspecs, shard, shard_leaf, zero_pspecs)
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import transformer as T
@@ -688,6 +689,25 @@ def spec_k_eff(spec_k, budget, n_decoded, pos, max_len: int, draft_len: int):
     return torch.clamp(torch.minimum(spec_k, room), 0, draft_len)
 
 
+def place_decoder(cfg: ModelConfig, dcfg: ModelConfig | None, st: dict, ctx: ShardCtx) -> dict:
+    """A slot decoder state with its ``cache`` (dense or paged) and a
+    draft's dense ``draft_cache`` laid out on ``ctx.mesh`` by
+    ``cache_pspecs``; the per-slot leaves stay tensors on the controller's
+    device."""
+    st["cache"] = place_cache(cfg, st["cache"], ctx)
+    if "draft_cache" in st:
+        st["draft_cache"] = place_cache(dcfg, st["draft_cache"], ctx)
+    return st
+
+
+def _roll_back(verifying, commit_pos, pos_leaf):
+    """The verify walk's rollback of a cache's ``pos`` leaf: verifiers to
+    ``commit_pos``, the others kept; a ``Sharded`` leaf keeps its layout."""
+    pos = value(pos_leaf)
+    new = torch.where(verifying, commit_pos.to(pos.dtype), pos)
+    return shard_leaf(new, pos_leaf.spec, pos_leaf.mesh) if isinstance(pos_leaf, Sharded) else new
+
+
 def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
                             ctx: ShardCtx = LOCAL) -> MisoProgram:
     """The serving engine's resident program: a static ``weights`` cell
@@ -712,17 +732,26 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
     Everything is inside the transition, so a §IV replay of the tick
     reproduces the accept and the rollback bit for bit.
 
-    Under a ``ctx`` with a mesh the weights and the dense cache are
-    sharded leaves (a slot's rows on its data member) and every step runs
-    ``T.decode_step(..., ctx=ctx)``.  Paged pools, speculation and
-    spatial placement are not ported onto a mesh and raise."""
+    Under a ``ctx`` with a mesh the weights are laid out by
+    ``param_pspecs`` and the cache by ``cache_pspecs``: the dense cache a
+    slot's rows on its data member, a paged pool its pages over the data
+    axes and its kv heads (or each page's lanes) over the model axis,
+    read through the one global page table, and ``pos`` over the data
+    axes.  A draft with its own params (``draft_arch``, or
+    ``draft_param_seed``) is laid out the same way, with its dense cache.
+    Every sub-step of the walk runs the target's and the draft's
+    ``T.decode_step(..., ctx=ctx)``.  A paged MLA latent pool and spatial
+    placement under a mesh raise ``NotImplementedError``."""
     from ..serving.slots import infer_slot_axes, mask_slots
 
-    if ctx.mesh is not None and (scfg.paged or scfg.spec is not None
-                                 or scfg.placement != "temporal"):
+    if ctx.mesh is not None and scfg.placement != "temporal":
         raise NotImplementedError(
-            "serving under a ShardCtx with a mesh takes the dense cache, no speculation and "
-            "temporal placement (paged pools, drafts and pods are not sharded yet)")
+            "placement='spatial' under a ShardCtx with a mesh is not ported: the pods would "
+            "split the slot axis of a decoder whose cache the mesh already lays out; serve "
+            "temporally (the JAX package's spatial engine refuses paged pools too)")
+    if ctx.mesh is not None and scfg.paged and paged_serving_supported(cfg) \
+            and cfg.attn_type == "mla":
+        raise NotImplementedError(DD.MLA_POOL_REFUSAL)
     spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
     dcfg = resolve_draft_config(cfg, spec) if spec else None
     K = spec.draft_len if spec else 0
@@ -737,7 +766,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
         st = {"params": place_params(cfg, T.init_params(cfg, g, device), ctx)}
         if dcfg is not None:
             gd = torch.Generator(device=device).manual_seed(gen.initial_seed() + d_seed)
-            st["draft"] = T.init_params(dcfg, gd, device)
+            st["draft"] = place_params(dcfg, T.init_params(dcfg, gd, device), ctx)
         return st
 
     weights = CellType(name="weights", init=w_init, transition=lambda prev: prev["weights"])
@@ -754,17 +783,16 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
         mask_fn = mask_slots_paged
 
         def d_init(gen, device):
-            return paged_slot_decoder_init(cfg, scfg.batch, scfg.max_len, scfg.page_size, n_pages,
-                                           device, dcfg, K)
+            return place_decoder(cfg, dcfg, paged_slot_decoder_init(
+                cfg, scfg.batch, scfg.max_len, scfg.page_size, n_pages, device, dcfg, K), ctx)
 
     else:
         axes = infer_slot_axes(lambda b: slot_decoder_init(cfg, b, scfg.max_len, "meta", dcfg, K))
         mask_fn = mask_slots
 
         def d_init(gen, device):
-            st = slot_decoder_init(cfg, scfg.batch, scfg.max_len, device, dcfg, K)
-            st["cache"] = place_cache(cfg, st["cache"], ctx)
-            return st
+            return place_decoder(cfg, dcfg, slot_decoder_init(cfg, scfg.batch, scfg.max_len,
+                                                              device, dcfg, K), ctx)
 
     # bounded k-token prefill walk: prefill_chunk > 1 drains up to k
     # pending prompt tokens per tick (k sub-steps; non-walking slots step
@@ -817,7 +845,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
                 # walking it ingests prompt tokens, while verifying it
                 # chains its own proposal
                 d_logits, d_cache = T.decode_step(
-                    dcfg, draft_params, st["draft_cache"], tok_in,
+                    dcfg, draft_params, st["draft_cache"], tok_in, ctx=ctx,
                     active=elig & (st["spec_k"] > 0),
                 )
                 d_raw = torch.argmax(d_logits, dim=-1).to(torch.int32).reshape(st["tokens"].shape)
@@ -838,7 +866,7 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
         dwp = prev["weights"]["draft"] if dcfg is not None else None
         act = st["active"]
         walking0 = act & (st["p_head"] < st["p_len"])
-        pos0 = st["cache"]["pos"]
+        pos0 = value(st["cache"]["pos"])
         nd0 = st["n_decoded"]
         k_eff = spec_k_eff(st["spec_k"], st["budget"], nd0, pos0, scfg.max_len, K)
         verifying = act & ~walking0 & (k_eff > 0)
@@ -858,11 +886,10 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
         commit_pos = (pos0 + a + 1).to(pos0.dtype)
         st = dict(st)
         st["tokens"] = torch.where(verifying[:, None], last, st["tokens"])
-        st["cache"] = {**st["cache"], "pos": torch.where(verifying, commit_pos, st["cache"]["pos"])}
+        st["cache"] = {**st["cache"], "pos": _roll_back(verifying, commit_pos, st["cache"]["pos"])}
         if dcfg is not None:
-            dpos = st["draft_cache"]["pos"]
-            st["draft_cache"] = {**st["draft_cache"],
-                                 "pos": torch.where(verifying, commit_pos.to(dpos.dtype), dpos)}
+            st["draft_cache"] = {**st["draft_cache"], "pos": _roll_back(
+                verifying, commit_pos, st["draft_cache"]["pos"])}
         st["n_decoded"] = torch.where(verifying, nd0 + a + 1, st["n_decoded"])
         st["spec_out"] = torch.where(act[:, None], g_stack[:, : K + 1], st["spec_out"])
         st["spec_n"] = torch.where(act, torch.where(verifying, a + 1, torch.zeros_like(a)),
@@ -972,7 +999,7 @@ def prefill_slot_state(
         st["spec_k"] = one(spec_k)
         st["budget"] = one(budget)
         if draft_cfg is not None:
-            _, d_cache = T.forward(draft_cfg, draft_params, tokens, fill_cache=True,
+            _, d_cache = T.forward(draft_cfg, draft_params, tokens, ctx=ctx, fill_cache=True,
                                    prompt_len=prompt_len)
             st["draft_cache"] = install_prefill(
                 draft_cfg, T.init_cache(draft_cfg, 1, scfg.max_len, dev), d_cache, plen)

@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import decode as DD
 from ..distributed.sharding import LOCAL, ShardCtx, Sharded, shard_leaf, stack
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import layers as L
@@ -569,12 +570,16 @@ def decode_step(
     Under a ``ctx`` with a mesh the cache is ``Sharded`` (``shard(cache,
     cache_pspecs(ctx, cache, cfg), mesh)``) and comes back so: each
     member's shard is copied once and written in place by its layers,
-    and ``pos`` stays laid out over the data axes."""
+    and ``pos`` stays laid out over the data axes.  A paged GQA pool is
+    laid out the same way (pages over the data axes, kv heads or each
+    page's lanes over the model axis) and read through the global
+    ``pages`` table: the step's write rows and each member's table come
+    from it once (``distributed.decode.paged_plan``) for every layer.
+    A paged MLA latent pool under a mesh raises ``NotImplementedError``."""
     pos_leaf = cache["pos"]
     pos = L.value(pos_leaf)
-    if pages is not None and isinstance(pos_leaf, Sharded):
-        raise NotImplementedError("paged decode under a ShardCtx with a mesh is not ported; "
-                                  "serve the dense cache")
+    if pages is not None and isinstance(pos_leaf, Sharded) and cfg.attn_type == "mla":
+        raise NotImplementedError(DD.MLA_POOL_REFUSAL)
     positions = pos[:, None]
     if cfg.mrope_sections:
         positions = positions[None].expand(3, -1, 1)
@@ -587,6 +592,8 @@ def decode_step(
         # MLA; every segment's pools have the same pages
         pool = cache["segments"][0]["ckv" if cfg.attn_type == "mla" else "k"]
         rows_lanes = L.paged_write_rows(pages, pos, active, pool.shape[1], pool.shape[-2])
+        if isinstance(pool, Sharded):
+            rows_lanes = DD.paged_plan(pool, pages, pos, rows_lanes)
     new_segs = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
         attn = None

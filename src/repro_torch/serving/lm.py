@@ -19,9 +19,11 @@ does on archs without pages; a request's ``spec.draft_len`` is clamped
 to the engine's.
 
 Under a ``ShardCtx`` with a mesh (``launch.mesh.make_ctx``) the program
-holds sharded weights and a sharded dense cache, and every prefill and
-decode step runs the model-parallel path; the engine needs nothing new,
-since the slot surgery reads the sharded leaves::
+holds sharded weights and a sharded cache (dense, or paged pools read
+through the one global page table), a draft model's too, and every
+prefill and decode step runs the model-parallel path; the engine needs
+nothing new, since the slot surgery (``slots.py``, ``paging.py``) reads
+and writes the sharded leaves member by member::
 
     mesh = make_mesh((2, 4), ("data", "model"), devices=["cuda:0"] * 8)
     ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model,

@@ -19,7 +19,13 @@ owns a *page table* ((P,) int32 pool rows, -1 = unmapped):
 
 Layout (the decoder state of ``models/lm_cells.py``): pool leaves are
 (L, N, Hkv, ps, d); the matching dense leaves are (L, B, Hkv, S, d) with
-S = P * ps.  Every operation writes out of place.
+S = P * ps.  Every operation writes out of place.  Under a ``ShardCtx``
+with a mesh the pools are ``Sharded`` (pages over the data axes, kv
+heads or each page's lanes over the model axis) and the page table stays
+the one host table: installs, zeroing and replica copies write only the
+members holding the rows (a replica's source row may lie on another
+data member), and the dense view is assembled from every member's
+blocks, so fingerprints are the unsharded view's.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ import numpy as np
 import torch
 
 from ..core.redundancy import bit_mismatch_elems
+from ..distributed.sharding import Sharded, _key, map_blocks
 from ..tree import tree_map
-from .slots import SlotSurgery, _bcast, _width_axes, put_slot, read_slot, slot_fingerprints
+from .slots import (SlotSurgery, _mask_leaf, _read_leaf, _width_axes, put_slot, read_slot,
+                    slot_fingerprints)
 
 Tree = Any
 
@@ -68,7 +76,7 @@ def mask_slots_paged(active: torch.Tensor, new: Tree, old: Tree, axes: Tree) -> 
     def sel(n, o, ax):
         if ax == POOL:
             return n
-        return torch.where(_bcast(active, n.dim(), ax), n, o)
+        return _mask_leaf(active, n, o, ax)
 
     return tree_map(sel, new, old, axes)
 
@@ -178,29 +186,93 @@ def _mapped(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return idx, rows[idx]
 
 
-def dense_to_pool(pool: torch.Tensor, dense: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+def _put_rows(pool, dst: np.ndarray, values):
+    """A copy of pool (L, N, ...) with page rows ``dst`` (host) set to
+    ``values(keep, block)``: the values (L, n, ...) of the rows
+    ``dst[keep]`` restricted to ``block``'s other dimensions, on any
+    device.  A ``Sharded`` pool copies only the members whose block holds
+    one of the rows (each taking its part); the others keep their
+    tensors."""
+    def put(block, t):
+        rs = block[1]
+        keep = (dst >= rs.start) & (dst < rs.stop)
+        if not keep.any():
+            return t
+        out = t.clone()
+        idx = torch.from_numpy(dst[keep] - rs.start).long().to(t.device)
+        out[:, idx] = values(keep, block).to(t.device, t.dtype)
+        return out
+
+    if isinstance(pool, Sharded):
+        return map_blocks(put, pool)
+    return put(tuple(slice(0, n) for n in pool.shape), pool)
+
+
+def _rows_of(pool, rows: np.ndarray, block: tuple) -> torch.Tensor:
+    """Page rows ``rows`` (host) of pool (L, N, ...), restricted to
+    ``block``'s dimensions past the rows: (L, len(rows), ...).  From a
+    ``Sharded`` pool, each row from the block of the same other
+    dimensions that holds it (a replica slot's rows may lie on another
+    data member)."""
+    rest = tuple(block[2:])
+    if not isinstance(pool, Sharded):
+        return pool[:, torch.from_numpy(rows).long().to(pool.device)][(slice(None),) * 2 + rest]
+    out = None
+    for blk, t in pool.blocks():
+        if _key(blk[2:]) != _key(rest):
+            continue
+        rs = blk[1]
+        hit = (rows >= rs.start) & (rows < rs.stop)
+        if not hit.any():
+            continue
+        if out is None:
+            out = torch.empty((t.shape[0], len(rows)) + tuple(t.shape[2:]), dtype=t.dtype,
+                              device=t.device)
+        out[:, torch.from_numpy(np.nonzero(hit)[0]).to(t.device)] = t[
+            :, torch.from_numpy(rows[hit] - rs.start).long().to(t.device)].to(out.device)
+    return out
+
+
+def dense_to_pool(pool, dense: torch.Tensor, rows: np.ndarray):
     """A copy of pool (L, N, ..., ps, d) with a width-1 dense leaf
     (L, 1, ..., S, d) written into page rows ``rows`` ((P,) host int32,
     -1 = skip).  Whole pages are written, the zero tail past the filled
-    prefix included, so freshly mapped install pages come out clean."""
+    prefix included, so freshly mapped install pages come out clean.  A
+    ``Sharded`` pool takes each page's part on the members holding its
+    row (their kv heads, or their lanes of the page)."""
     ps = pool.shape[-2]
     x = dense.squeeze(1)
     x = x.reshape(x.shape[:-2] + (x.shape[-2] // ps, ps) + x.shape[-1:])
     x = x.movedim(-3, 1)  # (L, P, ..., ps, d)
     idx, dst = _mapped(rows)
-    out = pool.clone()
-    out[:, torch.from_numpy(dst).long().to(pool.device)] = x[:, torch.from_numpy(idx).to(pool.device)].to(pool.dtype)
-    return out
+    return _put_rows(pool, dst, lambda keep, block: x[:, torch.from_numpy(idx[keep]).to(x.device)][
+        (slice(None),) * 2 + tuple(block[2:])])
 
 
-def pool_slot_view(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+def pool_slot_view(pool, pages: torch.Tensor) -> torch.Tensor:
     """The dense-layout view (L, B, ..., S, d) of every slot, gathered from
     the pool through the page tables (B, P); unmapped pages read as
-    zeros.  Fingerprints, damage and repair reads run on this view."""
+    zeros.  Fingerprints, damage and repair reads run on this view.  A
+    ``Sharded`` pool's view is assembled on the mesh's first device from
+    each block's pages through its member-local table, so it is the
+    unsharded pool's view bit for bit."""
     n = pool.shape[1]
-    g = pool[:, pages.clamp(0, n - 1).long()]  # (L, B, P, ..., ps, d)
-    mapped = (pages >= 0).reshape((1,) + tuple(pages.shape) + (1,) * (g.dim() - 3))
-    g = torch.where(mapped, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    if isinstance(pool, Sharded):
+        dev = pool.device
+        table = torch.where(pages >= 0, pages.clamp(max=n - 1), -1).to(dev)
+        g = torch.zeros((pool.shape[0],) + tuple(pages.shape) + tuple(pool.shape[2:]),
+                        dtype=pool.dtype, device=dev)  # (L, B, P, ..., ps, d)
+        for blk, t in pool.blocks():
+            rs = blk[1]
+            held = (table >= rs.start) & (table < rs.stop)
+            local = (table - rs.start).clamp(0, rs.stop - rs.start - 1).to(t.device).long()
+            part = g[(slice(None),) * 3 + tuple(blk[2:])]
+            mask = held.reshape((1,) + tuple(held.shape) + (1,) * (part.dim() - 3))
+            part.copy_(torch.where(mask, t[:, local].to(dev), part))
+    else:
+        g = pool[:, pages.clamp(0, n - 1).long()]  # (L, B, P, ..., ps, d)
+        mapped = (pages >= 0).reshape((1,) + tuple(pages.shape) + (1,) * (g.dim() - 3))
+        g = torch.where(mapped, g, torch.zeros((), dtype=g.dtype, device=g.device))
     g = g.movedim(2, -3)  # (L, B, ..., P, ps, d)
     return g.reshape(g.shape[:-3] + (-1,) + g.shape[-1:])
 
@@ -237,14 +309,12 @@ def view_axes_of(axes: Tree) -> Tree:
 # --------------------------------------------------------------------------
 def _copy_pages(pool, src_pool, src_rows: np.ndarray, dst_rows: np.ndarray):
     """A copy of ``pool`` with pages ``src_rows`` of ``src_pool`` written
-    at ``dst_rows`` (entries with dst -1 skipped)."""
+    at ``dst_rows`` (entries with dst -1 skipped).  ``Sharded`` pools of
+    one layout: each member holding a destination row takes the source
+    row from the member that holds it (the same kv heads or lanes)."""
     keep = dst_rows >= 0
-    dev = pool.device
-    out = pool.clone()
-    src = torch.from_numpy(src_rows[keep]).long().to(dev)
-    dst = torch.from_numpy(dst_rows[keep]).long().to(dev)
-    out[:, dst] = src_pool[:, src].to(pool.dtype)
-    return out
+    src, dst = src_rows[keep], dst_rows[keep]
+    return _put_rows(pool, dst, lambda k, block: _rows_of(src_pool, src[k], block))
 
 
 def paged_surgery(
@@ -320,7 +390,7 @@ def paged_surgery(
                     {kk: _copy_pages(pseg[kk], pseg[kk], src_rows, dst_rows) for kk in pseg}
                     for pseg in v["segments"]
                 ]
-                pos = put_slot(v["pos"], v["pos"].narrow(0, src, 1), dst, 0)
+                pos = put_slot(v["pos"], _read_leaf(v["pos"], src, 0), dst, 0)
                 new[k] = {"segments": segs, "pos": pos}
             elif k == "pages":
                 new[k] = _rows_leaf(v, dst, dst_rows)
@@ -341,7 +411,7 @@ def paged_surgery(
                     {kk: _copy_pages(pseg[kk], oseg[kk], rows, rows) for kk in pseg}
                     for pseg, oseg in zip(v["segments"], odec["cache"]["segments"])
                 ]
-                pos = put_slot(v["pos"], odec["cache"]["pos"].narrow(0, slot, 1), slot, 0)
+                pos = put_slot(v["pos"], _read_leaf(odec["cache"]["pos"], slot, 0), slot, 0)
                 new[k] = {"segments": segs, "pos": pos}
             elif k == "pages":
                 new[k] = _rows_leaf(v, slot, rows)
@@ -402,7 +472,8 @@ def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1,
         names = ["active", "p_head", "p_len"] + (["spec_k", "budget", "n_decoded"] if draft_len else [])
         host = {k: dec[k].cpu().numpy() for k in names}
         act, p_head, p_len = host["active"], host["p_head"], host["p_len"]
-        pos = dec["cache"]["pos"].cpu().numpy()
+        pos_leaf = dec["cache"]["pos"]
+        pos = (pos_leaf.full() if isinstance(pos_leaf, Sharded) else pos_leaf).cpu().numpy()
         grew = np.zeros((batch,), bool)
         clean: list[int] = []
         for s in range(batch):
@@ -429,12 +500,10 @@ def make_pre_tick(table: PageTable, cell: str, batch: int, walk_chunk: int = 1,
         dev = dec["pages"].device
         rows = torch.from_numpy(np.stack([table.row_array(s) for s in range(batch)])).to(dev)
         new["pages"] = torch.where(torch.from_numpy(grew).to(dev)[:, None], rows, dec["pages"])
-        idx = torch.tensor(clean, dtype=torch.long, device=dev)
+        rows_clean = np.asarray(clean, np.int64)
 
         def zeroed(pool):
-            out = pool.clone()
-            out[:, idx] = 0
-            return out
+            return _put_rows(pool, rows_clean, lambda keep, block: torch.zeros(()))
 
         new["cache"] = {
             "segments": [{k: zeroed(v) for k, v in seg.items()} for seg in dec["cache"]["segments"]],

@@ -13,7 +13,7 @@ of one arch (plain and quantized moments).  Then ``make_ctx``'s
 embedding choice, ``shard``/``unshard`` round trips (bitwise, and one
 allocation a member except where a replicated block is shared on one
 device), the mesh's member addressing, the model-axis collectives, the
-refusals (a mesh under mamba2, a paged or speculating engine, the
+refusals (a mesh under mamba2, a paged MLA or a spatial engine, the
 ``ShardCtx`` fields the port does not honour, a sharded decode cache
 without ``decode_shardmap``), ``constrain``'s assertion and ``block_k``
 reaching the prefill, and the fallback of a layout that neither
@@ -41,7 +41,8 @@ from repro_torch.distributed import sharding as S
 from repro_torch.launch.mesh import ONEHOT_EMBED_BYTES, make_ctx, make_production_mesh
 from repro_torch.launch.mesh import make_spatial_ctx
 from repro_torch.models import transformer as T
-from repro_torch.models.lm_cells import ServeConfig, SpecConfig, place_cache, place_params
+from repro_torch.models.lm_cells import (ServeConfig, SpecConfig, paged_serving_supported,
+                                         place_cache, place_params)
 from repro_torch.optim.adamw import OptConfig, init_opt_state
 from repro_torch.serving.lm import lm_engine_parts
 from repro_torch.testing import cap_threads_for_xdist
@@ -107,6 +108,28 @@ def test_param_and_cache_specs_equal_jax(arch, ctx_name):
     # a model axis shards something somewhere unless it is folded away
     sharded = {a for s in got for e in s for a in (e if isinstance(e, tuple) else (e,)) if a}
     assert ("model" in sharded) != tctx.tp_off
+
+
+#: paged pools of 12 pages (a multiple of the data axes) of 8 lanes, and
+#: of 9 pages (divisible by no data axis: the pages stay whole)
+PAGED_POOLS = {"12x8": (12, 8), "9x8": (9, 8)}
+
+
+@pytest.mark.parametrize("pool", sorted(PAGED_POOLS))
+@pytest.mark.parametrize("ctx_name", sorted(CTXS))
+@pytest.mark.parametrize("arch", [a for a in CANONICAL if paged_serving_supported(tget(a))])
+def test_paged_cache_specs_equal_jax(arch, ctx_name, pool):
+    """``cache_pspecs`` on a paged pool (L, N, Hkv, ps, D) (MLA's (L, N,
+    ps, r)): JAX's entry for entry, pages over the data axes and kv
+    heads, or each page's lanes, over the model axis."""
+    n_pages, ps = PAGED_POOLS[pool]
+    jcfg, tcfg = jget(arch), tget(arch)
+    jc = jax.eval_shape(lambda: JT.init_paged_cache(jcfg, 4, n_pages, ps))
+    tc = T.init_paged_cache(tcfg, 4, n_pages, ps, "meta")
+    jctx, tctx = ctxs(ctx_name, tcfg)
+    got = [tuple(s) for s in tree_leaves(S.cache_pspecs(tctx, tc, tcfg))]
+    assert got == jax_specs(JS.cache_pspecs(jctx, jc, jcfg))
+    assert len(got) == len(tree_leaves(tc))
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -276,13 +299,19 @@ def test_mamba_under_a_mesh_runs_and_its_decode_stays_sharded():
 
 
 def test_engine_options_not_sharded_refuse():
+    """Under a mesh, paged pools and speculation serve; a paged MLA
+    latent pool and spatial placement still refuse, saying why."""
     cfg = f32("internlm2-1.8b")
     mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
     ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, decode_shardmap=True)
     for scfg in (ServeConfig(batch=4, max_len=32, paged=True, page_size=8),
                  ServeConfig(batch=4, max_len=32, spec=SpecConfig(draft_len=2))):
-        with pytest.raises(NotImplementedError, match="dense cache"):
-            lm_engine_parts(cfg, scfg, ctx, device="cpu")
+        lm_engine_parts(cfg, scfg, ctx, device="cpu")
+    mla = f32("deepseek-v3-671b")
+    for c, scfg, why in ((mla, ServeConfig(batch=4, max_len=32, paged=True, page_size=8), "K6"),
+                         (cfg, ServeConfig(batch=4, max_len=32, placement="spatial"), "spatial")):
+        with pytest.raises(NotImplementedError, match=why):
+            lm_engine_parts(c, scfg, ctx, device="cpu")
 
 
 def test_layout_that_neither_divides_takes_the_unsharded_path():
