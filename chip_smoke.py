@@ -281,9 +281,15 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  temporal, the strike on the same request and replica,
                  K5 = 24 x (ticks + replays) x pods; tok/s, ms/tick,
                  detect ms against the temporal fingerprints, peak GB;
-                 (8d) ``launch.serve.main`` with ``--placement spatial``
-                 on one card (1 pod) bitwise the temporal launcher, and
-                 the quickstart's section 4b.
+                 (8e) the same 2-pod stream under ``make_spatial_ctx``
+                 on a (2, 2, 2) ("pod", "data", "model") mesh of cuda:0
+                 (each pod holds the weights and cache whole): tokens
+                 bitwise 8c's temporal engine's, the strike on the same
+                 request and replica, no leaf laid out by the mesh, K5 =
+                 24 x (ticks + replays) x 2, K4 = 0; (8d)
+                 ``launch.serve.main`` with ``--placement spatial`` on one
+                 card (1 pod) bitwise the temporal launcher, and the
+                 quickstart's section 4b.
   9. model_parallel -- the model-parallel serving path (``ShardCtx``,
                  ``make_ctx(..., decode_shardmap=True)``), every mesh
                  member an explicit allocation of cuda:0, each run beside
@@ -311,10 +317,16 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  width and depth seq-sharded on (1, 4): prefill, 16
                  steps unsharded, the weights resharded in place (one
                  copy at a time), 16 steps sharded: logits at the bound,
-                 K5 partials = 52 x 16 x 4; (9c) deepseek-v3's dense
-                 prefix on (2, 4) with the latent cache seq-sharded
-                 (each member's partial the plain torch math), the same
-                 gates, K6 = 3 x 16 in the unsharded twin; (9d)
+                 K5 partials = 52 x 16 x 4; K6's partials entry point
+                 against its plain version (bf16 and f32, 1e-3 of the
+                 largest, empty rows exact: 9c's member, 12d's 4-lane
+                 members combined against K6, a pages-route member),
+                 timed beside SDPA's memory-efficient call with its
+                 log-sum-exp; (9c) deepseek-v3's dense prefix on (2, 4)
+                 with the latent cache seq-sharded (each member's
+                 partial from K6's partials over its lanes in place),
+                 the same gates, K6's partials = 3 x 16 x 8, K6 = 3 x 16
+                 in the unsharded twin; (9d)
                  granite-moe at full width with ``serve_ep2d`` (4 experts
                  a member), capacity raised so nothing drops: every MoE
                  call of an unsharded prefill (the all-to-all path) and
@@ -330,7 +342,7 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  their logits be within 1e-4).
   * phase 10   -- model-parallel training and sharded recurrent decode
                  on (data, model) meshes of cuda:0: (10a) internlm2-1.8b
-                 at full width, its first 8 layers (phase 5a's setting
+                 at full width, its first 4 layers (phase 5a's setting
                  cut in depth to keep the run under 1100 s), trained 8
                  steps ZeRO-1 + FSDP on (2, 4) after the unsharded
                  trainer from the same init and batches (step 0's loss
@@ -338,7 +350,7 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  member's block its own allocation, replicated leaves
                  once), the state after step 5 checkpointed and its files
                  held byte for byte to an unsharded save's; (10b)
-                 ``int8_ef`` on its first 8 layers against the
+                 ``int8_ef`` on its first 4 layers against the
                  uncompressed sharded trainer (3e-2), each step's
                  compressed mean within its int8 rounding bound of the
                  exact mean, the data members' EF buffers non-zero and
@@ -378,25 +390,32 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   * phase 12   -- paged pools and speculation under a mesh (members
                  allocations of cuda:0, pools laid out by
                  ``cache_pspecs``), each engine on phase 3's traffic
-                 beside its unsharded twin (phase 3, 3e or 3d, run
-                 earlier in the script): (12a) internlm2-1.8b paged on
+                 beside its unsharded twin (phase 3, 3e or 3c, run
+                 earlier in the script, or served here): (12a)
+                 internlm2-1.8b paged on
                  (1, 4) (kv heads over model: K5 a member, the head
                  route) and (2, 4) (pages over data: K5's partials a
                  member, combined in page order); (12b) granite-20b
                  paged on (1, 4) (one kv head: each member holds 4 lanes
                  of every page), K5's partials at 4 lanes a page held to
-                 their plain version first; (12c) internlm2-1.8b on
-                 (2, 4) speculating, draft_len 4, self and a full-width
-                 draft from seed 1.  Gates: 0 clean-tick events, the
+                 their plain version first; (12c) internlm2-1.8b's first
+                 4 layers at full width on (2, 4) speculating, draft_len
+                 4, self and a draft of the same cut from seed 1, beside
+                 twins and a plain stream served here; (12d) deepseek-v3's
+                 dense prefix paged on (1, 4) (each page's lanes over
+                 model: K6's partials a slot) and (2, 4) (pages over
+                 data: K6's partials a page of a slot) beside 3c.  Gates:
+                 0 clean-tick events, the
                  strike on the twin's request and replica with its
                  ledger entry, the page tables after every pre-tick the
                  twin's, every member's block its own allocation,
                  launches = layers x (ticks + replays) x members (x 5
                  sub-steps in 12c; the draft's dense cache adds K5 as
-                 many), 12c's tokens bitwise 12a's (2, 4) stream; and
+                 many), 12c's tokens bitwise its plain stream; and
                  teacher-forced through pages (``mp_turns``): logits at
-                 the bf16 bound, and with f32 weights (internlm2) at
-                 1e-4.
+                 the bf16 bound, and with f32 weights (internlm2,
+                 deepseek) at 1e-4, deepseek's every greedy token the
+                 unsharded run's.
 
 The last lines are the paged-vs-dense parity and the ring check, the
 loop's, the schedules', the three engines', the speculating engines'
@@ -409,9 +428,9 @@ the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
 also 5b, the examples, 8a and 11a, K2 also 6c and the examples, K5 phases 3,
-3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c, 8d, 9a, 9b's unsharded
-twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, K6 phases 3c, 3d, 3i and 9c's unsharded
-twin, K8 phases 3b, 3g, 6c and 10d), the card's name and power limit, and
+3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c-8e, 9a, 9b's unsharded
+twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, K6 phases 3c, 3d, 3i and 9c's and 12d's unsharded
+twins, K6's partials 9c and 12d, K8 phases 3b, 3g, 6c and 10d), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4258,6 +4277,8 @@ def spatial_8c() -> dict:
         if s["victim_ledger"] != t["victim_ledger"] or s["victim_index"] != t["victim_index"]:
             raise AssertionError(f"8c {pods} pods: strike ledger {s['victim_ledger']} != "
                                  f"temporal {t['victim_ledger']}")
+        if pods == 2:  # 8e's twin: the same engine and stream
+            out["_temporal_2"] = {**t}
         for r in runs.values():
             r.pop("tokens")
         detect = "TMR all-gather" if "tmr" in mix else "DMR psum_delta"
@@ -4307,12 +4328,75 @@ def spatial_8d() -> dict:
         ("spatial", "campaign"))}}
 
 
+def spatial_8e(twin: dict) -> dict:
+    """8e: internlm2-1.8b at full width, dense, served spatially under
+    ``make_spatial_ctx`` on a (2, 2, 2) ``("pod", "data", "model")`` mesh
+    of cuda:0: the pods carry the replica slots, each pod holds the
+    weights and the cache whole (replicated over its data and model
+    members, as the JAX package's spatial executor places them); beside
+    8c's 2-pod temporal engine ``twin`` (the same stream).  Gates: every
+    token bitwise the temporal engine's, the strike on the same request
+    and replica with its ledger entry, no leaf laid out by the mesh, the
+    pods' allocations apart, K5 = 24 x (ticks + replays) x 2 pods and K4
+    = 0 (spatial serving repairs DMR by the §IV replay and TMR by copying
+    a majority slot: no bitwise vote runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import tmr_vote as tv
+    from repro_torch.launch.mesh import make_spatial_ctx
+    from repro_torch.models.lm_cells import ServeConfig
+
+    cfg = get_config(LAUNCH_ARCH)
+    pods, batch, mix = SPATIAL_SERVE[0]
+    mesh = make_mesh((pods, 2, 2), ("pod", "data", "model"), devices=["cuda:0"] * (pods * 4))
+    ctx = make_spatial_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model)
+    scfg = ServeConfig(batch=batch, max_len=512, placement="spatial")
+    torch.cuda.reset_peak_memory_stats()
+    engine, run, (k5, k4), tokens = serve_stream(cfg, scfg, [pd.paged_gqa_attention, tv.tmr_vote],
+                                                 mesh=mesh, ctx=ctx, mix=mix)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect = cfg.n_layers * (run["ticks"] + run["replays"]) * pods
+    if (k5, k4) != (expect, 0):
+        raise AssertionError(f"8e: K5 launches {k5} != {cfg.n_layers} x ({run['ticks']} + "
+                             f"{run['replays']}) x {pods}, or K4 launches {k4} != 0")
+    m = engine.metrics()
+    dec = engine._states["decoder"]
+    if (m["pods"], m["backend"]) != (pods, "spatial_lockstep") or not pods_apart(dec):
+        raise AssertionError(f"8e: {m['pods']} pods on {m['backend']}, or two pods share an "
+                             "allocation")
+    if any(isinstance(x, Sharded) for x in _leaves(engine._states)):
+        raise AssertionError("8e: a leaf is laid out by the mesh; a pod holds everything whole")
+    victim = m["fault_totals"][run["victim"]]
+    index = list(engine.requests).index(run["victim"])
+    if tokens != twin["tokens"]:
+        raise AssertionError("8e: the tokens differ from the temporal engine's")
+    if (victim, index) != (twin["victim_ledger"], twin["victim_index"]):
+        raise AssertionError(f"8e: strike ledger {victim} (request {index}) != temporal "
+                             f"{twin['victim_ledger']} (request {twin['victim_index']})")
+    del engine, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"spatial 8e: {LAUNCH_ARCH} dense under make_spatial_ctx on a {tuple(mesh.shape.values())} "
+        f"{mesh.axis_names} mesh of cuda:0, {pods} pods x {batch // pods} slots "
+        f"({'/'.join(mix)}): tokens bitwise the temporal engine's, strike on the same request "
+        f"and replica ({victim['per_replica']}); {run['tokens_per_s']:.1f} tok/s, "
+        f"{run['ms_per_tick']:.2f} ms/tick, peak {peak:.2f} GB, K5 {k5}, K4 {k4}; temporal "
+        f"{twin['tokens_per_s']:.1f} tok/s, {twin['ms_per_tick']:.2f} ms/tick")
+    return {**run, "k5_launches": k5, "k4_launches": k4, "peak_gb": peak, "victim_ledger": victim,
+            "mesh": [list(mesh.shape.values()), list(mesh.axis_names)],
+            "temporal": {k: twin[k] for k in ("tokens_per_s", "ms_per_tick", "ticks", "replays")}}
+
+
 def spatial_phase() -> dict:
     t0 = time.perf_counter()
     out = {"8a": spatial_8a(), "8b": spatial_8b()}
     gc.collect()
     torch.cuda.empty_cache()
     out["8c"] = spatial_8c()
+    out["8e"] = spatial_8e(out["8c"].pop("_temporal_2"))
     out["8d"] = spatial_8d()
     out["seconds"] = time.perf_counter() - t0
     log(f"spatial: phase 8 took {out['seconds']:.1f} s")
@@ -4384,7 +4468,7 @@ def mp_counters():
     from repro_torch.kernels import paged_decode as pd
 
     return {"k5": pd.paged_gqa_attention, "k5_partials": pd.paged_gqa_partials,
-            "k6": pd.paged_mla_attention}
+            "k6": pd.paged_mla_attention, "k6_partials": pd.paged_mla_partials}
 
 
 def paged_prefill(cfg, cache, page_size: int) -> tuple[dict, torch.Tensor]:
@@ -4400,9 +4484,12 @@ def paged_prefill(cfg, cache, page_size: int) -> tuple[dict, torch.Tensor]:
     pool = T.init_paged_cache(cfg, B, B * P, page_size, "cuda")
     idx = rows.to("cuda")
     for seg, dense in zip(pool["segments"], cache["segments"]):
-        for name in seg:  # (L, B, Hkv, S, D) -> the pool's (L, B P, Hkv, ps, D)
+        for name in seg:
             x = dense[name]
-            L, _, H, _, D = x.shape
+            if x.dim() == 4:  # a latent (L, B, S, d) -> the pool's (L, B P, ps, d)
+                seg[name][:, idx] = x.reshape(x.shape[0], B * P, page_size, x.shape[-1])
+                continue
+            L, _, H, _, D = x.shape  # (L, B, Hkv, S, D) -> the pool's (L, B P, Hkv, ps, D)
             x = x.reshape(L, B, H, P, page_size, D).permute(0, 1, 3, 2, 4, 5)
             seg[name][:, idx] = x.reshape(L, B * P, H, page_size, D)
     pool["pos"] = cache["pos"]
@@ -4462,18 +4549,22 @@ def mp_turns(cfg, ctx, params, steps: int = MP_STEPS, page_size: int = 0) -> tup
     want, got = logits_by["unsharded"][0], logits_by["sharded"][0]
     rel = float((got - want).abs().max() / want.abs().max())
     finite = bool(torch.isfinite(got).all())
-    return {"max_rel": rel, "finite": finite, "ms_per_step": ms, "launches": counts,
+    # the sharded run's greedy token at every step against the unsharded one's
+    greedy = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return {"max_rel": rel, "finite": finite, "greedy_share": greedy, "ms_per_step": ms,
+            "launches": counts,
             "peak_gb": {k: v[1] for k, v in logits_by.items()}, "layout": layout}, params
 
 
 def mp_check_turns(tag: str, cfg, rec: dict, expect: dict, tol: float = MP_TOL) -> None:
     """The gates of a ``mp_turns`` record: logits within ``tol`` (the bf16
     bound by default), launches equal to ``expect`` (label -> counter ->
-    count), every member's block its own allocation, replicated weights
-    held once."""
+    count; a counter left out must be 0), every member's block its own
+    allocation, replicated weights held once."""
     if not rec["finite"] or rec["max_rel"] >= tol:
         raise AssertionError(f"{tag}: sharded logits max_rel {rec['max_rel']} (bound {tol})")
     for label, want in expect.items():
+        want = {k: want.get(k, 0) for k in rec["launches"][label]}  # the rest launch 0 times
         if rec["launches"][label] != want:
             raise AssertionError(f"{tag} {label}: launches {rec['launches'][label]} != {want}")
     lay = rec["layout"]
@@ -4875,8 +4966,9 @@ def mp_9b() -> tuple[dict, dict]:
 
 def mp_9c() -> dict:
     """9c: deepseek-v3-671b's dense prefix (3 MLA layers), latent cache
-    seq-sharded on a (2, 4) mesh: each member's partial the plain torch
-    math of JAX's ``mla_decode`` body; the unsharded twin on K6."""
+    seq-sharded on a (2, 4) mesh: each member's partial from K6's partials
+    entry point over its 128 lanes read in place (``dense_mla_view``);
+    the unsharded twin on K6."""
     from repro_torch.configs import deepseek_v3_671b as ds
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -4885,19 +4977,215 @@ def mp_9c() -> dict:
     ctx = mp_ctx(cfg, (2, 4))
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     rec, sparams = mp_turns(cfg, ctx, params)
+    members = 8
     mp_check_turns("9c", cfg, rec, {
-        "unsharded": {"k5": 0, "k5_partials": 0, "k6": cfg.n_layers * MP_STEPS},
-        "sharded": {"k5": 0, "k5_partials": 0, "k6": 0}})
+        "unsharded": {"k6": cfg.n_layers * MP_STEPS},
+        "sharded": {"k6_partials": cfg.n_layers * MP_STEPS * members}})
     del sparams
     gc.collect()
     torch.cuda.empty_cache()
     log(f"model_parallel 9c: {cfg.name} {cfg.n_layers} MLA layers, latent cache seq-sharded "
-        f"({MP_MAX_LEN // 4} lanes a member, partial route: plain torch), embed "
-        f"{ctx.embed_strategy}: logits max_rel {rec['max_rel']:.3e}; ms/step unsharded "
-        f"{rec['ms_per_step']['unsharded']:.2f} (K6 {rec['launches']['unsharded']['k6']}), "
-        f"sharded {rec['ms_per_step']['sharded']:.2f}; peak GB {rec['peak_gb']}")
-    return {**rec, "member_partial_route": "plain torch (JAX's mla_decode body)",
+        f"({MP_MAX_LEN // 4} lanes a member, partial route: K6's partials), embed "
+        f"{ctx.embed_strategy}: logits max_rel {rec['max_rel']:.3e}, greedy share "
+        f"{rec['greedy_share']:.3f}; ms/step unsharded {rec['ms_per_step']['unsharded']:.2f} "
+        f"(K6 {rec['launches']['unsharded']['k6']}), sharded "
+        f"{rec['ms_per_step']['sharded']:.2f} (K6 partials "
+        f"{rec['launches']['sharded']['k6_partials']} = {cfg.n_layers} x {MP_STEPS} x "
+        f"{members}); peak GB {rec['peak_gb']}")
+    return {**rec, "member_partial_route": "K6's partials (paged_mla_partials) over the "
+                                           "member's lanes in place",
             "embed_strategy": ctx.embed_strategy}
+
+
+#: K6's partials against their plain version: local lane bounds on 9c's
+#: 128-lane member (below, at and past its lanes), and global positions of
+#: 12d's stream-like slots (-1: no valid lane on any member)
+MLA_PARTIAL_POS = (-5, -1, 0, 63, 64, 100, 127, 400)
+MLA_PAGE_POS = (-1, 3, 4, 15, 16, 63, 100, 511)
+
+
+def mla_partials_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str]:
+    """Least time of a K6 partials call: q read once, the valid latent and
+    RoPE lanes read once, the page table and pos, and the f32 partials
+    (acc, m, l) written once, over HBM; or the two products over the valid
+    lanes at the peak rate of the input type; the larger."""
+    from repro_torch.kernels.paged_decode import paged_valid
+
+    B, h, lora = q_lat.shape
+    rope = q_rope.shape[-1]
+    n_valid = int(paged_valid(pages, pos, ckv.shape[1]).sum())
+    item = q_lat.element_size()
+    nbytes = (q_lat.numel() + q_rope.numel() + n_valid * (lora + rope)) * item
+    nbytes += pages.numel() * 4 + pos.numel() * 4 + B * h * (lora + 2) * 4
+    flops = n_valid * h * (2 * (lora + rope) + 2 * lora)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate(q_lat.dtype)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mla_partials_held(tag: str, args) -> float:
+    """K6's partials on ``args`` against the plain version: the same empty
+    rows (m = -inf exactly where the plain version has no valid lane,
+    with l = 0 and acc = 0), every other value within ``PARTIAL_TOL`` of
+    the largest.  Returns the max abs error."""
+    from repro_torch.kernels import paged_decode as pd
+
+    got = pd.paged_mla_partials(*args, scale=MLA_SCALE)
+    want = pd.paged_mla_partials_plain(*args, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    empty = torch.isneginf(want[1])
+    if not (torch.equal(torch.isneginf(got[1]), empty) and bool((got[2][empty] == 0).all())
+            and bool((got[0][empty] == 0).all())):
+        raise AssertionError(f"K6 partials {tag}: the empty rows are not (0, -inf, 0)")
+    err = 0.0
+    for a, b, name in zip(got, want, ("acc", "m", "l")):
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise AssertionError(f"K6 partials {tag}: {name} finite pattern differs")
+        e = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+        scale = float(b[fin].abs().max()) if fin.any() else 1.0
+        if e > PARTIAL_TOL * max(scale, 1.0):
+            raise AssertionError(f"K6 partials {tag}: {name} max abs err {e}")
+        err = max(err, e)
+    return err
+
+
+def mla_partials_library(ql, qr, ckv, krope, targs) -> dict:
+    """The one PyTorch call that gives K6's partial on a dense member view
+    with every lane valid: SDPA's memory-efficient kernel with its
+    log-sum-exp on q = [q_lat | q_rope], K = [ckv | krope] and V = ckv,
+    K/V expanded to every query head (made before it is timed); its
+    ``(out, lse)`` is ``(acc / l, m + log l)``.  Agreement with the
+    kernel's partial is reported, and its time."""
+    from repro_torch.kernels import paged_decode as pd
+
+    B, h, _ = ql.shape
+    q = torch.cat([ql, qr], -1)[:, :, None].contiguous()
+    k = torch.cat([ckv, krope], -1)[:, None].expand(B, h, -1, -1).contiguous()
+    v = ckv[:, None].expand(B, h, -1, -1).contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, scale=MLA_SCALE)
+
+    try:
+        out, lse = call()[:2]
+        torch.cuda.synchronize()
+        acc, m, l = pd.paged_mla_partials(*targs, scale=MLA_SCALE)
+        out_err = float((out[:, :, 0].float() - acc / l[..., None]).abs().max())
+        lse_err = float((lse.reshape(B, h, -1)[..., 0].float() - (m + torch.log(l))).abs().max())
+        ms = graph_ms(call)
+    except RuntimeError as e:  # the library's call only: nothing of the port is timed here
+        return {"ms": None, "note": f"aten._scaled_dot_product_efficient_attention refused: "
+                                    f"{str(e).splitlines()[0][:160]}"}
+    return {"ms": ms, "note": f"aten._scaled_dot_product_efficient_attention(compute_log_sumexp"
+                              f"=True), q = [q_lat | q_rope], K = [ckv | krope], V = ckv, "
+                              f"K/V expanded to {h} heads; out vs acc/l max abs err "
+                              f"{out_err:.3e}, lse vs m + log l {lse_err:.3e}"}
+
+
+def mla_partials_check() -> dict:
+    """K6's partials entry point against its plain version, bf16 and f32,
+    at DeepSeek's latent widths (h 128, lora 512, rope 64): (a) 9c's
+    member, a dense view of 128 lanes at local bounds ``MLA_PARTIAL_POS``
+    (negative: no valid lane); (b) 12d's (1, 4) members, 4 lanes of every
+    16-lane page each (shorter than the kernel's 64-lane tile), through
+    ``decode.member_table`` over a shuffled table at ``MLA_PAGE_POS``, and
+    the four members combined against K6 over the whole pool; (c) a (2, 4)
+    member of 12d's "pages" route, one row a page of a slot
+    (``decode.page_table``).  Timed at 9c's member shape (4 rows, every
+    lane valid) beside its bound, the plain version and the library's one
+    call, and at (c)'s shape.  The check's launches do not count."""
+    from repro_torch.distributed import decode as DD
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
+    B, h, lora, rope, tp, S_l = 8, 128, 512, 64, 4, MP_MAX_LEN // 4
+    ps, P = MPP_PAGE, MP_MAX_LEN // MPP_PAGE
+    N, ps_l = B * P, MPP_PAGE // tp
+    launches0 = pd.paged_mla_partials.launches
+    errs, comb_err = {}, 0.0
+
+    def rn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        ql, qr = rn(B, h, lora, dtype=dtype), rn(B, h, rope, dtype=dtype)
+        ckv_d, kr_d = rn(B, S_l, lora, dtype=dtype), rn(B, S_l, rope, dtype=dtype)
+        lpos = torch.tensor(MLA_PARTIAL_POS, dtype=torch.int32, device="cuda")
+        errs[f"9c member {name}"] = mla_partials_held(
+            f"9c member {name}", (ql, qr, *pd.dense_mla_view(ckv_d, kr_d), lpos))
+        ckv, krope = rn(N, ps, lora, dtype=dtype), rn(N, ps, rope, dtype=dtype)
+        pages = torch.randperm(N, generator=torch.Generator().manual_seed(SEED + 132))
+        pages = pages.reshape(B, P).to(torch.int32).to("cuda")
+        pos = torch.tensor(MLA_PAGE_POS, dtype=torch.int32, device="cuda")
+        parts = []
+        for m in range(tp):
+            lanes = slice(m * ps_l, (m + 1) * ps_l)
+            table, mpos = DD.member_table(pages, pos, (slice(0, N), lanes, slice(0, lora)), N, ps,
+                                          latent=True)
+            args = (ql, qr, ckv[:, lanes].contiguous(), krope[:, lanes].contiguous(), table, mpos)
+            errs[f"12d lanes member {m} {name}"] = mla_partials_held(
+                f"12d lanes member {m} {name}", args)
+            parts.append(pd.paged_mla_partials(*args, scale=MLA_SCALE))
+        comb = DD._combine_partials(*([p[i] for p in parts] for i in range(3)))
+        whole = pd.paged_mla_attention(ql, qr, ckv, krope, pages, pos, scale=MLA_SCALE)
+        ok = pd.paged_valid(pages, pos, ps).any(dim=1)  # a slot with no valid lane combines to 0
+        e = float((comb[ok] - whole[ok]).abs().max())
+        if e > PARTIAL_TOL * max(float(whole[ok].abs().max()), 1.0):
+            raise AssertionError(f"K6 partials {name}: 4 members combined differ from K6 by {e}")
+        comb_err = max(comb_err, e)
+        block = (slice(0, N // 2), slice(ps_l, 2 * ps_l), slice(0, lora))  # member (0, 1)
+        table, mpos = DD.page_table(pages, pos, block, N, ps, latent=True)
+        qp, qrp = (x.repeat_interleave(P, dim=0).contiguous() for x in (ql, qr))
+        pages_args = (qp, qrp, ckv[:N // 2, block[1]].contiguous(),
+                      krope[:N // 2, block[1]].contiguous(), table, mpos)
+        errs[f"12d pages member (0, 1) {name}"] = mla_partials_held(
+            f"12d pages member (0, 1) {name}", pages_args)
+    # timed in bf16 at 9c's member shape (the 4 rows of one data member,
+    # every lane valid) and at (c)'s shape (its f32 inputs above, as bf16)
+    ql, qr = rn(4, h, lora, dtype=torch.bfloat16), rn(4, h, rope, dtype=torch.bfloat16)
+    ckv_d, kr_d = rn(4, S_l, lora, dtype=torch.bfloat16), rn(4, S_l, rope, dtype=torch.bfloat16)
+    targs = (ql, qr, *pd.dense_mla_view(ckv_d, kr_d),
+             torch.full((4,), S_l - 1, dtype=torch.int32, device="cuda"))
+    ms = graph_ms(lambda: pd.paged_mla_partials(*targs, scale=MLA_SCALE))
+    plain_ms = graph_ms(lambda: pd.paged_mla_partials_plain(*targs, scale=MLA_SCALE))
+    bound_ms, bound_by = mla_partials_bound(*[targs[i] for i in (0, 1, 2, 4, 5)])
+    library = mla_partials_library(ql, qr, ckv_d, kr_d, targs)
+    pb = tuple(x.to(torch.bfloat16) if x.is_floating_point() else x for x in pages_args)
+    pages_ms = graph_ms(lambda: pd.paged_mla_partials(*pb, scale=MLA_SCALE))
+    pages_plain_ms = graph_ms(lambda: pd.paged_mla_partials_plain(*pb, scale=MLA_SCALE),
+                              reps=4, iters=5)
+    pages_bound = mla_partials_bound(*[pb[i] for i in (0, 1, 2, 4, 5)])
+    pd.paged_mla_partials.launches = launches0  # a check, not the main path
+    log("mla_partials: paged_mla_partials vs its plain version (1e-3 of the largest; empty rows "
+        "(0, -inf, 0) exactly): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; 4 lane members combined vs K6 {comb_err:.3e}; 9c member (4 x 128 lanes, bf16): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library['ms']} ms "
+        f"({library['note']}), bound {bound_ms:.6f} ms ({bound_by}); 12d pages member "
+        f"({B * P} rows of {ps_l} lanes, bf16): kernel {pages_ms:.4f} ms, plain "
+        f"{pages_plain_ms:.4f} ms, bound {pages_bound[0]:.6f} ms ({pages_bound[1]})")
+    return {
+        "name": "paged_mla_partials",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_mla_decode.cu",
+        "replaces": "src/repro/kernels/paged_decode.py:250",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "combined_vs_k6_max_abs_err": comb_err,
+        "tolerance": f"{PARTIAL_TOL} of the largest value (atol = rtol); empty rows exact",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library["ms"],
+        "library_note": library["note"],
+        "shape": f"9c member: B=4 h={h} lora={lora} rope={rope}, {S_l} lanes (dense view), bf16",
+        "pages_route": {"shape": f"{B * P} rows of one {ps_l}-lane page, bf16", "ms": pages_ms,
+                        "plain_ms": pages_plain_ms, "bound_ms": pages_bound[0],
+                        "bound_by": pages_bound[1]},
+    }
 
 
 def moe_unsharded(cfg, params, toks) -> dict:
@@ -5105,26 +5393,27 @@ def whole_model_drift(routed, calls, L, want_pre, got_pre, want_dec, got_dec) ->
     return out
 
 
-def model_parallel_phase() -> tuple[dict, dict]:
+def model_parallel_phase() -> tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     out = {"9a": mp_9a()}
     gc.collect()
     torch.cuda.empty_cache()
     out["9b"], partials = mp_9b()
+    mla_partials = mla_partials_check()
     out["9c"] = mp_9c()
     gc.collect()
     torch.cuda.empty_cache()
     out["9d"] = mp_9d()
     out["seconds"] = time.perf_counter() - t0
     log(f"model_parallel: phase 9 took {out['seconds']:.1f} s")
-    return out, partials
+    return out, partials, mla_partials
 
 
 # --------------------------------------------------------------------------
 # phase 10: model-parallel training and sharded recurrent decode
 # --------------------------------------------------------------------------
 MPT_STEPS = 8  # 10a, 10b: trainer steps (10 until phase 11 came; the run stays under 1100 s)
-MPT_LAYERS = 8  # 10a-10c: the first 8 of 24 layers at full width (24 until phase 11 came, 12 until phase 12)
+MPT_LAYERS = 4  # 10a-10c: the first 4 of 24 layers at full width (cut in depth as phases 11-12 came)
 
 
 def mpt_argv(*extra) -> list:
@@ -5132,7 +5421,7 @@ def mpt_argv(*extra) -> list:
     return cut_argv(MPT_LAYERS, "--steps", str(MPT_STEPS), *extra)
 MPT_CKPT = 5  # 10c: the checkpoint after this many steps of 10a
 MPT_TOL0, MPT_TOL = 1e-2, 3e-2  # step 0's loss; every step's (JAX's bf16 bound)
-EF_LAYERS = 8  # 10b: the first 8 of 24 layers at full width (the reckoning: PERF.md)
+EF_LAYERS = 4  # 10b: the first 4 of 24 layers at full width (the reckoning: PERF.md)
 SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
 # 10d's logits: with f32 weights within ``MP_F32_TOL`` of the unsharded
 # run (9d's f32 bound, far inside JAX's bf16 3e-2).  In bf16, 64 layers
@@ -5959,6 +6248,9 @@ def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path) -> dict:
 # --------------------------------------------------------------------------
 MPP_PAGE = 16  # 12a-12c: pages of 16 lanes, as phase 3
 MPP_DRAFT_LEN = 4  # 12c: the verify walk of phase 3d
+#: 12c: internlm2's first 4 of 24 layers at full width (at full depth its
+#: draft stream alone took 133 s of the script's 1100 s budget)
+MPP_SPEC_LAYERS = 4
 
 
 def mpp_scfg(spec=None):
@@ -5968,8 +6260,8 @@ def mpp_scfg(spec=None):
 
 
 def mpp_twin(cfg, scfg, *, spec=None, strike=True) -> dict:
-    """An unsharded twin's record, where phase 12 runs without the phase
-    whose engine it is (3, 3d or 3e)."""
+    """An unsharded twin's record: 12c's, and where phase 12 runs without
+    the phase whose engine it is (3, 3c or 3e)."""
     from repro_torch.kernels import paged_decode as pd
 
     engine, run, _, tokens = serve_stream(cfg, scfg, [pd.paged_gqa_attention], spec=spec,
@@ -5981,12 +6273,15 @@ def mpp_twin(cfg, scfg, *, spec=None, strike=True) -> dict:
 
 
 def unsharded_bytes(cfg, scfg, params_b: float) -> dict:
-    """The twin's weights (``params_b`` billion) and K/V pools, whole."""
+    """The twin's weights (``params_b`` billion) and K/V (or latent)
+    pools, whole."""
     from repro_torch.models.lm_cells import paged_pool_pages
 
     item = cfg.compute_dtype.itemsize
-    pools = 2 * cfg.n_layers * paged_pool_pages(scfg) * cfg.n_kv_heads * scfg.page_size
-    return {"params": params_b * 1e9 * item, "cache": pools * cfg.head_dim * item}
+    lane = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim if cfg.attn_type == "mla"
+            else 2 * cfg.n_kv_heads * cfg.head_dim)  # elements of one lane
+    pools = cfg.n_layers * paged_pool_pages(scfg) * scfg.page_size
+    return {"params": params_b * 1e9 * item, "cache": pools * lane * item}
 
 
 def mpp_stream(tag: str, cfg, scfg, ctx, twin: dict, per_step: dict, *, spec=None,
@@ -6005,7 +6300,7 @@ def mpp_stream(tag: str, cfg, scfg, ctx, twin: dict, per_step: dict, *, spec=Non
                                                  strike=strike, ctx=ctx)
     counts = dict(zip(counters, launches))
     steps = run["ticks"] + run["replays"]
-    expect = {k: n * steps for k, n in per_step.items()}
+    expect = {k: per_step.get(k, 0) * steps for k in counters}  # the rest launch 0 times
     if counts != expect:
         raise AssertionError(f"{tag}: launches {counts} != {expect} ({per_step} x {steps} steps)")
     if strike and (run["victim_index"], run["victim_ledger"]) != (twin["victim_index"],
@@ -6022,7 +6317,8 @@ def mpp_stream(tag: str, cfg, scfg, ctx, twin: dict, per_step: dict, *, spec=Non
         raise AssertionError(f"{tag}: two members' blocks share an allocation")
     if not (lay["params"]["replicated_once"] and lay["params"]["replicated_leaves"]):
         raise AssertionError(f"{tag}: a replicated weight is held more than once")
-    spec_pool = tuple(st["decoder"]["cache"]["segments"][0]["k"].spec)
+    pool_name = "ckv" if cfg.attn_type == "mla" else "k"
+    spec_pool = tuple(st["decoder"]["cache"]["segments"][0][pool_name].spec)
     if want is not None and tokens != want:
         bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
         raise AssertionError(f"{tag}: tokens of requests {bad} differ from the mesh's plain "
@@ -6054,9 +6350,11 @@ def mpp_stream(tag: str, cfg, scfg, ctx, twin: dict, per_step: dict, *, spec=Non
 def mpp_forced(tag: str, cfg, shape, route: str) -> dict:
     """``mp_turns`` through paged pools of ``MPP_PAGE`` lanes, unsharded
     then on a ``shape`` mesh, with the gates of ``mp_check_turns``: logits
-    within the bf16 bound, or ``MP_F32_TOL`` with f32 weights; launches:
-    K5 a layer and step unsharded, and sharded K5 a member on the head
-    route, K5's partials a member on the split routes."""
+    within the bf16 bound, or ``MP_F32_TOL`` with f32 weights, where the
+    sharded run's greedy token must also be the unsharded run's at every
+    step; launches: K5 (K6 for MLA) a layer and step unsharded, and
+    sharded the same kernel a member on the head route, its partials a
+    member on the split routes."""
     from repro_torch.models import transformer as T
 
     members = math.prod(shape)
@@ -6065,16 +6363,19 @@ def mpp_forced(tag: str, cfg, shape, route: str) -> dict:
     rec, sparams = mp_turns(cfg, mp_ctx(cfg, shape), params, page_size=MPP_PAGE)
     del sparams
     n = cfg.n_layers * MP_STEPS
-    sharded = ({"k5": n * members, "k5_partials": 0, "k6": 0} if route == "head"
-               else {"k5": 0, "k5_partials": n * members, "k6": 0})
-    tol = MP_F32_TOL if cfg.compute_dtype == torch.float32 else MP_TOL
-    mp_check_turns(tag, cfg, rec, {"unsharded": {"k5": n, "k5_partials": 0, "k6": 0},
-                                   "sharded": sharded}, tol=tol)
+    kernel = "k6" if cfg.attn_type == "mla" else "k5"
+    sharded = {kernel if route == "head" else f"{kernel}_partials": n * members}
+    f32 = cfg.compute_dtype == torch.float32
+    tol = MP_F32_TOL if f32 else MP_TOL
+    mp_check_turns(tag, cfg, rec, {"unsharded": {kernel: n}, "sharded": sharded}, tol=tol)
+    if f32 and rec["greedy_share"] != 1.0:
+        raise AssertionError(f"{tag}: with f32 weights the sharded greedy tokens differ from the "
+                             f"unsharded run's (share {rec['greedy_share']})")
     log(f"model_parallel_paged {tag}: {cfg.name} {cfg.dtype} teacher-forced {MP_STEPS} steps "
         f"through pages of {MPP_PAGE} on {shape} ({route} route): logits max_rel "
-        f"{rec['max_rel']:.3e} (bound {tol}); ms/step unsharded "
-        f"{rec['ms_per_step']['unsharded']:.2f}, sharded {rec['ms_per_step']['sharded']:.2f}; "
-        f"launches {rec['launches']['sharded']}")
+        f"{rec['max_rel']:.3e} (bound {tol}), greedy share {rec['greedy_share']:.3f}; ms/step "
+        f"unsharded {rec['ms_per_step']['unsharded']:.2f}, sharded "
+        f"{rec['ms_per_step']['sharded']:.2f}; launches {rec['launches']['sharded']}")
     gc.collect()
     torch.cuda.empty_cache()
     return {**rec, "route": route, "tol": tol}
@@ -6149,34 +6450,30 @@ def mpp_partials_lanes(cfg) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "n_valid": n_valid}
 
 
-def mpp_12a(twin) -> tuple[dict, list]:
+def mpp_12a(twin) -> dict:
     """12a: internlm2-1.8b paged on (1, 4) (kv heads over model: the head
     route, K5 a member) and (2, 4) (pages over data, kv heads over model:
     K5's partials a member, combined in page order) beside phase 3's
     engine; then the teacher-forced logits of both routes in bf16 and with
-    f32 weights.  Returns (record, the (2, 4) engine's tokens: 12c's plain
-    stream)."""
+    f32 weights."""
     from repro_torch.configs import get_config
 
     cfg = get_config("internlm2-1.8b")
     scfg = mpp_scfg()
     twin = twin or mpp_twin(cfg, scfg)
-    out, plain = {}, None
+    out = {}
     for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
         members, n = math.prod(shape), cfg.n_layers
-        per = ({"k5": n * members, "k5_partials": 0, "k6": 0} if route == "head"
-               else {"k5": 0, "k5_partials": n * members, "k6": 0})
+        per = {"k5": n * members} if route == "head" else {"k5_partials": n * members}
         label = f"{shape[0]}x{shape[1]}"
-        out[label], tokens = mpp_stream(f"12a {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
+        out[label], _ = mpp_stream(f"12a {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
         out[label]["route"] = route
-        if shape == (2, 4):
-            plain = tokens
     for dtype in ("bfloat16", "float32"):
         c = dataclasses.replace(cfg, dtype=dtype)
         for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
             out[f"forced_{dtype}_{shape[0]}x{shape[1]}"] = mpp_forced(
                 f"12a forced {dtype} {shape}", c, shape, route)
-    return out, plain
+    return out
 
 
 def mpp_12b(twin) -> dict:
@@ -6190,55 +6487,93 @@ def mpp_12b(twin) -> dict:
     scfg = mpp_scfg()
     out = {"partials_4_lanes": mpp_partials_lanes(cfg)}
     twin = twin or mpp_twin(cfg, scfg)
-    per = {"k5": 0, "k5_partials": cfg.n_layers * 4, "k6": 0}
+    per = {"k5_partials": cfg.n_layers * 4}
     out["1x4"], _ = mpp_stream("12b 1x4", cfg, scfg, mp_ctx(cfg, (1, 4)), twin, per)
     out["1x4"]["route"] = "lanes"
     out["forced_granite_bfloat16_1x4"] = mpp_forced("12b forced", cfg, (1, 4), "lanes")
     return out
 
 
-def mpp_12c(twins: dict, plain: list) -> dict:
-    """12c: internlm2-1.8b on (2, 4), paged, speculating (draft_len 4):
-    true self-speculation, then a full-width draft from seed 1 with a
-    strike, beside phase 3d (a) / (b); every request's tokens bitwise the
-    (2, 4) plain stream of 12a.  Launches: K5's partials = layers x 8
-    members x 5 sub-steps a tick; with the draft also K5 = as many (its
-    dense cache head-sharded, K5 a member)."""
+def mpp_12c() -> dict:
+    """12c: internlm2-1.8b's first ``MPP_SPEC_LAYERS`` layers at full
+    width on (2, 4), paged, speculating (draft_len 4): true
+    self-speculation, then a draft of the same cut from seed 1 with a
+    strike, each beside its unsharded speculating twin; every request's
+    tokens bitwise the cut's (2, 4) plain stream, served first.
+    Launches: K5's partials = layers x 8 members (x 5 sub-steps a tick
+    speculating); with the draft also K5 = as many (its dense cache
+    head-sharded, K5 a member)."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm_cells import SpecConfig
 
-    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=MPP_SPEC_LAYERS)
     ctx = mp_ctx(cfg, (2, 4))
     req = SpecConfig(draft_len=MPP_DRAFT_LEN)
     n = cfg.n_layers * 8 * (MPP_DRAFT_LEN + 1)
     out = {}
+    out["plain"], plain = mpp_stream("12c plain", cfg, mpp_scfg(), ctx,
+                                     mpp_twin(cfg, mpp_scfg()),
+                                     {"k5_partials": cfg.n_layers * 8})
     for label, spec, strike in (("self", req, False),
                                 ("draft", SpecConfig(draft_len=MPP_DRAFT_LEN,
                                                      draft_param_seed=SEED + 1), True)):
         scfg = mpp_scfg(spec)
-        twin = twins.get(label) or mpp_twin(cfg, scfg, spec=req, strike=strike)
-        per = {"k5": n if label == "draft" else 0, "k5_partials": n, "k6": 0}
+        twin = mpp_twin(cfg, scfg, spec=req, strike=strike)
+        per = {"k5": n if label == "draft" else 0, "k5_partials": n}
         out[label], _ = mpp_stream(f"12c {label}", cfg, scfg, ctx, twin, per, spec=req,
                                    strike=strike, want=plain)
         out[label]["twin"].update({k: twin.get(k) for k in ("spec_tokens_per_tick",
                                                             "spec_min_commit")})
+    out["layers"] = cfg.n_layers
+    return out
+
+
+def mpp_12d(twin) -> dict:
+    """12d: deepseek-v3-671b's dense prefix (3 MLA layers, full published
+    widths) paged on (1, 4) (each page's lanes over model: K6's partials a
+    slot over 4 lanes of every page, combined in lane order) and (2, 4)
+    (pages over data, lanes over model: K6's partials a page of a slot,
+    combined in page order) beside phase 3c's engine ``twin``; then the
+    teacher-forced logits of both routes in bf16 and with f32 weights
+    (where every greedy token must be the unsharded run's).  Launches: K6's
+    partials = layers x (ticks + replays) x members, K6 0."""
+    from repro_torch.configs import deepseek_v3_671b as ds
+    from repro_torch.configs import get_config
+
+    cfg = ds.dense_prefix(get_config("deepseek-v3-671b"))
+    scfg = mpp_scfg()
+    twin = twin or mpp_twin(cfg, scfg)
+    out = {}
+    for shape, route in (((1, 4), "lanes"), ((2, 4), "pages")):
+        label = f"{shape[0]}x{shape[1]}"
+        per = {"k6_partials": cfg.n_layers * math.prod(shape)}
+        out[label], _ = mpp_stream(f"12d {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
+        out[label]["route"] = route
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        for shape, route in (((1, 4), "lanes"), ((2, 4), "pages")):
+            out[f"forced_{dtype}_{shape[0]}x{shape[1]}"] = mpp_forced(
+                f"12d forced {dtype} {shape}", c, shape, route)
     return out
 
 
 def mp_paged_phase(twins: dict) -> dict:
     """Phase 12: paged pools and speculation under a mesh.  ``twins``:
     the unsharded records of phases 3 (``"internlm2"``, with its
-    ``"tokens"``), 3e (``"granite"``) and 3d (``"self"``, ``"draft"``);
-    one that is missing is served here."""
+    ``"tokens"``), 3e (``"granite"``) and 3c (``"deepseek"``); one that
+    is missing is served here.  12c serves its own twins."""
     t0 = time.perf_counter()
     out = {}
-    out["12a"], plain = mpp_12a(twins.get("internlm2"))
+    out["12a"] = mpp_12a(twins.get("internlm2"))
     t1 = time.perf_counter()
     out["12b"] = mpp_12b(twins.get("granite"))
     t2 = time.perf_counter()
-    out["12c"] = mpp_12c(twins, plain)
+    out["12c"] = mpp_12c()
     t3 = time.perf_counter()
-    out["seconds"] = {"12a": t1 - t0, "12b": t2 - t1, "12c": t3 - t2, "all": t3 - t0}
+    out["12d"] = mpp_12d(twins.get("deepseek"))
+    t4 = time.perf_counter()
+    out["seconds"] = {"12a": t1 - t0, "12b": t2 - t1, "12c": t3 - t2, "12d": t4 - t3,
+                      "all": t4 - t0}
     log("model_parallel_paged: phase 12 took " + ", ".join(
         f"{k} {v:.1f} s" for k, v in out["seconds"].items()))
     return out
@@ -6351,12 +6686,17 @@ def main() -> int:
         r["k4_launches"] for r in spatial["8a"].values())
     epi["tmr_vote"]["launches"] += epi["tmr_vote"]["launches_by_path"]["spatial_8a"]
     for path, n in (("spatial_8c", spatial["8c"]["k5_launches"]),
+                    ("spatial_8e", spatial["8e"]["k5_launches"]),
                     ("spatial_8d", spatial["8d"]["k5_launches"])):
         record["launches_by_path"][path] = n
         record["launches"] += n
+    epi["tmr_vote"]["launches_by_path"]["spatial_8e"] = spatial["8e"]["k4_launches"]
+    epi["tmr_vote"]["launches"] += spatial["8e"]["k4_launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    mp, partials = model_parallel_phase()
+    mp, partials, mla_partials = model_parallel_phase()
+    mla_partials["launches"] = mp["9c"]["launches"]["sharded"]["k6_partials"]
+    mla_partials["launches_by_path"] = {"mp_9c": mla_partials["launches"]}
     a9 = mp["9a"]
     for rec, path, n in ((record, "mp_9a_engine", a9["sharded"]["k5_launches"]),
                          (record, "mp_9a_engine_unsharded", a9["unsharded"]["k5_launches"]),
@@ -6393,23 +6733,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     mpp = mp_paged_phase({"internlm2": {**eng, "tokens": plain_tokens},
                           "granite": arch_engines["3e"],
-                          "self": {**spec["self"], "tokens": plain_tokens},
-                          "draft": {**spec["draft"], "tokens": plain_tokens}})
+                          "deepseek": {**deepseek, "tokens": mla_tokens}})
+    by_counter = ((record, "k5"), (partials, "k5_partials"), (mla, "k6"),
+                  (mla_partials, "k6_partials"))
     for key, run in (("mp_12a_1x4", mpp["12a"]["1x4"]), ("mp_12a_2x4", mpp["12a"]["2x4"]),
-                     ("mp_12b_1x4", mpp["12b"]["1x4"]), ("mp_12c_self", mpp["12c"]["self"]),
-                     ("mp_12c_draft", mpp["12c"]["draft"])):
-        for rec, counter in ((record, "k5"), (partials, "k5_partials")):
+                     ("mp_12b_1x4", mpp["12b"]["1x4"]), ("mp_12c_plain", mpp["12c"]["plain"]),
+                     ("mp_12c_self", mpp["12c"]["self"]), ("mp_12c_draft", mpp["12c"]["draft"]),
+                     ("mp_12d_1x4", mpp["12d"]["1x4"]), ("mp_12d_2x4", mpp["12d"]["2x4"])):
+        for rec, counter in by_counter:
             if run["launches"][counter]:
                 rec["launches_by_path"][key] = run["launches"][counter]
                 rec["launches"] += run["launches"][counter]
-    forced = {k: v for k, v in (*mpp["12a"].items(), *mpp["12b"].items())
-              if k.startswith("forced_")}
+    forced = {f"{phase}_{k}": v for phase in ("12a", "12b", "12d")
+              for k, v in mpp[phase].items() if k.startswith("forced_")}
     for key, run in forced.items():
-        for rec, counter in ((record, "k5"), (partials, "k5_partials")):
+        for rec, counter in by_counter:
             for label in ("sharded", "unsharded"):
                 n = run["launches"][label][counter]
                 if n:
-                    path = f"mp_12_{key}" + ("" if label == "sharded" else "_unsharded")
+                    path = f"mp_{key}" + ("" if label == "sharded" else "_unsharded")
                     rec["launches_by_path"][path] = n
                     rec["launches"] += n
     partials["lanes_4_instance"] = mpp["12b"]["partials_4_lanes"]
@@ -6429,7 +6771,8 @@ def main() -> int:
     print(json.dumps({"model_parallel_training": mpt}), flush=True)
     print(json.dumps({"replicated_training": rt}), flush=True)
     print(json.dumps({"model_parallel_paged": mpp}), flush=True)
-    print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla]}), flush=True)
+    print(json.dumps({"kernels": [record, partials, *epi.values(), attn, ssd, mla,
+                                  mla_partials]}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -87,6 +87,26 @@
 // (S, G) scores live in shared memory, which bounds max_len; the wrapper
 // refuses inputs whose block would exceed Hopper's 227 KB, and picks a
 // smaller G for longer caches.
+//
+// The partials entry points (paged_mla_partials_*) give each row's
+// flash-decoding partial over the lanes it is given: the unnormalised
+// f32 context acc, the scores' max m in natural units and the softmax sum
+// l.  A member of a mesh that holds some of a slot's pages or lanes
+// passes its own (a page table of its rows, pos shifted to its lanes; pos
+// may be negative), and the members' partials combine in
+// distributed/decode.py.  A row with no valid lane gives the empty
+// partial (acc 0, m -inf, l 0), never the whole-slot kernel's uniform
+// mean: that mean is right for one whole slot and wrong inside a combine.
+//   bf16: the split kernel above without its uniform case, then
+//   merge_partials_kernel (split_merge.cuh), which merges the splits in
+//   order without dividing: one entry point, two launches, as K5's
+//   partials.
+//   f32: an epilogue variant of the CUDA-core kernel (kPartials): the same
+//   two passes, the softmax not normalised, and m and l written beside
+//   the context.  It keeps the f32 kernel's lane order and its 1e-4
+//   accuracy and needs no scratch; a split route would add a second pass
+//   and the partials' scratch for a member whose lanes already fit one
+//   block's shared memory (the wrapper refuses the rest, as for K6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,12 +221,15 @@ __device__ __forceinline__ void dot_rows(const float* __restrict__ row, const fl
   }
 }
 
-template <int G>
+// kPartials: out takes the unnormalised context, m_out / l_out the row's
+// max (natural units) and sum; a row with no valid lane the empty partial.
+template <int G, bool kPartials>
 __global__ void __launch_bounds__(kThreads)
     f32_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope,
                             const float* __restrict__ ckv, const float* __restrict__ krope,
                             const int* __restrict__ pages, const int* __restrict__ pos,
-                            float* __restrict__ out, int H, int lora, int rope, int ps, int P,
+                            float* __restrict__ out, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int H, int lora, int rope, int ps, int P,
                             int N, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int dk = lora + rope;
@@ -251,6 +274,14 @@ __global__ void __launch_bounds__(kThreads)
     store_row<G>(sc + (size_t)t * G, s);
   }
   const int any_valid = __syncthreads_or(my_valid);
+  if (kPartials && !any_valid) {  // the empty partial
+    for (int i = tid; i < G * lora; i += kThreads) out[((size_t)b * H + h0) * lora + i] = 0.f;
+    for (int g = tid; g < G; g += kThreads) {
+      m_out[(size_t)b * H + h0 + g] = -INFINITY;
+      l_out[(size_t)b * H + h0 + g] = 0.f;
+    }
+    return;
+  }
 
   // Softmax over all S lanes, per head: max, exp and sum, normalise.
   float m[G], l[G];
@@ -274,12 +305,22 @@ __global__ void __launch_bounds__(kThreads)
     store_row<G>(sc + (size_t)t * G, r);
   }
   block_reduce<G, false>(l, red);
-  for (int t = tid; t < S; t += kThreads) {
-    float r[G];
-    load_row<G>(sc + (size_t)t * G, r);
+  if constexpr (kPartials) {
+    if (tid == 0) {  // every thread holds the reduced m and l
 #pragma unroll
-    for (int g = 0; g < G; ++g) r[g] = r[g] / l[g];
-    store_row<G>(sc + (size_t)t * G, r);
+      for (int g = 0; g < G; ++g) {
+        m_out[(size_t)b * H + h0 + g] = m[g];
+        l_out[(size_t)b * H + h0 + g] = l[g];
+      }
+    }
+  } else {
+    for (int t = tid; t < S; t += kThreads) {
+      float r[G];
+      load_row<G>(sc + (size_t)t * G, r);
+#pragma unroll
+      for (int g = 0; g < G; ++g) r[g] = r[g] / l[g];
+      store_row<G>(sc + (size_t)t * G, r);
+    }
   }
   __syncthreads();
 
@@ -314,33 +355,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int G>
+template <int G, bool kPartials>
 int launch_g(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
-             const void* pages, const void* pos, void* out, int B, int H, int lora, int rope,
-             int ps, int P, int N, float scale, size_t smem, cudaStream_t stream) {
+             const void* pages, const void* pos, void* out, void* m_out, void* l_out, int B,
+             int H, int lora, int rope, int ps, int P, int N, float scale, size_t smem,
+             cudaStream_t stream) {
   // Raise the block's dynamic shared memory limit once per size, on the
   // first (eager) launch: not again inside a CUDA-graph capture.
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        f32_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        f32_kernel<G, kPartials>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   const dim3 grid(B, H / G);
-  f32_kernel<G><<<grid, kThreads, smem, stream>>>(
+  f32_kernel<G, kPartials><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q_lat), static_cast<const float*>(q_rope), static_cast<const float*>(ckv),
       static_cast<const float*>(krope), static_cast<const int*>(pages), static_cast<const int*>(pos),
-      static_cast<float*>(out), H, lora, rope, ps, P, N, scale);
+      static_cast<float*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), H, lora,
+      rope, ps, P, N, scale);
   return (int)cudaGetLastError();
 }
 
+// m_out == nullptr: the normalised context; else the partials
 int launch_f32(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
                const void* pages, const void* pos, void* out, int B, int H, int lora, int rope,
-               int ps, int P, int N, int G, float scale, size_t smem, void* stream) {
+               int ps, int P, int N, int G, float scale, size_t smem, void* stream,
+               void* m_out = nullptr, void* l_out = nullptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLA_F32(G_) \
-  launch_g<G_>(q_lat, q_rope, ckv, krope, pages, pos, out, B, H, lora, rope, ps, P, N, scale, smem, s)
+#define MLA_F32(G_)                                                                          \
+  (m_out ? launch_g<G_, true>(q_lat, q_rope, ckv, krope, pages, pos, out, m_out, l_out, B, H, \
+                              lora, rope, ps, P, N, scale, smem, s)                          \
+         : launch_g<G_, false>(q_lat, q_rope, ckv, krope, pages, pos, out, nullptr, nullptr, \
+                               B, H, lora, rope, ps, P, N, scale, smem, s))
   switch (G) {
     case 1: return MLA_F32(1);
     case 2: return MLA_F32(2);
@@ -388,7 +436,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                 const __nv_bfloat16* __restrict__ ckv, const __nv_bfloat16* __restrict__ krope,
                 const int* __restrict__ pages, const int* __restrict__ pos,
                 float* __restrict__ part, int H, int lora, int rope, int ps, int P, int N,
-                int split_lanes, int nsplit, float scale_log2) {
+                int split_lanes, int nsplit, float scale_log2, int allow_uniform) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023) & ~1023u;
@@ -402,10 +450,12 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   const int* prow = pages + (size_t)b * P;
 
   // Does the slot have a valid lane (a mapped page starting at or before
-  // pos)?  If not, the block takes the uniform mean of the slot's lanes.
+  // pos)?  If not, the block takes the uniform mean of the slot's lanes
+  // (the partials entry point: an empty partial instead).
   int has_valid = 0;
   for (int i = tid; i < P; i += kBf16Threads) has_valid |= prow[i] >= 0 && i * ps <= qpos;
-  const bool uniform = !__syncthreads_or(has_valid);
+  const bool none_valid = !__syncthreads_or(has_valid);
+  const bool uniform = allow_uniform && none_valid;
   const int S = P * ps;
   const int L0 = split * split_lanes;
   const int Lend = min(S, L0 + split_lanes);
@@ -574,10 +624,13 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   }
 }
 
+// out != null: the normalised context (merge_kernel); else the partials
+// acc / m / l (merge_partials_kernel), with no uniform case.
 int launch_bf16(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
                 const void* pages, const void* pos, void* out, void* part, int B, int H,
                 int lora, int rope, int ps, int P, int N, int split_lanes, float scale,
-                void* stream) {
+                void* stream, void* acc = nullptr, void* m_out = nullptr,
+                void* l_out = nullptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lora > kLoraMax || rope > kRopeMax || lora % 8 || rope % 8 || split_lanes < kTile ||
       split_lanes % kTile || !part)
@@ -597,11 +650,16 @@ int launch_bf16(const void* q_lat, const void* q_rope, const void* ckv, const vo
       static_cast<const __nv_bfloat16*>(q_lat), static_cast<const __nv_bfloat16*>(q_rope),
       static_cast<const __nv_bfloat16*>(ckv), static_cast<const __nv_bfloat16*>(krope),
       static_cast<const int*>(pages), static_cast<const int*>(pos), static_cast<float*>(part), H,
-      lora, rope, ps, P, N, split_lanes, nsplit, scale * kLog2e);
+      lora, rope, ps, P, N, split_lanes, nsplit, scale * kLog2e, out != nullptr);
   if (const int e = (int)cudaGetLastError()) return e;
-  merge_kernel<float><<<B * H, kMergeThreads, 0, s>>>(static_cast<const float*>(part),
-                                                      static_cast<float*>(out), B * H, lora,
-                                                      nsplit);
+  if (out)
+    merge_kernel<float><<<B * H, kMergeThreads, 0, s>>>(static_cast<const float*>(part),
+                                                        static_cast<float*>(out), B * H, lora,
+                                                        nsplit);
+  else
+    merge_partials_kernel<<<B * H, kMergeThreads, 0, s>>>(
+        static_cast<const float*>(part), static_cast<float*>(acc), static_cast<float*>(m_out),
+        static_cast<float*>(l_out), B * H, lora, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -636,4 +694,29 @@ extern "C" int paged_mla_decode_bf16(const void* q_lat, const void* q_rope, cons
                                      void* stream) {
   return launch_bf16(q_lat, q_rope, ckv, krope, pages, pos, out, part, B, H, lora, rope, ps, P,
                      N, split_lanes, scale, stream);
+}
+
+// The partials of the same attention (see the header): acc (B,H,lora) f32,
+// m and l (B,H) f32, contiguous; pos may be negative (no valid lane).
+// f32: the arguments of paged_mla_decode_f32 with out = acc.
+extern "C" int paged_mla_partials_f32(const void* q_lat, const void* q_rope, const void* ckv,
+                                      const void* krope, const void* pages, const void* pos,
+                                      void* acc, void* m, void* l, int B, int H, int lora,
+                                      int rope, int ps, int P, int N, int G, float scale,
+                                      size_t smem, void* stream) {
+  if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
+  return launch_f32(q_lat, q_rope, ckv, krope, pages, pos, acc, B, H, lora, rope, ps, P, N, G,
+                    scale, smem, stream, m, l);
+}
+
+// bf16: the arguments of paged_mla_decode_bf16; one call launches the split
+// kernel and the merge that does not divide, counted as one launch.
+extern "C" int paged_mla_partials_bf16(const void* q_lat, const void* q_rope, const void* ckv,
+                                       const void* krope, const void* pages, const void* pos,
+                                       void* acc, void* m, void* l, void* part, int B, int H,
+                                       int lora, int rope, int ps, int P, int N, int split_lanes,
+                                       float scale, void* stream) {
+  if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
+  return launch_bf16(q_lat, q_rope, ckv, krope, pages, pos, nullptr, part, B, H, lora, rope, ps,
+                     P, N, split_lanes, scale, stream, acc, m, l);
 }

@@ -22,13 +22,14 @@ Two cache layouts, matching ``sharding.cache_pspecs``:
     kernel (``paged_gqa_partials``), then the flash-decoding combine.
 Anything else returns None, and the caller decodes each data member's
 rows on its own (``local_decode``; the cache then has no model axis).
-MLA's latent cache is sequence-sharded; each member's partial is the
-plain torch math of JAX's ``mla_decode`` body (no Pallas kernel there
-either), on the card as on the CPU.  Where the model axis does not
-divide the lanes (or is 1, or ``tp_off``), ``mla_decode`` returns None
-and ``local_mla_decode`` decodes each data member's rows over its own
-latent block, on the card through K6 as the unsharded decode does.
-The members of a model group combine in ``_combine_partials``.
+MLA's latent cache is sequence-sharded; each member's partial is, on the
+card, K6's partials entry point (``paged_mla_partials``) over its lanes
+read in place, and on the CPU the plain torch math of JAX's
+``mla_decode`` body.  Where the model axis does not divide the lanes (or
+is 1, or ``tp_off``), ``mla_decode`` returns None and
+``local_mla_decode`` decodes each data member's rows over its own latent
+block, on the card through K6 as the unsharded decode does.  The members
+of a model group combine in ``_combine_partials``.
 
 A paged pool (N, Hkv, ps, D) under a mesh (``paged_gqa_decode``) is laid
 out by the same ``cache_pspecs`` rule: pages over the data axes, and kv
@@ -41,8 +42,11 @@ runs K5's partials entry point over what it holds, and the partials
 combine over the splitting axes: by lane block in member order when only
 the lanes split, and by logical page when the pages split, so a slot's
 result never depends on which member holds its pages (DMR/TMR replica
-slots hold different rows and must agree bit for bit).  Paged MLA
-latent pools are not served under a mesh (``MLA_POOL_REFUSAL``).
+slots hold different rows and must agree bit for bit).  A paged MLA
+latent pool (N, ps, lora) under a mesh (``paged_mla_decode``) takes the
+same plan, with the pages over the data axes and each page's lanes over
+the model axis: K6 a block where every block holds every page and lane,
+else K6's partials entry point, combined the same way.
 
 The caller's activations are ordinary tensors on the controller's
 device (``q`` (B, Hq, 1, D) with every head): a member reads its rows
@@ -58,8 +62,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels.paged_decode import (NEG_INF, attend, dense_decode_on_card, dense_gqa_view,
-                                    dense_mla_decode, gate, paged_gqa_attention,
-                                    paged_gqa_partials, ring_lane_pos)
+                                    dense_mla_decode, dense_mla_view, gate, paged_gqa_attention,
+                                    paged_gqa_partials, paged_mla_attention, paged_mla_partials,
+                                    ring_lane_pos)
 from . import collectives as C
 from . import wire
 from .sharding import _key
@@ -246,22 +251,15 @@ def _partial_attend(q, kc, vc, sp, pos, window, scale):
 
 
 # ===========================================================================
-# GQA over a sharded page pool
+# GQA and MLA over a sharded page pool
 # ===========================================================================
-#: why a paged MLA latent pool is not served under a mesh: the member-wise
-#: route needs K6's partials, which the port does not have yet
-MLA_POOL_REFUSAL = ("a paged MLA latent pool under a ShardCtx with a mesh is not ported: a "
-                    "member-wise decode needs a partials entry point of K6 "
-                    "(paged_mla_attention), which the port does not have yet; serve the dense "
-                    "latent cache")
-
-
 class PagedMember(NamedTuple):
-    """One distinct block of a sharded pool (N, Hkv, ps, D) in one decode
-    step: its global ``block`` (rows, kv heads, lanes, D); the step's
-    writes that land in it (``rows``/``lanes`` local, ``sel`` the
-    writing slots); and the page table and positions its attention reads
-    (``member_table``'s or ``page_table``'s, by the plan's route)."""
+    """One distinct block of a sharded pool in one decode step: its global
+    ``block`` (a GQA pool's (rows, kv heads, lanes, D), a latent pool's
+    (rows, lanes, d)); the step's writes that land in it (``rows``/
+    ``lanes`` local, ``sel`` the writing slots); and the page table and
+    positions its attention reads (``member_table``'s or ``page_table``'s,
+    by the plan's route)."""
 
     block: tuple
     rows: torch.Tensor
@@ -275,14 +273,21 @@ class PagedPlan(NamedTuple):
     """One decode step's member plan of a sharded pool, shared by every
     layer (every layer's pool has one layout): ``members`` keyed by block,
     in member order; ``route`` "head" (every block holds every page and
-    lane: K5 a block), "lanes" (every page on every block, its lanes
-    split: a partial a slot, combined in lane order) or "pages" (the
-    pages split: a partial a page of a slot, combined in page order);
-    ``axes`` the mesh axes the partials combine over."""
+    lane: K5 a block over its kv heads, or K6 a block), "lanes" (every
+    page on every block, its lanes split: a partial a slot, combined in
+    lane order) or "pages" (the pages split: a partial a page of a slot,
+    combined in page order); ``axes`` the mesh axes the partials combine
+    over."""
 
     members: dict
     route: str
     axes: tuple
+
+
+def _lanes_of(block, latent: bool) -> slice:
+    """The lane slice of a pool block: dim 2 of a GQA pool's (N, Hkv, ps,
+    D), dim 1 of a latent pool's (N, ps, d)."""
+    return block[1] if latent else block[2]
 
 
 def _held(pages, block, n_pages: int):
@@ -294,17 +299,18 @@ def _held(pages, block, n_pages: int):
     return g, (g >= rs.start) & (g < rs.stop)
 
 
-def member_table(pages, pos, block, n_pages: int, page_size: int):
+def member_table(pages, pos, block, n_pages: int, page_size: int, *, latent: bool = False):
     """The page table (B, P) and positions (B,) a member holding ``block``
-    = (rows, heads, lanes, ...) reads on the "head" and "lanes" routes:
-    rows held elsewhere are -1 (K5 reads them as unmapped) and the rows it
-    holds are renumbered from 0; with the lanes split, a member holding
-    lanes ``[lo, lo + ps_l)`` of every page sees global position p as
-    ``(p // ps) ps_l + clamp(p % ps - lo, -1, ps_l - 1)``, so its lane j
-    of logical page i is valid exactly where global lane ``i ps + lo + j``
-    is at or before p (-1 on the first page: none)."""
+    (of a GQA pool, or of a latent pool with ``latent``) reads on the
+    "head" and "lanes" routes: rows held elsewhere are -1 (the kernels
+    read them as unmapped) and the rows it holds are renumbered from 0;
+    with the lanes split, a member holding lanes ``[lo, lo + ps_l)`` of
+    every page sees global position p as ``(p // ps) ps_l + clamp(p % ps
+    - lo, -1, ps_l - 1)``, so its lane j of logical page i is valid
+    exactly where global lane ``i ps + lo + j`` is at or before p (-1 on
+    the first page: none)."""
     g, held = _held(pages, block, n_pages)
-    rs, ls = block[0], block[2]
+    rs, ls = block[0], _lanes_of(block, latent)
     table = torch.where(held, g - rs.start, -1).to(torch.int32)
     ps_l = ls.stop - ls.start
     if ps_l == page_size:
@@ -314,13 +320,13 @@ def member_table(pages, pos, block, n_pages: int, page_size: int):
     return table.contiguous(), (page * ps_l + lane).to(torch.int32).contiguous()
 
 
-def page_table(pages, pos, block, n_pages: int, page_size: int):
+def page_table(pages, pos, block, n_pages: int, page_size: int, *, latent: bool = False):
     """The table (B P, 1) and positions (B P,) of the "pages" route: one
     row a logical page of a slot, mapped to the member's local row where
     ``block`` holds it (-1 elsewhere), with the position ``clamp(p - i ps
     - lo, -1, ps_l - 1)`` of page i's lanes ``[lo, lo + ps_l)``."""
     g, held = _held(pages, block, n_pages)
-    rs, ls = block[0], block[2]
+    rs, ls = block[0], _lanes_of(block, latent)
     B, P = pages.shape
     table = torch.where(held, g - rs.start, -1).to(torch.int32).reshape(B * P, 1)
     start = torch.arange(P, device=pos.device) * page_size + ls.start
@@ -328,22 +334,25 @@ def page_table(pages, pos, block, n_pages: int, page_size: int):
     return table.contiguous(), lpos.reshape(B * P).to(torch.int32).contiguous()
 
 
-def paged_plan(pool, pages, pos, rows_lanes) -> PagedPlan:
+def paged_plan(pool, pages, pos, rows_lanes, *, latent: bool = False) -> PagedPlan:
     """The member plan of one decode step over ``pool``, a ``Sharded``
-    layer pool (N, Hkv, ps, D) (or the stacked (L, N, Hkv, ps, D): every
-    layer's blocks are its blocks), laid out by ``cache_pspecs``: pages
-    over the data axes, and kv heads (when they divide) or each page's
-    lanes over the model axis.  ``pages`` (B, P) is the global table,
-    ``pos`` (B,) the global positions and ``rows_lanes`` the step's
-    global write (``layers.paged_write_rows``).  The route is the
-    layout's (``PagedPlan``)."""
-    N, ps = pool.shape[-4], pool.shape[-2]
-    lead = pool.dim() - 4
-    spec = tuple(pool.spec)[lead:] + (None,) * 4
+    layer pool: GQA's (N, Hkv, ps, D), or with ``latent`` MLA's (N, ps,
+    lora); or the stacked pool with a leading layer dim (every layer's
+    blocks are its blocks).  Laid out by ``cache_pspecs``: pages over the
+    data axes, and kv heads (when they divide) or each page's lanes over
+    the model axis.  ``pages`` (B, P) is the global table, ``pos`` (B,)
+    the global positions and ``rows_lanes`` the step's global write
+    (``layers.paged_write_rows``).  The route is the layout's
+    (``PagedPlan``)."""
+    nd = 3 if latent else 4
+    N, ps = pool.shape[-nd], pool.shape[-2]
+    lead = pool.dim() - nd
+    spec = tuple(pool.spec)[lead:] + (None,) * nd
     first = pool.block(pool.coords()[0])[lead:]
+    ls0 = _lanes_of(first, latent)
     if first[0].stop - first[0].start != N:
         route, table_fn = "pages", page_table
-    elif first[2].stop - first[2].start != ps:
+    elif ls0.stop - ls0.start != ps:
         route, table_fn = "lanes", member_table
     else:
         route, table_fn = "head", member_table
@@ -354,12 +363,12 @@ def paged_plan(pool, pages, pos, rows_lanes) -> PagedPlan:
         key = _key(block)
         if key in members:
             continue
-        rs, ls = block[0], block[2]
+        rs, ls = block[0], _lanes_of(block, latent)
         hit = (rows >= rs.start) & (rows < rs.stop) & (lanes >= ls.start) & (lanes < ls.stop)
         idx = hit.nonzero()[:, 0]
         members[key] = PagedMember(block, rows[idx] - rs.start, lanes[idx] - ls.start, sel[idx],
-                                   *table_fn(pages, pos, block, N, ps))
-    return PagedPlan(members, route, wire.spec_axes(spec[0], spec[2]))
+                                   *table_fn(pages, pos, block, N, ps, latent=latent))
+    return PagedPlan(members, route, wire.spec_axes(spec[0], spec[1 if latent else 2]))
 
 
 def _combine_units(acc, m, l):
@@ -373,6 +382,27 @@ def _combine_units(acc, m, l):
     l_g = (l * alpha).sum(dim=1)
     acc_g = (acc * alpha[..., None]).sum(dim=1)
     return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def _units(by_lanes: dict, B: int, plan: PagedPlan):
+    """The units (acc (B, U, H, D), m and l (B, U, H)) of one head range's
+    partials ``by_lanes`` (lane range -> [(acc, m, l)] in member order,
+    rows a slot or a page of a slot): the members holding one lane range
+    join exactly (a page's partial is nonzero on one member only), then
+    the units stack by logical page, lane blocks minor.  The join is
+    recorded as an all-reduce over the plan's axes."""
+    units = []
+    for _, held in sorted(by_lanes.items()):
+        acc, m, l = held[0]
+        for a2, m2, l2 in held[1:]:  # another member's pages: zero where it holds none
+            acc, m, l = acc + a2, torch.maximum(m, m2), l + l2
+        units.append((acc, m, l))
+    if wire.active():  # a deployment joins its members' partials over the split axes
+        members = sum(len(held) for held in by_lanes.values())
+        wire.record("all-reduce", sum(wire.nbytes(t) for t in held[0]), members,
+                    members=members, site="collectives", axes=plan.axes)
+    return [torch.stack([u[i].reshape(B, -1, *u[i].shape[1:]) for u in units],
+                        dim=2).flatten(1, 2) for i in range(3)]
 
 
 def paged_gqa_decode(q, k_new, v_new, cache, plan: PagedPlan, *, scale=None):
@@ -434,23 +464,65 @@ def paged_gqa_decode(q, k_new, v_new, cache, plan: PagedPlan, *, scale=None):
         return out
     # the units of every query-head range, (B, U, heads, ...): logical
     # pages ("pages"; one a slot on "lanes"), each page's lane blocks in
-    # order; the members holding one range's pages join exactly
-    groups = []
-    for _, by_lanes in sorted(parts.items()):
-        units = []
-        for _, held in sorted(by_lanes.items()):
-            acc, m, l = held[0]
-            for a2, m2, l2 in held[1:]:  # another member's pages: zero where it holds none
-                acc, m, l = acc + a2, torch.maximum(m, m2), l + l2
-            units.append((acc, m, l))
-        if wire.active():  # a deployment joins its members' partials over the split axes
-            members = sum(len(held) for held in by_lanes.values())
-            wire.record("all-reduce", sum(wire.nbytes(t) for t in held[0]), members,
-                        members=members, site="collectives", axes=plan.axes)
-        groups.append([torch.stack([u[i].reshape(B, -1, *u[i].shape[1:]) for u in units],
-                                   dim=2).flatten(1, 2) for i in range(3)])
+    # order
+    groups = [_units(by_lanes, B, plan) for _, by_lanes in sorted(parts.items())]
     acc, m, l = (torch.cat([g[i] for g in groups], dim=2) for i in range(3))
     return _combine_units(acc, m, l).to(q.dtype)
+
+
+def paged_mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, plan: PagedPlan, *, scale: float):
+    """Paged absorbed-MLA decode over a sharded latent pool: q_lat (B, h,
+    lora) and q_rope (B, h, rope) on the controller's device; ckv_new (B,
+    lora) / krope_new (B, rope); cache {"ckv", "krope"} of ``Sharded``
+    layer pools (N, ps, lora) / (N, ps, rope) laid out as ``plan``
+    (``paged_plan(..., latent=True)``) was made for.  Each member writes
+    the new lanes its block holds, in place (every copy of a replicated
+    block is written).  Attention, one launch a distinct block:
+
+      * "head": every block holds every page and lane: K6
+        (``paged_mla_attention``) with the global table;
+      * "lanes": K6's partials (``paged_mla_partials``) a slot over the
+        block's lanes of every page, combined over the lane blocks in
+        member order;
+      * "pages": K6's partials a logical page of a slot (one row a page);
+        the members holding one lane range join exactly, then the units
+        combine in page order, lanes minor (``_combine_units``): replica
+        slots, whose pages lie on other members, get equal bits.
+
+    Returns the f32 latent context (B, h, lora)."""
+    cs, ks = cache["ckv"], cache["krope"]
+    B = q_lat.shape[0]
+    for c, ct in cs.distinct():
+        mb = plan.members[_key(cs.block(c))]
+        if mb.sel.numel():
+            dev = ct.device
+            r, ln, sl = (t.to(dev) for t in (mb.rows, mb.lanes, mb.sel))
+            ct[r, ln] = ckv_new[sl.to(ckv_new.device)].to(dev, ct.dtype)
+            kt = ks.local(c)
+            kt[r, ln] = krope_new[sl.to(krope_new.device)].to(dev, kt.dtype)
+    home = q_lat.device
+    by_lanes: dict = {}  # lanes -> [(acc, m, l)] in member order
+    seen = set()
+    for c in cs.coords():
+        key = _key(cs.block(c))
+        if key in seen:  # a block once, from its first member
+            continue
+        seen.add(key)
+        mb = plan.members[key]
+        ct = cs.local(c)
+        dev = ct.device
+        ql, qr = q_lat.to(dev), q_rope.to(dev)
+        if plan.route == "pages":
+            n = mb.pages.shape[0] // B
+            ql, qr = ql.repeat_interleave(n, dim=0), qr.repeat_interleave(n, dim=0)
+        args = (ql.contiguous(), qr.contiguous(), ct, ks.local(c), mb.pages.to(dev),
+                mb.pos.to(dev))
+        if plan.route == "head":  # every block is the whole pool
+            return paged_mla_attention(*args, scale=scale).to(home)
+        lanes = mb.block[1]
+        part = tuple(t.to(home) for t in paged_mla_partials(*args, scale=scale))
+        by_lanes.setdefault((lanes.start, lanes.stop), []).append(part)
+    return _combine_units(*_units(by_lanes, B, plan))
 
 
 # ===========================================================================
@@ -494,6 +566,14 @@ def mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, pos, *, cfg, ctx, activ
             ckv[bidx, ls_] = gate(hit, ckv_new[rows].to(dev, ckv.dtype), ckv[bidx, ls_])
             krope[bidx, ls_] = gate(hit, krope_new[rows].to(dev, krope.dtype), krope[bidx, ls_])
             spv[bidx, ls_] = gate(hit, pm.to(spv.dtype), spv[bidx, ls_])
+            if dense_decode_on_card(dev):  # K6's partials over the member's lanes in place
+                bound = (ring_lane_pos(pm, S) - lo).to(torch.int32).contiguous()
+                a, m, l = paged_mla_partials(ql[:, 0].contiguous(), qr[:, 0].contiguous(),
+                                             *dense_mla_view(ckv, krope), bound, scale=scale)
+                ctxs.append(a[:, :, None])  # (B,h,1,lora), as the einsums' below
+                ms.append(m[..., None])
+                ls.append(l[..., None])
+                continue
             ckvf = ckv.float()
             s = torch.einsum("bshl,btl->bhst", ql.float(), ckvf)
             s = s + torch.einsum("bshr,btr->bhst", qr.float(), krope.float())

@@ -33,6 +33,11 @@ table ``b``).  Both kernels split a slot's lanes at multiples of
 so a dense view and a paged pool holding the same values give the same
 bits: the paged-vs-dense token parity of the engine holds on the card.
 
+``paged_mla_partials`` is K6's partials entry point, the same for the
+latent pools: a member of a mesh holding some of a slot's pages or lanes
+(paged pools, or a sequence-sharded dense latent cache read through
+``dense_mla_view``) gives its ``(acc, m, l)``.
+
 ``paged_gqa_partials`` is the GQA kernel's second entry point: each
 row's flash-decoding partial ``(acc, m, l)`` over the lanes it is given,
 a row with no valid lane an empty partial (no uniform mean).  A member of
@@ -506,7 +511,12 @@ def _mla_lib() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_size_t, ctypes.c_void_p]
     lib.paged_mla_decode_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16):
+    lib.paged_mla_partials_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_size_t, ctypes.c_void_p]
+    lib.paged_mla_partials_bf16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16, lib.paged_mla_partials_f32,
+               lib.paged_mla_partials_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -598,6 +608,74 @@ def paged_mla_attention(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scal
 
 
 paged_mla_attention.launches = 0
+
+
+def paged_mla_partials_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: float):
+    """The plain version of ``paged_mla_partials``: the JAX package's
+    member math of its sequence-sharded MLA decode
+    (``repro/distributed/decode.py::mla_decode``'s body) over the gathered
+    pages: f32 scores ``(q_lat . ckv + q_rope . krope) * scale`` on the
+    lanes of mapped pages at or before ``pos``, their max ``m`` (B, h),
+    ``l = sum exp(s - m)`` (B, h) and ``acc = sum exp(s - m) ckv`` (B, h,
+    lora); a row with no valid lane gives m = -inf, l = 0, acc = 0."""
+    valid = paged_valid(pages, pos, ckv_pool.shape[1])[:, None, :]
+    ckv = paged_gather_lanes(ckv_pool, pages).float()
+    s = torch.einsum("bhl,btl->bht", q_lat.float(), ckv)
+    s = s + torch.einsum("bhr,btr->bht", q_rope.float(),
+                         paged_gather_lanes(krope_pool, pages).float())
+    s = torch.where(valid, s * scale, -torch.inf)
+    m = s.amax(dim=-1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return torch.einsum("bht,btl->bhl", e, ckv), m, e.sum(dim=-1)
+
+
+def paged_mla_partials(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale: float):
+    """Absorbed-MLA single-query attention over a page table as a
+    flash-decoding partial: ``(acc (B,h,lora) f32, m (B,h) f32, l (B,h)
+    f32)``, the unnormalised latent context, the scores' max (natural
+    units) and the softmax sum over the valid lanes (``acc / l`` is
+    ``paged_mla_attention``'s output where a lane is valid).  The inputs
+    are ``paged_mla_attention``'s (a pool or a ``dense_mla_view``); ``pos``
+    may be negative, and a row without a valid lane gives the empty
+    partial m = -inf, l = 0, acc = 0 (not the whole-slot kernel's uniform
+    mean).  bf16: K6's split kernel and a merge that does not divide; f32:
+    the CUDA-core kernel's partials epilogue.  CPU tensors take
+    ``paged_mla_partials_plain``; CUDA tensors launch the kernel on the
+    current stream."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_partials_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos,
+                                        scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_partials runs on cuda or cpu, not {q_lat.device}")
+    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos)
+    B, h, lora = q_lat.shape
+    N, ps, _ = ckv_pool.shape
+    rope, P = q_rope.shape[-1], pages.shape[1]
+    lib = _mla_lib()
+    f32 = dict(dtype=torch.float32, device=q_lat.device)
+    acc = torch.empty((B, h, lora), **f32)
+    m, l = torch.empty((B, h), **f32), torch.empty((B, h), **f32)
+    ptrs = [t.data_ptr() for t in (q_lat, q_rope, ckv_pool, krope_pool, pages, pos, acc, m, l)]
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    with torch.cuda.device(q_lat.device):  # the C launch uses the current device
+        if q_lat.dtype == torch.float32:
+            G = mla_group(h, lora, rope, P * ps, P)
+            err = lib.paged_mla_partials_f32(*ptrs, B, h, lora, rope, ps, P, N, G, float(scale),
+                                             mla_smem_bytes(G, lora, rope, P * ps, P), stream)
+        else:
+            split_lanes = mla_split_lanes(B, -(-h // MLA_HEADS), P * ps,
+                                          build.sm_count(q_lat.device.index))
+            n_split = -(-P * ps // split_lanes)
+            part = torch.empty(B * h * n_split * (lora + 2), **f32)
+            err = lib.paged_mla_partials_bf16(*ptrs, part.data_ptr(), B, h, lora, rope, ps, P, N,
+                                              split_lanes, float(scale), stream)
+    if err:
+        raise RuntimeError(f"paged_mla_partials launch failed: cudaError {err}")
+    paged_mla_partials.launches += 1
+    return acc, m, l
+
+
+paged_mla_partials.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -508,7 +508,17 @@ def mla_attention(
         ctx_lat, cache = res
         out = torch.einsum("bhl,lhv->bhv", ctx_lat[:, 0].to(x.dtype), w_uv)
         return matmul(out.reshape(B, S, h * dv), p["wo"]), cache
-    if pages is not None:
+    if pages is not None and isinstance(cache["ckv"], Sharded):
+        # a latent pool laid out by ``cache_pspecs``: each member writes and
+        # attends over its own block (``distributed/decode.py``);
+        # ``decode_step`` hands every layer the step's member plan
+        plan = rows_lanes if isinstance(rows_lanes, DD.PagedPlan) else DD.paged_plan(
+            cache["ckv"], pages, pos,
+            paged_write_rows(pages, pos, active, cache["ckv"].shape[0], cache["ckv"].shape[1]),
+            latent=True)
+        lat = DD.paged_mla_decode(q_lat, q_rope[:, 0], ckv[:, 0], k_rope[:, 0], cache, plan,
+                                  scale=scale)
+    elif pages is not None:
         if rows_lanes is None:
             rows_lanes = paged_write_rows(pages, pos, active, cache["ckv"].shape[0], cache["ckv"].shape[1])
         rows, lanes, sel = rows_lanes

@@ -37,7 +37,6 @@ import torch.nn.functional as F
 from .. import prng
 from ..core import CellType, MisoProgram
 from ..data.pipeline import DataConfig, data_cell
-from ..distributed import decode as DD
 from ..distributed import wire
 from ..distributed.collectives import compressed_psum_int8, psum_mean
 from ..distributed.sharding import (LOCAL, P, ShardCtx, Sharded, cache_pspecs, map_blocks,
@@ -708,6 +707,31 @@ def _roll_back(verifying, commit_pos, pos_leaf):
     return shard_leaf(new, pos_leaf.spec, pos_leaf.mesh) if isinstance(pos_leaf, Sharded) else new
 
 
+def serve_ctx(ctx: ShardCtx, scfg: ServeConfig) -> ShardCtx:
+    """The ``ShardCtx`` a serve program of ``scfg`` runs under.  Spatial
+    placement on a mesh takes ``launch.mesh.make_spatial_ctx``'s: every
+    mesh axis manual and ``decode_shardmap`` off.  The pod axis then
+    carries the replica slots, and inside a pod the weights and the cache
+    stay replicated over the data and model members, as the JAX package's
+    spatial executor places them (``repro/core/backend_spatial.py``:
+    everything but the slot columns replicated): the program runs as the
+    temporal one (``LOCAL``'s layout, the ctx's embedding strategy and
+    KV block kept), and the spatial executor puts the slot columns on
+    the pods.  A spatial program under ``make_ctx``'s ctx, or with
+    ``decode_shardmap``, raises ``NotImplementedError``, as the JAX
+    package raises there."""
+    if ctx.mesh is None or scfg.placement == "temporal":
+        return ctx
+    if set(ctx.mesh.axis_names) <= set(ctx.manual_axes) and not ctx.decode_shardmap:
+        return dataclasses.replace(LOCAL, embed_strategy=ctx.embed_strategy, block_k=ctx.block_k)
+    raise NotImplementedError(
+        "placement='spatial' under a ShardCtx with a mesh runs under "
+        "launch.mesh.make_spatial_ctx (every mesh axis manual, decode_shardmap off): the pods "
+        "carry the replica slots and each pod holds the weights and the cache whole.  Under "
+        "make_ctx's ctx, or with decode_shardmap=True, the mesh would also lay out a decoder "
+        "whose slot axis the pods split; the JAX package raises there too")
+
+
 def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
                             ctx: ShardCtx = LOCAL) -> MisoProgram:
     """The serving engine's resident program: a static ``weights`` cell
@@ -740,18 +764,13 @@ def make_slot_serve_program(cfg: ModelConfig, scfg: ServeConfig,
     axes.  A draft with its own params (``draft_arch``, or
     ``draft_param_seed``) is laid out the same way, with its dense cache.
     Every sub-step of the walk runs the target's and the draft's
-    ``T.decode_step(..., ctx=ctx)``.  A paged MLA latent pool and spatial
-    placement under a mesh raise ``NotImplementedError``."""
+    ``T.decode_step(..., ctx=ctx)``; a paged MLA latent pool is laid
+    out and read the same way (pages over the data axes, each page's
+    lanes over the model axis).  Spatial placement takes the ctx of
+    ``launch.mesh.make_spatial_ctx`` (``serve_ctx``)."""
     from ..serving.slots import infer_slot_axes, mask_slots
 
-    if ctx.mesh is not None and scfg.placement != "temporal":
-        raise NotImplementedError(
-            "placement='spatial' under a ShardCtx with a mesh is not ported: the pods would "
-            "split the slot axis of a decoder whose cache the mesh already lays out; serve "
-            "temporally (the JAX package's spatial engine refuses paged pools too)")
-    if ctx.mesh is not None and scfg.paged and paged_serving_supported(cfg) \
-            and cfg.attn_type == "mla":
-        raise NotImplementedError(DD.MLA_POOL_REFUSAL)
+    ctx = serve_ctx(ctx, scfg)
     spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None
     dcfg = resolve_draft_config(cfg, spec) if spec else None
     K = spec.draft_len if spec else 0

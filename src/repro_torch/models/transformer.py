@@ -574,12 +574,11 @@ def decode_step(
     laid out the same way (pages over the data axes, kv heads or each
     page's lanes over the model axis) and read through the global
     ``pages`` table: the step's write rows and each member's table come
-    from it once (``distributed.decode.paged_plan``) for every layer.
-    A paged MLA latent pool under a mesh raises ``NotImplementedError``."""
+    from it once (``distributed.decode.paged_plan``) for every layer;
+    a paged MLA latent pool (pages over the data axes, each page's lanes
+    over the model axis) too."""
     pos_leaf = cache["pos"]
     pos = L.value(pos_leaf)
-    if pages is not None and isinstance(pos_leaf, Sharded) and cfg.attn_type == "mla":
-        raise NotImplementedError(DD.MLA_POOL_REFUSAL)
     positions = pos[:, None]
     if cfg.mrope_sections:
         positions = positions[None].expand(3, -1, 1)
@@ -593,7 +592,8 @@ def decode_step(
         pool = cache["segments"][0]["ckv" if cfg.attn_type == "mla" else "k"]
         rows_lanes = L.paged_write_rows(pages, pos, active, pool.shape[1], pool.shape[-2])
         if isinstance(pool, Sharded):
-            rows_lanes = DD.paged_plan(pool, pages, pos, rows_lanes)
+            rows_lanes = DD.paged_plan(pool, pages, pos, rows_lanes,
+                                       latent=cfg.attn_type == "mla")
     new_segs = []
     for seg, sp, sc in zip(segment_plan(cfg), params["segments"], cache["segments"]):
         attn = None

@@ -50,6 +50,7 @@ from ..models.lm_cells import (
     prefill_bucket_ladder,
     prefill_slot_state,
     resolve_draft_config,
+    serve_ctx,
     slot_decoder_init,
     spec_serving_supported,
     token_dims,
@@ -67,6 +68,7 @@ def lm_engine_parts(cfg: ModelConfig, scfg: ServeConfig, ctx: ShardCtx = LOCAL, 
     first device under a ``ctx`` with one)."""
     dev = resolve_device(device)
     prog = make_slot_serve_program(cfg, scfg, ctx)
+    ctx = serve_ctx(ctx, scfg)  # the prefill runs under the program's ctx
     paged = scfg.paged and paged_serving_supported(cfg)
     # speculation falls back to plain decode where the cache cannot roll back
     spec = scfg.spec if scfg.spec is not None and spec_serving_supported(cfg) else None

@@ -73,12 +73,12 @@ def engine(**serve):
 """
 
 
-def run_child(body: str, out_dir: pathlib.Path, **consts) -> dict:
-    """Run the JAX child (``_HEAD``, ``SCENARIO``, then ``body``) with
+def run_child(body: str, out_dir: pathlib.Path, head: str = _HEAD, **consts) -> dict:
+    """Run the JAX child (``head``, ``SCENARIO``, then ``body``) with
     ``consts`` bound, its pickles written into ``out_dir``; returns its
     ``RESULT`` line."""
-    head = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
-    src = head + _HEAD + SCENARIO + body
+    bound = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
+    src = bound + head + SCENARIO + body
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CHILD_OUT=str(out_dir))
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run([sys.executable, "-c", src], env=env, capture_output=True, text=True,

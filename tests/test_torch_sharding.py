@@ -299,19 +299,20 @@ def test_mamba_under_a_mesh_runs_and_its_decode_stays_sharded():
 
 
 def test_engine_options_not_sharded_refuse():
-    """Under a mesh, paged pools and speculation serve; a paged MLA
-    latent pool and spatial placement still refuse, saying why."""
+    """Under a mesh, paged pools (a paged MLA latent pool too) and
+    speculation serve; spatial placement under ``make_ctx``'s ctx still
+    refuses, saying why."""
     cfg = f32("internlm2-1.8b")
     mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
     ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, decode_shardmap=True)
-    for scfg in (ServeConfig(batch=4, max_len=32, paged=True, page_size=8),
-                 ServeConfig(batch=4, max_len=32, spec=SpecConfig(draft_len=2))):
-        lm_engine_parts(cfg, scfg, ctx, device="cpu")
     mla = f32("deepseek-v3-671b")
-    for c, scfg, why in ((mla, ServeConfig(batch=4, max_len=32, paged=True, page_size=8), "K6"),
-                         (cfg, ServeConfig(batch=4, max_len=32, placement="spatial"), "spatial")):
-        with pytest.raises(NotImplementedError, match=why):
-            lm_engine_parts(c, scfg, ctx, device="cpu")
+    for c, scfg in ((cfg, ServeConfig(batch=4, max_len=32, paged=True, page_size=8)),
+                    (cfg, ServeConfig(batch=4, max_len=32, spec=SpecConfig(draft_len=2))),
+                    (mla, ServeConfig(batch=4, max_len=32, paged=True, page_size=8))):
+        lm_engine_parts(c, scfg, ctx, device="cpu")
+    with pytest.raises(NotImplementedError, match="spatial"):
+        lm_engine_parts(cfg, ServeConfig(batch=4, max_len=32, placement="spatial"), ctx,
+                        device="cpu")
 
 
 def test_layout_that_neither_divides_takes_the_unsharded_path():

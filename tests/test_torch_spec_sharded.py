@@ -15,23 +15,18 @@ JAX package's speculating engines on the same mesh are the other half
 Also: the members' partials of the paged routes, combined, against
 ``paged_gqa_plain`` over random page tables (a slot whose pages span
 both data members, positions on page boundaries), equal bits for one
-slot's pages wherever they lie, and the layouts that stay refused under
-a mesh (paged MLA pools, spatial placement)."""
-
-import dataclasses
+slot's pages wherever they lie, and what stays refused under a mesh:
+spatial placement under ``make_ctx``'s ctx."""
 
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced
 from repro_torch.distributed import decode as DD
 from repro_torch.distributed import make_mesh
 from repro_torch.distributed.sharding import LOCAL, P, shard_leaf
 from repro_torch.kernels.paged_decode import paged_gqa_plain
-from repro_torch.models import transformer as T
 from repro_torch.models.layers import paged_write_rows
-from repro_torch.models.lm_cells import (ServeConfig, SpecConfig, make_slot_serve_program,
-                                         place_cache)
+from repro_torch.models.lm_cells import ServeConfig, SpecConfig, make_slot_serve_program
 from repro_torch.testing import cap_threads_for_xdist
 from test_torch_serving_sharded_paged import CFG, mesh_ctx, run
 
@@ -156,21 +151,6 @@ def test_a_slot_gets_equal_bits_wherever_its_pages_lie(layout):
 # --------------------------------------------------------------------------
 # what stays refused under a mesh
 # --------------------------------------------------------------------------
-def test_paged_mla_pools_under_a_mesh_raise():
-    cfg = dataclasses.replace(get_reduced("deepseek-v3-671b"), dtype="float32")
-    ctx = mesh_ctx(MESH)
-    with pytest.raises(NotImplementedError, match="K6"):
-        make_slot_serve_program(cfg, ServeConfig(batch=8, max_len=64, paged=True, page_size=8),
-                                ctx)
-    pool = T.init_paged_cache(cfg, 8, 64, 8, "cpu")
-    cache = place_cache(cfg, pool, ctx)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    pages = torch.full((8, 8), -1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="partials entry point"):
-        T.decode_step(cfg, params, cache, torch.zeros((8, 1), dtype=torch.int32), ctx=ctx,
-                      pages=pages)
-
-
 @pytest.mark.parametrize("paged", [False, True])
 def test_spatial_placement_under_a_mesh_raises(paged):
     with pytest.raises(NotImplementedError, match="spatial"):
