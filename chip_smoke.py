@@ -322,7 +322,13 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  largest, empty rows exact: 9c's member, 12d's 4-lane
                  members combined against K6, a pages-route member),
                  timed beside SDPA's memory-efficient call with its
-                 log-sum-exp; (9c) deepseek-v3's dense prefix on (2, 4)
+                 log-sum-exp (gate: faster at 9c's member; also at the
+                 pages-route member) and an empty kernel launched alike
+                 (one device kernel a bf16 call is gated by
+                 torch.profiler after phase 2), equal rows in equal bits
+                 at any batch index and B 1, 4, 8 and 64, and the split
+                 sweep (``MLA_SWEEP``: every split count held to the
+                 plain version and timed); (9c) deepseek-v3's dense prefix on (2, 4)
                  with the latent cache seq-sharded (each member's
                  partial from K6's partials over its lanes in place),
                  the same gates, K6's partials = 3 x 16 x 8, K6 = 3 x 16
@@ -358,13 +364,14 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  (4, 2): every leaf bitwise, 3 steps within 3e-2 of the
                  uninterrupted run; (10d) mamba2-2.7b and zamba2-2.7b at
                  full width and depth, in bf16 and with f32 weights, 8
-                 prompts of 48 tokens prefilled and decoded 16 steps
-                 unsharded, then sharded on (2, 4) teacher-forced:
+                 prompts of 48 tokens prefilled and decoded
+                 ``MPT_DECODE_STEPS`` (8) steps unsharded, then sharded
+                 on (2, 4) teacher-forced:
                  logits with f32 weights within 1e-4 (bf16's recorded:
                  64 layers amplify the products' other blocking past
                  3e-2), K8 at a member's shape (4 rows, 20 heads) within
                  phase 2d's limits, K8 = mamba layers x 8 members and K5
-                 = shared-block calls x 16 x 8.
+                 = shared-block calls x 8 steps x 8.
   * phase 11   -- replicated trainers on a mesh, remat, and the dry-run:
                  (11a) phase 5b's cut (internlm2-1.8b, 4 layers at full
                  width) trained FSDP with its replica axis prepended:
@@ -390,16 +397,20 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   * phase 12   -- paged pools and speculation under a mesh (members
                  allocations of cuda:0, pools laid out by
                  ``cache_pspecs``), each engine on phase 3's traffic
-                 beside its unsharded twin (phase 3, 3e or 3c, run
-                 earlier in the script, or served here): (12a)
-                 internlm2-1.8b paged on
-                 (1, 4) (kv heads over model: K5 a member, the head
-                 route) and (2, 4) (pages over data: K5's partials a
-                 member, combined in page order); (12b) granite-20b
-                 paged on (1, 4) (one kv head: each member holds 4 lanes
-                 of every page), K5's partials at 4 lanes a page held to
-                 their plain version first; (12c) internlm2-1.8b's first
-                 4 layers at full width on (2, 4) speculating, draft_len
+                 beside its unsharded twin (phase 3c, run earlier in
+                 the script, or served here): (12a) internlm2-1.8b's
+                 first ``MPP_12A_LAYERS`` (6) layers paged on (1, 4)
+                 (kv heads over model: K5 a member, the head route) and
+                 (2, 4) (pages over data: K5's partials a member,
+                 combined in page order) beside a twin of the same cut
+                 served here; (12b) granite-20b's
+                 first ``MPP_12B_LAYERS`` (13) layers at full width paged
+                 on (1, 4) (one kv head: each member holds 4 lanes of
+                 every page) beside a twin of the same cut served here,
+                 K5's partials at 4 lanes a page held to their plain
+                 version first; (12c) internlm2-1.8b's first
+                 ``MPP_SPEC_LAYERS`` (2) layers at full width on (2, 4)
+                 speculating, draft_len
                  4, self and a draft of the same cut from seed 1, beside
                  twins and a plain stream served here; (12d) deepseek-v3's
                  dense prefix paged on (1, 4) (each page's lanes over
@@ -437,6 +448,7 @@ twins, K6's partials 9c and 12d, K8 phases 3b, 3g, 6c and 10d), the card's name 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -466,7 +478,17 @@ def flop_rate(dtype) -> float:
     return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
 SEED = 0
 KERNELS = ["paged_gqa_decode", "redundancy_epilogue", "ssd_scan", "flash_attention",
-           "paged_mla_decode", "paged_gqa_partials"]
+           "paged_mla_decode", "paged_gqa_partials", "paged_mla_partials"]
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
 
 
 def log(msg: str) -> None:
@@ -586,7 +608,8 @@ def shuffled_pool(k, v, gen, ps=16):
 def ptxas_lines(build_log: Path) -> list[str]:
     """ptxas' report of one library's build log, one line per kernel
     instance: ``name<template args>: R registers, S B spill stores, L B
-    spill loads`` (names demangled by c++filt where it is installed)."""
+    spill loads`` and, where it is not 0, ``F B stack frame`` (names
+    demangled by c++filt where it is installed)."""
     text = build_log.read_text()
     names = re.findall(r"Compiling entry function '([^']+)'", text)
     try:
@@ -603,8 +626,10 @@ def ptxas_lines(build_log: Path) -> list[str]:
         if m := re.search(r"Compiling entry function '([^']+)'", ln):
             cur = {"name": short[m[1]]}
             rows.append(cur)
-        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            cur["spill"] = f"{m[1]} B spill stores, {m[2]} B spill loads"
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            cur["spill"] = f"{m[2]} B spill stores, {m[3]} B spill loads" + (
+                f", {m[1]} B stack frame" if m[1] != "0" else "")
         elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
             cur["regs"] = f"{m[1]} registers"
     return [f"{r['name']}: {r.get('regs', '? registers')}, {r.get('spill', 'spills not reported')}"
@@ -5022,14 +5047,16 @@ def mla_partials_bound(q_lat, q_rope, ckv, pages, pos) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def mla_partials_held(tag: str, args) -> float:
-    """K6's partials on ``args`` against the plain version: the same empty
-    rows (m = -inf exactly where the plain version has no valid lane,
-    with l = 0 and acc = 0), every other value within ``PARTIAL_TOL`` of
-    the largest.  Returns the max abs error."""
+def mla_partials_held(tag: str, args, plan=None) -> float:
+    """K6's partials on ``args`` (along ``plan`` when given, else the
+    wrapper's own) against the plain version: the same empty rows (m =
+    -inf exactly where the plain version has no valid lane, with l = 0 and
+    acc = 0), every other value within ``PARTIAL_TOL`` of the largest.
+    Returns the max abs error."""
     from repro_torch.kernels import paged_decode as pd
 
-    got = pd.paged_mla_partials(*args, scale=MLA_SCALE)
+    got = (pd.paged_mla_partials(*args, scale=MLA_SCALE) if plan is None
+           else pd.launch_mla_partials(plan, *args, scale=MLA_SCALE))
     want = pd.paged_mla_partials_plain(*args, scale=MLA_SCALE)
     torch.cuda.synchronize()
     empty = torch.isneginf(want[1])
@@ -5049,38 +5076,191 @@ def mla_partials_held(tag: str, args) -> float:
     return err
 
 
-def mla_partials_library(ql, qr, ckv, krope, targs) -> dict:
-    """The one PyTorch call that gives K6's partial on a dense member view
-    with every lane valid: SDPA's memory-efficient kernel with its
-    log-sum-exp on q = [q_lat | q_rope], K = [ckv | krope] and V = ckv,
-    K/V expanded to every query head (made before it is timed); its
+def mla_partials_library(ql, qr, ckv, krope, targs, valid=None) -> dict:
+    """The one PyTorch call that gives K6's partial on dense member lanes
+    ckv (B, S, lora) / krope (B, S, rope): SDPA's memory-efficient kernel
+    with its log-sum-exp on q = [q_lat | q_rope], K = [ckv | krope] and V
+    = ckv, K/V expanded to every query head (made before it is timed),
+    the lane mask ``valid`` (B, S), where given, as an additive bias; its
     ``(out, lse)`` is ``(acc / l, m + log l)``.  Agreement with the
-    kernel's partial is reported, and its time."""
+    kernel's partial on the rows with a valid lane is reported, and its
+    time."""
     from repro_torch.kernels import paged_decode as pd
 
     B, h, _ = ql.shape
+    S = ckv.shape[1]
     q = torch.cat([ql, qr], -1)[:, :, None].contiguous()
     k = torch.cat([ckv, krope], -1)[:, None].expand(B, h, -1, -1).contiguous()
     v = ckv[:, None].expand(B, h, -1, -1).contiguous()
+    bias = None
+    if valid is not None:  # the bias's rows 16 elements apart, as SDPA pads a mask
+        bias = torch.full((B, h, 1, -(-S // 16) * 16), -math.inf, dtype=ql.dtype, device=ql.device)
+        bias[..., :S] = torch.where(valid, 0.0, -math.inf).to(ql.dtype)[:, None, None, :]
+        bias = bias[..., :S]
 
     def call():
         return torch.ops.aten._scaled_dot_product_efficient_attention(
-            q, k, v, None, True, scale=MLA_SCALE)
+            q, k, v, bias, True, scale=MLA_SCALE)
 
     try:
         out, lse = call()[:2]
         torch.cuda.synchronize()
         acc, m, l = pd.paged_mla_partials(*targs, scale=MLA_SCALE)
-        out_err = float((out[:, :, 0].float() - acc / l[..., None]).abs().max())
-        lse_err = float((lse.reshape(B, h, -1)[..., 0].float() - (m + torch.log(l))).abs().max())
+        ok = l > 0
+        out_err = float((out[:, :, 0].float() - acc / l[..., None])[ok].abs().max())
+        lse_err = float((lse.reshape(B, h, -1)[..., 0].float() - (m + torch.log(l)))[ok].abs().max())
         ms = graph_ms(call)
     except RuntimeError as e:  # the library's call only: nothing of the port is timed here
         return {"ms": None, "note": f"aten._scaled_dot_product_efficient_attention refused: "
                                     f"{str(e).splitlines()[0][:160]}"}
     return {"ms": ms, "note": f"aten._scaled_dot_product_efficient_attention(compute_log_sumexp"
                               f"=True), q = [q_lat | q_rope], K = [ckv | krope], V = ckv, "
-                              f"K/V expanded to {h} heads; out vs acc/l max abs err "
-                              f"{out_err:.3e}, lse vs m + log l {lse_err:.3e}"}
+                              f"K/V expanded to {h} heads"
+                              + (", the lane mask as a bias" if valid is not None else "")
+                              + f"; out vs acc/l max abs err {out_err:.3e}, lse vs m + log l "
+                              f"{lse_err:.3e}"}
+
+
+def mla_member(B: int, S: int, gen, pos=None):
+    """bf16 inputs of K6's partials at DeepSeek's widths (h 128, lora 512,
+    rope 64) over B slots of S dense lanes, read in place
+    (``dense_mla_view``); ``pos`` every lane valid unless given."""
+    from repro_torch.kernels import paged_decode as pd
+
+    ql, qr = (torch.randn((B, 128, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for d in (512, 64))
+    ckv, kr = (torch.randn((B, S, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for d in (512, 64))
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda") if pos is None else \
+        torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return (ql, qr, *pd.dense_mla_view(ckv, kr), pos)
+
+
+def mla_partials_profile() -> dict:
+    """Gate: a bf16 call of K6's partials at 9c's member shape (4 slots,
+    h 128, 128 lanes: two splits merged in a cluster) runs one device
+    kernel, ``mla_partials_kernel`` (no merge kernel), by torch.profiler;
+    so does a call forced to one split.  Run after phase 2, as
+    ``partials_profile``."""
+    from repro_torch.kernels import paged_decode as pd
+
+    args = mla_member(4, 128, torch.Generator(device="cuda").manual_seed(SEED + 133))
+    launches0 = pd.paged_mla_partials.launches
+    out = {}
+    for label, plan in (("plan", pd.mla_partials_plan(128)), ("1_split", pd.PartialsPlan("tc", 128, 1))):
+        per_call, names = kernels_per_call(lambda: pd.launch_mla_partials(plan, *args,
+                                                                          scale=MLA_SCALE))
+        if per_call != 1 or not all("mla_partials_kernel" in n for n in names):
+            raise AssertionError(f"K6 partials ({label}): a bf16 call ran {per_call} device "
+                                 f"kernels ({names}), not the one tensor-core kernel")
+        out[label] = {"kernels_per_call": per_call, "names": names}
+    pd.paged_mla_partials.launches = launches0  # comparison launches do not count
+    log(f"mla_partials: torch.profiler at 9c's member shape: {out} ({card()})")
+    return {"profiler_kernels_per_call": out["plan"]["kernels_per_call"],
+            "profiler_kernel_names": out["plan"]["names"], "profiler_1_split": out["1_split"]}
+
+
+#: K6's partials' split sweep: 9c's member (4 slots of 128 dense lanes),
+#: 12d's "lanes" member (8 slots of 32 pages of 4 lanes), its "pages"
+#: member (256 rows of one 4-lane page), 4 slots of 192 (3 tiles), 512 and
+#: 4096 dense lanes; for each, the positions it is held at
+MLA_SWEEP = {"9c member": (4, 128, (-1, 10, 63, 127)), "12d lanes member": (8, 128, None),
+             "12d pages member": (256, 4, None), "192 lanes": (4, 192, (-1, 10, 100, 191)),
+             "512 lanes": (4, 512, (-1, 10, 300, 511)),
+             "4096 lanes": (4, 4096, (-1, 10, 2000, 4095))}
+
+
+def mla_sweep_inputs(label: str, gen):
+    """The held and the timed inputs of a ``MLA_SWEEP`` shape.  The 4-lane
+    pages go through a shuffled table: the "lanes" member's 32 pages a
+    slot with one unmapped, held at positions that end inside and past the
+    first tile and below lane 0, timed every lane valid; the "pages"
+    member's one page a row with some unmapped, held and timed at random
+    positions from -1 to 3 (its rows hold a slot's page in the engine)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    B, S, pos = MLA_SWEEP[label]
+    if pos is not None:
+        return mla_member(B, S, gen, pos), mla_member(B, S, gen)
+    ps, P = 4, S // 4
+    N = B * P if P > 1 else 128
+    ql, qr = (torch.randn((B, 128, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for d in (512, 64))
+    ckv, kr = (torch.randn((N, ps, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for d in (512, 64))
+    if P > 1:
+        pages = torch.randperm(N, device="cuda", generator=gen).reshape(B, P).to(torch.int32)
+        held_pages = pages.clone()
+        held_pages[1, P // 2] = -1
+        hpos = torch.tensor([-1, 3, 40, 127, 200, 64, 63, 0], dtype=torch.int32, device="cuda")
+        tpos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+        return (ql, qr, ckv, kr, held_pages, hpos), (ql, qr, ckv, kr, pages, tpos)
+    pages = torch.randint(0, N, (B, 1), device="cuda", generator=gen, dtype=torch.int32)
+    pages[::7] = -1
+    pos = torch.randint(-1, 4, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    args = (ql, qr, ckv, kr, pages, pos)
+    return args, args
+
+
+def mla_partials_sweep() -> list:
+    """Every split count the lanes allow (1, 2, 4, 8 splits of whole
+    tiles, the plan's among them) of K6's partials kernel at each
+    ``MLA_SWEEP`` shape: held to the plain version
+    (``mla_partials_held``), then timed (CUDA-graph replays) beside the
+    plan's empty-kernel floor and the bound.  The rule
+    (``mla_partials_plan``) is read off these times."""
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 134)
+    rows = []
+    for label in MLA_SWEEP:
+        held_args, targs = mla_sweep_inputs(label, gen)
+        S = targs[4].shape[1] * targs[2].shape[1]
+        plan, tiles = pd.mla_partials_plan(S), -(-S // pd.SPLIT_QUANTUM)
+        row = {"shape": label, "rows": targs[0].shape[0], "lanes": S, "plan": list(plan),
+               "ms_by_splits": {}, "max_abs_err_by_splits": {}}
+        for n in (1, 2, 4, 8):  # whole tiles a split: 3 tiles give 1, 2 and 3 splits
+            lanes = pd.SPLIT_QUANTUM * -(-tiles // n)
+            alt = pd.PartialsPlan("tc", lanes, -(-S // lanes))
+            if alt.cluster in row["ms_by_splits"]:
+                continue
+            row["max_abs_err_by_splits"][alt.cluster] = mla_partials_held(
+                f"{label} {alt.cluster} splits", held_args, alt)
+            row["ms_by_splits"][alt.cluster] = graph_ms(
+                lambda: pd.launch_mla_partials(alt, *targs, scale=MLA_SCALE))
+        row["ms"] = row["ms_by_splits"][plan.cluster]
+        row["floor_ms"] = graph_ms(lambda: pd.mla_partials_empty_launch(
+            plan, targs[0].shape[0], 128, S))
+        row["bound_ms"], row["bound_by"] = mla_partials_bound(*[targs[i] for i in (0, 1, 2, 4, 5)])
+        rows.append(row)
+        log(f"mla_partials: split sweep {label} ({row['rows']} rows, {S} lanes), plan "
+            f"{tuple(plan)}: ms by splits {row['ms_by_splits']}, floor {row['floor_ms']:.4f}, "
+            f"bound {row['bound_ms']:.6f} ({row['bound_by']}); max abs err by splits "
+            f"{row['max_abs_err_by_splits']} ({card()})")
+    return rows
+
+
+def mla_partials_rows_bitwise() -> dict:
+    """Gate: a row of K6's partials gives the same bits at every batch
+    index and in calls of B 1, 4, 8 and 64, at 128 lanes (one split) and
+    4096 (a cluster of 8 merging)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 135)
+    out = {}
+    for S in (128, 4096):
+        one = mla_member(1, S, gen, (S - 30,))
+        ql, qr, ckv, kr, _, pos = (x.expand(64, *x.shape[1:]).contiguous() for x in one)
+        ref = pd.paged_mla_partials(*one, scale=MLA_SCALE)
+        same = True
+        for B in (1, 4, 8, 64):
+            got = pd.paged_mla_partials(ql[:B], qr[:B], *pd.dense_mla_view(ckv[:B], kr[:B]),
+                                        pos[:B], scale=MLA_SCALE)
+            same &= all(torch.equal(a[i], r[0]) for a, r in zip(got, ref) for i in range(B))
+        out[f"lanes_{S}"] = same
+    if not all(out.values()):
+        raise AssertionError(f"K6 partials: equal rows give different bits ({out})")
+    return out
 
 
 def mla_partials_check() -> dict:
@@ -5093,9 +5273,13 @@ def mla_partials_check() -> dict:
     the four members combined against K6 over the whole pool; (c) a (2, 4)
     member of 12d's "pages" route, one row a page of a slot
     (``decode.page_table``).  Timed at 9c's member shape (4 rows, every
-    lane valid) beside its bound, the plain version and the library's one
-    call, and at (c)'s shape.  The check's launches do not count."""
+    lane valid) beside its bound, the empty-kernel floor, the plain
+    version and the library's one call (gate: faster than the library),
+    and at (c)'s shape beside the same; gates: equal rows in equal bits
+    (``mla_partials_rows_bitwise``) and the split sweep
+    (``mla_partials_sweep``).  The check's launches do not count."""
     from repro_torch.distributed import decode as DD
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged_decode as pd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
@@ -5148,27 +5332,45 @@ def mla_partials_check() -> dict:
     ckv_d, kr_d = rn(4, S_l, lora, dtype=torch.bfloat16), rn(4, S_l, rope, dtype=torch.bfloat16)
     targs = (ql, qr, *pd.dense_mla_view(ckv_d, kr_d),
              torch.full((4,), S_l - 1, dtype=torch.int32, device="cuda"))
+    plan = pd.mla_partials_plan(S_l)
     ms = graph_ms(lambda: pd.paged_mla_partials(*targs, scale=MLA_SCALE))
+    floor_ms = graph_ms(lambda: pd.mla_partials_empty_launch(plan, 4, h, S_l))
     plain_ms = graph_ms(lambda: pd.paged_mla_partials_plain(*targs, scale=MLA_SCALE))
     bound_ms, bound_by = mla_partials_bound(*[targs[i] for i in (0, 1, 2, 4, 5)])
     library = mla_partials_library(ql, qr, ckv_d, kr_d, targs)
+    if library["ms"] is not None and not ms < library["ms"]:
+        raise AssertionError(f"K6 partials: {ms:.4f} ms at 9c's member, not faster than the "
+                             f"library's {library['ms']:.4f} ms")
     pb = tuple(x.to(torch.bfloat16) if x.is_floating_point() else x for x in pages_args)
+    pages_plan = pd.mla_partials_plan(pb[4].shape[1] * ps_l)
     pages_ms = graph_ms(lambda: pd.paged_mla_partials(*pb, scale=MLA_SCALE))
+    pages_floor_ms = graph_ms(lambda: pd.mla_partials_empty_launch(
+        pages_plan, pb[0].shape[0], h, pb[4].shape[1] * ps_l))
     pages_plain_ms = graph_ms(lambda: pd.paged_mla_partials_plain(*pb, scale=MLA_SCALE),
                               reps=4, iters=5)
     pages_bound = mla_partials_bound(*[pb[i] for i in (0, 1, 2, 4, 5)])
+    pages_library = mla_partials_library(
+        pb[0], pb[1], pd.paged_gather_lanes(pb[2], pb[4]), pd.paged_gather_lanes(pb[3], pb[4]),
+        pb, valid=pd.paged_valid(pb[4], pb[5], ps_l))
+    rows = mla_partials_rows_bitwise()
+    sweep = mla_partials_sweep()
     pd.paged_mla_partials.launches = launches0  # a check, not the main path
+    ptxas = [ln for ln in ptxas_lines(build.library_path("paged_mla_partials").with_suffix(".log"))
+             if ln.startswith("mla_partials_kernel") or ln.startswith("empty_kernel")]
     log("mla_partials: paged_mla_partials vs its plain version (1e-3 of the largest; empty rows "
         "(0, -inf, 0) exactly): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + f"; 4 lane members combined vs K6 {comb_err:.3e}; 9c member (4 x 128 lanes, bf16): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library['ms']} ms "
-        f"({library['note']}), bound {bound_ms:.6f} ms ({bound_by}); 12d pages member "
-        f"({B * P} rows of {ps_l} lanes, bf16): kernel {pages_ms:.4f} ms, plain "
-        f"{pages_plain_ms:.4f} ms, bound {pages_bound[0]:.6f} ms ({pages_bound[1]})")
+        + f"; 4 lane members combined vs K6 {comb_err:.3e}; 9c member (4 x 128 lanes, bf16, plan "
+        f"{tuple(plan)}): kernel {ms:.4f} ms, empty-kernel floor {floor_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {library['ms']} ms ({library['note']}), bound "
+        f"{bound_ms:.6f} ms ({bound_by}); 12d pages member ({B * P} rows of {ps_l} lanes, bf16): "
+        f"kernel {pages_ms:.4f} ms, floor {pages_floor_ms:.4f} ms, plain {pages_plain_ms:.4f} ms, "
+        f"library {pages_library['ms']} ms ({pages_library['note']}), bound "
+        f"{pages_bound[0]:.6f} ms ({pages_bound[1]}); rows bitwise across B: {rows}; ptxas: "
+        f"{'; '.join(ptxas)} ({card()})")
     return {
         "name": "paged_mla_partials",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_mla_decode.cu",
+        "source": "src/repro_torch/csrc/paged_mla_partials.cu",
         "replaces": "src/repro/kernels/paged_decode.py:250",
         "launches": None,
         "max_abs_err": max(errs.values()),
@@ -5181,10 +5383,17 @@ def mla_partials_check() -> dict:
         "bound_by": bound_by,
         "library_ms": library["ms"],
         "library_note": library["note"],
+        "floor_ms": floor_ms,
+        "plan": list(plan),
         "shape": f"9c member: B=4 h={h} lora={lora} rope={rope}, {S_l} lanes (dense view), bf16",
         "pages_route": {"shape": f"{B * P} rows of one {ps_l}-lane page, bf16", "ms": pages_ms,
-                        "plain_ms": pages_plain_ms, "bound_ms": pages_bound[0],
-                        "bound_by": pages_bound[1]},
+                        "floor_ms": pages_floor_ms, "plain_ms": pages_plain_ms,
+                        "bound_ms": pages_bound[0], "bound_by": pages_bound[1],
+                        "library_ms": pages_library["ms"], "library_note": pages_library["note"]},
+        "rows_bitwise": rows,
+        "sweep": sweep,
+        "ptxas": ptxas,
+        "card": card(),
     }
 
 
@@ -5414,6 +5623,10 @@ def model_parallel_phase() -> tuple[dict, dict, dict]:
 # --------------------------------------------------------------------------
 MPT_STEPS = 8  # 10a, 10b: trainer steps (10 until phase 11 came; the run stays under 1100 s)
 MPT_LAYERS = 4  # 10a-10c: the first 4 of 24 layers at full width (cut in depth as phases 11-12 came)
+#: 10d: decode steps a run, unsharded, f32 reference and sharded (16, as
+#: 9a-9c, until the script's time budget asked for a cut; a sharded
+#: step of 64 mamba layers on 8 members takes about a second)
+MPT_DECODE_STEPS = 8
 
 
 def mpt_argv(*extra) -> list:
@@ -5752,7 +5965,7 @@ def mp_k5_member(cfg, gen) -> dict:
 
 def mp_10d_arch(name: str, dtype: str) -> dict:
     """One recurrent arch at full width and depth: 8 prompts of 48 tokens
-    prefilled and decoded 16 greedy steps unsharded, then the same
+    prefilled and decoded ``MPT_DECODE_STEPS`` greedy steps unsharded, then the same
     prefilled and decoded sharded on a (2, 4) mesh of cuda:0,
     teacher-forced with the unsharded tokens; K8 and K5 counted from 0
     around each run.  Logits gated as the note at ``MP_BF16_RATIO`` says
@@ -5804,14 +6017,14 @@ def mp_10d_arch(name: str, dtype: str) -> dict:
         del logits, filled
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(MP_STEPS):
+        for i in range(MPT_DECODE_STEPS):
             if label == "unsharded":
                 fed.append(tok)
             lg, cache = T.decode_step(run_cfg, run_params, cache, fed[i], **kw)
             lgs.append(lg.float())
             tok = lg[:, -1:].argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
-        ms[label] = (time.perf_counter() - t0) / MP_STEPS * 1e3
+        ms[label] = (time.perf_counter() - t0) / MPT_DECODE_STEPS * 1e3
         if label != "reference":
             counts[label] = {k: w.launches for k, w in counters.items()}  # and are read here
         peak[label] = torch.cuda.max_memory_allocated() / 1e9
@@ -5838,14 +6051,14 @@ def mp_10d_arch(name: str, dtype: str) -> dict:
     n_mamba = sum(s.count * (s.sub if s.kind == "zamba_unit" else 1)
                   for s in plan if s.kind in ("mamba", "zamba_unit"))
     members = 8
-    expect = {"unsharded": {"k8": n_mamba, "k5": calls * MP_STEPS},
-              "sharded": {"k8": n_mamba * members, "k5": calls * MP_STEPS * members}}
+    expect = {"unsharded": {"k8": n_mamba, "k5": calls * MPT_DECODE_STEPS},
+              "sharded": {"k8": n_mamba * members, "k5": calls * MPT_DECODE_STEPS * members}}
     rec = {"arch": name, "dtype": dtype, "max_rel": max_rel, "greedy_share": share,
            "reference": ref, "ms_per_step": ms, "prefill_ms": pre_ms, "peak_gb": peak,
            "launches": counts, "expect": expect, "layout": layout, "k8_member": k8,
            "k5_member": k5}
     log(f"mp_train 10d: {name} {dtype} {cfg.n_layers} layers ({n_mamba} mamba, {calls} shared-block "
-        f"calls), 8 prompts of {MP_PROMPT} then {MP_STEPS} decode steps, (2, 4) members of "
+        f"calls), 8 prompts of {MP_PROMPT} then {MPT_DECODE_STEPS} decode steps, (2, 4) members of "
         f"cuda:0: logits max_rel {max_rel:.3e}, greedy share {share:.4f}"
         + (f"; against the f32 reference: unsharded {ref['unsharded_rel']:.3e}, sharded "
            f"{ref['sharded_rel']:.3e} (ratio {ref['ratio']:.3f}, bound {MP_BF16_RATIO})"
@@ -6248,9 +6461,15 @@ def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path) -> dict:
 # --------------------------------------------------------------------------
 MPP_PAGE = 16  # 12a-12c: pages of 16 lanes, as phase 3
 MPP_DRAFT_LEN = 4  # 12c: the verify walk of phase 3d
-#: 12c: internlm2's first 4 of 24 layers at full width (at full depth its
-#: draft stream alone took 133 s of the script's 1100 s budget)
-MPP_SPEC_LAYERS = 4
+#: 12c: internlm2's first 2 of 24 layers at full width (at full depth its
+#: draft stream alone took 133 s of the script's 1100 s budget; 4 layers
+#: until the budget asked for another cut)
+MPP_SPEC_LAYERS = 2
+#: 12a, 12b: internlm2's first 6 of 24 layers and granite-20b's first 13
+#: of 52 at full width, each beside a twin of the same cut (at the whole
+#: depth they took 57 s and 47 s of the budget on a slow host)
+MPP_12A_LAYERS = 6
+MPP_12B_LAYERS = 13
 
 
 def mpp_scfg(spec=None):
@@ -6440,27 +6659,33 @@ def mpp_partials_lanes(cfg) -> dict:
     plain_ms = graph_ms(lambda: pd.paged_gqa_partials_plain(*targs))
     n_valid = int(pd.paged_valid(targs[3], targs[4], ps_l).sum())
     bound_ms, bound_by = partials_bound(q, Hkv, n_valid)
+    # the library's one call on the member's lanes gathered dense (every
+    # page mapped, so its lanes up to the member's pos are the valid ones)
+    library = partials_library(q, *(pd.paged_gather(x, targs[3]) for x in targs[1:3]), targs[4],
+                               D**-0.5, targs)
     pd.paged_gqa_partials.launches = launches0  # a check, not the main path
     log(f"model_parallel_paged 12b: paged_gqa_partials at {ps_l} lanes a page (B {B}, Hq {Hq}, "
         f"Hkv {Hkv}, {P} pages, bf16), plan {tuple(plan)}: max abs err {err:.3e} over positions "
         f"{tuple(pos.tolist())}, 4 members combined vs K5 {comb_err:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {n_valid} valid lanes)")
+        f"plain {plain_ms:.4f} ms, library {library['ms']} ms ({library['note']}), bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {n_valid} valid lanes) ({card()})")
     return {"lanes_a_page": ps_l, "plan": list(plan), "max_abs_err": err,
             "combined_vs_k5_max_abs_err": comb_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "n_valid": n_valid}
+            "bound_ms": bound_ms, "bound_by": bound_by, "n_valid": n_valid,
+            "library_ms": library["ms"], "library_note": library["note"]}
 
 
-def mpp_12a(twin) -> dict:
-    """12a: internlm2-1.8b paged on (1, 4) (kv heads over model: the head
-    route, K5 a member) and (2, 4) (pages over data, kv heads over model:
-    K5's partials a member, combined in page order) beside phase 3's
-    engine; then the teacher-forced logits of both routes in bf16 and with
-    f32 weights."""
+def mpp_12a() -> dict:
+    """12a: internlm2-1.8b's first ``MPP_12A_LAYERS`` layers paged on (1,
+    4) (kv heads over model: the head route, K5 a member) and (2, 4)
+    (pages over data, kv heads over model: K5's partials a member,
+    combined in page order) beside a twin of the same cut; then the
+    teacher-forced logits of both routes in bf16 and with f32 weights."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=MPP_12A_LAYERS)
     scfg = mpp_scfg()
-    twin = twin or mpp_twin(cfg, scfg)
+    twin = mpp_twin(cfg, scfg)
     out = {}
     for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
         members, n = math.prod(shape), cfg.n_layers
@@ -6476,17 +6701,18 @@ def mpp_12a(twin) -> dict:
     return out
 
 
-def mpp_12b(twin) -> dict:
-    """12b: granite-20b paged on (1, 4): one kv head, so each member holds
-    4 lanes of every page (K5's partials a member at that page size,
-    combined in lane order); the instance first, against its plain
-    version; beside phase 3e's engine; then teacher-forced bf16 logits."""
+def mpp_12b() -> dict:
+    """12b: granite-20b's first ``MPP_12B_LAYERS`` layers paged on (1, 4):
+    one kv head, so each member holds 4 lanes of every page (K5's partials
+    a member at that page size, combined in lane order); the instance
+    first, against its plain version; beside a twin of the same cut; then
+    teacher-forced bf16 logits."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("granite-20b")
+    cfg = dataclasses.replace(get_config("granite-20b"), n_layers=MPP_12B_LAYERS)
     scfg = mpp_scfg()
     out = {"partials_4_lanes": mpp_partials_lanes(cfg)}
-    twin = twin or mpp_twin(cfg, scfg)
+    twin = mpp_twin(cfg, scfg)
     per = {"k5_partials": cfg.n_layers * 4}
     out["1x4"], _ = mpp_stream("12b 1x4", cfg, scfg, mp_ctx(cfg, (1, 4)), twin, per)
     out["1x4"]["route"] = "lanes"
@@ -6559,14 +6785,14 @@ def mpp_12d(twin) -> dict:
 
 def mp_paged_phase(twins: dict) -> dict:
     """Phase 12: paged pools and speculation under a mesh.  ``twins``:
-    the unsharded records of phases 3 (``"internlm2"``, with its
-    ``"tokens"``), 3e (``"granite"``) and 3c (``"deepseek"``); one that
-    is missing is served here.  12c serves its own twins."""
+    the unsharded record of phase 3c (``"deepseek"``, with its
+    ``"tokens"``), served here when missing.  12a-12c serve their own
+    twins."""
     t0 = time.perf_counter()
     out = {}
-    out["12a"] = mpp_12a(twins.get("internlm2"))
+    out["12a"] = mpp_12a()
     t1 = time.perf_counter()
-    out["12b"] = mpp_12b(twins.get("granite"))
+    out["12b"] = mpp_12b()
     t2 = time.perf_counter()
     out["12c"] = mpp_12c()
     t3 = time.perf_counter()
@@ -6586,10 +6812,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    smi = card()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6602,6 +6825,7 @@ def main() -> int:
     lane = analysis_7a_start()  # phase 7a's CI lane, on the host's CPU beside phases 2-6
     record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
     partials_prof = partials_profile()
+    mla_partials_prof = mla_partials_profile()
     epi = epilogue_phase()
     loop = loop_phase(epi)
     torch.cuda.empty_cache()  # hand the 4K states' memory back
@@ -6695,6 +6919,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mp, partials, mla_partials = model_parallel_phase()
+    mla_partials.update(mla_partials_prof)
     mla_partials["launches"] = mp["9c"]["launches"]["sharded"]["k6_partials"]
     mla_partials["launches_by_path"] = {"mp_9c": mla_partials["launches"]}
     a9 = mp["9a"]
@@ -6731,9 +6956,7 @@ def main() -> int:
     partials["launches_by_path"] = {"mp_9b": partials["launches"]}
     gc.collect()
     torch.cuda.empty_cache()
-    mpp = mp_paged_phase({"internlm2": {**eng, "tokens": plain_tokens},
-                          "granite": arch_engines["3e"],
-                          "deepseek": {**deepseek, "tokens": mla_tokens}})
+    mpp = mp_paged_phase({"deepseek": {**deepseek, "tokens": mla_tokens}})
     by_counter = ((record, "k5"), (partials, "k5_partials"), (mla, "k6"),
                   (mla_partials, "k6_partials"))
     for key, run in (("mp_12a_1x4", mpp["12a"]["1x4"]), ("mp_12a_2x4", mpp["12a"]["2x4"]),

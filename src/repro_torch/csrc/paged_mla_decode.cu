@@ -20,7 +20,8 @@
 // small products per slot, (h x 576) . (576 x S) and (h x S) . (S x 512).
 //
 // bf16 design (bf16_kernel; the layout of DeepSeek's public FlashMLA for
-// this function on Hopper, on K7's wgmma helpers in hopper.cuh):
+// this function on Hopper, on K7's wgmma helpers in hopper.cuh; the tile
+// walk is mla_walk in mla_tiles.cuh, which paged_mla_partials.cu shares):
 //   * grid (slot, group of 64 query heads, split): a split is a run of
 //     split_lanes lanes, a multiple of the 64-lane tile.  The wrapper takes
 //     the most splits that keep the grid within one wave (one block fills
@@ -88,25 +89,20 @@
 // refuses inputs whose block would exceed Hopper's 227 KB, and picks a
 // smaller G for longer caches.
 //
-// The partials entry points (paged_mla_partials_*) give each row's
-// flash-decoding partial over the lanes it is given: the unnormalised
-// f32 context acc, the scores' max m in natural units and the softmax sum
-// l.  A member of a mesh that holds some of a slot's pages or lanes
-// passes its own (a page table of its rows, pos shifted to its lanes; pos
-// may be negative), and the members' partials combine in
-// distributed/decode.py.  A row with no valid lane gives the empty
-// partial (acc 0, m -inf, l 0), never the whole-slot kernel's uniform
-// mean: that mean is right for one whole slot and wrong inside a combine.
-//   bf16: the split kernel above without its uniform case, then
-//   merge_partials_kernel (split_merge.cuh), which merges the splits in
-//   order without dividing: one entry point, two launches, as K5's
-//   partials.
-//   f32: an epilogue variant of the CUDA-core kernel (kPartials): the same
-//   two passes, the softmax not normalised, and m and l written beside
-//   the context.  It keeps the f32 kernel's lane order and its 1e-4
-//   accuracy and needs no scratch; a split route would add a second pass
-//   and the partials' scratch for a member whose lanes already fit one
-//   block's shared memory (the wrapper refuses the rest, as for K6).
+// The partials entry point paged_mla_partials_f32 gives each row's
+// flash-decoding partial over the lanes it is given: the unnormalised f32
+// context acc, the scores' max m in natural units and the softmax sum l.
+// A member of a mesh that holds some of a slot's pages or lanes passes its
+// own (a page table of its rows, pos shifted to its lanes; pos may be
+// negative), and the members' partials combine in distributed/decode.py.
+// A row with no valid lane gives the empty partial (acc 0, m -inf, l 0),
+// never the whole-slot kernel's uniform mean: that mean is right for one
+// whole slot and wrong inside a combine.  It is an epilogue variant of the
+// CUDA-core kernel (kPartials): the same two passes, the softmax not
+// normalised, and m and l written beside the context.  It keeps the f32
+// kernel's lane order and its 1e-4 accuracy and needs no scratch.  The
+// bf16 partials are paged_mla_partials.cu: one launch on this file's tile
+// walk (mla_tiles.cuh), its splits merged in a thread-block cluster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,6 +111,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"        // cp.async, wgmma and the swizzled descriptors
+#include "mla_tiles.cuh"     // the bf16 tile walk
 #include "split_merge.cuh"   // the split partials and the merge kernel
 
 namespace {
@@ -402,45 +399,17 @@ int launch_f32(const void* q_lat, const void* q_rope, const void* ckv, const voi
 
 // --------------------------------------------------------------------------
 // bf16: cp.async tiles through the page table, wgmma on the tensor cores
+// (the walk is mla_tiles.cuh's, shared with paged_mla_partials.cu)
 // --------------------------------------------------------------------------
-constexpr int kHeads = 64;       // query heads a block takes: one wgmma M
-constexpr int kTile = 64;        // latent lanes a tile
-constexpr int kLoraMax = 512;    // latent width of the instance (zero-padded)
-constexpr int kRopeMax = 64;     // RoPE width of the instance (zero-padded)
-constexpr int kColBlocks = (kLoraMax + kRopeMax) / 64;  // 9 swizzled 64-column blocks
-constexpr uint32_t kBlockBytes = 64 * 128;              // one 64-row, 64-column block
-constexpr uint32_t kTileBytes = kColBlocks * kBlockBytes;  // 72 KB, Q's size too
-constexpr int kBf16Threads = 256;  // two warpgroups
-// Q, two tile stages, the stages' lane flags, and the slack to align to 1024
-constexpr size_t kBf16Smem = 3 * (size_t)kTileBytes + 2 * kTile + 1024;
-
-// Row r (< 64) of a swizzled [lat | rope] tile at dst: this thread's 18 of
-// its 72 16-byte chunks (chunk c = part + 4 i), each read from lat or rope,
-// or zero-filled past lora / rope and where `ok` is false.
-__device__ __forceinline__ void copy_row(uint32_t dst, int r, int part,
-                                         const __nv_bfloat16* lat, const __nv_bfloat16* rp,
-                                         int lora, int rope, bool ok) {
-#pragma unroll
-  for (int i = 0; i < 18; ++i) {
-    const int c = part + 4 * i;
-    const int cc = c & 7;
-    const uint32_t d = dst + (c >> 3) * kBlockBytes + r * 128 + ((cc ^ (r & 7)) << 4);
-    const bool in = c < 64 ? ok && c * 8 < lora : ok && (c - 64) * 8 < rope;
-    const __nv_bfloat16* src = c < 64 ? lat + c * 8 : rp + (c - 64) * 8;
-    cp_async16(d, in ? src : lat, in ? 16u : 0u);
-  }
-}
-
 __global__ void __launch_bounds__(kBf16Threads, 1)
     bf16_kernel(const __nv_bfloat16* __restrict__ q_lat, const __nv_bfloat16* __restrict__ q_rope,
                 const __nv_bfloat16* __restrict__ ckv, const __nv_bfloat16* __restrict__ krope,
                 const int* __restrict__ pages, const int* __restrict__ pos,
                 float* __restrict__ part, int H, int lora, int rope, int ps, int P, int N,
-                int split_lanes, int nsplit, float scale_log2, int allow_uniform) {
+                int split_lanes, int nsplit, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023) & ~1023u;
-  auto stage = [&](int st) { return qs + (1 + st) * kTileBytes; };
   // per stage and lane of the tile: 1 where the lane's score counts
   unsigned char* okf = smem_raw + (qs - raw) + 3 * kTileBytes;
 
@@ -450,12 +419,10 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   const int* prow = pages + (size_t)b * P;
 
   // Does the slot have a valid lane (a mapped page starting at or before
-  // pos)?  If not, the block takes the uniform mean of the slot's lanes
-  // (the partials entry point: an empty partial instead).
+  // pos)?  If not, the block takes the uniform mean of the slot's lanes.
   int has_valid = 0;
   for (int i = tid; i < P; i += kBf16Threads) has_valid |= prow[i] >= 0 && i * ps <= qpos;
-  const bool none_valid = !__syncthreads_or(has_valid);
-  const bool uniform = allow_uniform && none_valid;
+  const bool uniform = !__syncthreads_or(has_valid);
   const int S = P * ps;
   const int L0 = split * split_lanes;
   const int Lend = min(S, L0 + split_lanes);
@@ -469,140 +436,19 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     }
     return;
   }
-  const int n_tiles = (L1 - L0 + kTile - 1) / kTile;
 
-  // copies: thread tid fills row tid / 4 of a tile, chunks tid % 4 + 4 i
-  const int lr = tid >> 2, lp = tid & 3;
-  auto load_tile = [&](int j) {
-    const int st = j & 1, t = L0 + j * kTile + lr;
-    const int row = t < L1 ? min(__ldg(prow + t / ps), N - 1) : -1;
-    const size_t lane = row >= 0 ? (size_t)row * ps + t % ps : 0;
-    copy_row(stage(st), lr, lp, ckv + lane * lora, krope + lane * rope, lora, rope, row >= 0);
-    if (lp == 0) okf[st * kTile + lr] = t < L1 && (uniform || row >= 0);
-  };
-  {
-    const int hq = min(h0 + lr, H - 1);  // rows past H: zeros, never stored
-    const size_t qrow = (size_t)b * H + hq;
-    copy_row(qs, lr, lp, q_lat + qrow * lora, q_rope + qrow * rope, lora, rope, h0 + lr < H);
-  }
-  load_tile(0);
-  cp_async_commit();
-
-  // a warpgroup: rows r0 and r0 + 8 of the 64 heads in this thread; its
-  // 256 context columns [256 wg, 256 wg + 256)
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
   float o[2][64];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 64; ++j) o[i][j] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) load_tile(j + 1);  // into the stage tile j - 1 left
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j (and Q) landed for this thread's copies
-    fence_async_shared();
-    __syncthreads();  // ... and for every thread's
-
-    // S = Q K^T over the 576 columns; s[4 jj + e] is row r0 + 8 (e >> 1),
-    // lane L0 + 64 j + 8 jj + c0 + (e & 1)
-    float s[32];
-    if (!uniform) {
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4 * kColBlocks; ++kk) {
-        const uint32_t off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
-        wgmma_ss(s, desc(qs + off, 16, 1024), desc(stage(st) + off, 16, 1024), kk > 0);
-      }
-      wg_commit();
-      wg_wait<0>();
-      fence_regs(s);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    }
-    // the online softmax of the tile, in log2 units; a lane whose flag is
-    // 0 scores -inf (p = 0), and every lane of a uniform slot scores 0
-    const unsigned char* ok = okf + st * kTile;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[4 * jj + e] * scale_log2;
-        s[4 * jj + e] = ok[8 * jj + c0 + (e & 1)] ? x : -INFINITY;
-        if (e & 2)
-          mx1 = fmaxf(mx1, s[4 * jj + e]);
-        else
-          mx0 = fmaxf(mx0, s[4 * jj + e]);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;  // a row that saw nothing yet
-    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float al0 = ex2(m0 - mu0), al1 = ex2(m1 - mu1);
-    m0 = mn0;
-    m1 = mn1;
-    // P as the A fragments of P.V: a bf16 high part and the bf16 remainder
-    uint32_t ph[4][4], pl[4][4];
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[e] = ex2(s[4 * jj + e] - (e & 2 ? mu1 : mu0));
-      ls0 += p[0] + p[1];
-      ls1 += p[2] + p[3];
-      const __nv_bfloat162 h01 = __floats2bfloat162_rn(p[0], p[1]);
-      const __nv_bfloat162 h23 = __floats2bfloat162_rn(p[2], p[3]);
-      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-      ph[jj >> 1][(jj & 1) * 2] = *reinterpret_cast<const uint32_t*>(&h01);
-      ph[jj >> 1][(jj & 1) * 2 + 1] = *reinterpret_cast<const uint32_t*>(&h23);
-      pl[jj >> 1][(jj & 1) * 2] = pack_bf16(p[0] - f01.x, p[1] - f01.y);
-      pl[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(p[2] - f23.x, p[3] - f23.y);
-    }
-    l0 = l0 * al0 + ls0;  // this thread's share of the row sum
-    l1 = l1 * al1 + ls1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        o[i][4 * jj] *= al0;
-        o[i][4 * jj + 1] *= al0;
-        o[i][4 * jj + 2] *= al1;
-        o[i][4 * jj + 3] *= al1;
-      }
-    // O += P V: 16 lanes a step; V's 64-column blocks are a block apart
-    // (the leading byte offset), 8-lane groups 1024 B (the stride)
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint32_t bv = stage(st) + (4 * wg + 2 * i) * kBlockBytes + kk * (16 * 128);
-        wgmma_rs(o[i], ph[kk], desc(bv, kBlockBytes, 1024), 1);
-        wgmma_rs(o[i], pl[kk], desc(bv, kBlockBytes, 1024), 1);
-      }
-    wg_commit();
-    wg_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) fence_regs(o[i]);
-    fence_regs(ph);
-    fence_regs(pl);
-    __syncthreads();  // every warpgroup is done with the stage: tile j + 2 may land there
-  }
+  mla_walk(q_lat, q_rope, ckv, krope, prow, b, H, h0, lora, rope, ps, N, L0, L1, uniform,
+           scale_log2, qs, okf, o, m0, m1, l0, l1);
 
   // this split's partials: the unnormalised context, (m, l) in log2 units
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
   const int hA = h0 + r0, hB = hA + 8;
   const size_t jA = ((size_t)b * H + hA) * nsplit + split, jB = jA + 8 * (size_t)nsplit;
 #pragma unroll
@@ -624,16 +470,14 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   }
 }
 
-// out != null: the normalised context (merge_kernel); else the partials
-// acc / m / l (merge_partials_kernel), with no uniform case.
+// the split kernel, then merge_kernel: the normalised context
 int launch_bf16(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
                 const void* pages, const void* pos, void* out, void* part, int B, int H,
                 int lora, int rope, int ps, int P, int N, int split_lanes, float scale,
-                void* stream, void* acc = nullptr, void* m_out = nullptr,
-                void* l_out = nullptr) {
+                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lora > kLoraMax || rope > kRopeMax || lora % 8 || rope % 8 || split_lanes < kTile ||
-      split_lanes % kTile || !part)
+      split_lanes % kTile || !part || !out)
     return (int)cudaErrorInvalidValue;
   // Raise the dynamic shared memory limit on the first (eager) launch:
   // not again inside a CUDA-graph capture.
@@ -650,16 +494,11 @@ int launch_bf16(const void* q_lat, const void* q_rope, const void* ckv, const vo
       static_cast<const __nv_bfloat16*>(q_lat), static_cast<const __nv_bfloat16*>(q_rope),
       static_cast<const __nv_bfloat16*>(ckv), static_cast<const __nv_bfloat16*>(krope),
       static_cast<const int*>(pages), static_cast<const int*>(pos), static_cast<float*>(part), H,
-      lora, rope, ps, P, N, split_lanes, nsplit, scale * kLog2e, out != nullptr);
+      lora, rope, ps, P, N, split_lanes, nsplit, scale * kLog2e);
   if (const int e = (int)cudaGetLastError()) return e;
-  if (out)
-    merge_kernel<float><<<B * H, kMergeThreads, 0, s>>>(static_cast<const float*>(part),
-                                                        static_cast<float*>(out), B * H, lora,
-                                                        nsplit);
-  else
-    merge_partials_kernel<<<B * H, kMergeThreads, 0, s>>>(
-        static_cast<const float*>(part), static_cast<float*>(acc), static_cast<float*>(m_out),
-        static_cast<float*>(l_out), B * H, lora, nsplit);
+  merge_kernel<float><<<B * H, kMergeThreads, 0, s>>>(static_cast<const float*>(part),
+                                                      static_cast<float*>(out), B * H, lora,
+                                                      nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -707,16 +546,4 @@ extern "C" int paged_mla_partials_f32(const void* q_lat, const void* q_rope, con
   if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
   return launch_f32(q_lat, q_rope, ckv, krope, pages, pos, acc, B, H, lora, rope, ps, P, N, G,
                     scale, smem, stream, m, l);
-}
-
-// bf16: the arguments of paged_mla_decode_bf16; one call launches the split
-// kernel and the merge that does not divide, counted as one launch.
-extern "C" int paged_mla_partials_bf16(const void* q_lat, const void* q_rope, const void* ckv,
-                                       const void* krope, const void* pages, const void* pos,
-                                       void* acc, void* m, void* l, void* part, int B, int H,
-                                       int lora, int rope, int ps, int P, int N, int split_lanes,
-                                       float scale, void* stream) {
-  if (!acc || !m || !l) return (int)cudaErrorInvalidValue;
-  return launch_bf16(q_lat, q_rope, ckv, krope, pages, pos, nullptr, part, B, H, lora, rope, ps,
-                     P, N, split_lanes, scale, stream, acc, m, l);
 }

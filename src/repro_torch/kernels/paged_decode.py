@@ -36,7 +36,10 @@ bits: the paged-vs-dense token parity of the engine holds on the card.
 ``paged_mla_partials`` is K6's partials entry point, the same for the
 latent pools: a member of a mesh holding some of a slot's pages or lanes
 (paged pools, or a sequence-sharded dense latent cache read through
-``dense_mla_view``) gives its ``(acc, m, l)``.
+``dense_mla_view``) gives its ``(acc, m, l)``.  In bf16 it runs
+``csrc/paged_mla_partials.cu`` along ``mla_partials_plan`` (the lanes
+alone): one tensor-core launch whose splits merge in a thread-block
+cluster.
 
 ``paged_gqa_partials`` is the GQA kernel's second entry point: each
 row's flash-decoding partial ``(acc, m, l)`` over the lanes it is given,
@@ -160,11 +163,12 @@ def gqa_split_lanes(B: int, blocks: int, S: int, sms: int) -> int:
 
 
 class PartialsPlan(NamedTuple):
-    """How ``paged_gqa_partials`` runs: ``route`` "tc" (the tensor-core
-    kernel, one launch) or "split" (the split pass and the merge),
-    ``split_lanes`` lanes a split (a multiple of ``SPLIT_QUANTUM``) and
-    ``cluster`` the splits one cluster merges ("tc": all of them; 1 for
-    "split", which merges in a second pass)."""
+    """How ``paged_gqa_partials`` (or, always "tc", ``paged_mla_partials``)
+    runs: ``route`` "tc" (the tensor-core kernel, one launch) or "split"
+    (the split pass and the merge), ``split_lanes`` lanes a split (a
+    multiple of ``SPLIT_QUANTUM``) and ``cluster`` the splits one cluster
+    merges ("tc": all of them; 1 for "split", which merges in a second
+    pass)."""
 
     route: str
     split_lanes: int
@@ -504,6 +508,31 @@ def mla_split_lanes(B: int, head_blocks: int, S: int, sms: int) -> int:
     return SPLIT_QUANTUM * -(-quanta // n)
 
 
+#: most splits of K6's partials kernel (``csrc/paged_mla_partials.cu``):
+#: one thread-block cluster of the portable size merges them.  The split
+#: sweep of ``chip_smoke.py`` phase 9 (``MLA_SWEEP``; PERF.md section 6):
+#: a tile's walk costs a block about 4.6 us and the cluster's merge about
+#: 4 us, and the most splits win at every length swept: two one-tile
+#: splits at 128 lanes by 0.3-0.55 us of 13 in each of four calls, 3 at 192
+#: lanes 0.0130 ms against 0.0180 for one block, 8 at 512 lanes 0.0133
+#: against 0.0172 for 4
+MLA_MAX_CLUSTER = 8
+
+
+def mla_partials_plan(S: int) -> PartialsPlan:
+    """K6's partials kernel over S lanes: the most splits of whole 64-lane
+    tiles, up to ``MLA_MAX_CLUSTER``, all in one cluster.  It reads neither
+    the batch nor the SM count, so a row gives the same bits at any batch
+    index and in a call of any B, and split boundaries sit at multiples of
+    ``SPLIT_QUANTUM`` from lane 0, so a dense view and a paged pool of the
+    same lanes give the same bits.  Two splits of 64 lanes at 9c's and
+    12d's 128-lane members, one at 12d's 4-lane pages, 8 of 64 at 512
+    lanes, 8 of 512 at 4096."""
+    tiles = -(-S // SPLIT_QUANTUM)
+    lanes = SPLIT_QUANTUM * -(-tiles // MLA_MAX_CLUSTER)
+    return PartialsPlan("tc", lanes, -(-S // lanes))
+
+
 @functools.cache
 def _mla_lib() -> ctypes.CDLL:
     lib = build.load("paged_mla_decode")
@@ -513,12 +542,25 @@ def _mla_lib() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p]
     lib.paged_mla_partials_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_size_t, ctypes.c_void_p]
-    lib.paged_mla_partials_bf16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16, lib.paged_mla_partials_f32,
-               lib.paged_mla_partials_bf16):
+    for fn in (lib.paged_mla_decode_f32, lib.paged_mla_decode_bf16, lib.paged_mla_partials_f32):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _mla_partials_lib() -> ctypes.CDLL:
+    lib = build.load("paged_mla_partials")
+    lib.paged_mla_partials_tc.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.paged_mla_partials_tc_empty.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.paged_mla_partials_tc, lib.paged_mla_partials_tc_empty):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+#: what ``csrc/paged_mla_partials.cu`` returns when no cluster of the
+#: plan's size can be resident on the card
+NO_CLUSTER = -1
 
 
 def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos) -> None:
@@ -638,41 +680,79 @@ def paged_mla_partials(q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *, scale
     are ``paged_mla_attention``'s (a pool or a ``dense_mla_view``); ``pos``
     may be negative, and a row without a valid lane gives the empty
     partial m = -inf, l = 0, acc = 0 (not the whole-slot kernel's uniform
-    mean).  bf16: K6's split kernel and a merge that does not divide; f32:
-    the CUDA-core kernel's partials epilogue.  CPU tensors take
-    ``paged_mla_partials_plain``; CUDA tensors launch the kernel on the
-    current stream."""
+    mean).  bf16: ``csrc/paged_mla_partials.cu`` along
+    ``mla_partials_plan``, one launch whose splits merge in a thread-block
+    cluster; f32: the CUDA-core kernel's partials epilogue.  CPU tensors
+    take ``paged_mla_partials_plain``; CUDA tensors launch the kernel on
+    the current stream."""
     if q_lat.device.type == "cpu":
         return paged_mla_partials_plain(q_lat, q_rope, ckv_pool, krope_pool, pages, pos,
                                         scale=scale)
     if q_lat.device.type != "cuda":
         raise ValueError(f"paged_mla_partials runs on cuda or cpu, not {q_lat.device}")
     _check_mla(q_lat, q_rope, ckv_pool, krope_pool, pages, pos)
+    S = pages.shape[1] * ckv_pool.shape[1]
+    if q_lat.dtype == torch.bfloat16:
+        return launch_mla_partials(mla_partials_plan(S), q_lat, q_rope, ckv_pool, krope_pool,
+                                   pages, pos, scale=scale)
     B, h, lora = q_lat.shape
     N, ps, _ = ckv_pool.shape
     rope, P = q_rope.shape[-1], pages.shape[1]
-    lib = _mla_lib()
-    f32 = dict(dtype=torch.float32, device=q_lat.device)
-    acc = torch.empty((B, h, lora), **f32)
-    m, l = torch.empty((B, h), **f32), torch.empty((B, h), **f32)
+    acc, m, l = _mla_partials_out(B, h, lora, q_lat.device)
     ptrs = [t.data_ptr() for t in (q_lat, q_rope, ckv_pool, krope_pool, pages, pos, acc, m, l)]
-    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    G = mla_group(h, lora, rope, S, P)
     with torch.cuda.device(q_lat.device):  # the C launch uses the current device
-        if q_lat.dtype == torch.float32:
-            G = mla_group(h, lora, rope, P * ps, P)
-            err = lib.paged_mla_partials_f32(*ptrs, B, h, lora, rope, ps, P, N, G, float(scale),
-                                             mla_smem_bytes(G, lora, rope, P * ps, P), stream)
-        else:
-            split_lanes = mla_split_lanes(B, -(-h // MLA_HEADS), P * ps,
-                                          build.sm_count(q_lat.device.index))
-            n_split = -(-P * ps // split_lanes)
-            part = torch.empty(B * h * n_split * (lora + 2), **f32)
-            err = lib.paged_mla_partials_bf16(*ptrs, part.data_ptr(), B, h, lora, rope, ps, P, N,
-                                              split_lanes, float(scale), stream)
+        err = _mla_lib().paged_mla_partials_f32(
+            *ptrs, B, h, lora, rope, ps, P, N, G, float(scale), mla_smem_bytes(G, lora, rope, S, P),
+            torch.cuda.current_stream(q_lat.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_mla_partials launch failed: cudaError {err}")
     paged_mla_partials.launches += 1
     return acc, m, l
+
+
+def _mla_partials_out(B: int, h: int, lora: int, device):
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty((B, h, lora), **f32), torch.empty((B, h), **f32), torch.empty((B, h), **f32)
+
+
+def launch_mla_partials(plan: PartialsPlan, q_lat, q_rope, ckv_pool, krope_pool, pages, pos, *,
+                        scale: float):
+    """One launch of K6's bf16 partials kernel along ``plan`` on inputs
+    ``paged_mla_partials`` has checked; ``paged_mla_partials`` passes
+    ``mla_partials_plan``'s, and ``chip_smoke.py`` times every split count
+    through it.  Raises when the launch fails or no cluster of the plan's
+    size fits the card.  Counts the launch on
+    ``paged_mla_partials.launches``."""
+    if q_lat.dtype != torch.bfloat16:
+        raise TypeError("K6's partials kernel on the tensor cores takes bfloat16")
+    B, h, lora = q_lat.shape
+    N, ps, _ = ckv_pool.shape
+    rope, P = q_rope.shape[-1], pages.shape[1]
+    acc, m, l = _mla_partials_out(B, h, lora, q_lat.device)
+    ptrs = [t.data_ptr() for t in (q_lat, q_rope, ckv_pool, krope_pool, pages, pos, acc, m, l)]
+    with torch.cuda.device(q_lat.device):  # the C launch uses the current device
+        err = _mla_partials_lib().paged_mla_partials_tc(
+            *ptrs, B, h, lora, rope, ps, P, N, plan.split_lanes, float(scale),
+            torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err == NO_CLUSTER:
+        raise RuntimeError(f"paged_mla_partials: no cluster of {plan.cluster} blocks of the "
+                           "partials kernel can be resident on this card")
+    if err:
+        raise RuntimeError(f"paged_mla_partials launch failed: cudaError {err}")
+    paged_mla_partials.launches += 1
+    return acc, m, l
+
+
+def mla_partials_empty_launch(plan: PartialsPlan, B: int, h: int, S: int) -> None:
+    """The launch floor of K6's partials kernel: an empty kernel with
+    ``plan``'s grid, cluster and shared memory for B slots of h query
+    heads over S lanes, on the current device and stream.  For
+    ``chip_smoke.py``'s timing; counts no launch."""
+    err = _mla_partials_lib().paged_mla_partials_tc_empty(
+        B, h, S, plan.split_lanes, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_mla_partials_tc_empty launch failed: cudaError {err}")
 
 
 paged_mla_partials.launches = 0
