@@ -37,10 +37,18 @@ hook for the operands that are f32 by nature (``wl o B``, ``W``,
 ``S_in``): the kernel hands each to the bf16 tensor cores as a bf16 high
 part plus a bf16 remainder (``bf16_pair``).
 
-``ssd_scan`` takes the plain version for CPU tensors only; a CUDA tensor
-reaches the kernel or an exception.  ``launches`` on the wrapper counts
-calls of the entry point that launched the kernel (one a scan, whatever
-the number of CUDA launches inside it).
+The backward (``csrc/ssd_scan_bwd.cu``, new Hopper work: the JAX
+package differentiates its reference ``ssd_ref``) is the wrapper
+``ssd_scan_bwd`` with its plain version ``ssd_scan_bwd_plain``, the
+gradient of the chunked form written out.  ``SSDScan`` is the
+``torch.autograd.Function`` that joins the two; ``ssd_scan`` goes through
+it where an input requires grad, on either device.
+
+``ssd_scan`` and ``ssd_scan_bwd`` take their plain versions for CPU
+tensors only; a CUDA tensor reaches the kernel or an exception.
+``launches`` on each wrapper counts calls of the entry point that
+launched its kernel (one a call, whatever the number of CUDA launches
+inside it).
 """
 
 from __future__ import annotations
@@ -63,8 +71,15 @@ BF16_MAX_HEAD_DIM = 64
 BF16_ROW_TILE = 64
 
 
+def _wide(t):
+    """``t`` in the plain versions' working type: f32, or f64 for f64
+    inputs (the CPU's gradient checks)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def ssd_scan_plain(x, dt, a, b, c, *, h0=None, chunk: int = 128):
-    """The plain version: the kernel's chunked arithmetic in torch, f32."""
+    """The plain version: the kernel's chunked arithmetic in torch, f32
+    (f64 for f64 inputs)."""
     Bsz, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     rep = H // G
@@ -73,7 +88,7 @@ def ssd_scan_plain(x, dt, a, b, c, *, h0=None, chunk: int = 128):
     pad = n_chunks * Q - L
 
     def chunks(t):  # (B, L, ...) -> f32 (B, n_chunks, Q, ...), zero-padded
-        t = t.float()
+        t = _wide(t)
         t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
         return t.reshape(Bsz, n_chunks, Q, *t.shape[2:])
 
@@ -81,10 +96,10 @@ def ssd_scan_plain(x, dt, a, b, c, *, h0=None, chunk: int = 128):
     dtf = chunks(dt)
     bf = chunks(b.repeat_interleave(rep, dim=2))  # (B, nc, Q, H, N)
     cf = chunks(c.repeat_interleave(rep, dim=2))
-    cum = torch.cumsum(dtf * a.float(), dim=2)  # (B, nc, Q, H)
+    cum = torch.cumsum(dtf * _wide(a), dim=2)  # (B, nc, Q, H)
     tril = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    S = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    S = (torch.zeros((Bsz, H, N, P), dtype=xf.dtype, device=x.device)
+         if h0 is None else _wide(h0))
     ys = []
     for ci in range(n_chunks):
         X, dtc, Bc, Cc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci], cum[:, ci]
@@ -100,6 +115,101 @@ def ssd_scan_plain(x, dt, a, b, c, *, h0=None, chunk: int = 128):
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :L]
     return y.to(x.dtype), S
+
+
+def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
+    """The plain backward: the gradient of the chunked form written out in
+    torch, f32, without autograd.  ``dy`` (B, L, H, P) is y's cotangent,
+    ``dht`` (B, H, N, P) the final state's or None (zero).  Per chunk,
+    with S_in its initial state and G_out the cotangent of its final
+    state (G_out of the last chunk = dht):
+
+      * reverse state pass: ``G_in = exp(cum_last) G_out + sum_i
+        exp(cum_i) C_i dy_i^T``, G_out[c] = G_in[c + 1], dh0 = G_in[0];
+      * ``dx_j = sum_{i >= j} W_ij dy_i + wl_j G_out^T B_j``;
+      * ``dC_i = sum_{j <= i} dW_ij e_ij dt_j B_j + exp(cum_i) S_in dy_i``;
+      * ``dB_j = sum_{i >= j} dW_ij e_ij dt_j C_i + wl_j G_out x_j``;
+      * ``ddt_j = sum_i dW_ij (C_i.B_j) e_ij + exp(cum_last - cum_j) u_j``
+        with ``u_j = B_j^T G_out x_j``, plus ``a d(dt a)_j``;
+      * d(cum): ``dW o W`` summed over j (+) and over i (-), the carry
+        ``exp(cum_i) C_i.(S_in dy_i)``, ``-wl_j u_j``, and at the last row
+        ``exp(cum_last) <G_out, S_in> + sum_j wl_j u_j``; its reverse
+        cumsum is d(dt a), so ``da = sum dt d(dt a)``;
+
+    where ``e_ij = exp(cum_i - cum_j)`` (j <= i), ``W_ij = (C_i.B_j) e_ij
+    dt_j``, ``dW_ij = dy_i.x_j`` and ``wl_j = exp(cum_last - cum_j) dt_j``.
+    Padded rows (past L) carry dt = 0 and zero x, B, C and dy: they give
+    nothing.  Returns (dx, ddt, da, db, dc, dh0): dx, db, dc in the
+    inputs' dtype, the rest f32; dh0 is None without h0."""
+    s_in, g_out, dh0 = ssd_bwd_states(x, dt, a, b, c, h0, dy, dht, chunk=chunk)
+    return (*ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, chunk=chunk), dh0)
+
+
+def _chunked_dy(dy, Q: int, nc: int):
+    Bsz, L, H, P = dy.shape
+    return F.pad(_wide(dy), (0, 0, 0, 0, 0, nc * Q - L)).reshape(Bsz, nc, Q, H, P)
+
+
+def ssd_bwd_states(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
+    """The backward's steps 1-2 in plain torch: each chunk's initial state
+    S_in (the forward's state passing, recomputed) and the cotangent
+    G_out of its final state (the reverse pass).  Returns S_in and G_out
+    (B, H, nc, N, P) and dh0 (None without h0)."""
+    ds, decay = ssd_chunk_states(x, dt, a, b, chunk=chunk)  # decay (B, H, nc)
+    s_in, _ = ssd_state_passing(ds, decay, h0)
+    _, _, _, cf, cum = _chunked(x, dt, a, b, c, chunk)  # (B, nc, Q, H, ...)
+    dyf = _chunked_dy(dy, cum.shape[2], cum.shape[1])
+    e = torch.einsum("bcihn,bcihp->bhcnp", cf * torch.exp(cum)[..., None], dyf)
+    g = torch.zeros_like(ds[:, :, 0]) if dht is None else _wide(dht)
+    g_out = [None] * ds.shape[2]
+    for ci in reversed(range(ds.shape[2])):
+        g_out[ci] = g
+        g = decay[:, :, ci, None, None] * g + e[:, :, ci]
+    return s_in, torch.stack(g_out, dim=2), None if h0 is None else g
+
+
+def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128):
+    """The backward's per-chunk step in plain torch, from each chunk's S_in
+    and G_out (``ssd_bwd_states``).  Returns (dx, ddt, da, db, dc)."""
+    Bsz, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    xf, dtf, bf, cf, cum = _chunked(x, dt, a, b, c, chunk)  # (B, nc, Q, H, ...)
+    Q, nc = cum.shape[2], cum.shape[1]
+    dyf = _chunked_dy(dy, Q, nc)
+    last = cum[:, :, -1]  # (B, nc, H)
+    wl = torch.exp(last[:, :, None] - cum) * dtf  # (B, nc, Q, H)
+    ecum = torch.exp(cum)
+    # the intra-chunk weights and their cotangents, (B, nc, Qi, Qj, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    diff = (cum[:, :, :, None] - cum[:, :, None, :]).masked_fill(~causal, 0.0)
+    decay = torch.exp(diff).masked_fill(~causal, 0.0)
+    cb = torch.einsum("bcihn,bcjhn->bcijh", cf, bf)
+    w = cb * decay * dtf[:, :, None]
+    dw = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf).masked_fill(~causal, 0.0)
+    dcb = dw * decay * dtf[:, :, None]
+    sdy = torch.einsum("bhcnp,bcihp->bcihn", s_in, dyf)  # S_in dy_i
+    gx = torch.einsum("bhcnp,bcjhp->bcjhn", g_out, xf)  # G_out x_j
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", w, dyf)
+          + wl[..., None] * torch.einsum("bcjhn,bhcnp->bcjhp", bf, g_out))
+    dc = torch.einsum("bcijh,bcjhn->bcihn", dcb, bf) + ecum[..., None] * sdy
+    db = torch.einsum("bcijh,bcihn->bcjhn", dcb, cf) + wl[..., None] * gx
+    u = (bf * gx).sum(-1)  # (B, nc, Q, H)
+    t = dw * w
+    dcum = t.sum(3) - t.sum(2) + ecum * (cf * sdy).sum(-1) - wl * u
+    carry = torch.exp(last) * torch.einsum("bhcnp,bhcnp->bch", g_out, s_in) + (wl * u).sum(2)
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + carry[:, :, None]], dim=2)
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])  # d(dt a)
+    ddt = (dw * cb * decay).sum(2) + torch.exp(last[:, :, None] - cum) * u + dda * _wide(a)
+    da = (dda * dtf).sum((0, 1, 2))
+
+    def rows(t):  # (B, nc, Q, ...) -> (B, L, ...)
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :L]
+
+    def groups(t):  # per head (B, L, H, N) -> per group (B, L, G, N)
+        return rows(t).reshape(Bsz, L, G, rep, N).sum(3).to(b.dtype)
+
+    return rows(dx).to(x.dtype), rows(ddt), da, groups(db), groups(dc)
 
 
 # --------------------------------------------------------------------------
@@ -128,11 +238,11 @@ def _chunked(x, dt, a, b, c, chunk):
     def chunks(t):
         if t is None:
             return None
-        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, nc * Q - L))
+        t = F.pad(_wide(t), (0, 0) * (t.dim() - 2) + (0, nc * Q - L))
         return t.reshape(Bsz, nc, Q, *t.shape[2:])
 
     dtf = chunks(dt)
-    cum = torch.cumsum(dtf * a.float(), dim=2)  # (B, nc, Q, H)
+    cum = torch.cumsum(dtf * _wide(a), dim=2)  # (B, nc, Q, H)
     bf = chunks(b.repeat_interleave(rep, dim=2))
     cf = None if c is None else chunks(c.repeat_interleave(rep, dim=2))
     return chunks(x), dtf, bf, cf, cum
@@ -155,7 +265,7 @@ def ssd_state_passing(ds, decay, h0=None):
     """Step 2: ``S_in[0] = h0`` (or 0), ``S_in[c+1] = decay_c S_in[c] +
     dS_c``.  Returns S_in (B, H, nc, N, P) and the final state (B, H, N,
     P), f32."""
-    s = torch.zeros_like(ds[:, :, 0]) if h0 is None else h0.float()
+    s = torch.zeros_like(ds[:, :, 0]) if h0 is None else h0.to(ds.dtype)
     s_in = []
     for ci in range(ds.shape[2]):
         s_in.append(s)
@@ -274,24 +384,104 @@ def _check_bf16(x, b, c, h0, chunk) -> None:
         raise ValueError("the bf16 kernel needs 16-byte aligned x, b, c and h0")
 
 
-def ssd_scan(x, dt, a, b, c, *, h0=None, chunk: int = 128):
-    """The SSD chunked scan.  x (B, L, H, P); dt (B, L, H) f32; a (H,) f32;
-    b, c (B, L, G, N); h0 (B, H, N, P) f32 or None.  Returns (y in x's
-    dtype, final state f32).  CPU tensors take ``ssd_scan_plain``, which
-    autograd differentiates; CUDA tensors launch the kernel on the current
-    stream, which has no backward: with grad enabled and an input that
-    requires grad it raises rather than return outputs with no grad_fn."""
+#: rows (and columns) of the backward kernel's sweep tiles
+BWD_TILE = 32
+
+
+def bwd_smem_bytes(Q: int, P: int, N: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's chunk-sums
+    step (the chunk's B or C and x or dy, and three vectors) and of its
+    chunk-gradient step (``grad_smem_floats`` in ``csrc/ssd_scan_bwd.cu``:
+    whole rows of B or C, x or dy and the state with a row stride one past
+    their width, a tile's rows, two weight tiles, a tile of terms summed
+    over N, seven vectors and a block sum's 32 totals)."""
+    T = min(BWD_TILE, Q)
+    grad = (Q * (N + 1) + Q * (P + 1) + N * (P + 1) + T * N + T * P + 2 * T * (Q + 1)
+            + T * (N + 1) + 7 * Q + 32)
+    return 4 * (Q * (N + P) + 3 * Q), 4 * grad
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    from . import build
+
+    lib = build.load("ssd_scan_bwd")
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
+    """The scan's backward: (dx, ddt, da, db, dc, dh0) for y's cotangent
+    ``dy`` and the final state's ``dht`` (None: zero), as
+    ``ssd_scan_bwd_plain`` computes them.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` on the current
+    stream (f32 at any chunk whose blocks fit, bf16 at the forward's bf16
+    shapes) and count one launch in ``ssd_scan_bwd.launches``."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dht, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu, not {x.device}")
+    _check(x, dt, a, b, c, h0, chunk)
+    Bsz, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} {tuple(x.shape)} tensor beside x")
+    if dht is not None and (tuple(dht.shape) != (Bsz, H, N, P) or dht.dtype != torch.float32
+                            or dht.device != x.device or not dht.is_contiguous()):
+        raise ValueError(f"dht must be a contiguous float32 {(Bsz, H, N, P)} tensor beside x")
+    if Bsz * H > 65535:
+        raise ValueError(f"B x H = {Bsz * H} exceeds the state pass's grid")
+    Q = min(chunk, L)
+    smem = max(bwd_smem_bytes(Q, P, N))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the backward needs {smem} bytes of shared memory a block; a Hopper "
+                         f"block can use {SMEM_LIMIT}")
+    nc = -(-L // Q)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bsz, L, H), **f32)
+    da = torch.empty((H,), **f32)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    dh0 = None if h0 is None else torch.empty((Bsz, H, N, P), **f32)
+    # scratch: S_in and G_out of every chunk (step 1 writes dS and E there),
+    # the decays, the per-head dB / dC and the per-(b, chunk) shares of da
+    ws_s = torch.empty((Bsz, H, nc, N, P), **f32)
+    ws_g = torch.empty((Bsz, H, nc, N, P), **f32)
+    ws_dec = torch.empty((Bsz, H, nc), **f32)
+    pdb = torch.empty((Bsz, L, H, N), **f32)
+    pdc = torch.empty((Bsz, L, H, N), **f32)
+    pda = torch.empty((Bsz, H, nc), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(h0),
+            dy.data_ptr(), ptr(dht), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), ptr(dh0), ws_s.data_ptr(), ws_g.data_ptr(), ws_dec.data_ptr(),
+            pdb.data_ptr(), pdc.data_ptr(), pda.data_ptr(), Bsz, L, H, P, G, N, Q,
+            int(x.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, db, dc, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+def _forward(x, dt, a, b, c, h0, chunk):
+    """(y, final state): ``ssd_scan_plain`` for CPU tensors, the kernel
+    for CUDA tensors (counted in ``ssd_scan.launches``)."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, h0=h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
-    inputs = (x, dt, a, b, c, h0)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
-        # the kernel writes its outputs through a ctypes launch, which
-        # autograd cannot see: they would carry no grad_fn and silently cut
-        # the gradient of everything upstream of the scan
-        raise RuntimeError("K8 has no backward on the card yet; see ROADMAP (a K8 backward "
-                           "kernel).  Run the scan under torch.no_grad(), or train on the CPU")
     _check(x, dt, a, b, c, h0, chunk)
     Bsz, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -321,6 +511,45 @@ def ssd_scan(x, dt, a, b, c, *, h0=None, chunk: int = 128):
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
     ssd_scan.launches += 1
     return y, ht
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with its gradient: the forward is ``_forward`` (K8 on the
+    card, ``ssd_scan_plain`` on the CPU), the backward ``ssd_scan_bwd``
+    (K8's backward kernel on the card, ``ssd_scan_bwd_plain`` on the
+    CPU).  It saves the inputs only: the backward recomputes each chunk's
+    initial state, so under ``torch.utils.checkpoint`` a recompute
+    launches the forward again and nothing of it is kept."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, chunk):
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused output's cotangent comes as None
+        return _forward(x, dt, a, b, c, h0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dht):
+        x, dt, a, b, c, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dht = None if dht is None else dht.contiguous()
+        dx, ddt, da, db, dc, dh0 = ssd_scan_bwd(x, dt, a, b, c, h0, dy, dht, chunk=ctx.chunk)
+        return dx, ddt, da, db, dc, dh0, None
+
+
+def ssd_scan(x, dt, a, b, c, *, h0=None, chunk: int = 128):
+    """The SSD chunked scan.  x (B, L, H, P); dt (B, L, H) f32; a (H,) f32;
+    b, c (B, L, G, N); h0 (B, H, N, P) f32 or None.  Returns (y in x's
+    dtype, final state f32).  CPU tensors take ``ssd_scan_plain``; CUDA
+    tensors launch the kernel on the current stream.  With grad enabled
+    and an input that requires grad the scan goes through ``SSDScan``,
+    whose backward is K8's backward kernel on the card and
+    ``ssd_scan_bwd_plain`` on the CPU; ``h0`` gets a gradient when it
+    requires one."""
+    inputs = (x, dt, a, b, c, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return SSDScan.apply(x, dt, a, b, c, h0, chunk)
+    return _forward(x, dt, a, b, c, h0, chunk)
 
 
 ssd_scan.launches = 0

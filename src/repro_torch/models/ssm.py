@@ -130,7 +130,9 @@ def _ssm(xh, dt, a, bh, ch, d_skip, group, h0, chunk: int):
     read, ``group`` (h,) each head's group among them.  A prompt (``h0``
     None) in one K8 launch -> (y, final state, None); a decode step from
     ``h0`` (B, h, N, P) -> (y, None, new state).  y (B, S, h, P), in xh's
-    dtype, includes the d_skip term."""
+    dtype, includes the d_skip term.  With grad the prompt's scan goes
+    through ``SSDScan``, whose backward is K8's backward kernel on the
+    card; it takes the contiguous copies made here."""
     if h0 is None:
         y, h_final = kops.ssd(xh.contiguous(), dt.contiguous(), a.contiguous(),
                               bh.contiguous(), ch.contiguous(), chunk=chunk)

@@ -368,7 +368,9 @@ def _remat(fn, remat: str):
     activation.  Only where grad is enabled: a forward without a
     backward (serving, prefill) keeps nothing either way.  The
     recomputation runs the same operators on the same inputs, so the
-    grads are bitwise those of ``"none"``."""
+    grads are bitwise those of ``"none"``; a mamba layer's scan
+    (``kernels.ssd_scan.SSDScan``, whose forward writes fresh outputs)
+    launches K8 again under both policies."""
     if remat not in ("full", "dots", "none"):
         raise ValueError(f"remat={remat!r}: full | dots | none")
     if remat == "none" or not torch.is_grad_enabled():

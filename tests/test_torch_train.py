@@ -3,7 +3,8 @@ JAX-initialised states carried over through ``repro_torch.bridge``:
 
   * ``loss_fn`` and its grads (``torch.autograd.grad`` over the params
     tree) against ``jax.value_and_grad`` for internlm2, mamba2 (the K8
-    scan's plain version, which autograd differentiates), deepseek's
+    scan through ``SSDScan``: its plain forward and the written-out
+    plain backward ``ssd_scan_bwd_plain``), deepseek's
     dense prefix with its MTP head, granite-moe (router, experts, aux)
     and musicgen (four codebooks): within 1e-5 relative (each grad leaf
     in L2 against its own norm);
@@ -14,7 +15,8 @@ JAX-initialised states carried over through ``repro_torch.bridge``:
   * microbatches=2 against 1 within 1e-5, and against JAX's;
   * ``grad_compression="int8_ef"`` refused without a mesh (it reduces
     over a data mesh: ``test_torch_train_int8ef.py``);
-  * F4: on the card K8 and K7 refuse inputs that require grad (marked
+  * F4 carried through: on the card K8 with grad trains through its
+    backward kernel, K7 still refuses inputs that require grad (marked
     ``cuda``; skips without a card)."""
 
 import dataclasses as dc
@@ -188,8 +190,9 @@ def test_the_transition_does_not_write_prev():
 
 
 def test_mamba_grads_reach_the_parameters_upstream_of_the_scan():
-    """F4's CPU side: the scan's plain version is differentiable, so every
-    mamba parameter upstream of it gets a gradient."""
+    """F4's CPU side: the scan's gradient (``SSDScan``, on the CPU its plain
+    forward and plain backward) reaches every mamba parameter upstream of
+    it."""
     _, tc = configs("mamba2-2.7b")
     g = torch.Generator().manual_seed(0)
     from repro_torch.models import transformer as T
@@ -211,16 +214,32 @@ def card():
 
 @pytest.mark.cuda
 def test_f4_kernels_refuse_inputs_that_require_grad_on_the_card(card):
+    """F4 carried through: K8 with grad now trains (outputs with a grad_fn,
+    its backward kernel launched once, every grad within 1e-3 relative L2
+    of autograd through the plain scan: phase 2h's f32 limit); K7 still
+    refuses inputs that require grad; under no_grad K8's forward is within
+    1e-3 of its plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ks
 
     B, L, H, P, G, N = 1, 128, 2, 64, 1, 64
-    x = torch.randn(B, L, H, P, device=card, requires_grad=True)
-    dt = torch.rand(B, L, H, device=card) * 0.1
-    a = -torch.rand(H, device=card)
-    b, c = torch.randn(B, L, G, N, device=card), torch.randn(B, L, G, N, device=card)
-    with pytest.raises(RuntimeError, match="K8 has no backward"):
-        ks.ssd_scan(x, dt, a, b, c)
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(B, L, H, P, device=card, generator=gen)
+    dt = torch.rand(B, L, H, device=card, generator=gen) * 0.1
+    a = -torch.rand(H, device=card, generator=gen)
+    b = torch.randn(B, L, G, N, device=card, generator=gen)
+    c = torch.randn(B, L, G, N, device=card, generator=gen)
+    dy = torch.randn(B, L, H, P, device=card, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    n = ks.ssd_scan_bwd.launches
+    y, _ = ks.ssd_scan(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    assert ks.ssd_scan_bwd.launches == n + 1
+    plain = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    want = torch.autograd.grad(ks.ssd_scan_plain(*plain)[0], plain, dy)
+    for g, w in zip(got, want):
+        assert float((g - w).norm() / w.norm()) <= 1e-3
     q = torch.randn(1, 2, 64, 64, device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="K7 has no backward"):
         fa.flash_attention(q, q, q)
