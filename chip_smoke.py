@@ -96,10 +96,12 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  within relative L2 2e-2 (bf16) / 1e-3 (f32), a limit two
                  planted faults of the reverse state pass (the carry
                  dropped, a stale chunk) must fail; two calls and a
-                 CUDA-graph replay bitwise; ptxas per kernel; device
-                 times at the trainer's call (batch 4 x 512) beside the
-                 bound, the plain backward and autograd through
-                 ``ssd_scan_plain``, and each launch's device time.
+                 CUDA-graph replay bitwise; ptxas per kernel; a bf16 call
+                 runs exactly the tensor-core design's four kernels,
+                 once each (torch.profiler); device times at the
+                 trainer's call (batch 4 x 512) beside the bound, the
+                 plain backward and autograd through ``ssd_scan_plain``,
+                 and each launch's device time at state 128 and 64.
   2e. attention -- K7 (flash attention) through ``kernels.ops.attention``
                  at internlm2's head layout (16 query / 8 KV heads of 128,
                  bf16): causal at 512 and 4096, windowed, and with a
@@ -2008,16 +2010,49 @@ def ssd_bwd_bound(x, bm, h0, dht, chunk=SSD_CHUNK) -> tuple[float, str, float, i
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
 
 
+#: the kernels one bf16 call of K8's backward launches, once each (the
+#: tensor-core design of ``csrc/ssd_scan_bwd.cu``); the f32 route's
+#: CUDA-core kernels must not run there
+SSD_BWD_TC_KERNELS = ("state_kernel", "tile_grad_kernel", "finish_kernel", "group_da_kernel")
+#: PR 33's worst relative L2 at the training call (CUDA cores), N 128 / 64
+SSD_BWD_PR33_L2 = {128: 1.49e-3, 64: 1.60e-3}
+
+
+def kernel_launches(fn, calls: int) -> dict:
+    """{kernel name: (launches recorded, device ms a launch)} of ``calls``
+    calls of fn under torch.profiler, after one warm call; names without
+    the namespace and template arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = re.sub(r"[(<].*", "", ev.name.replace("(anonymous namespace)::", ""))
+            n, us = out.get(name, (0, 0.0))
+            out[name] = (n + 1, us + ev.time_range.elapsed_us())
+    return {k: (n, us / 1e3 / n) for k, (n, us) in out.items()}
+
+
 def ssd_bwd_phase(build_log: Path) -> dict:
     """2h: K8's backward against ``ssd_scan_bwd_plain`` at mamba2's and
     zamba2's head shapes, L = 512 and 300, h0 and dht given and absent,
     bf16 and f32, and at 5d's training call (batch 4); two planted faults
-    rejected; two calls and a CUDA-graph replay bitwise; times at 5d's
-    training shape beside the bound, the plain backward and autograd
-    through ``ssd_scan_plain``; each launch's device time."""
+    rejected; two calls and a CUDA-graph replay bitwise; a bf16 call runs
+    exactly the tensor-core design's four kernels, once each (a
+    torch.profiler gate); times at 5d's training shape beside the bound,
+    the plain backward and autograd through ``ssd_scan_plain``; each
+    launch's device time at both state widths."""
     from repro_torch.kernels import ssd_scan as ks
 
-    for ln in ptxas_lines(build_log):
+    ptxas = ptxas_lines(build_log)
+    for ln in ptxas:
         log(f"ssd bwd: ptxas {ln}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     launches0 = ks.ssd_scan_bwd.launches
@@ -2090,7 +2125,8 @@ def ssd_bwd_phase(build_log: Path) -> dict:
         errs[label] = max(e[2] for e in v.values())
         worst[label] = max(max(e[0], e[1]) for e in v.values())
         log(f"ssd bwd: {label}: " + "; ".join(
-            f"{k} L2 {e[0]:.2e} row {e[1]:.2e}" for k, e in v.items()) + f" (limit {tol})")
+            f"{k} L2 {e[0]:.2e} row {e[1]:.2e}" for k, e in v.items()) + f" (limit {tol}); worst "
+            f"{worst[label]:.2e}, PR 33's CUDA-core kernel {SSD_BWD_PR33_L2[N]:.2e}")
         it = iter(range(10**9))
 
         def nxt():
@@ -2116,13 +2152,27 @@ def ssd_bwd_phase(build_log: Path) -> dict:
             f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; the FLOPs on the f32 "
             f"CUDA cores {flops / F32_FLOP_PER_S * 1e3:.4f} ms); library: {NO_SSD_BWD_LIBRARY}")
         del sets
-    args = ssd_bwd_inputs(SSD_BWD_TRAIN["L"], gen, torch.bfloat16, False, SSD_SHAPE["N"],
-                          B=SSD_BWD_TRAIN["B"])
-    _, by_name = profiled(lambda: ks.ssd_scan_bwd(*args, chunk=SSD_CHUNK), 5)
-    parts = {re.sub(r"[(<].*", "", k.replace("(anonymous namespace)::", "")): us / 1e3
-             for k, us in by_name.items() if us > 0}
-    log("ssd bwd: device time by launch at the training shape, eager: "
-        + ("; ".join(f"{k}: {v:.4f} ms" for k, v in parts.items()) or "not measured"))
+    # what a bf16 call runs: the design's kernels, once each; their times
+    by_launch = {}
+    for N in (SSD_SHAPE["N"], ZAMBA_N):
+        args = ssd_bwd_inputs(SSD_BWD_TRAIN["L"], gen, torch.bfloat16, False, N,
+                              B=SSD_BWD_TRAIN["B"])
+        calls = 5
+        ran = kernel_launches(lambda: ks.ssd_scan_bwd(*args, chunk=SSD_CHUNK), calls)
+        # the design's kernels and no other, none more than once a call; in
+        # a whole run on an H100 the profiler once missed the first kernel
+        # of its window (4 of 5 launches recorded), so fewer are let pass
+        counts = {k: n for k, (n, _) in ran.items()}
+        if (set(counts) != set(SSD_BWD_TC_KERNELS) or max(counts.values()) != calls
+                or min(counts.values()) < calls - 1):
+            raise AssertionError(f"ssd_scan_bwd N={N} bf16 ran {ran} in {calls} calls, not "
+                                 f"{', '.join(SSD_BWD_TC_KERNELS)} once each")
+        by_launch[N] = {k: ms for k, (_, ms) in ran.items()}
+        log(f"ssd bwd: N={N} bf16 at the training shape runs {', '.join(SSD_BWD_TC_KERNELS)} "
+            f"once a call (torch.profiler: {counts} in {calls} calls); device time by launch, "
+            f"eager: " + "; ".join(f"{k}: {v:.4f} ms" for k, v in by_launch[N].items()))
+        del args
+    parts = by_launch[SSD_SHAPE["N"]]
     ks.ssd_scan_bwd.launches = launches0  # comparison launches do not count
     t = timings["train"]
     return {
@@ -2145,8 +2195,9 @@ def ssd_bwd_phase(build_log: Path) -> dict:
         "library_ms": None,
         "library_why": NO_SSD_BWD_LIBRARY,
         "shape": "B=4 L=512 H=80 P=64 G=1 N=128 bf16, chunk 128, no h0 / dht",
-        "train_N64": timings[f"train_N{ZAMBA_N}"],
-        "device_ms_by_launch": parts or "not measured",
+        "train_N64": {**timings[f"train_N{ZAMBA_N}"], "device_ms_by_launch": by_launch[ZAMBA_N]},
+        "device_ms_by_launch": parts,
+        "ptxas": ptxas,
     }
 
 

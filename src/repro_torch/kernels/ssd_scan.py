@@ -40,7 +40,13 @@ part plus a bf16 remainder (``bf16_pair``).
 The backward (``csrc/ssd_scan_bwd.cu``, new Hopper work: the JAX
 package differentiates its reference ``ssd_ref``) is the wrapper
 ``ssd_scan_bwd`` with its plain version ``ssd_scan_bwd_plain``, the
-gradient of the chunked form written out.  ``SSDScan`` is the
+gradient of the chunked form written out, in two steps
+(``ssd_bwd_states``: each chunk's S_in and the cotangent G_out of its
+final state; ``ssd_bwd_chunks``: the gradients a chunk).  Their
+``operand`` hook takes ``bf16_pair`` to emulate the bf16 kernel, which
+hands every operand that is f32 by nature (``wl o B``, ``exp(cum) o C``,
+S_in, G_out, dCB and W) to the tensor cores as a pair; ``bwd_blocks``
+counts its launches' blocks.  ``SSDScan`` is the
 ``torch.autograd.Function`` that joins the two; ``ssd_scan`` goes through
 it where an input requires grad, on either device.
 
@@ -75,6 +81,18 @@ def _wide(t):
     """``t`` in the plain versions' working type: f32, or f64 for f64
     inputs (the CPU's gradient checks)."""
     return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def bf16_pair(t):
+    """An f32 operand as the bf16 kernel hands it to the tensor cores: a
+    bf16 high part plus the bf16 remainder (16 significant bits), summed
+    back in f32."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def _identity(t):
+    return t
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, h0=None, chunk: int = 128):
@@ -150,16 +168,18 @@ def _chunked_dy(dy, Q: int, nc: int):
     return F.pad(_wide(dy), (0, 0, 0, 0, 0, nc * Q - L)).reshape(Bsz, nc, Q, H, P)
 
 
-def ssd_bwd_states(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
+def ssd_bwd_states(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128, operand=_identity):
     """The backward's steps 1-2 in plain torch: each chunk's initial state
     S_in (the forward's state passing, recomputed) and the cotangent
-    G_out of its final state (the reverse pass).  Returns S_in and G_out
-    (B, H, nc, N, P) and dh0 (None without h0)."""
-    ds, decay = ssd_chunk_states(x, dt, a, b, chunk=chunk)  # decay (B, H, nc)
+    G_out of its final state (the reverse pass).  ``operand`` is applied
+    to the products' operands that are f32 by nature, ``wl o B`` and
+    ``exp(cum) o C``.  Returns S_in and G_out (B, H, nc, N, P) and dh0
+    (None without h0)."""
+    ds, decay = ssd_chunk_states(x, dt, a, b, chunk=chunk, operand=operand)  # decay (B, H, nc)
     s_in, _ = ssd_state_passing(ds, decay, h0)
     _, _, _, cf, cum = _chunked(x, dt, a, b, c, chunk)  # (B, nc, Q, H, ...)
     dyf = _chunked_dy(dy, cum.shape[2], cum.shape[1])
-    e = torch.einsum("bcihn,bcihp->bhcnp", cf * torch.exp(cum)[..., None], dyf)
+    e = torch.einsum("bcihn,bcihp->bhcnp", operand(cf * torch.exp(cum)[..., None]), dyf)
     g = torch.zeros_like(ds[:, :, 0]) if dht is None else _wide(dht)
     g_out = [None] * ds.shape[2]
     for ci in reversed(range(ds.shape[2])):
@@ -168,9 +188,13 @@ def ssd_bwd_states(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
     return s_in, torch.stack(g_out, dim=2), None if h0 is None else g
 
 
-def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128):
+def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128, operand=_identity):
     """The backward's per-chunk step in plain torch, from each chunk's S_in
-    and G_out (``ssd_bwd_states``).  Returns (dx, ddt, da, db, dc)."""
+    and G_out (``ssd_bwd_states``).  ``operand`` is applied to the
+    products' operands that are f32 by nature: S_in and G_out (also S_in
+    in the carry ``<G_out, S_in>``, as the kernel reads it back), dCB
+    (for dC and, transposed, dB) and W (for dx).  Returns (dx, ddt, da,
+    db, dc)."""
     Bsz, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     rep = H // G
@@ -188,16 +212,17 @@ def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128):
     w = cb * decay * dtf[:, :, None]
     dw = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf).masked_fill(~causal, 0.0)
     dcb = dw * decay * dtf[:, :, None]
-    sdy = torch.einsum("bhcnp,bcihp->bcihn", s_in, dyf)  # S_in dy_i
-    gx = torch.einsum("bhcnp,bcjhp->bcjhn", g_out, xf)  # G_out x_j
-    dx = (torch.einsum("bcijh,bcihp->bcjhp", w, dyf)
-          + wl[..., None] * torch.einsum("bcjhn,bhcnp->bcjhp", bf, g_out))
-    dc = torch.einsum("bcijh,bcjhn->bcihn", dcb, bf) + ecum[..., None] * sdy
-    db = torch.einsum("bcijh,bcihn->bcjhn", dcb, cf) + wl[..., None] * gx
+    sp, gp, dcbp = operand(s_in), operand(g_out), operand(dcb)
+    sdy = torch.einsum("bhcnp,bcihp->bcihn", sp, dyf)  # S_in dy_i
+    gx = torch.einsum("bhcnp,bcjhp->bcjhn", gp, xf)  # G_out x_j
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", operand(w), dyf)
+          + wl[..., None] * torch.einsum("bcjhn,bhcnp->bcjhp", bf, gp))
+    dc = torch.einsum("bcijh,bcjhn->bcihn", dcbp, bf) + ecum[..., None] * sdy
+    db = torch.einsum("bcijh,bcihn->bcjhn", dcbp, cf) + wl[..., None] * gx
     u = (bf * gx).sum(-1)  # (B, nc, Q, H)
     t = dw * w
     dcum = t.sum(3) - t.sum(2) + ecum * (cf * sdy).sum(-1) - wl * u
-    carry = torch.exp(last) * torch.einsum("bhcnp,bhcnp->bch", g_out, s_in) + (wl * u).sum(2)
+    carry = torch.exp(last) * torch.einsum("bhcnp,bhcnp->bch", g_out, sp) + (wl * u).sum(2)
     dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + carry[:, :, None]], dim=2)
     dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])  # d(dt a)
     ddt = (dw * cb * decay).sum(2) + torch.exp(last[:, :, None] - cum) * u + dda * _wide(a)
@@ -215,18 +240,6 @@ def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128):
 # --------------------------------------------------------------------------
 # the bf16 kernel's three steps, in plain torch
 # --------------------------------------------------------------------------
-def bf16_pair(t):
-    """An f32 operand as the bf16 kernel hands it to the tensor cores: a
-    bf16 high part plus the bf16 remainder (16 significant bits), summed
-    back in f32."""
-    hi = t.bfloat16().float()
-    return hi + (t - hi).bfloat16().float()
-
-
-def _identity(t):
-    return t
-
-
 def _chunked(x, dt, a, b, c, chunk):
     """f32 chunks (B, nc, Q, ...), zero-padded past L, of x, dt, the
     head-broadcast B and C (None stays None), and cum."""
@@ -384,12 +397,12 @@ def _check_bf16(x, b, c, h0, chunk) -> None:
         raise ValueError("the bf16 kernel needs 16-byte aligned x, b, c and h0")
 
 
-#: rows (and columns) of the backward kernel's sweep tiles
+#: rows (and columns) of the f32 backward's sweep tiles
 BWD_TILE = 32
 
 
 def bwd_smem_bytes(Q: int, P: int, N: int) -> tuple[int, int]:
-    """Dynamic shared memory of one block of the backward's chunk-sums
+    """Dynamic shared memory of one block of the f32 backward's chunk-sums
     step (the chunk's B or C and x or dy, and three vectors) and of its
     chunk-gradient step (``grad_smem_floats`` in ``csrc/ssd_scan_bwd.cu``:
     whole rows of B or C, x or dy and the state with a row stride one past
@@ -401,13 +414,40 @@ def bwd_smem_bytes(Q: int, P: int, N: int) -> tuple[int, int]:
     return 4 * (Q * (N + P) + 3 * Q), 4 * grad
 
 
+def bwd_heads(H: int, G: int) -> int:
+    """Heads a block of the bf16 backward's chunk-gradient step walks,
+    summing their dB and dC in its accumulators: the largest of 8, 4, 2, 1
+    that divides the H / G heads of a group (at most 8: ``kMaxHeads`` in
+    ``csrc/ssd_scan_bwd.cu``)."""
+    rep = H // G
+    return next(hb for hb in (8, 4, 2, 1) if rep % hb == 0)
+
+
+def bwd_blocks(B: int, L: int, H: int, N: int, P: int, G: int = 1) -> dict:
+    """Blocks of the bf16 backward's four launches (the C entry computes
+    the same grids): the state passes over (64-wide half of N, head,
+    batch); the chunk gradients over (chunk, 64-row tile, sweep, group of
+    ``bwd_heads`` heads, batch); the finish over (chunk, head, batch); the
+    group sums a (b, t, g) row where a group has more heads than a block
+    walks, and one block for da."""
+    nc = -(-L // BF16_CHUNK)
+    tiles = BF16_CHUNK // BF16_ROW_TILE
+    hb = bwd_heads(H, G)
+    return {"states": -(-N // 64) * H * B,
+            "chunk_grads": nc * tiles * 2 * (H // hb) * B,
+            "finish": nc * H * B,
+            "group_da": (B * L * G if H // G > hb else 0) + 1}
+
+
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     from . import build
 
     lib = build.load("ssd_scan_bwd")
-    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_f32.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd_bf16.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for fn in (lib.ssd_scan_bwd_f32, lib.ssd_scan_bwd_bf16):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -416,8 +456,9 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
     ``dy`` and the final state's ``dht`` (None: zero), as
     ``ssd_scan_bwd_plain`` computes them.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` on the current
-    stream (f32 at any chunk whose blocks fit, bf16 at the forward's bf16
-    shapes) and count one launch in ``ssd_scan_bwd.launches``."""
+    stream (f32 on the CUDA cores at any chunk whose blocks fit, bf16 on
+    the tensor cores at the forward's bf16 shapes) and count one launch in
+    ``ssd_scan_bwd.launches``."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dht, chunk=chunk)
     if x.device.type != "cuda":
@@ -432,11 +473,15 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
         raise ValueError(f"dht must be a contiguous float32 {(Bsz, H, N, P)} tensor beside x")
     if Bsz * H > 65535:
         raise ValueError(f"B x H = {Bsz * H} exceeds the state pass's grid")
-    Q = min(chunk, L)
-    smem = max(bwd_smem_bytes(Q, P, N))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the backward needs {smem} bytes of shared memory a block; a Hopper "
-                         f"block can use {SMEM_LIMIT}")
+    bf16 = x.dtype == torch.bfloat16
+    Q = BF16_CHUNK if bf16 else min(chunk, L)
+    if not bf16:
+        smem = max(bwd_smem_bytes(Q, P, N))
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"the backward needs {smem} bytes of shared memory a block; a Hopper "
+                             f"block can use {SMEM_LIMIT}")
+    elif dy.data_ptr() % 16:
+        raise ValueError("the bf16 backward needs a 16-byte aligned dy")
     nc = -(-L // Q)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -445,27 +490,45 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
     da = torch.empty((H,), **f32)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     dh0 = None if h0 is None else torch.empty((Bsz, H, N, P), **f32)
-    # scratch: S_in and G_out of every chunk (step 1 writes dS and E there),
-    # the decays, the per-head dB / dC and the per-(b, chunk) shares of da
-    ws_s = torch.empty((Bsz, H, nc, N, P), **f32)
-    ws_g = torch.empty((Bsz, H, nc, N, P), **f32)
-    ws_dec = torch.empty((Bsz, H, nc), **f32)
-    pdb = torch.empty((Bsz, L, H, N), **f32)
-    pdc = torch.empty((Bsz, L, H, N), **f32)
-    pda = torch.empty((Bsz, H, nc), **f32)
+    pda = torch.empty((Bsz, H, nc), **f32)  # each (b, chunk)'s share of da
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     lib = _bwd_lib()
+    common = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(h0),
+              dy.data_ptr(), ptr(dht), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+              dc.data_ptr(), ptr(dh0)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ssd_scan_bwd(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(h0),
-            dy.data_ptr(), ptr(dht), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-            dc.data_ptr(), ptr(dh0), ws_s.data_ptr(), ws_g.data_ptr(), ws_dec.data_ptr(),
-            pdb.data_ptr(), pdc.data_ptr(), pda.data_ptr(), Bsz, L, H, P, G, N, Q,
-            int(x.dtype == torch.bfloat16), stream)
+        if bf16:
+            # scratch: each chunk's S_in and G_out as bf16 pairs laid out as the
+            # chunk gradients read them, each half of N's share of <G_out,
+            # S_in>, the sweeps' terms of dcum and u, and the head groups'
+            # partials of dB / dC where a group has more heads than a block
+            # of the chunk gradients walks
+            hb = bwd_heads(H, G)
+            sp = torch.empty((Bsz, H, nc, 2, P, N), dtype=torch.bfloat16, device=dev)
+            gp = torch.empty((Bsz, H, nc, 2, P, N), dtype=torch.bfloat16, device=dev)
+            gsp = torch.empty((Bsz, H, nc, -(-N // 64)), **f32)
+            terms = torch.empty((3, Bsz, H, nc, BF16_CHUNK), **f32)
+            parts = H // G > hb
+            pdb = torch.empty((Bsz, L, H // hb, N), **f32) if parts else None
+            pdc = torch.empty((Bsz, L, H // hb, N), **f32) if parts else None
+            err = lib.ssd_scan_bwd_bf16(
+                *common, sp.data_ptr(), gp.data_ptr(), gsp.data_ptr(), terms.data_ptr(),
+                ptr(pdb), ptr(pdc), pda.data_ptr(), Bsz, L, H, P, G, N, hb, stream)
+        else:
+            # scratch: S_in and G_out of every chunk (step 1 writes dS and E
+            # there), the decays, and the per-head dB / dC
+            ws_s = torch.empty((Bsz, H, nc, N, P), **f32)
+            ws_g = torch.empty((Bsz, H, nc, N, P), **f32)
+            ws_dec = torch.empty((Bsz, H, nc), **f32)
+            pdb = torch.empty((Bsz, L, H, N), **f32)
+            pdc = torch.empty((Bsz, L, H, N), **f32)
+            err = lib.ssd_scan_bwd_f32(
+                *common, ws_s.data_ptr(), ws_g.data_ptr(), ws_dec.data_ptr(), pdb.data_ptr(),
+                pdc.data_ptr(), pda.data_ptr(), Bsz, L, H, P, G, N, Q, stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
     ssd_scan_bwd.launches += 1

@@ -4,7 +4,10 @@ Every test is marked ``cuda`` and skips without a card; the file imports
 no JAX, so it runs on a machine with a card and no JAX
 (``pytest -m cuda tests/test_torch_ssd_bwd_card.py``).  Limits: relative
 L2 per gradient leaf, f32 1e-3 and bf16 inputs 2e-2 (K8 y's, as
-``chip_smoke.py`` phase 2h holds them)."""
+``chip_smoke.py`` phase 2h holds them).  bf16 runs on the tensor cores at
+mamba2's and zamba2's training call (batch 4 x 512), with two groups, with
+L below one 64-row tile, and with N and P zero-padded to the instance;
+f32 on the CUDA cores."""
 
 import pytest
 import torch
@@ -42,6 +45,11 @@ def rel(got, want) -> float:
 @pytest.mark.parametrize("B,L,H,P,G,N,dtype,chunk", [
     (1, 300, 80, 64, 1, 128, torch.bfloat16, 128),  # mamba2's head shape, ragged
     (1, 512, 80, 64, 1, 64, torch.bfloat16, 128),  # zamba2's
+    (4, 512, 80, 64, 1, 128, torch.bfloat16, 128),  # mamba2's training call
+    (4, 512, 80, 64, 1, 64, torch.bfloat16, 128),  # zamba2's
+    (1, 300, 8, 64, 2, 128, torch.bfloat16, 128),  # two groups, a block of 4 heads each
+    (2, 50, 80, 64, 1, 128, torch.bfloat16, 128),  # L < 64: one partial tile
+    (1, 200, 6, 32, 3, 48, torch.bfloat16, 128),  # N and P zero-padded, blocks of 2 heads
     (1, 300, 80, 64, 1, 128, torch.float32, 128),
     (2, 37, 4, 8, 2, 16, torch.float32, 16),  # a reduced config's, two groups
 ])
