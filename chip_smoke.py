@@ -203,7 +203,7 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   5. train    -- training through the port's entry points (the launcher's
                  ``build``/``main``, ``compile(backend="host")``):
                  (5a) internlm2-1.8b at full width and depth, policy none,
-                 bigram data, batch 4 x 512, 20 steps: every loss finite,
+                 bigram data, batch 4 x 512, 12 steps: every loss finite,
                  the last below the first; ms/step, tokens/s, peak memory
                  and one step cut into data / forward / backward / AdamW;
                  (5b) its first 4 layers at full width (``--d-model 2048
@@ -397,17 +397,27 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  uninterrupted run; (10d) mamba2-2.7b and zamba2-2.7b at
                  full width and depth, in bf16 and with f32 weights, 8
                  prompts of 48 tokens prefilled and decoded
-                 ``MPT_DECODE_STEPS`` (8) steps unsharded, then sharded
+                 ``MPT_DECODE_STEPS`` (4) steps unsharded, then sharded
                  on (2, 4) teacher-forced:
                  logits with f32 weights within 1e-4 (bf16's recorded:
                  64 layers amplify the products' other blocking past
                  3e-2), K8 at a member's shape (4 rows, 20 heads) within
                  phase 2d's limits, K8 = mamba layers x 8 members and K5
-                 = shared-block calls x 8 steps x 8.
+                 = shared-block calls x 8 steps x 8; (10e, ``mp_10e``)
+                 mamba2-2.7b's first 4 and zamba2-2.7b's first 6 layers
+                 at full width, 5d's traffic, 4 steps FSDP on (2, 4)
+                 after the unsharded twin (losses 1e-2 / 3e-2,
+                 allocations, K8 = mamba layers x steps x 8 x 2 and its
+                 backward mamba layers x steps x 8 on top of the twin's,
+                 K8's backward at a member's shape within 2h's limits),
+                 and mamba2's cut under DMR on (2, 4), struck at step 3
+                 (0 clean events, one recovery, K4 = devices x
+                 tie-breaks, bitwise), its clean state after 2 steps
+                 checkpointed and resumed onto (4, 2) (10c's gates).
   * phase 11   -- replicated trainers on a mesh, remat, and the dry-run:
                  (11a) phase 5b's cut (internlm2-1.8b, 4 layers at full
                  width) trained FSDP with its replica axis prepended:
-                 DMR temporal on ``host`` on (2, 4), 6 steps, the strike
+                 DMR temporal on ``host`` on (2, 4), 4 steps, the strike
                  at step 3 repaired through K4 (launches = devices x
                  tie-breaks), the final state bitwise the unstruck run's,
                  the sharded fingerprint bitwise its unshard's, every
@@ -416,16 +426,17 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  the strike seen at step 3 as the struck pod's bit; TMR
                  temporal on ``lockstep`` on (2, 4): voted away, the final
                  state bitwise the unstruck DMR run's; ms/step beside 5b's;
-                 (11b) 5a's cell for 3 steps under ``remat`` full and
+                 (11b) 5a's setting at 4 layers for 3 steps under ``remat`` full and
                  none: losses and params bitwise equal, peak GB and
                  ms/step of each; (11c) the dry-run
-                 (``repro_torch.launch.dryrun``) of 10a's and 11a's cells:
+                 (``repro_torch.launch.dryrun``) of 10a's, 11a's and 10e's mamba2 cells:
                  member (0, 0)'s trainer bytes, as laid out and from the
                  specs alone, equal to the card's to the byte, the roofline bound beside the measured ms/step,
                  under 1 MB of device memory growth; and internlm2-1.8b
-                 train_4k on the 256-card single mesh, in a process of
-                 its own (started before phase 10, it runs beside phases
-                 10-11), its record printed.
+                 and mamba2-2.7b train_4k on the 256-card single mesh,
+                 each in a process of its own (internlm2's started before
+                 phase 10, mamba2's after the build), their records
+                 printed.
   * phase 12   -- paged pools and speculation under a mesh (members
                  allocations of cuda:0, pools laid out by
                  ``cache_pspecs``), each engine on phase 3's traffic
@@ -470,11 +481,11 @@ phase 10's (``model_parallel_training``), phase 11's
 the kernels' JSON records
 (each kernel's launches add up the paths that drive it,
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
-also 5b, 5d, the examples, 8a and 11a, K2 also 6c and the examples, K5 phases 3,
+also 5b, 5d, the examples, 8a, 10e and 11a, K2 also 6c and the examples, K5 phases 3,
 3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c-8e, 9a, 9b's unsharded
 twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, K6 phases 3c, 3d, 3i and 9c's and 12d's unsharded
-twins, K6's partials 9c and 12d, K8 phases 3b, 3g, 6c, 10d and 5d, K8's backward
-5d), the card's name and power limit, and
+twins, K6's partials 9c and 12d, K8 phases 3b, 3g, 6c, 10d, 10e and 5d, K8's backward
+5d and 10e), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3450,7 +3461,7 @@ def ring_phase() -> dict:
 # phase 5: training (data cell -> trainer cell, AdamW, host §IV, checkpoints)
 # --------------------------------------------------------------------------
 TRAIN_ARCH = "internlm2-1.8b"
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12  # 5a (20 before phase 10e came; the run stays under 1100 s)
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_LR, TRAIN_WARMUP = "1e-3", "4"
 DMR_LAYERS = 4  # 5b, 5c: the first 4 of 24 layers at full width
@@ -6193,7 +6204,7 @@ MPT_LAYERS = 4  # 10a-10c: the first 4 of 24 layers at full width (cut in depth 
 #: 10d: decode steps a run, unsharded, f32 reference and sharded (16, as
 #: 9a-9c, until the script's time budget asked for a cut; a sharded
 #: step of 64 mamba layers on 8 members takes about a second)
-MPT_DECODE_STEPS = 8
+MPT_DECODE_STEPS = 4  # 8 before phase 10e came
 
 
 def mpt_argv(*extra) -> list:
@@ -6652,6 +6663,275 @@ def mp_10d_arch(name: str, dtype: str) -> dict:
     return rec
 
 
+# 10e: Mamba2 and Zamba2 trained on a mesh.  mamba2's first 4 of 64
+# layers and zamba2's first unit (6 of 54 layers: its shared block runs),
+# at full width, 5d's traffic, FSDP on (2, 4) members of cuda:0 beside the
+# unsharded twin; then mamba2's cut under DMR on (2, 4), struck at step
+# 3, and its clean run checkpointed and resumed onto (4, 2)
+MP10E_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
+MP10E_STEPS = 4
+MP10E_MEMBERS = 8
+MP10E_DMR_STEPS = DMR_STRIKE + 1  # the DMR run: 5b's strike, its last step
+MP10E_CKPT = 2  # the clean DMR run's checkpoint: its state after this many steps
+
+
+def mp_10e_setting(arch: str, steps: int, shape=None, level: int = 1):
+    """(args, cfg, tcfg, ctx, program) of 10e's cut of ``arch``: the
+    launcher's flags, laid out FSDP on ``shape`` members of cuda:0 (None:
+    unsharded), ``level`` replicas."""
+    from repro_torch.core import RedundancyPolicy
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(ssm_argv(arch, MP10E_LAYERS[arch], "--steps", str(steps)))
+    cfg, tcfg, _ = L.build(args)
+    ctx = None if shape is None else mp_ctx(cfg, shape, fsdp=True)
+    prog = make_train_program(cfg, tcfg) if ctx is None else make_train_program(cfg, tcfg, ctx)
+    if level > 1:
+        prog = prog.with_policies({"trainer": RedundancyPolicy(level=level)})
+    return args, cfg, tcfg, ctx, prog
+
+
+def mp_k8_bwd_member(N: int, gen) -> dict:
+    """K8's backward at a (data, model) member's shape of 10e's step: 2 of
+    5d's 4 rows of 512 tokens, 20 of 80 heads (``bwd_heads(20, 1)`` = 4
+    heads a block, the group's partials summed by ``group_da_kernel``),
+    bf16, y's cotangent only, against the plain backward by 2h's limits
+    (relative L2 a leaf and a row)."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    x, dt, a, bm, cm, _ = ssd_inputs(SSD_BWD_TRAIN["L"], gen, torch.bfloat16, B=2, H=20,
+                                     P=SSD_SHAPE["P"], G=1, N=N)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    launches = ks.ssd_scan_bwd.launches
+    got = ks.ssd_scan_bwd(x, dt, a, bm, cm, None, dy, None, chunk=SSD_CHUNK)
+    ks.ssd_scan_bwd.launches = launches  # a check, not the main path
+    tol = SSD_BWD_TOL[torch.bfloat16]
+    ok, v = ssd_bwd_verdict(got, ks.ssd_scan_bwd_plain(x, dt, a, bm, cm, None, dy, None,
+                                                      chunk=SSD_CHUNK), tol)
+    if not ok:
+        raise AssertionError(f"10e: K8's backward at the member shape (N {N}): {v} (limit {tol})")
+    return {"shape": [2, SSD_BWD_TRAIN["L"], 20, SSD_SHAPE["P"], N],
+            "heads_a_block": ks.bwd_heads(20, 1),
+            "worst_rel_l2": max(max(e[0], e[1]) for e in v.values()),
+            "max_abs_err": max(e[2] for e in v.values())}
+
+
+def mp_10e_arch(arch: str) -> dict:
+    """10e for one arch: the unsharded twin, then the FSDP run on (2, 4):
+    losses within ``MPT_TOL0`` at step 0 and ``MPT_TOL`` after; every
+    member's block its own allocation; K8 = mamba layers x steps x 8
+    members x 2 (remat "full") and its backward mamba layers x steps x 8,
+    on top of the twin's ``k8_expected``; K8's backward at a member's
+    shape against its plain version."""
+    from repro_torch import api
+
+    layers = MP10E_LAYERS[arch]
+    args, cfg, tcfg, _, prog = mp_10e_setting(arch, MP10E_STEPS)
+    k8_counts(reset=True)
+    exe = api.compile(prog, backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states, want, ms_u = mpt_run(exe, [exe.init(args.seed)], MP10E_STEPS)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    twin = k8_counts()
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, _, _, ctx, prog = mp_10e_setting(arch, MP10E_STEPS, (2, 4))
+    exe = api.compile(prog, backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states = exe.init(args.seed)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    layout = mp_layout(states["trainer"])
+    box = [states]
+    del states
+    states, got, ms = mpt_run(exe, box, MP10E_STEPS)
+    total = k8_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = mp_layout(states["trainer"])
+    layout = {k: (layout[k] and final[k]) if isinstance(layout[k], bool) else layout[k]
+              for k in layout}
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = rel_losses(got, want)
+    if not all(np.isfinite(got)) or rel[0] > MPT_TOL0 or max(rel) > MPT_TOL:
+        raise AssertionError(f"10e {arch}: sharded losses {got} against unsharded {want} "
+                             f"(rel {rel})")
+    if not (layout["distinct"] and layout["replicated_once"]):
+        raise AssertionError(f"10e {arch}: a member's block is not its own allocation ({layout})")
+    want_twin = k8_expected(layers, MP10E_STEPS)
+    want_sharded = k8_expected(layers * MP10E_MEMBERS, MP10E_STEPS)
+    sharded = tuple(t - u for t, u in zip(total, twin))
+    if twin != want_twin or sharded != want_sharded:
+        raise AssertionError(f"10e {arch}: K8 (forward, backward) launches {twin} unsharded, "
+                             f"{sharded} sharded; want {want_twin}, {want_sharded}")
+    member = mp_k8_bwd_member(cfg.ssm.state, torch.Generator(device="cuda").manual_seed(10))
+    med, med_u = float(np.median(ms[1:])), float(np.median(ms_u[1:]))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": [2, 4], "fsdp": True,
+           "steps": MP10E_STEPS, "losses": got, "losses_unsharded": want, "loss_rel": rel,
+           "ms_per_step_median": med, "ms_per_step_unsharded_median": med_u,
+           "ms_per_step": ms, "ms_per_step_unsharded": ms_u, "peak_gb": peak,
+           "peak_gb_unsharded": peak_u, "state_gb": state_gb, "layout": layout,
+           "k8_launches": {"sharded": sharded[0], "unsharded": twin[0]},
+           "k8_bwd_launches": {"sharded": sharded[1], "unsharded": twin[1]},
+           "k8_bwd_member": member}
+    log(f"mp_train 10e: {cfg.name} {cfg.n_layers} layers, (2, 4) members of cuda:0, FSDP, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} bigram, {MP10E_STEPS} steps: median {med:.1f} "
+        f"ms/step sharded, {med_u:.1f} unsharded (device clock); losses "
+        f"{', '.join(f'{x:.4f}' for x in got)} (unsharded {', '.join(f'{x:.4f}' for x in want)}; "
+        f"max rel {max(rel):.2e}, step 0 {rel[0]:.2e}); state {state_gb:.2f} GB, peak "
+        f"{peak:.2f} GB (unsharded {peak_u:.2f}); member (0, 0) holds "
+        f"{layout['member_bytes'] / 1e9:.3f} GB; K8 forward / backward {sharded} sharded (want "
+        f"{want_sharded}), {twin} unsharded; K8's backward at a member's shape "
+        f"{member['shape']}: worst relative L2 {member['worst_rel_l2']:.2e} "
+        f"(limit {SSD_BWD_TOL[torch.bfloat16]})")
+    return rec
+
+
+def mp_10e_dmr(root: Path) -> dict:
+    """10e's DMR run: mamba2's cut under DMR on (2, 4) on ``host``,
+    unstruck and with the launcher's strike at step 3 (the last): no
+    event on the unstruck run, one recovery at (3, trainer), K4 launched
+    once a tie-break a device, the final state bitwise the unstruck
+    run's (the members' sums in a fixed order give both replicas one set
+    of bits).  The unstruck run's state after ``MP10E_CKPT`` steps is
+    checkpointed and resumed onto (4, 2) through ``elastic_resume``
+    (10c's gates: every leaf bitwise the saved one, each member's block
+    its own allocation, the losses within ``MPT_TOL`` of the
+    uninterrupted run's, and no event; that a replicated sharded save
+    writes the unsharded files is held on the CPU,
+    ``tests/test_torch_ckpt_replicated_mesh.py``)."""
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import FaultLedger
+    from repro_torch.distributed.sharding import Sharded, unshard
+    from repro_torch.ft import elastic
+    from repro_torch.kernels import tmr_vote as tv
+    from repro_torch.launch import train as L
+    from repro_torch.tree import tree_map
+
+    arch = "mamba2-2.7b"
+    args, cfg, _, ctx, prog = mp_10e_setting(arch, MP10E_DMR_STEPS, (2, 4), level=2)
+    runs, saved = {}, {}
+    k8_counts(reset=True)
+
+    def at(t, st):
+        if t != MP10E_CKPT or "host" in saved:
+            return
+        t0 = time.perf_counter()
+        ckpt.save(root / "sharded", t, st)
+        saved["save_s"] = time.perf_counter() - t0
+        saved["host"] = tree_map(lambda x: x.detach().cpu(), unshard(st, "cpu"))
+        step_dir = root / "sharded" / f"step_{t:08d}"
+        saved["gb"] = sum(f.stat().st_size for f in step_dir.glob("*.npy")) / 1e9
+
+    for label in ("clean", "struck"):
+        strike = L.strike(prog, DMR_STRIKE) if label == "struck" else None
+        exe = api.compile(prog, backend="host", device="cuda", ledger=FaultLedger())
+        tv.tmr_vote.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        states, losses, ms = [exe.init(args.seed)], [], []
+        for t in range(MP10E_DMR_STEPS):
+            fault = strike if strike is not None and t == strike.step else None
+            st, dt = timed(lambda t=t, f=fault: exe.run(states.pop(), 1, start_step=t,
+                                                      faults=[f] if f else []).states)
+            states.append(st)
+            losses.append(float(st["trainer"]["metrics"]["loss"][0]))
+            ms.append(dt)
+            if label == "clean":
+                at(t + 1, st)
+            del st
+        runs[label] = {"k4_launches": tv.tmr_vote.launches, "recoveries": list(exe.recoveries),
+                       "events": exe.ledger.totals.get("trainer", {}).get("events", 0.0),
+                       "event_steps": list(exe.ledger.recent.get("trainer", [])),
+                       "losses": losses, "ms_per_step": ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       **rt_final(states.pop())}
+        del states, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+    clean, struck = runs["clean"], runs["struck"]
+    if clean["events"] or clean["recoveries"] or clean["k4_launches"]:
+        raise AssertionError(f"10e dmr: the unstruck run saw events at {clean['event_steps']}")
+    if struck["recoveries"] != [(DMR_STRIKE, "trainer")] or struck["event_steps"] != [DMR_STRIKE]:
+        raise AssertionError(f"10e dmr: recoveries {struck['recoveries']}, events at "
+                             f"{struck['event_steps']}; want one at step {DMR_STRIKE}")
+    devices = len({str(d) for d in ctx.mesh.devices.flat})
+    if struck["k4_launches"] != devices * len(struck["recoveries"]):
+        raise AssertionError(f"10e dmr: K4 launched {struck['k4_launches']} times; want "
+                             f"{devices} device(s) x {len(struck['recoveries'])} tie-break(s)")
+    if not bits_equal(struck.pop("final"), clean.pop("final")):
+        raise AssertionError("10e dmr: the repaired final state differs from the unstruck run's")
+    for run in (clean, struck):
+        lay = run["layout"]
+        if not (run["fingerprint_equal"] and lay["distinct"] and lay["replicated_once"]):
+            raise AssertionError(f"10e dmr: fingerprint or layout fails: {run['layout']}")
+
+    # resumed onto (4, 2)
+    _, _, _, ctx42, prog42 = mp_10e_setting(arch, MP10E_DMR_STEPS, (4, 2), level=2)
+    exe = api.compile(prog42, backend="host", device="cuda", ledger=FaultLedger())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, step = elastic.elastic_resume(str(root / "sharded"), exe, ctx42, generator=args.seed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != MP10E_CKPT:
+        raise AssertionError(f"10e dmr: restored step {step} != {MP10E_CKPT}")
+    host = saved.pop("host")
+    for got, want in zip(_leaves(states), _leaves(host)):
+        if isinstance(got, Sharded):
+            if got.mesh is not ctx42.mesh:
+                raise AssertionError("10e dmr: a restored leaf is not on the new mesh")
+            for blk, t in got.blocks():
+                if not torch.equal(t, want[blk].to(t.device)):
+                    raise AssertionError("10e dmr: a restored block differs from the saved state")
+        elif not torch.equal(got.cpu(), want):
+            raise AssertionError("10e dmr: a restored leaf differs from the saved state")
+    del host
+    layout = mp_layout(states["trainer"])
+    resumed = []
+    for t in range(step, MP10E_DMR_STEPS):
+        states = exe.run(states, 1, start_step=t).states
+        resumed.append(float(states["trainer"]["metrics"]["loss"][0]))
+    events = exe.ledger.totals.get("trainer", {}).get("events", 0.0)
+    k8 = k8_counts()
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    rel = rel_losses(resumed, clean["losses"][step:])
+    if not all(np.isfinite(resumed)) or max(rel) > MPT_TOL or events:
+        raise AssertionError(f"10e dmr: resumed losses {resumed} against "
+                             f"{clean['losses'][step:]}, events {events}")
+    if not (layout["distinct"] and layout["replicated_once"]):
+        raise AssertionError(f"10e dmr: a resumed member's block is not its own allocation")
+    log(f"mp_train 10e dmr: {arch} {cfg.n_layers} layers under DMR on (2, 4) members of cuda:0, "
+        f"FSDP, {MP10E_DMR_STEPS} steps: unstruck 0 events; strike at {DMR_STRIKE} -> recoveries "
+        f"{struck['recoveries']}, K4 launches {struck['k4_launches']} ({devices} device x 1 "
+        f"tie-break), final state bitwise the unstruck run's; median "
+        f"{float(np.median(clean['ms_per_step'][1:])):.1f} ms/step, peak "
+        f"{clean['peak_gb']:.2f} GB, member (0, 0) holds {clean['member_bytes'] / 1e9:.3f} GB; "
+        f"checkpoint after step {MP10E_CKPT}: {saved['gb']:.2f} GB in {saved['save_s']:.1f} s; "
+        f"restored onto (4, 2) in {restore_s:.1f} s, every leaf bitwise; steps "
+        f"{step}-{MP10E_DMR_STEPS - 1} losses "
+        f"{', '.join(f'{x:.4f}' for x in resumed)} (max rel {max(rel):.2e}), 0 events")
+    return {"clean": clean, "struck": struck, "k4_formula": "devices x tie-breaks",
+            "ckpt_gb": saved["gb"], "ckpt_save_s": saved["save_s"], "restore_s": restore_s,
+            "resumed_mesh": [4, 2], "resumed_losses": resumed, "resumed_loss_rel": rel,
+            "resumed_layout": layout, "k8_launches": k8[0], "k8_bwd_launches": k8[1]}
+
+
+def mp_10e(root: Path) -> dict:
+    out = {arch: mp_10e_arch(arch) for arch in SSM_ARCHS}
+    out["dmr"] = mp_10e_dmr(root)
+    return out
+
+
 def mp_training_phase() -> dict:
     import shutil
     import tempfile
@@ -6668,6 +6948,9 @@ def mp_training_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["10b"] = mp_10b()
+    out["10e"] = mp_10e(Path(tempfile.mkdtemp(prefix="miso_mp_10e_")))
+    gc.collect()
+    torch.cuda.empty_cache()
     out["10d"] = {}
     for name in SSM_ARCHS:
         for dtype in ("bfloat16", "float32"):
@@ -6682,7 +6965,7 @@ def mp_training_phase() -> dict:
 # --------------------------------------------------------------------------
 # phase 11: replicated trainers on a mesh, remat on the card, the dry-run
 # --------------------------------------------------------------------------
-RT_STEPS = 6  # 11a: 5b's steps and strike (DMR_STRIKE)
+RT_STEPS = DMR_STRIKE + 1  # 11a: 5b's strike, its last step (6 steps before phase 10e came)
 RT_SPATIAL_STEPS = DMR_STRIKE + 1  # 11a's spatial run stops at the strike
 REMAT_STEPS = 3  # 11b
 DRYRUN_GROWTH_BYTES = 1 << 20  # 11c: device memory the dry-run may leave behind
@@ -6880,16 +7163,16 @@ def mp_11a(train: dict) -> dict:
 
 
 def mp_11b() -> dict:
-    """11b: 5a's cell (internlm2-1.8b, 24 layers, batch 4 x 512) for 3
-    steps with ``remat="full"`` (the default) and ``"none"``: the losses
-    and the params after 3 steps bitwise equal; peak GB and ms/step of
-    each."""
+    """11b: 5a's setting cut to its first ``MPT_LAYERS`` layers (all 24
+    before phase 10e came) for 3 steps with ``remat="full"`` (the default) and
+    ``"none"``: the losses and the params after 3 steps bitwise equal;
+    peak GB and ms/step of each."""
     from repro_torch import api
     from repro_torch.distributed.sharding import LOCAL
     from repro_torch.launch import train as L
     from repro_torch.models.lm_cells import make_train_program
 
-    args = L.parser().parse_args(train_argv("--steps", str(REMAT_STEPS)))
+    args = L.parser().parse_args(cut_argv(MPT_LAYERS, "--steps", str(REMAT_STEPS)))
     cfg, tcfg, _ = L.build(args)
     runs = {}
     for remat in ("full", "none"):
@@ -6914,11 +7197,12 @@ def mp_11b() -> dict:
     return runs
 
 
-def dryrun_prod_start(tmp: Path):
-    """The production cell's dry-run (internlm2-1.8b train_4k on the
-    256-card single mesh) in a process of its own on the host's CPU,
-    hidden from the card and at the lowest priority: it runs beside
-    phases 10 and 11 and launches nothing."""
+def dryrun_prod_start(tmp: Path, arch: str = "internlm2-1.8b"):
+    """A production cell's dry-run (``arch`` train_4k on the 256-card
+    single mesh) in a process of its own on the host's CPU, hidden from
+    the card and at the lowest priority: it runs beside the phases and
+    launches nothing.  internlm2's starts before phase 10, mamba2's
+    (about 5 minutes of a host core) after the build."""
     import os
 
     import ctypes
@@ -6931,14 +7215,27 @@ def dryrun_prod_start(tmp: Path):
 
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "internlm2-1.8b",
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--shape", "train_4k", "--mesh", "single", "--out", str(tmp), "--tag", "chip"]
     with open(tmp / "dryrun.log", "w") as out:
         return subprocess.Popen(cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
                                 preexec_fn=child)
 
 
-def mp_11c(mpt: dict, a: dict, proc, tmp: Path) -> dict:
+def dryrun_prod_read(proc, tmp: Path) -> dict:
+    """The record of a production dry-run started by ``dryrun_prod_start``."""
+    proc.wait(timeout=DRYRUN_PROD_TIMEOUT_S)
+    files = list(tmp.glob("chip_*.json"))
+    if proc.returncode != 0 or len(files) != 1:
+        raise AssertionError(f"11c: the production dry-run failed: "
+                             f"{(tmp / 'dryrun.log').read_text()[-2000:]}")
+    prod = json.loads(files[0].read_text())
+    if not prod["ok"]:
+        raise AssertionError(f"11c: the production cell failed: {prod.get('error')}")
+    return prod
+
+
+def mp_11c(mpt: dict, a: dict, proc, tmp: Path, ssm_proc=None, ssm_tmp=None) -> dict:
     """11c: the port's dry-run against the card.  For 10a's cell and
     11a's DMR cell, the dry-run's per-member trainer-state bytes, both
     as laid out and as computed from its specs alone, equal
@@ -6965,8 +7262,14 @@ def mp_11c(mpt: dict, a: dict, proc, tmp: Path) -> dict:
     cells["11a"] = D.run_cell(acfg.name, shape, multi_pod=False, cfg=acfg, opt=atcfg.opt,
                               fsdp=True, policy=apolicy, verbose=False, full_budget_s=0,
                               mesh=stand_in((2, 4), ("data", "model")))
+    _, ecfg, etcfg, _, _ = mp_10e_setting("mamba2-2.7b", MP10E_STEPS)
+    cells["10e"] = D.run_cell(ecfg.name, shape, multi_pod=False, cfg=ecfg, opt=etcfg.opt,
+                              fsdp=True, mesh=stand_in((2, 4), ("data", "model")), verbose=False,
+                              full_budget_s=0)
+    e10 = mpt["10e"]["mamba2-2.7b"]
     measured = {"10a": (mpt["10a"]["layout"]["member_bytes"], mpt["10a"]["ms_per_step_median"]),
-                "11a": (a["dmr_temporal"]["clean"]["member_bytes"], a["ms_per_step_median"])}
+                "11a": (a["dmr_temporal"]["clean"]["member_bytes"], a["ms_per_step_median"]),
+                "10e": (e10["layout"]["member_bytes"], e10["ms_per_step_median"])}
     torch.cuda.synchronize()
     growth = torch.cuda.memory_allocated() - before
     out = {"device_growth_bytes": growth}
@@ -6986,16 +7289,10 @@ def mp_11c(mpt: dict, a: dict, proc, tmp: Path) -> dict:
                                  f"{want}")
     if growth >= DRYRUN_GROWTH_BYTES:
         raise AssertionError(f"11c: device memory grew {growth} bytes across the dry-run calls")
-    proc.wait(timeout=DRYRUN_PROD_TIMEOUT_S)
-    files = list(tmp.glob("chip_*.json"))
-    if proc.returncode != 0 or len(files) != 1:
-        raise AssertionError(f"11c: the production dry-run failed: "
-                             f"{(tmp / 'dryrun.log').read_text()[-2000:]}")
-    prod = json.loads(files[0].read_text())
-    if not prod["ok"]:
-        raise AssertionError(f"11c: the production cell failed: {prod.get('error')}")
-    out["production"] = prod
-    for k in ("10a", "11a"):
+    out["production"] = prod = dryrun_prod_read(proc, tmp)
+    if ssm_proc is not None:
+        out["production_mamba2"] = dryrun_prod_read(ssm_proc, ssm_tmp)
+    for k in ("10a", "11a", "10e"):
         r = out[k]
         log(f"mp_11c {k}: dry-run member (0, 0) trainer bytes {r['dryrun_member_bytes']} = "
             f"from its specs {r['spec_member_bytes']} = card {r['card_member_bytes']}; roofline bound {r['bound_s'] * 1e3:.3f} ms "
@@ -7007,17 +7304,27 @@ def mp_11c(mpt: dict, a: dict, proc, tmp: Path) -> dict:
         f"memory {roof['memory_s'] * 1e3:.2f}, collective {roof['collective_s'] * 1e3:.2f}), "
         f"argument {prod['memory']['argument_gib']:.3f} GiB a card, {prod['seconds']:.1f} s "
         f"in its own process; device memory growth across 11c {growth} bytes")
+    if "production_mamba2" in out:
+        m = out["production_mamba2"]
+        roof = m["roofline"]
+        log(f"mp_11c production: mamba2-2.7b train_4k on {m['mesh']} (256 H100s): bound "
+            f"{roof['bound_s'] * 1e3:.2f} ms ({roof['dominant']}; compute "
+            f"{roof['compute_s'] * 1e3:.2f}, memory {roof['memory_s'] * 1e3:.2f}, collective "
+            f"{roof['collective_s'] * 1e3:.2f}), argument {m['memory']['argument_gib']:.3f} GiB "
+            f"a card, {m['seconds']:.1f} s in its own process")
     return out
 
 
-def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path) -> dict:
+def replicated_training_phase(mpt: dict, train: dict, proc, tmp: Path, ssm_proc=None,
+                              ssm_tmp=None) -> dict:
     """Phase 11; ``proc`` is the production cell's dry-run, started by
     ``dryrun_prod_start(tmp)`` before phase 10 so that it runs beside
-    it on the host's CPU."""
+    it on the host's CPU (``ssm_proc``: mamba2's, started after the
+    build)."""
     t0 = time.perf_counter()
     out = {"11a": mp_11a(train)}
     out["11b"] = mp_11b()
-    out["11c"] = mp_11c(mpt, out["11a"], proc, tmp)
+    out["11c"] = mp_11c(mpt, out["11a"], proc, tmp, ssm_proc, ssm_tmp)
     out["seconds"] = time.perf_counter() - t0
     log(f"replicated_training: phase 11 took {out['seconds']:.1f} s")
     return out
@@ -7390,6 +7697,11 @@ def main() -> int:
     for name, path in paths.items():
         log(f"build: {name}: {'; '.join(ptxas_lines(path.with_suffix('.log')))}")
     lane = analysis_7a_start()  # phase 7a's CI lane, on the host's CPU beside phases 2-6
+    import shutil
+    import tempfile
+
+    ssm_tmp = Path(tempfile.mkdtemp(prefix="miso_dryrun_ssm_"))
+    ssm_proc = dryrun_prod_start(ssm_tmp, "mamba2-2.7b")  # 11c's, beside phases 2-11
     record = kernel_phase(paths["paged_gqa_decode"].with_suffix(".log"))
     partials_prof = partials_profile()
     mla_partials_prof = mla_partials_profile()
@@ -7510,9 +7822,6 @@ def main() -> int:
         rec["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
-    import shutil
-    import tempfile
-
     tmp = Path(tempfile.mkdtemp(prefix="miso_dryrun_"))
     proc = dryrun_prod_start(tmp)  # beside phases 10 and 11; it dies with this process
     mpt = mp_training_phase()
@@ -7521,10 +7830,21 @@ def main() -> int:
             n = sum(r["launches"][label][counter] for r in mpt["10d"].values())
             rec["launches_by_path"][key + suffix] = n
             rec["launches"] += n
+    e10 = mpt["10e"]
+    for rec, key in ((ssd, "k8_launches"), (ssd_bwd, "k8_bwd_launches")):
+        for suffix, label in (("", "sharded"), ("_unsharded", "unsharded")):
+            n = sum(e10[arch][key][label] for arch in SSM_ARCHS)
+            rec["launches_by_path"]["mp_10e" + suffix] = n
+            rec["launches"] += n
+        rec["launches_by_path"]["mp_10e_dmr"] = e10["dmr"][key]
+        rec["launches"] += e10["dmr"][key]
+    epi["tmr_vote"]["launches_by_path"]["mp_10e_dmr"] = e10["dmr"]["struck"]["k4_launches"]
+    epi["tmr_vote"]["launches"] += e10["dmr"]["struck"]["k4_launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    rt = replicated_training_phase(mpt, train, proc, tmp)
+    rt = replicated_training_phase(mpt, train, proc, tmp, ssm_proc, ssm_tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(ssm_tmp, ignore_errors=True)
     epi["tmr_vote"]["launches_by_path"]["mp_11a"] = rt["11a"]["k4_launches"]
     epi["tmr_vote"]["launches"] += rt["11a"]["k4_launches"]
     partials.update(partials_prof)

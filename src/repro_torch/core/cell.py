@@ -183,6 +183,51 @@ def abstract_eval():
         yield
 
 
+#: the counters of a counting abstract evaluation (the dry-run's), which
+#: ``count_snapshot`` / ``count_add`` / ``quiet_counts`` steer
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counting(*counters):
+    """Register counters for the evaluation inside: objects with
+    ``snapshot()``, ``add(since, times)`` (add ``times`` copies of what
+    they counted since the snapshot) and ``quiet()`` (a context in which
+    the operators dispatched count no traffic, while the storages they
+    make stay live)."""
+    _COUNTERS.extend(counters)
+    try:
+        yield
+    finally:
+        del _COUNTERS[len(_COUNTERS) - len(counters):]
+
+
+def counts_active() -> bool:
+    """Whether a counting abstract evaluation is running."""
+    return bool(_COUNTERS)
+
+
+def count_snapshot() -> list:
+    return [c.snapshot() for c in _COUNTERS]
+
+
+def count_add(snap: list, times: int) -> None:
+    """Each registered counter counts ``times`` more copies of what it
+    counted since ``snap`` (``count_snapshot``)."""
+    for c, s in zip(_COUNTERS, snap):
+        c.add(s, times)
+
+
+@contextlib.contextmanager
+def quiet_counts():
+    """Operators inside count no traffic in the registered counters; the
+    storages they make stay live for the peak."""
+    with contextlib.ExitStack() as stack:
+        for c in _COUNTERS:
+            stack.enter_context(c.quiet())
+        yield
+
+
 def scan_steps(step: Callable[[int, torch.Tensor], torch.Tensor], carry: torch.Tensor,
                n: int) -> list:
     """The carries after each of ``n`` steps ``carry = step(i, carry)``.

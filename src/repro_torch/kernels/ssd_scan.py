@@ -163,6 +163,16 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dht, *, chunk: int = 128):
     return (*ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, chunk=chunk), dh0)
 
 
+def _sum_to(t, dim: int):
+    """``t.sum(dim)`` for a tensor whose last axis is the heads, each
+    element summed along one contiguous row: the order then depends on
+    the summed length alone, not on how many heads lie beside it (torch
+    sums a strided axis in an order that changes with the width of the
+    axes inside it), so a mesh member's heads get the bits of the whole
+    scan's."""
+    return t.movedim(dim, -1).contiguous().sum(-1)
+
+
 def _chunked_dy(dy, Q: int, nc: int):
     Bsz, L, H, P = dy.shape
     return F.pad(_wide(dy), (0, 0, 0, 0, 0, nc * Q - L)).reshape(Bsz, nc, Q, H, P)
@@ -221,12 +231,12 @@ def ssd_bwd_chunks(x, dt, a, b, c, dy, s_in, g_out, *, chunk: int = 128, operand
     db = torch.einsum("bcijh,bcihn->bcjhn", dcbp, cf) + wl[..., None] * gx
     u = (bf * gx).sum(-1)  # (B, nc, Q, H)
     t = dw * w
-    dcum = t.sum(3) - t.sum(2) + ecum * (cf * sdy).sum(-1) - wl * u
-    carry = torch.exp(last) * torch.einsum("bhcnp,bhcnp->bch", g_out, sp) + (wl * u).sum(2)
+    dcum = _sum_to(t, 3) - _sum_to(t, 2) + ecum * (cf * sdy).sum(-1) - wl * u
+    carry = torch.exp(last) * torch.einsum("bhcnp,bhcnp->bch", g_out, sp) + _sum_to(wl * u, 2)
     dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + carry[:, :, None]], dim=2)
     dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])  # d(dt a)
-    ddt = (dw * cb * decay).sum(2) + torch.exp(last[:, :, None] - cum) * u + dda * _wide(a)
-    da = (dda * dtf).sum((0, 1, 2))
+    ddt = _sum_to(dw * cb * decay, 2) + torch.exp(last[:, :, None] - cum) * u + dda * _wide(a)
+    da = _sum_to((dda * dtf).reshape(-1, H), 0)
 
     def rows(t):  # (B, nc, Q, ...) -> (B, L, ...)
         return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :L]

@@ -81,6 +81,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -96,7 +97,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .. import api as miso
 from ..configs import CANONICAL, get_config, get_reduced
 from ..core import FaultSpec, RedundancyPolicy
-from ..core.cell import abstract_mode
+from ..core.cell import abstract_mode, counting
 from ..data.pipeline import DataConfig
 from ..distributed import sharding as shd
 from ..distributed import make_mesh, wire
@@ -343,8 +344,9 @@ def _sized(n) -> int:
 
 class StepCounter(TorchDispatchMode):
     """Counts, over the operators dispatched in it, the bytes each reads
-    and writes (views skipped) and the live bytes of the storages they
-    make (freed when the storage is), with the peak."""
+    and writes (views, and queries that return no tensor, skipped) and
+    the live bytes of the storages they make (freed when the storage is),
+    with the peak."""
 
     def __init__(self):
         super().__init__()
@@ -352,6 +354,22 @@ class StepCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._seen: set = set()
+        self._quiet = 0
+
+    # a counter of ``core.cell.counting``
+    def snapshot(self) -> float:
+        return self.bytes
+
+    def add(self, since: float, times: int) -> None:
+        self.bytes += times * (self.bytes - since)
+
+    @contextlib.contextmanager
+    def quiet(self):
+        self._quiet += 1
+        try:
+            yield
+        finally:
+            self._quiet -= 1
 
     def _free(self, key, n):
         self._seen.discard(key)
@@ -362,7 +380,7 @@ class StepCounter(TorchDispatchMode):
         schema = func._schema
         aliases = any(r.alias_info is not None for r in schema.returns)
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        if not aliases:
+        if outs and not aliases and not self._quiet:  # a metadata query (a device) moves nothing
             ins = [t for t in tree_leaves((args, kwargs or {})) if isinstance(t, torch.Tensor)]
             self.bytes += sum(_sized(t.numel()) * t.element_size() for t in ins + outs)
         for t in outs:
@@ -378,14 +396,38 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
+class _FlopCounts:
+    """A ``FlopCounterMode``'s counts as a counter of ``core.cell.counting``
+    (what a quiet block makes costs no flops)."""
+
+    def __init__(self, fc):
+        self.fc = fc
+
+    def snapshot(self) -> dict:
+        return {mod: dict(ops) for mod, ops in self.fc.flop_counts.items()}
+
+    def add(self, since: dict, times: int) -> None:
+        for mod, ops in self.fc.flop_counts.items():
+            base = since.get(mod, {})
+            for op in list(ops):
+                ops[op] += times * (ops[op] - base.get(op, 0))
+
+    def quiet(self):
+        return contextlib.nullcontext()
+
+
 def abstract_step(run) -> dict:
     """``run()`` on fakes, counted: flops, unfused bytes, wire bytes by
-    link and site, temp bytes and seconds."""
+    link and site, temp bytes and seconds.  The FLOP and byte counters
+    are registered with ``core.cell.counting``, so a block that stands
+    for several (``models.ssm``'s convs and scan of one member for every
+    member of its block shape, which move nothing between members)
+    counts as all of them."""
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.time()
     with abstract_mode(), wire.meter() as m, FlopCounterMode(display=False) as fc, \
-            StepCounter() as sc:
+            StepCounter() as sc, counting(sc, _FlopCounts(fc)):
         out = run()
         live_end = sc.live
         del out

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 import numpy as np
 
+from ..core.cell import count_add, count_snapshot, counts_active, quiet_counts
 from ..distributed.sharding import LOCAL, ShardCtx, Sharded, cache_pspecs, spec_block
 from ..kernels import ops as kops
 from . import layers as L
@@ -213,28 +214,84 @@ def _layout(ctx: ShardCtx, cache, name: str, shape) -> tuple:
     return ctx.mesh, spec, tuple(shape)
 
 
+def _calls(layout) -> list:
+    """``(coord, block)`` of each distinct block of ``layout`` on each
+    device, on its first member there, in member order: the calls that
+    ``_per_block`` makes."""
+    mesh, spec, shape = layout
+    seen, out = set(), []
+    for c in np.ndindex(*mesh.devices.shape):
+        blk = spec_block(mesh, spec, shape, c)
+        key = (tuple((b.start, b.stop) for b in blk), str(mesh.devices[c]))
+        if key not in seen:
+            seen.add(key)
+            out.append((c, blk))
+    return out
+
+
 def _per_block(layout, fn) -> tuple[list, Optional[Sharded]]:
-    """``fn(coord, block) -> (out, new_state)`` once for each distinct
-    block of ``layout`` on each device, on its first member there.
-    Returns ([(block, out)], a block once; the new states as a
-    ``Sharded`` leaf of ``layout``, or None when ``fn`` gives none)."""
+    """``fn(i, coord, block) -> (out, new_state)`` for each of
+    ``_calls(layout)`` (``i`` its place there).  Returns ([(block, out)],
+    a block once; the new states as a ``Sharded`` leaf of ``layout``, or
+    None when ``fn`` gives none)."""
     mesh, spec, shape = layout
     done, seen, parts = {}, set(), []
+    for i, (c, blk) in enumerate(_calls(layout)):
+        bkey = tuple((b.start, b.stop) for b in blk)
+        out, done[(bkey, str(mesh.devices[c]))] = fn(i, c, blk)
+        if bkey not in seen:
+            seen.add(bkey)
+            parts.append((blk, out))
     grid = np.empty(mesh.devices.shape, dtype=object)
     for c in np.ndindex(*mesh.devices.shape):
         blk = spec_block(mesh, spec, shape, c)
-        bkey = tuple((b.start, b.stop) for b in blk)
-        key = (bkey, str(mesh.devices[c]))
-        if key not in done:
-            out, done[key] = fn(c, blk)
-            if bkey not in seen:
-                seen.add(bkey)
-                parts.append((blk, out))
-        grid[c] = done[key]
+        grid[c] = done[(tuple((b.start, b.stop) for b in blk), str(mesh.devices[c]))]
     first = grid.flat[0]
     if first is None:
         return parts, None
     return parts, Sharded(mesh, spec, shape, first.dtype, grid)
+
+
+class _Fanout(torch.autograd.Function):
+    """The members' reads of one tensor: ``t[index]`` on each read's
+    device (a view of ``t`` on its own device).  The backward sums the reads' cotangents into
+    ``t``'s gradient in the order of the reads (member order), in f32
+    for a lower-precision tensor read more than once, so a sum over
+    members (the B/C group that the model members share, a head's
+    ``a_log`` and ``d_skip`` over the data members, a conv weight's
+    block over the members that share it) has one order whatever the
+    placement and whatever order autograd's device threads finish in:
+    DMR replicas compare its bits."""
+
+    @staticmethod
+    def forward(ctx, t, reads):
+        ctx.reads, ctx.shape, ctx.dtype, ctx.device = reads, t.shape, t.dtype, t.device
+        return tuple(t[index].to(dev) for index, dev in reads)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        keys = [tuple((s.start, s.stop) for s in index) for index, _ in ctx.reads]
+        wide = ctx.dtype.itemsize < 4 and len(set(keys)) < len(keys)
+        total = torch.zeros(ctx.shape, dtype=torch.float32 if wide else ctx.dtype,
+                            device=ctx.device)
+        for (index, _), g in zip(ctx.reads, gs):
+            if g is not None:
+                total[index] += g.to(total.device, total.dtype)
+        return total.to(ctx.dtype), None
+
+
+def _fanout(reads: list) -> list:
+    """``t[index]`` on ``device`` for each ``(t, index, device)`` of
+    ``reads`` (``index`` a tuple of slices), the reads of one tensor
+    through one ``_Fanout``."""
+    groups: dict = {}
+    for i, (t, index, dev) in enumerate(reads):
+        groups.setdefault(id(t), (t, []))[1].append((i, (index, dev)))
+    out = [None] * len(reads)
+    for t, items in groups.values():
+        for (i, _), o in zip(items, _Fanout.apply(t, [r for _, r in items])):
+            out[i] = o
+    return out
 
 
 def _assemble(parts, shape, like: torch.Tensor) -> torch.Tensor:
@@ -264,6 +321,146 @@ def _groups(heads: slice, rep: int) -> slice:
     return slice(g0, g1)
 
 
+#: in a counting abstract evaluation (the dry-run's), a prompt's convs
+#: and scan run once for each block shape and stand for every member of
+#: that shape (``_repeated_members``); the equality tests switch it off
+#: to count every member
+REPEAT_ON_FAKES = True
+
+
+class _CountIn(torch.autograd.Function):
+    """The representative member's inputs, unchanged; its backward ends the
+    member's counted backward: what was counted since ``_CountOut``'s
+    backward is counted ``times - 1`` more times."""
+
+    @staticmethod
+    def forward(ctx, box, times, *ts):
+        ctx.box, ctx.times = box, times
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        count_add(ctx.box.pop("snap"), ctx.times - 1)
+        return (None, None, *gs)
+
+
+class _CountOut(torch.autograd.Function):
+    """The representative member's output, unchanged; its backward starts
+    the member's counted backward."""
+
+    @staticmethod
+    def forward(ctx, box, t):
+        ctx.box = box
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.box["snap"] = count_snapshot()
+        return None, g
+
+
+class _Stand(torch.autograd.Function):
+    """A member that the representative of its block shape stands for:
+    its outputs are uncounted placeholders made before the representative
+    ran, its backward gives uncounted placeholders of its inputs'
+    gradients, and until then it keeps what the member's own graph would
+    keep for its backward (``kept``)."""
+
+    @staticmethod
+    def forward(ctx, n_outs, n_kept, *ts):
+        outs, kept, ins = ts[:n_outs], ts[n_outs:n_outs + n_kept], ts[n_outs + n_kept:]
+        ctx.save_for_backward(*kept)
+        ctx.n_outs, ctx.n_kept = n_outs, n_kept
+        ctx.ins = [(t.shape, t.dtype, t.device) for t in ins]
+        ctx.set_materialize_grads(False)  # an unused output's gradient stays None
+        return tuple(t.view_as(t) for t in outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        with quiet_counts():
+            grads = [torch.empty(shape, dtype=dtype, device=device)
+                     for shape, dtype, device in ctx.ins]
+        return (None, None, *([None] * (ctx.n_outs + ctx.n_kept)), *grads)
+
+
+def _repeated_members(n_calls: int, ins: list, run, stand) -> list:
+    """``run(i, mine)`` (a tuple of outputs, the first the one a gradient
+    reaches) for every one of ``n_calls`` calls in a counting abstract
+    evaluation, call i's inputs ``ins[w * i:w * (i + 1)]`` (``w`` =
+    ``len(ins) // n_calls``): the calls whose inputs have one shape share
+    one evaluated ``run``, of the first of them, whose forward and
+    backward count as all of theirs (``core.cell.count_add``).  The
+    others' outputs are placeholders made first (so the representative
+    runs with them live, as the last member would), ``stand(theirs) ->
+    (placeholder outputs, what their graph keeps for the backward)``, and
+    joined to their inputs after it (so their backward runs before its,
+    and it runs with their gradients live, as the first member's
+    would)."""
+    w = len(ins) // n_calls
+    classes: dict = {}
+    outs = [None] * n_calls
+    held = {}
+    with quiet_counts():  # a fake's device is an operator too
+        for i in range(n_calls):
+            key = tuple((tuple(t.shape), t.dtype, str(t.device)) for t in ins[w * i:w * i + w])
+            classes.setdefault(key, []).append(i)
+        for idx in classes.values():
+            for i in idx[1:]:
+                held[i] = stand(ins[w * i:w * i + w])
+    for idx in classes.values():
+        i, n = idx[0], len(idx)
+        box: dict = {}
+        with quiet_counts():  # a Function's apply reads its inputs' devices
+            mine = _CountIn.apply(box, n, *ins[w * i:w * i + w])
+        snap = count_snapshot()
+        first, *rest = run(i, mine)
+        count_add(snap, n - 1)
+        with quiet_counts():
+            outs[i] = (_CountOut.apply(box, first), *rest)
+    with quiet_counts():
+        for i, (placeholders, kept) in held.items():
+            outs[i] = _Stand.apply(len(placeholders), len(kept), *placeholders, *kept,
+                                   *ins[w * i:w * i + w])
+    return outs
+
+
+def _scan_stand(ins) -> tuple:
+    """A member's prompt scan as ``_repeated_members`` stands it in: the
+    outputs y (b, S, h P) and the final state (b, h, N, P) f32; kept, the
+    scan's five inputs as ``_ssm`` hands them to ``SSDScan`` (contiguous:
+    a copy of a strided read) and d_skip cast to x's dtype (the skip
+    term's product)."""
+    xh, _, _, bh, _, d = ins
+    b, S, h, P = xh.shape
+    outs = (torch.empty((b, S, h * P), dtype=xh.dtype, device=xh.device),
+            torch.empty((b, h, bh.shape[-1], P), dtype=torch.float32, device=xh.device))
+    kept = [t if t.is_contiguous() else torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in ins[:5]]
+    return outs, (*kept, d.to(xh.dtype))
+
+
+def _conv_stand(k: int):
+    """A member's prompt conv (``_causal_dwconv``) as ``_repeated_members``
+    stands it in: the output, of the input's shape and dtype; kept, each
+    tap's product operands (the f32 copies of its rows of the padded input
+    and of its weight row, or, in f32, the padded input once and the
+    weight itself) and the silu's input."""
+
+    def stand(ins) -> tuple:
+        seq, w, _ = ins
+        B, S, C = seq.shape
+        f32 = dict(dtype=torch.float32, device=seq.device)
+        if seq.dtype == torch.float32:
+            kept = [torch.empty((B, S + k - 1, C), **f32)]
+        else:
+            kept = [torch.empty((B, S, C), **f32) for _ in range(k)]
+        kept += [w] if w.dtype == torch.float32 else [torch.empty((C,), **f32)
+                                                        for _ in range(k)]
+        return (torch.empty_like(seq),), (*kept, torch.empty((B, S, C), **f32))
+
+    return stand
+
+
 def _mamba_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cache, fill_cache: bool,
                    ctx: ShardCtx):
     s, d_inner, H = _dims(cfg)
@@ -282,18 +479,42 @@ def _mamba_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cache, fill_cac
     def local(name, c):
         return None if cache is None else cache[name].local(c)
 
+    def dev(c):
+        return ctx.mesh.devices[c]
+
     # the depthwise convs: a member's rows (and channels) at a time
-    def conv_x(c, blk):
-        dev = ctx.mesh.devices[c]
-        w, b = _cols(p["conv_x"], blk[2], dev), _cols(p["conv_x_b"], blk[2], dev)
-        return _conv(xc[blk[0], :, blk[2]].to(dev), w, b, k, local("conv_x", c))
+    lay_x = _layout(ctx, cache, "conv_x", (B, k - 1, d_inner))
+    calls = _calls(lay_x)
+    ins = _fanout([r for c, blk in calls for r in (
+        (xc, (blk[0], every, blk[2]), dev(c)),
+        (_cols(p["conv_x"], blk[2], dev(c)), (every, every), dev(c)),
+        (_cols(p["conv_x_b"], blk[2], dev(c)), (every,), dev(c)))])
 
-    def conv_bc(c, blk):
-        dev = ctx.mesh.devices[c]
-        return _conv(bcc[blk[0]].to(dev), wbc.to(dev), bbc.to(dev), k, local("conv_bc", c))
+    def conv_x(i, c, blk):
+        return _conv(*ins[3 * i:3 * i + 3], k, local("conv_x", c))
 
-    xparts, new_cx = _per_block(_layout(ctx, cache, "conv_x", (B, k - 1, d_inner)), conv_x)
-    bparts, new_cb = _per_block(_layout(ctx, cache, "conv_bc", (B, k - 1, gn)), conv_bc)
+    repeat = cache is None and REPEAT_ON_FAKES and counts_active()
+    if repeat:
+        outs_x = _repeated_members(len(calls), ins, lambda i, mine: _conv(*mine, k, None)[:1],
+                                   _conv_stand(k))
+        conv_x = lambda i, c, blk: (outs_x[i][0], None)  # noqa: E731
+
+    lay_bc = _layout(ctx, cache, "conv_bc", (B, k - 1, gn))
+    calls = _calls(lay_bc)
+    ins_bc = _fanout([r for c, blk in calls for r in (
+        (bcc, (blk[0], every, every), dev(c)), (wbc, (every, every), dev(c)),
+        (bbc, (every,), dev(c)))])
+
+    def conv_bc(i, c, blk):
+        return _conv(*ins_bc[3 * i:3 * i + 3], k, local("conv_bc", c))
+
+    if repeat:
+        outs_bc = _repeated_members(len(calls), ins_bc,
+                                    lambda i, mine: _conv(*mine, k, None)[:1], _conv_stand(k))
+        conv_bc = lambda i, c, blk: (outs_bc[i][0], None)  # noqa: E731
+
+    xparts, new_cx = _per_block(lay_x, conv_x)
+    bparts, new_cb = _per_block(lay_bc, conv_bc)
     xs = _assemble([((b[0], every, b[2]), o) for b, o in xparts], (B, S, d_inner), xc)
     bcs = _assemble([((b[0], every, every), o) for b, o in bparts], (B, S, gn), bcc)
     xh = xs.reshape(B, S, H, Pd)
@@ -303,18 +524,28 @@ def _mamba_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cache, fill_cac
     dt = softplus(dtr.float() + dt_bias)  # (B, S, H)
     rep = H // G
 
-    # the recurrence: a member's rows and heads at a time
-    def recur(c, blk):
-        dev = ctx.mesh.devices[c]
-        rows, heads = blk[0], blk[1]
-        gs = _groups(heads, rep)
-        group = torch.arange(heads.start, heads.stop, device=dev) // rep - gs.start
-        y, h_final, h1 = _ssm(xh[rows, :, heads].to(dev), dt[rows, :, heads].to(dev),
-                              a[heads].to(dev), bh[rows, :, gs].to(dev), ch[rows, :, gs].to(dev),
-                              d_skip[heads].to(dev), group, local("ssm", c), s.chunk)
+    # the recurrence: a member's rows and heads at a time, its inputs read
+    # through one fan-out a tensor (the sums over members in member order)
+    lay_ssm = _layout(ctx, cache, "ssm", (B, H, s.state, Pd))
+    calls = _calls(lay_ssm)
+    ins_r = _fanout([r for c, (rows, heads, *_) in calls for r in (
+        (xh, (rows, every, heads), dev(c)), (dt, (rows, every, heads), dev(c)),
+        (a, (heads,), dev(c)), (bh, (rows, every, _groups(heads, rep)), dev(c)),
+        (ch, (rows, every, _groups(heads, rep)), dev(c)), (d_skip, (heads,), dev(c)))])
+
+    def recur(i, mine):
+        c, (_, heads, *_) = calls[i]
+        group = (torch.arange(heads.start, heads.stop, device=dev(c)) // rep
+                 - _groups(heads, rep).start)
+        y, h_final, h1 = _ssm(*mine, group, local("ssm", c), s.chunk)
         return (y.reshape(y.shape[0], S, -1), h_final), h1
 
-    rparts, new_ssm = _per_block(_layout(ctx, cache, "ssm", (B, H, s.state, Pd)), recur)
+    if repeat:
+        outs = _repeated_members(len(calls), ins_r, lambda i, mine: recur(i, mine)[0],
+                                 _scan_stand)
+        rparts, new_ssm = _per_block(lay_ssm, lambda i, c, blk: (outs[i], None))
+    else:
+        rparts, new_ssm = _per_block(lay_ssm, lambda i, c, blk: recur(i, ins_r[6 * i:6 * i + 6]))
     # a member's heads are d_inner's channels heads.start * Pd onwards
     y = _assemble([((b[0], every, slice(b[1].start * Pd, b[1].stop * Pd)), o[0])
                    for b, o in rparts], (B, S, d_inner), x)

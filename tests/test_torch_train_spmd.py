@@ -82,9 +82,18 @@ CASES = {
     "int8_ef": ({}, False, {}, "int8_ef", 3),
 }
 
+#: the JAX children's XLA: 8 host devices, each device's work on its own
+#: thread (no Eigen pool beside the 8 under the suite's parallel run) and
+#: the collectives' rendezvous given minutes, not XLA's 20 s warning and
+#: 40 s end, when the host is loaded (a child's numbers do not change)
+CHILD_XLA_FLAGS = ("--xla_force_host_platform_device_count=8 --xla_cpu_multi_thread_eigen=false "
+                   "--xla_cpu_collective_call_warn_stuck_timeout_seconds=120 "
+                   "--xla_cpu_collective_call_terminate_timeout_seconds=600 "
+                   "--xla_cpu_collective_timeout_seconds=600")
+
 _CHILD = r"""
 import os, sys, pickle, functools
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = "@XLA_FLAGS@"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import dataclasses
 import numpy as np
@@ -99,7 +108,7 @@ from repro.models import lm_cells as L
 from repro.models import transformer as T
 from repro.optim.adamw import OptConfig
 
-arch, over, fsdp, optkw, comp, steps, batch, seq, opt_base, out = pickle.loads(
+arch, over, fsdp, optkw, comp, steps, batch, seq, opt_base, out, local = pickle.loads(
     bytes.fromhex(sys.argv[1]))
 mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 cfg = dataclasses.replace(get_reduced(arch), dtype="float32", **over)
@@ -108,7 +117,8 @@ tcfg = L.TrainConfig(data=DataConfig(batch=batch, seq_len=seq, vocab=cfg.vocab_s
                      opt=OptConfig(**opt_base, **optkw), grad_compression=comp)
 prog = L.make_train_program(cfg, tcfg, ctx)
 exe = miso.compile(prog, backend="lockstep")
-st = prog.init_states(jax.random.PRNGKey(0))
+st = jax.jit(prog.init_states)(jax.random.PRNGKey(0)) if local else prog.init_states(
+    jax.random.PRNGKey(0))
 res = {"init": jax.tree.map(np.asarray, st), "metrics": [], "states": [], "data_tokens": [],
        "data": [], "means": [], "efs": []}
 if comp == "int8_ef":
@@ -170,17 +180,29 @@ with mesh:
         if comp == "int8_ef":
             res["efs"].append(np.asarray(st["trainer"]["ef"]))  # the host view
 res["final"] = jax.tree.map(np.asarray, st)
+if local:
+    # the unsharded trainer, one step from each of the mesh run's inputs
+    lexe = miso.compile(L.make_train_program(cfg, tcfg), backend="lockstep")
+    ins = [res["init"]] + [{"trainer": t, "data": d} for t, d in zip(res["states"], res["data"])]
+    res["local_stepped"] = [
+        jax.tree.map(np.asarray, lexe.run(jax.tree.map(jnp.array, s), 1).states["trainer"])
+        for s in ins[:steps]]
 with open(out, "wb") as f:
     pickle.dump(res, f)
-"""
+""".replace("@XLA_FLAGS@", CHILD_XLA_FLAGS)
 
 
-def run_child(case, tmp_path_factory) -> dict:
+def run_child(case, tmp_path_factory, arch=ARCH, local=False) -> dict:
+    """JAX's mesh run of ``case`` on ``arch``; with ``local`` its initial
+    state made under ``jax.jit`` (an eager init of the mesh program takes
+    15 s) and JAX's unsharded trainer one step from each of its inputs
+    (``local_stepped``)."""
     over, fsdp, optkw, comp, steps = CASES[case]
     out = tmp_path_factory.mktemp(case) / "jax.pkl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
-    arg = pickle.dumps((ARCH, over, fsdp, optkw, comp, steps, BATCH, SEQ, OPT, str(out))).hex()
+    arg = pickle.dumps((arch, over, fsdp, optkw, comp, steps, BATCH, SEQ, OPT, str(out),
+                        local)).hex()
     proc = subprocess.run([sys.executable, "-c", _CHILD, arg], env=env, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -188,10 +210,10 @@ def run_child(case, tmp_path_factory) -> dict:
         return pickle.load(f)
 
 
-def port_setup(case, shape=(2, 4)):
+def port_setup(case, shape=(2, 4), arch=ARCH):
     """(cfg, tcfg, ctx) of a case on a mesh of ``shape`` CPU devices."""
     over, fsdp, optkw, comp, _ = CASES[case]
-    cfg = dataclasses.replace(tget(ARCH), dtype="float32", **over)
+    cfg = dataclasses.replace(tget(arch), dtype="float32", **over)
     mesh = make_mesh(shape, ("data", "model"), devices=["cpu"] * (shape[0] * shape[1]))
     ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, fsdp=fsdp)
     tcfg = TL.TrainConfig(data=DataConfig(batch=BATCH, seq_len=SEQ, vocab=cfg.vocab_size),
@@ -213,11 +235,11 @@ def jax_input(jax_res, step) -> dict:
     return {"trainer": jax_res["states"][step - 1], "data": jax_res["data"][step - 1]}
 
 
-def port_run(case, jax_res) -> dict:
+def port_run(case, jax_res, arch=ARCH) -> dict:
     """The port's steps from JAX's initial states, sharded and (but for
     ``int8_ef``, which needs the mesh) unsharded: chained (``states``),
     and each step taken from JAX's state before it (``stepped``)."""
-    cfg, tcfg, ctx = port_setup(case)
+    cfg, tcfg, ctx = port_setup(case, arch=arch)
     steps = CASES[case][4]
     out = {}
     for label, c in (("sharded", ctx), ("unsharded", None)):
@@ -307,6 +329,25 @@ def check_state(want, got, rel, what):
 WELL = 1e-4
 
 
+def _adamw_explained(src_p, new_p, m, v, lr, step, what):
+    """``new_p - src_p`` is AdamW's update from the new moments ``m``, ``v``
+    (``optim.adamw.apply_updates`` in f64, OPT's b1, b2, eps and weight
+    decay): within one ulp of the new value and 1e-6 of the update an
+    element (the f32 rounding of the step)."""
+    cfg = OptConfig(**OPT)
+    old = torch.as_tensor(_np(src_p)).double()
+    stepf = torch.tensor(float(step))
+    c1, c2 = (float(1.0 - torch.pow(b, stepf)) for b in (cfg.b1, cfg.b2))  # f32, as AdamW's
+    mhat = torch.as_tensor(_np(m)).double() / c1
+    vhat = torch.as_tensor(_np(v)).double() / c2
+    wd = cfg.weight_decay if old.dim() >= 2 else 0.0
+    u = -lr * (mhat / (vhat.sqrt() + cfg.eps) + wd * old)
+    got = torch.as_tensor(_np(new_p)).double() - old
+    ulp = torch.as_tensor(np.spacing(np.abs(_np(new_p)))).double()
+    assert bool(((got - u).abs() <= ulp + 1e-6 * u.abs()).all()), \
+        f"{what}: the update is not AdamW's of its moments"
+
+
 def _dense(m, shape) -> torch.Tensor:
     """A moment leaf as f32 values (an int8 one dequantized)."""
     if isinstance(m, dict):
@@ -314,9 +355,12 @@ def _dense(m, shape) -> torch.Tensor:
     return torch.as_tensor(_np(m)).double()
 
 
-def check_step(src, want, got, lr, what, rel=1e-5):
+def check_step(src, want, got, lr, what, rel=1e-5, explained=False):
     """One step from the same input trainer state ``src``: ``want`` and
-    ``got`` leaf by leaf (the module docstring)."""
+    ``got`` leaf by leaf (the module docstring).  With ``explained`` each
+    param and master leaf's update is held to what AdamW makes of its own
+    run's new moments (``_adamw_explained``) in place of the update rule
+    (the moments keep theirs)."""
     sl, wl, gl = (dict(trainer_leaves(t)) for t in (src, want, got))
     assert list(wl) == list(gl), what
     held = 0
@@ -333,6 +377,14 @@ def check_step(src, want, got, lr, what, rel=1e-5):
         well = v >= WELL * v.max()
         old = torch.as_tensor(_np(sl[path])).double()
         da, db = torch.as_tensor(_np(a)).double() - old, torch.as_tensor(_np(b)).double() - old
+        if explained:
+            step = int(_np(unshard(src)["opt"]["step"])) + 1
+            for t, new in ((want, a), (got, b)):
+                tl = dict(trainer_leaves(t))
+                _adamw_explained(sl[path], new, tl[("m",) + path[1:]], tl[("v",) + path[1:]], lr,
+                                 step, where)
+            held += 1
+            continue
         close(da[well].numpy(), db[well], rel, f"{where} update")
         free = torch.zeros(shape, dtype=torch.bool)
         if isinstance(sl[("v",) + path[1:]], dict):
@@ -357,13 +409,13 @@ def test_loss_and_grad_norm_within_1e5_of_jax(case):
             close(jm[k], tm[k], 1e-5, f"{name} step {step} {k}")
 
 
-def check_run(name, jres, want, got):
+def check_run(name, jres, want, got, explained=False):
     """Each step from JAX's input state leaf by leaf; the chained runs'
     last state joined (but for the quantized case, whose chained step-2
     state no float bound holds)."""
     for step, (a, b) in enumerate(zip(want["stepped"], got["stepped"])):
         check_step(jax_input(jres, step)["trainer"], a, b, float(jres["metrics"][step]["lr"]),
-                   f"{name} step {step + 1}")
+                   f"{name} step {step + 1}", explained=explained)
     if not CASES[name][2].get("quantized_state"):
         check_state(want["states"][-1], got["states"][-1], 1e-5, f"{name} chained")
 
