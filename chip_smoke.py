@@ -325,12 +325,12 @@ imports nothing of JAX.  Phases, each of which raises on failure:
   9. model_parallel -- the model-parallel serving path (``ShardCtx``,
                  ``make_ctx(..., decode_shardmap=True)``), every mesh
                  member an explicit allocation of cuda:0, each run beside
-                 its unsharded twin in the same call: (9a) internlm2-1.8b
-                 at full width head-sharded on a (2, 4) data x model
+                 its unsharded twin in the same call: (9a) internlm2-1.8b's
+                 first 12 layers at full width head-sharded on a (2, 4) data x model
                  mesh, served through ``lm_engine_parts(cfg, scfg, ctx)``
                  with phase 3's traffic (dense, 512 lanes, a DMR strike)
                  beside the unsharded engine: 0 clean-tick events, the
-                 strike on the same request and replica, K5 = 24 x
+                 strike on the same request and replica, K5 = 12 x
                  (ticks + replays) x 8 members, every member's shard its
                  own allocation, replicated weights held once; then 16
                  teacher-forced decode steps within JAX's bf16 bound
@@ -413,7 +413,16 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  and mamba2's cut under DMR on (2, 4), struck at step 3
                  (0 clean events, one recovery, K4 = devices x
                  tie-breaks, bitwise), its clean state after 2 steps
-                 checkpointed and resumed onto (4, 2) (10c's gates).
+                 checkpointed and resumed onto (4, 2) (10c's gates);
+                 (10f, ``mp_10f_train``, after 10a) 10a's sharded setting
+                 with ``ShardCtx.seq_shard_acts`` (Megatron-SP: each
+                 attention layer's residual laid out (data, model, None),
+                 each member's block its own allocation) from 10a's
+                 initial state, ``SP_STEPS`` (4) steps: every loss and the
+                 params bitwise 10a's sharded run after as many steps
+                 (SHA-256 of the params), ms/step, peak
+                 GB and member (0, 0)'s bytes beside 10a's; its serving
+                 half runs in phase 12 (12a).
   * phase 11   -- replicated trainers on a mesh, remat, and the dry-run:
                  (11a) phase 5b's cut (internlm2-1.8b, 4 layers at full
                  width) trained FSDP with its replica axis prepended:
@@ -446,7 +455,12 @@ imports nothing of JAX.  Phases, each of which raises on failure:
                  (kv heads over model: K5 a member, the head route) and
                  (2, 4) (pages over data: K5's partials a member,
                  combined in page order) beside a twin of the same cut
-                 served here; (12b) granite-20b's
+                 served here, then (10f's serving half, ``mp_10f_serve``)
+                 on (2, 4) with ``seq_shard_acts`` (each prefill's
+                 residual laid out over the sequence): tokens, fault
+                 totals, page tables and the strike's ledger entry
+                 bitwise the (2, 4) engine's without it, the prefills'
+                 row-parallel products reduce-scattered; (12b) granite-20b's
                  first ``MPP_12B_LAYERS`` (13) layers at full width paged
                  on (1, 4) (one kv head: each member holds 4 lanes of
                  every page) beside a twin of the same cut served here,
@@ -483,7 +497,7 @@ the kernels' JSON records
 ``launches_by_path``: K1-K4 phases 2c and 2g, K1 and K2 also 7c, K4
 also 5b, 5d, the examples, 8a, 10e and 11a, K2 also 6c and the examples, K5 phases 3,
 3d, 3e-3h, 3j-3l, 6a-6c, the examples, 8c-8e, 9a, 9b's unsharded
-twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, K6 phases 3c, 3d, 3i and 9c's and 12d's unsharded
+twin and 10d, 12a, 12c's draft, K5's partials 9b, 12a-12c, 10f's serving half, K6 phases 3c, 3d, 3i and 9c's and 12d's unsharded
 twins, K6's partials 9c and 12d, K8 phases 3b, 3g, 6c, 10d, 10e and 5d, K8's backward
 5d and 10e), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2908,6 +2922,7 @@ def serve_stream(cfg, scfg, wrappers, lengths=None, *, strike=True, spec=None,
     if strike:
         run["victim_ledger"] = m["fault_totals"][victim.id]
         run["victim_index"] = list(engine.requests).index(victim.id)
+    run["fault_totals"] = [m["fault_totals"].get(r.id) for r in reqs]  # by request, in order
     digest = hashlib.sha256()
     for table in page_log:
         digest.update(table.tobytes())
@@ -5177,15 +5192,21 @@ def mp_check_turns(tag: str, cfg, rec: dict, expect: dict, tol: float = MP_TOL) 
         raise AssertionError(f"{tag}: a replicated weight is held more than once")
 
 
+#: 9a: internlm2-1.8b's first 12 of 24 layers at full width (24 until PR
+#: 36, when phase 10f came; the run stays under 1100 s)
+MP_9A_LAYERS = 12
+
+
 def mp_9a() -> dict:
-    """9a: internlm2-1.8b served head-sharded on a (2, 4) mesh of cuda:0
-    beside the unsharded engine, then teacher-forced logits."""
+    """9a: internlm2-1.8b's first ``MP_9A_LAYERS`` layers served
+    head-sharded on a (2, 4) mesh of cuda:0 beside the unsharded engine,
+    then teacher-forced logits."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import unshard
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.models.lm_cells import ServeConfig
 
-    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=MP_9A_LAYERS)
     scfg = ServeConfig(batch=8, max_len=MP_MAX_LEN)
     ctx = mp_ctx(cfg, (2, 4))
     members = 8  # every (data, model) member attends over its own shard
@@ -6211,6 +6232,9 @@ def mpt_argv(*extra) -> list:
     """10a-10c's flags: 5a's setting cut to ``MPT_LAYERS`` layers."""
     return cut_argv(MPT_LAYERS, "--steps", str(MPT_STEPS), *extra)
 MPT_CKPT = 5  # 10c: the checkpoint after this many steps of 10a
+#: 10f: steps of 10a's setting with ``seq_shard_acts``, held to 10a's run
+#: after as many steps (the script's time budget: 10a's 8 until PR 36)
+SP_STEPS = 4
 MPT_TOL0, MPT_TOL = 1e-2, 3e-2  # step 0's loss; every step's (JAX's bf16 bound)
 EF_LAYERS = 4  # 10b: the first 4 of 24 layers at full width (the reckoning: PERF.md)
 SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
@@ -6297,6 +6321,8 @@ def mp_10a(root: Path) -> tuple[dict, list, object]:
     del states
 
     def at(t, st):
+        if t == SP_STEPS:  # what 10f's run must reach bitwise
+            saved["params_sha256_sp"] = params_sha256(st["trainer"]["params"])
         if t != MPT_CKPT:
             return
         t0 = time.perf_counter()
@@ -6342,7 +6368,8 @@ def mp_10a(root: Path) -> tuple[dict, list, object]:
            "ms_per_step": ms, "ms_per_step_unsharded": ms_u, "peak_gb": peak,
            "peak_gb_unsharded": peak_u, "state_gb": state_gb, "layout": layout,
            "ckpt_gb": saved["gb"], "ckpt_save_s": saved["save_s"],
-           "ckpt_twin_s": saved["twin_s"], "ckpt_files_equal": saved["files_equal"]}
+           "ckpt_twin_s": saved["twin_s"], "ckpt_files_equal": saved["files_equal"],
+           f"params_sha256_step{SP_STEPS}": saved["params_sha256_sp"]}
     log(f"mp_train 10a: {cfg.name} {cfg.n_layers} layers, (2, 4) members of cuda:0, ZeRO-1 + "
         f"FSDP, batch {TRAIN_BATCH} x {TRAIN_SEQ} bigram, {MPT_STEPS} steps: median "
         f"{med:.1f} ms/step sharded, {med_u:.1f} unsharded (device clock); losses "
@@ -6353,6 +6380,142 @@ def mp_10a(root: Path) -> tuple[dict, list, object]:
         f"{saved['gb']:.2f} GB in {saved['save_s']:.1f} s, {saved['files_equal']} files "
         f"bitwise an unsharded save's ({saved['twin_s']:.1f} s)")
     return rec, got, saved["host"]
+
+
+def params_sha256(params) -> str:
+    """SHA-256 of a params tree's bytes, leaf by leaf, each ``Sharded``
+    leaf gathered whole (what two runs' params must share bitwise)."""
+    from repro_torch.distributed.sharding import Sharded
+
+    digest = hashlib.sha256()
+    for x in _leaves(params):
+        t = x.full() if isinstance(x, Sharded) else x
+        digest.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def sp_watch():
+    """A ``transformer._layer_apply`` that records each layer's output
+    residual's layout (spec, distinct member allocations, members), and
+    the function that puts the original back."""
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.models import transformer as T
+
+    layer, seen = T._layer_apply, []
+
+    def watched(*a, **k):
+        out = layer(*a, **k)
+        h = out[0]
+        if isinstance(h, Sharded):
+            seen.append((tuple(h.spec), len({h.local(c).data_ptr() for c in h.coords()}),
+                         len(h.coords())))
+        else:
+            seen.append(None)
+        return out
+
+    T._layer_apply = watched
+
+    def undo():
+        T._layer_apply = layer
+
+    return seen, undo
+
+
+def mp_10f_train(a10: dict) -> dict:
+    """10f's training half: 10a's sharded setting (internlm2-1.8b at full
+    width, its first ``MPT_LAYERS`` layers, FSDP on (2, 4) of cuda:0)
+    with ``seq_shard_acts``, ``SP_STEPS`` steps from 10a's initial state
+    (the same seed): every loss and the final params bitwise 10a's sharded
+    run after as many steps (``a10``: its record), each attention layer's
+    residual laid out (data, model, None) with every member's block its
+    own allocation; ms/step, peak GB and member (0, 0)'s bytes beside
+    10a's."""
+    from repro_torch import api
+    from repro_torch.launch import train as L
+    from repro_torch.models.lm_cells import make_train_program
+
+    args = L.parser().parse_args(mpt_argv())
+    cfg, tcfg, _ = L.build(args)
+    ctx = mp_ctx(cfg, (2, 4), fsdp=True, seq_shard_acts=True)
+    exe = api.compile(make_train_program(cfg, tcfg, ctx), backend="host", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    states = exe.init(args.seed)
+    layout = mp_layout(states["trainer"])
+    box = [states]
+    del states
+    seen, undo = sp_watch()
+    try:
+        states, got, ms = mpt_run(exe, box, SP_STEPS)
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    digest = params_sha256(states["trainer"]["params"])
+    del states, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ("data", "model", None)
+    laid = [x for x in seen if x is not None]
+    if not laid or len(laid) != len(seen) or any(x != (want, 8, 8) for x in laid):
+        raise AssertionError(f"10f: the residual's layouts {sorted(set(seen), key=str)} are not "
+                             f"{want} with 8 allocations")
+    if got != a10["losses"][:SP_STEPS]:
+        raise AssertionError(f"10f: SP losses {got} differ from 10a's sharded run's "
+                             f"{a10['losses'][:SP_STEPS]}")
+    if digest != a10[f"params_sha256_step{SP_STEPS}"]:
+        raise AssertionError(f"10f: SP params after {SP_STEPS} steps differ from 10a's sharded "
+                             "run's")
+    med = float(np.median(ms[1:]))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": [2, 4], "fsdp": True,
+           "steps": SP_STEPS, "losses": got, "losses_bitwise_10a": True,
+           "params_sha256": digest, "params_bitwise_10a": True, "residual_spec": list(want),
+           "layer_outputs_laid_out": len(laid), "ms_per_step_median": med, "ms_per_step": ms,
+           "peak_gb": peak, "member_bytes": layout["member_bytes"],
+           "ms_per_step_median_10a": a10["ms_per_step_median"], "peak_gb_10a": a10["peak_gb"],
+           "member_bytes_10a": a10["layout"]["member_bytes"]}
+    log(f"mp_train 10f: {cfg.name} {cfg.n_layers} layers, (2, 4) members of cuda:0, FSDP, "
+        f"seq_shard_acts (residual {want}, {len(laid)} layer outputs laid out, 8 allocations "
+        f"each), {SP_STEPS} steps: losses and params bitwise 10a's sharded run after as many; "
+        f"median {med:.1f} ms/step "
+        f"(10a {a10['ms_per_step_median']:.1f}; device clock), peak {peak:.2f} GB (10a "
+        f"{a10['peak_gb']:.2f}), member (0, 0) holds {layout['member_bytes'] / 1e9:.3f} GB "
+        f"(10a {a10['layout']['member_bytes'] / 1e9:.3f})")
+    return rec
+
+
+def mp_10f_serve(cfg, scfg, plain: dict, plain_tokens: list, per: dict) -> dict:
+    """10f's serving half (phase 12a's cut): the (2, 4) paged engine with
+    ``seq_shard_acts`` beside the same mesh's engine without it
+    (``plain``, its record, and its tokens): ``mpp_stream``'s gates with
+    that engine as the twin (the strike's request, replica and ledger
+    entry, the page tables, launches = ``per`` x steps, every request's
+    tokens bitwise), the fault totals equal, and the prefills' row-
+    parallel products reduce-scattered into the sequence-parallel layout
+    (each prompt's residual over the model axis)."""
+    from repro_torch.models import layers as L
+
+    matmul, scattered = L.matmul, [0]
+
+    def counted(x, w, **kw):
+        scattered[0] += kw.get("scatter") is not None
+        return matmul(x, w, **kw)
+
+    L.matmul = counted
+    try:
+        rec, _ = mpp_stream("12a 2x4 seq_shard_acts (10f)", cfg, scfg,
+                            mp_ctx(cfg, (2, 4), seq_shard_acts=True),
+                            {**plain, "tokens": plain_tokens}, per, want=plain_tokens)
+    finally:
+        L.matmul = matmul
+    if rec["fault_totals"] != plain["fault_totals"]:
+        raise AssertionError(f"10f: fault totals {rec['fault_totals']} != the plain mesh "
+                             f"engine's {plain['fault_totals']}")
+    if not scattered[0]:
+        raise AssertionError("10f: no prefill laid its residual out over the sequence")
+    rec["reduce_scatters"] = scattered[0]
+    log(f"model_parallel_paged 12a 2x4 seq_shard_acts (10f): tokens, fault totals, page tables "
+        f"and the strike's ledger entry bitwise the plain (2, 4) engine's; {scattered[0]} "
+        f"row-parallel products reduce-scattered into the prefills' residuals")
+    return rec
 
 
 def mp_10c(root: Path, uninterrupted: list, host) -> dict:
@@ -6941,6 +7104,7 @@ def mp_training_phase() -> dict:
     try:
         out = {}
         out["10a"], losses, host = mp_10a(root)
+        out["10f"] = {"train": mp_10f_train(out["10a"])}
         out["10c"] = mp_10c(root, losses, host)
         del host
     finally:
@@ -7565,8 +7729,9 @@ def mpp_12a() -> dict:
         members, n = math.prod(shape), cfg.n_layers
         per = {"k5": n * members} if route == "head" else {"k5_partials": n * members}
         label = f"{shape[0]}x{shape[1]}"
-        out[label], _ = mpp_stream(f"12a {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
+        out[label], tokens = mpp_stream(f"12a {label}", cfg, scfg, mp_ctx(cfg, shape), twin, per)
         out[label]["route"] = route
+    out["2x4_sp"] = mp_10f_serve(cfg, scfg, out["2x4"], tokens, per)
     for dtype in ("bfloat16", "float32"):
         c = dataclasses.replace(cfg, dtype=dtype)
         for shape, route in (((1, 4), "head"), ((2, 4), "pages")):
@@ -7856,6 +8021,7 @@ def main() -> int:
     by_counter = ((record, "k5"), (partials, "k5_partials"), (mla, "k6"),
                   (mla_partials, "k6_partials"))
     for key, run in (("mp_12a_1x4", mpp["12a"]["1x4"]), ("mp_12a_2x4", mpp["12a"]["2x4"]),
+                     ("mp_10f_serve", mpp["12a"]["2x4_sp"]),
                      ("mp_12b_1x4", mpp["12b"]["1x4"]), ("mp_12c_plain", mpp["12c"]["plain"]),
                      ("mp_12c_self", mpp["12c"]["self"]), ("mp_12c_draft", mpp["12c"]["draft"]),
                      ("mp_12d_1x4", mpp["12d"]["1x4"]), ("mp_12d_2x4", mpp["12d"]["2x4"])):

@@ -110,11 +110,18 @@ class ShardCtx:
         checkpoints each layer as JAX does (``"full"``: nothing saved,
         ``"dots"``: the outputs of products with no batch dimension
         saved, ``"none"``: every activation kept);
-      * ``seq_shard_acts``, ``pallas`` and ``unroll`` steer JAX's
-        partitioner and compiler (the port's layers run as a Python
-        loop, activations live on the controller's device, and the
-        kernels are chosen by device).  The port does not honour them,
-        and a value other than the default raises ``NotImplementedError``.
+      * ``seq_shard_acts`` is honoured: between the sub-blocks of every
+        attention layer (``attn_mlp``, ``attn_moe``) of a forward without
+        a decode cache the residual is a ``Sharded`` leaf laid out by
+        ``seq_spec`` (Megatron-style sequence parallelism: the batch over
+        the data axes, the sequence over the model axis), the normed
+        activation gathered before the column-parallel products and the
+        row-parallel ones reduce-scattered into it
+        (``models/layers.py``);
+      * ``pallas`` and ``unroll`` steer JAX's compiler (the port's layers
+        run as a Python loop and the kernels are chosen by device).  The
+        port does not honour them, and a value other than the default
+        raises ``NotImplementedError``.
     """
 
     mesh: Optional[Any] = None
@@ -201,6 +208,26 @@ class ShardCtx:
             return math.prod(self.mesh.shape[a] for a in ax)
         return self.mesh.shape[ax]
 
+    def seq_spec(self, shape) -> Optional[PartitionSpec]:
+        """The layout of a (B, S, d) residual under sequence parallelism:
+        ``(dp, tp, None)``, an entry dropped to None where its axes do not
+        divide the dimension (as ``_physical`` does for weights) and the
+        ``manual_axes`` left out of it (as ``constrain`` drops them).  None
+        when the model axis does not split S (decode's S = 1, a ragged
+        prompt, ``tp_off``): then nothing is laid out."""
+        if self.mesh is None:
+            return None
+
+        def entry(ax, n):
+            axes = tuple(a for a in _entry_axes(ax) if a not in self.manual_axes)
+            size = _axes_size(self.mesh, axes) if axes else 1
+            if size <= 1 or n % size:
+                return None
+            return axes if len(axes) > 1 else axes[0]
+
+        tp = entry(self._axes("tp"), shape[1])
+        return None if tp is None else P(entry(self._axes("dp"), shape[0]), tp, None)
+
     def sharding(self, *logical) -> Optional[NamedSharding]:
         if self.mesh is None:
             return None
@@ -208,7 +235,7 @@ class ShardCtx:
 
 
 #: the fields the port does not honour, with the defaults it accepts
-_UNHONOURED = {"seq_shard_acts": False, "pallas": None, "unroll": False}
+_UNHONOURED = {"pallas": None, "unroll": False}
 
 LOCAL = ShardCtx()
 

@@ -24,7 +24,14 @@ The recording sites (each named by ``site``):
   * ``matmul``       -- ``layers.matmul`` on a weight split over the
     model axis: the output ranges of a column-split weight concatenated
     (an all-gather over the model axis), the f32 partial products of a
-    row-split weight summed (an all-reduce over it);
+    row-split weight summed (an all-reduce over it; a reduce-scatter
+    over it into a sequence-parallel residual's layout, whose result is
+    the member's sequence block of the partials);
+  * ``seq``          -- ``layers.gather``: a sequence-parallel residual
+    (``ShardCtx.seq_shard_acts``), normed member by member, gathered
+    whole over the model axis in its dtype before the column-parallel
+    products of an attention layer, and before a recurrent layer and
+    the final norm (an all-gather over the model axis);
   * ``fsdp``         -- a weight split over other axes (FSDP): its block
     gathered over them before ``layers.matmul`` multiplies it (an
     all-gather of the weight, every member), and its gradient

@@ -64,11 +64,17 @@ gradient, as a deployment moves it).  Where the port's runtime layout
 differs from JAX's declared one, the record says so too: the
 trainer's ``int8_ef`` error-feedback buffer is one full-length buffer
 a data member (``lm_cells.per_data_member``, what runs), where JAX's
-dry-run declares ``P(dp)``.  ``--seq-shard-acts``
-and ``--block-k`` go into ``make_ctx`` as in JAX, so a field the port
-does not honour raises there and the cell records it as its error;
-``pallas`` and ``unroll`` steer XLA only and are not passed.  A sharded
-decode cache needs ``--decode-shardmap`` (the port has no partitioner).
+dry-run declares ``P(dp)``.  ``--seq-shard-acts`` and ``--block-k`` go
+into ``make_ctx`` as in JAX.  Under ``--seq-shard-acts`` each attention
+layer's residual is laid out over the sequence (``ShardCtx.seq_spec``):
+each forward pass of such a layer gathers its normed activation twice
+over the model axis in its dtype (site ``seq``), and its ``wo`` and
+``w2`` reduce-scatter their f32 partials where they all-reduce without
+it (site ``matmul``), the residual gathered once more before the final
+norm; the products, so the FLOPs, are the same, and ``temp_gib`` stays
+the controller's.  ``pallas`` and ``unroll`` steer XLA only and are not
+passed.  A sharded decode cache needs ``--decode-shardmap`` (the port
+has no partitioner).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
@@ -128,8 +134,10 @@ EF_FSDP_NOTE = ("wire: under int8_ef each data member's forward runs on its own 
                 "them once a data member")
 MATMUL_NOTE = ("wire: the model axis's activation joins are the controller's (every "
                "column-parallel output gathered, every row-parallel partial sum an f32 "
-               "all-reduce); a deployment that keeps column outputs split and reduces in bf16 "
-               "moves less, so the NVLink term is an upper bound")
+               "all-reduce, or under seq_shard_acts an f32 reduce-scatter into the sequence "
+               "blocks after an all-gather of the normed activation); a deployment that keeps "
+               "column outputs split and reduces in bf16 moves less, so the NVLink term is an "
+               "upper bound")
 
 
 def arch_opts(arch: str) -> dict:

@@ -27,11 +27,18 @@ Under a ``ShardCtx`` with a mesh the weights are ``Sharded`` leaves
 ``matmul``: column-parallel where the output dimension is sharded (the
 members' outputs concatenated), row-parallel where the input dimension
 is (the members' partial products summed in member order), both for a
-weight sharded two ways.  Activations stay ordinary tensors on the
-controller's device.  Decode over a sharded dense cache goes through
-``distributed/decode.py`` (after the paged branch, as in JAX, and only
-under ``ctx.decode_shardmap``: the port has no partitioner for JAX's
-other route).
+weight sharded two ways.  Activations are ordinary tensors on the
+controller's device, but for the residual of an attention layer under
+``ShardCtx.seq_shard_acts``: a ``Sharded`` leaf laid out by
+``ShardCtx.seq_spec`` (``seq_scatter``), normed member by member
+(``rmsnorm_blocks``), gathered before the column-parallel products
+(``seq_gather``), and written by the row-parallel ones straight into that
+layout (``matmul(..., scatter=)``: the reduce-scatter).  The same row
+tiles norm a whole residual under a mesh without it (``norm_gather``),
+so the layout moves bytes, never bits.  Decode over a sharded dense
+cache goes through ``distributed/decode.py`` (after the paged branch,
+as in JAX, and only under ``ctx.decode_shardmap``: the port has no
+partitioner for JAX's other route).
 """
 
 from __future__ import annotations
@@ -39,12 +46,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..distributed import decode as DD
 from ..distributed import wire
-from ..distributed.sharding import Sharded
+from ..distributed.sharding import Sharded, map_blocks, spec_block
 from ..kernels.paged_decode import NEG_INF, attend, dense_decode_on_card, dense_gqa_view, dense_mla_decode
 from ..kernels.paged_decode import gate as _gate
 from ..kernels.paged_decode import paged_gqa_attention, paged_mla_attention, ring_lane_pos
@@ -62,7 +70,7 @@ def value(w):
     return w.full() if isinstance(w, Sharded) else w
 
 
-def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
+def matmul(x: torch.Tensor, w, *, transpose: bool = False, scatter=None):
     """``x @ w`` (``x @ w.T`` with ``transpose``) for a plain or a
     ``Sharded`` 2-D weight.  Sharded: each distinct block of ``w`` (its
     rows over the contraction, its columns over the output) multiplies
@@ -72,10 +80,23 @@ def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
     the output ranges are concatenated (column-parallel: ``wq``, ``w1``,
     the vocab-sharded ``lm_head``).  A replicated weight is one
     product.  An active ``wire`` meter records what a deployment moves
-    for it (``_record_matmul``)."""
+    for it (``_record_matmul``).
+
+    ``scatter=(mesh, spec)`` returns the product as a ``Sharded`` leaf of
+    that layout (a (B, S, d) residual's ``ShardCtx.seq_spec``): the same
+    partials summed in the same order and cast once, each member's block
+    of the sum handed to its device (``seq_scatter``): the reduce-scatter of
+    a row-parallel product, recorded so, every block the bits of the
+    same rows of the whole product, and its cotangent the whole one."""
+    kdim, ndim_ = (1, 0) if transpose else (0, 1)
+    if scatter is not None:
+        if wire.active() and isinstance(w, Sharded):
+            _record_matmul(x, w, kdim, ndim_, scatter=True)
+        with wire.paused():
+            y = matmul(x, w, transpose=transpose)
+        return seq_scatter(y, *scatter)
     if not isinstance(w, Sharded):
         return x @ (w.T if transpose else w)
-    kdim, ndim_ = (1, 0) if transpose else (0, 1)
     if wire.active():
         _record_matmul(x, w, kdim, ndim_)
     cols: dict = {}
@@ -100,7 +121,8 @@ def matmul(x: torch.Tensor, w, *, transpose: bool = False) -> torch.Tensor:
     return torch.cat(outs, dim=-1)
 
 
-def _record_matmul(x: torch.Tensor, w: Sharded, kdim: int, ndim_: int) -> None:
+def _record_matmul(x: torch.Tensor, w: Sharded, kdim: int, ndim_: int,
+                   scatter: bool = False) -> None:
     """The movements of ``matmul``'s product with ``w`` as an FSDP and
     tensor-parallel deployment makes them, by the axes of ``w``'s spec:
 
@@ -108,7 +130,9 @@ def _record_matmul(x: torch.Tensor, w: Sharded, kdim: int, ndim_: int) -> None:
         the weight block that the model axis leaves it, in the weight's
         dtype (an all-gather over those axes, site ``fsdp``);
       * the model axis on the contraction (row-parallel): the f32
-        partial products summed over it (an all-reduce, site ``matmul``);
+        partial products summed over it (an all-reduce, site ``matmul``;
+        with ``scatter``, a reduce-scatter whose result is the member's
+        sequence block of the partials);
       * the model axis on the output (column-parallel): the output
         ranges joined as the controller joins them (an all-gather, site
         ``matmul``; a deployment that keeps them split into the next
@@ -125,11 +149,179 @@ def _record_matmul(x: torch.Tensor, w: Sharded, kdim: int, ndim_: int) -> None:
                     axes=fsdp)
     out = (x.numel() // x.shape[-1]) * w.shape[ndim_]
     model = (wire.MODEL_AXIS,)
-    if km > 1:
+    if km > 1 and scatter:
+        wire.record("reduce-scatter", 4 * out / km, km, members=km, site="matmul", axes=model)
+    elif km > 1:
         wire.record("all-reduce", 4 * out, km, members=km, site="matmul", axes=model)
     if nm > 1:
         wire.record("all-gather", out * x.element_size(), nm, members=nm, site="matmul",
                     axes=model)
+
+
+# --------------------------------------------------------------------------
+# sequence-parallel activations (``ShardCtx.seq_shard_acts``)
+# --------------------------------------------------------------------------
+def _layout_plan(mesh, spec, shape) -> list:
+    """``[(block, device, coords)]``: each distinct block of a global
+    ``shape`` laid out by ``spec`` on each device that holds it, with the
+    members that hold it there, first member first."""
+    made: dict = {}
+    for c in np.ndindex(*mesh.devices.shape):
+        blk = spec_block(mesh, spec, shape, c)
+        dev = mesh.devices[c]
+        made.setdefault((tuple((s.start, s.stop) for s in blk), str(dev)), (blk, dev, []))[2].append(c)
+    return list(made.values())
+
+
+def _wrap(mesh, spec, shape, plan: list, tensors) -> Sharded:
+    """The ``Sharded`` leaf of global ``shape`` of a plan's tensors (one
+    an entry)."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for (_, _, coords), t in zip(plan, tensors):
+        for c in coords:
+            out[c] = t
+    return Sharded(mesh, spec, shape, tensors[0].dtype, out)
+
+
+class _Scatter(torch.autograd.Function):
+    """A whole tensor cut into a plan's blocks, each its own allocation on
+    its member's device (the local half of a reduce-scatter: nothing
+    moves).  The backward joins the blocks' cotangents into the whole
+    one (copies of one block on several devices summed, in member
+    order): the all-gather that is a reduce-scatter's adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.shape, ctx.dtype, ctx.device = plan, x.shape, x.dtype, x.device
+        return tuple(x[blk].to(dev, copy=True, memory_format=torch.contiguous_format)
+                     for blk, dev, _ in plan)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        seen: dict = {}
+        for (blk, _, _), g in zip(ctx.plan, grads):
+            if g is None:
+                continue
+            key = tuple((s.start, s.stop) for s in blk)
+            seen[key] = (blk, g.to(ctx.device) if key not in seen else seen[key][1] + g.to(ctx.device))
+        n_blocks = len({tuple((s.start, s.stop) for s in blk) for blk, _, _ in ctx.plan})
+        make = torch.empty if len(seen) == n_blocks else torch.zeros
+        out = make(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        for blk, g in seen.values():
+            out[blk] = g
+        return out, None
+
+
+class _Gather(torch.autograd.Function):
+    """A plan's blocks joined into the whole tensor on ``device``, each
+    block read from its first holder.  The backward hands each first
+    holder its block of the cotangent on its device."""
+
+    @staticmethod
+    def forward(ctx, plan, shape, device, *tensors):
+        ctx.plan, ctx.firsts = plan, []
+        out = torch.empty(shape, dtype=tensors[0].dtype, device=device)
+        seen = set()
+        for (blk, _, _), t in zip(plan, tensors):
+            key = tuple((s.start, s.stop) for s in blk)
+            ctx.firsts.append(key not in seen)
+            if key not in seen:
+                seen.add(key)
+                out[blk] = t.to(device)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None) + tuple(
+            g[blk].to(dev, memory_format=torch.contiguous_format) if first else None
+            for (blk, dev, _), first in zip(ctx.plan, ctx.firsts))
+
+
+def seq_scatter(x: torch.Tensor, mesh, spec) -> Sharded:
+    """``x`` laid out by ``spec`` on ``mesh``, differentiably, each
+    member's block its own allocation on its device (``_Scatter``):
+    the local half of a reduce-scatter, which moves nothing."""
+    plan = _layout_plan(mesh, spec, tuple(x.shape))
+    return _wrap(mesh, spec, tuple(x.shape), plan, _Scatter.apply(x, plan))
+
+
+def _plan_of(h: Sharded) -> tuple:
+    """``(plan, tensors)`` of a leaf laid out as ``_layout_plan`` lays it."""
+    plan = _layout_plan(h.mesh, h.spec, tuple(h.shape))
+    return plan, [h.local(coords[0]) for _, _, coords in plan]
+
+
+def seq_gather(h: Sharded, *, record: bool = True) -> torch.Tensor:
+    """The whole of a sequence-parallel residual on the mesh's first
+    device, differentiably (``_Gather``).  With ``record``, an active
+    ``wire`` meter records the all-gather over the model axis in the
+    activation's dtype (site ``seq``): every model member receives the
+    whole sequence of its rows (the whole batch's bytes, see ``wire``)."""
+    plan, tensors = _plan_of(h)
+    if record and wire.active():
+        tp = wire.spec_axes(h.spec[1])
+        n = math.prod(h.mesh.shape[a] for a in tp)
+        wire.record("all-gather", h.numel() * h.dtype.itemsize, n, members=n, site="seq", axes=tp)
+    return _Gather.apply(plan, tuple(h.shape), h.device, *tensors)
+
+
+class _Scale(torch.autograd.Function):
+    """``n_t * w`` for each block's normalised rows ``n_t``.  The weight's
+    cotangent is summed over each block's rows as one contiguous (rows,
+    d) sum, then over the blocks in their order, so row tiles of one
+    layout give it the same bits whether they are the members' own
+    blocks or cut from a whole tensor (autograd's sum over a whole
+    tensor's rows is another order)."""
+
+    @staticmethod
+    def forward(ctx, w, *ns):
+        ctx.save_for_backward(w, *ns)
+        return tuple(n * w.to(n.device) for n in ns)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        w, *ns = ctx.saved_tensors
+        dw = None
+        for n, g in zip(ns, grads):
+            if g is not None:
+                part = (g * n).reshape(-1, n.shape[-1]).sum(0).to(w.device)
+                dw = part if dw is None else dw + part
+        return (dw,) + tuple(None if g is None else g * w.to(g.device) for g in grads)
+
+
+def rmsnorm_blocks(h: Sharded, w, eps: float = 1e-5) -> Sharded:
+    """``rmsnorm`` of every member's block of ``h`` on its device, laid
+    out as ``h``: each row's bits are those of the same row normed in any
+    other tile of the same shape (the tiles of one layout all have one)."""
+    plan, tensors = _plan_of(h)
+    ns = []
+    for t in tensors:
+        # one node (a view) between the block and the norm's three reads,
+        # so the block receives their cotangents summed, as one term: a
+        # residual block that is also added to keeps a sum of two
+        xf = t.float().view_as(t)
+        ns.append(xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps))
+    ys = _Scale.apply(value(w).float(), *ns)
+    return _wrap(h.mesh, h.spec, tuple(h.shape), plan, [y.to(t.dtype) for y, t in zip(ys, tensors)])
+
+
+def norm_gather(h, w, eps: float, mesh, spec) -> torch.Tensor:
+    """An attention layer's ``rmsnorm`` before its column-parallel
+    products, under a mesh whose model axis splits the sequence: over the
+    row tiles of ``spec`` (``rmsnorm_blocks``), gathered whole.  A
+    sequence-parallel residual (``Sharded``) is normed member by member
+    and its all-gather recorded; a whole one is cut into the same tiles
+    and joined back, which moves nothing, so the two give the same bits."""
+    sp = isinstance(h, Sharded)
+    return seq_gather(rmsnorm_blocks(h if sp else seq_scatter(h, mesh, spec), w, eps), record=sp)
+
+
+def add(h, y):
+    """``h + y`` of two tensors, or member by member of two ``Sharded``
+    leaves of one layout (a sequence-parallel residual)."""
+    if isinstance(h, Sharded):
+        return map_blocks(lambda _, a, b: a + b, h, y)
+    return h + y
 
 
 # --------------------------------------------------------------------------
@@ -305,13 +497,16 @@ def gqa_attention(
     pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
     rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
     ctx=None,  # ShardCtx: a mesh -> sharded weights and cache
+    scatter=None,  # prefill: (mesh, spec) of a sequence-parallel output
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """GQA attention.  Decode (``cache`` given) writes the new K/V lane
     INTO ``cache`` in place and returns it: ``decode_step`` hands every
     layer views of a fresh copy of the stacked cache, so the caller's
     previous buffer (kept for the §IV replay) is never written.  Under
     a ``ctx`` with a mesh the dense-cache decode, and the paged decode
-    over a ``Sharded`` pool, run through ``distributed/decode.py``."""
+    over a ``Sharded`` pool, run through ``distributed/decode.py``.
+    ``scatter`` reduce-scatters the prefill's ``wo`` product into a
+    sequence-parallel residual's layout (``matmul``)."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
@@ -327,7 +522,8 @@ def gqa_attention(
 
     if cache is None:
         out = blockwise_attention(q, k, v, causal=True, window=cfg.window, block_k=block_k)
-        return matmul(out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh), p["wo"]), None
+        return matmul(out.transpose(1, 2).reshape(B, S, cfg.n_heads * dh), p["wo"],
+                      scatter=scatter), None
     if S != 1:
         raise ValueError("decode path handles one token at a time")
     pos = (positions[0] if cfg.mrope_sections else positions)[:, 0]
@@ -461,6 +657,7 @@ def mla_attention(
     pages: Optional[torch.Tensor] = None,  # (B, P) page table -> paged decode
     rows_lanes: Optional[tuple] = None,  # paged: precomputed paged_write_rows
     ctx=None,  # ShardCtx: a mesh -> sharded weights and latent cache
+    scatter=None,  # prefill: (mesh, spec) of a sequence-parallel output
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """MLA.  Prefill (no cache) expands per-head keys (width qk_nope +
     qk_rope) and values (width v_head) from the latent and runs
@@ -468,7 +665,8 @@ def mla_attention(
     attends in the latent space, writing the new ``ckv``/``krope`` lane
     INTO ``cache`` in place (views of ``decode_step``'s copy, as in
     ``gqa_attention``); ``w_uv`` is applied to the f32 latent context
-    after it is cast to the compute dtype."""
+    after it is cast to the compute dtype.  ``scatter`` as in
+    ``gqa_attention``."""
     m = cfg.mla or MLAConfig()
     B, S, _ = x.shape
     h = cfg.n_heads
@@ -491,7 +689,7 @@ def mla_attention(
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = blockwise_attention(qfull.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=True, scale=scale, block_k=block_k)  # (B, h, S, v)
-        return matmul(out.transpose(1, 2).reshape(B, S, h * dv), p["wo"]), None
+        return matmul(out.transpose(1, 2).reshape(B, S, h * dv), p["wo"], scatter=scatter), None
     if S != 1:
         raise ValueError("decode path handles one token at a time")
     # absorbed path (decode): attend in the latent space
@@ -546,10 +744,12 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device) -> Params:
     return p
 
 
-def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, act: str, scatter=None):
+    """The MLP; ``scatter`` reduce-scatters its ``w2`` product into a
+    sequence-parallel residual's layout (``matmul``)."""
     h = matmul(x, p["w1"])
     if act == "swiglu":
         h = F.silu(h) * matmul(x, p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return matmul(h, p["w2"])
+    return matmul(h, p["w2"], scatter=scatter)

@@ -38,7 +38,7 @@ from ..distributed import collectives as coll
 from ..distributed import wire
 from ..distributed.sharding import Sharded
 from .config import ModelConfig, MoEConfig
-from .layers import dense_init, mlp, mlp_init, value
+from .layers import add, dense_init, mlp, mlp_init, seq_scatter, value
 
 Params = dict
 
@@ -324,13 +324,19 @@ def _moe_spmd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx, *, with_idx: bo
     return (y, aux, idx_all) if with_idx else (y, aux)
 
 
-def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None, scatter=None):
     """Returns (y, aux_loss).  Expert-parallel when ``ctx`` has a mesh.
-    Adds the shared-expert path if configured."""
+    Adds the shared-expert path if configured.  ``scatter=(mesh, spec)``
+    lays ``y`` out as a sequence-parallel residual: the routed experts'
+    whole output sliced (the local half of a reduce-scatter; JAX's
+    ``local_fn`` returns it so split), the shared experts' ``w2``
+    reduce-scattered (``layers.matmul``), summed member by member."""
     if ctx is not None and ctx.mesh is not None:
         y, aux = _moe_spmd(p, x, cfg, ctx)
     else:
         y, aux = _moe_local(p, x, cfg)
+    if scatter is not None:
+        y = seq_scatter(y, *scatter)
     if cfg.moe.n_shared_experts:
-        y = y + mlp(p["shared"], x, cfg.mlp_act)
+        y = add(y, mlp(p["shared"], x, cfg.mlp_act, scatter=scatter))
     return y, aux

@@ -25,6 +25,12 @@ Entry points:
                     MoE load-balance aux) and its metrics
   decode_step(...)  one-token serve step over a dense or paged KV cache
 
+Under ``ctx.seq_shard_acts`` the residual of every attention layer of
+``forward`` is a ``Sharded`` leaf laid out by ``ctx.seq_spec`` (the
+batch over the data axes, the sequence over the model axis; Megatron-SP,
+JAX's constraint at the end of each such layer); ``decode_step`` (S = 1)
+is unchanged.
+
 ``forward``, ``decode_step``, ``embed_tokens`` and ``unembed`` take a
 ``ShardCtx`` (``ctx``, default ``LOCAL``).  Under one with a mesh the
 params are ``Sharded`` leaves (``shard(params, param_pspecs(...))``)
@@ -236,17 +242,20 @@ def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig,
 # layer bodies
 # --------------------------------------------------------------------------
 def _attention(p, x, cfg: ModelConfig, positions, cache, fill_cache, active=None,
-               prompt_len=None, pages=None, rows_lanes=None, ctx: ShardCtx = LOCAL):
+               prompt_len=None, pages=None, rows_lanes=None, ctx: ShardCtx = LOCAL,
+               scatter=None):
     """Returns (out, cache_out): the updated cache (decode), the filled
     cache (fill_cache), or None.  ``prompt_len`` masks the fill for
     bucket-padded prefill: entries at positions >= prompt_len are
     scrubbed (slot_pos = -1, zero K/V), so the filled cache equals an
-    exact-length prefill's."""
+    exact-length prefill's.  ``scatter`` lays a prefill's ``out`` out as
+    a sequence-parallel residual (``layers.matmul``)."""
     fn = L.mla_attention if cfg.attn_type == "mla" else L.gqa_attention
     if cache is not None:
         return fn(p, x, cfg, positions=positions, cache=cache, active=active, pages=pages,
                   rows_lanes=rows_lanes, ctx=ctx)
-    out, _ = fn(p, x, cfg, positions=positions, cache=None, block_k=ctx.block_k)
+    out, _ = fn(p, x, cfg, positions=positions, cache=None, block_k=ctx.block_k,
+                scatter=scatter)
     if not fill_cache:
         return out, None
     # re-derive the kv projections to populate a decode cache
@@ -333,17 +342,28 @@ def _layer_apply(p: Params, h, cfg: ModelConfig, kind: str, positions, cache, fi
         if mcaches[0] is not None or kv is not None:
             cout = {"mamba": tree_map(_stack, *mcaches), "attn": kv}
         return h + u, cout, aux
-    # attn_mlp / attn_moe
-    a, cout = _attention(p["attn"], L.rmsnorm(h, p["ln1"], cfg.rms_eps), cfg,
-                         positions, cache, fill_cache, active, prompt_len,
-                         pages, rows_lanes, ctx)
-    h = h + a
-    x2 = L.rmsnorm(h, p["ln2"], cfg.rms_eps)
+    # attn_mlp / attn_moe.  Under a mesh whose model axis splits the
+    # sequence, each norm runs on the row tiles of ``seq_spec`` (so its
+    # bits do not depend on the layout), and with ``seq_shard_acts`` the
+    # residual stays laid out so between the sub-blocks: the row-parallel
+    # products reduce-scatter into it (``scatter``)
+    spec = ctx.seq_spec(h.shape) if cache is None else None
+    scatter = (ctx.mesh, spec) if spec is not None and ctx.seq_shard_acts else None
+
+    def norm(w):
+        if spec is None:
+            return L.rmsnorm(h, w, cfg.rms_eps)
+        return L.norm_gather(h, w, cfg.rms_eps, ctx.mesh, spec)
+
+    a, cout = _attention(p["attn"], norm(p["ln1"]), cfg, positions, cache, fill_cache, active,
+                         prompt_len, pages, rows_lanes, ctx, scatter)
+    h = L.add(h, a)
+    x2 = norm(p["ln2"])
     if kind == "attn_moe":
-        y, aux = moe_block(p["moe"], x2, cfg, ctx)
+        y, aux = moe_block(p["moe"], x2, cfg, ctx, scatter)
     else:
-        y = L.mlp(p["mlp"], x2, cfg.mlp_act)
-    return h + y, cout, aux
+        y = L.mlp(p["mlp"], x2, cfg.mlp_act, scatter)
+    return L.add(h, y), cout, aux
 
 
 # --------------------------------------------------------------------------
@@ -429,15 +449,25 @@ def forward(
     caches = []
     aux_total = 0.0
     layer = _remat(_layer_apply, ctx.remat)
+    # ``seq_shard_acts``: the residual laid out over the sequence from the
+    # first attention layer on (a slice), gathered before a recurrent
+    # layer and the final norm, which JAX leaves unconstrained
+    seq = ctx.seq_spec(h.shape) if ctx.seq_shard_acts else None
     for seg, sp in zip(segment_plan(cfg), params["segments"]):
         couts = []
         for i in range(seg.count):
+            if seg.kind in ("attn_mlp", "attn_moe") and seq is not None:
+                h = h if isinstance(h, Sharded) else L.seq_scatter(h, ctx.mesh, seq)
+            elif isinstance(h, Sharded):
+                h = L.seq_gather(h)
             lp = tree_map(lambda x, i=i: x[i], sp)
             h, cout, aux = layer(lp, h, cfg, seg.kind, positions, None, fill_cache,
                                  shared, e0, prompt_len=prompt_len, ctx=ctx)
             aux_total = aux_total + aux
             couts.append(cout)
         caches.append(tree_map(lambda *xs: torch.stack(xs), *couts) if fill_cache else None)
+    if isinstance(h, Sharded):
+        h = L.seq_gather(h)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     logits = unembed(params, h, cfg, ctx)
     cache_out = None

@@ -77,11 +77,14 @@ def test_the_cli_writes_jaxs_record_keys(tmp_path):
     assert rec["roofline"]["chips"] == 8 and rec["roofline"]["flops_per_chip"] > 0
 
 
-def test_a_field_the_port_does_not_honour_is_the_cells_error():
-    """``--seq-shard-acts`` goes into ``make_ctx`` as in JAX; the port's
-    ``ShardCtx`` refuses it, and ``run_cell`` records the refusal as the
-    cell's error (JAX's ``run_cell`` records any exception so)."""
-    rec = D.run_cell("internlm2-1.8b", "decode_32k", multi_pod=False, mesh=mesh24(),
-                     cfg=get_reduced("internlm2-1.8b"), seq_shard_acts=True, verbose=False)
-    assert not rec["ok"] and rec["error"].startswith("NotImplementedError: ShardCtx.seq_shard_acts")
-    assert "traceback" in rec and rec["seq_shard_acts"] is True
+def test_an_sp_cell_is_recorded_ok():
+    """``--seq-shard-acts`` goes into ``make_ctx`` as in JAX and is
+    honoured: a prefill cell with it is recorded ``ok`` with
+    ``seq_shard_acts: true`` and JAX's keys, and its step gathered the
+    sequence-parallel residual (wire site ``seq``)."""
+    rec = D.run_cell("internlm2-1.8b", ShapeSpec("p_small", "prefill", 32, 8), multi_pod=False, mesh=mesh24(),
+                     cfg=get_reduced("internlm2-1.8b"), seq_shard_acts=True, verbose=False,
+                     full_budget_s=0.0)
+    assert rec["ok"], rec.get("error")
+    assert rec["seq_shard_acts"] is True and JAX_KEYS <= set(rec)
+    assert rec["layerwise"]["base_coll"]["by_site"]["seq"] > 0

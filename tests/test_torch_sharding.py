@@ -367,12 +367,22 @@ def test_replicated_weights_are_one_tensor_on_one_device():
     assert sum(len(x.distinct()) for x in flat) < 8 * len(flat)
 
 
-@pytest.mark.parametrize("field,value", [("seq_shard_acts", True), ("pallas", True),
-                                         ("unroll", True)])
+@pytest.mark.parametrize("field,value", [("pallas", True), ("unroll", True)])
 def test_shard_ctx_refuses_fields_it_does_not_honour(field, value):
-    JS.ShardCtx(**{field: value})  # JAX's knobs for its partitioner and compiler
+    JS.ShardCtx(**{field: value})  # JAX's knobs for its compiler
     with pytest.raises(NotImplementedError, match=f"ShardCtx.{field}"):
         S.ShardCtx(**{field: value})
+
+
+def test_shard_ctx_builds_with_seq_shard_acts():
+    """``seq_shard_acts`` is honoured (``ShardCtx.seq_spec``,
+    ``models/layers.py``): it builds as JAX's does, on a mesh too."""
+    assert JS.ShardCtx(seq_shard_acts=True).seq_shard_acts is True
+    assert S.ShardCtx(seq_shard_acts=True).seq_shard_acts is True
+    assert S.LOCAL.seq_shard_acts is JS.LOCAL.seq_shard_acts is False
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
+    ctx = make_ctx(mesh, seq_shard_acts=True)
+    assert ctx.seq_shard_acts and ctx.seq_spec((8, 32, 16)) == S.P("data", "model", None)
 
 
 @pytest.mark.parametrize("value", ["full", "dots", "none"])

@@ -108,16 +108,17 @@ from repro.models import lm_cells as L
 from repro.models import transformer as T
 from repro.optim.adamw import OptConfig
 
-arch, over, fsdp, optkw, comp, steps, batch, seq, opt_base, out, local = pickle.loads(
-    bytes.fromhex(sys.argv[1]))
+arch, over, fsdp, optkw, comp, steps, batch, seq, opt_base, out, local, sp, jit_init = \
+    pickle.loads(bytes.fromhex(sys.argv[1]))
 mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 cfg = dataclasses.replace(get_reduced(arch), dtype="float32", **over)
-ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, fsdp=fsdp)
+ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, fsdp=fsdp,
+               seq_shard_acts=sp)
 tcfg = L.TrainConfig(data=DataConfig(batch=batch, seq_len=seq, vocab=cfg.vocab_size),
                      opt=OptConfig(**opt_base, **optkw), grad_compression=comp)
 prog = L.make_train_program(cfg, tcfg, ctx)
 exe = miso.compile(prog, backend="lockstep")
-st = jax.jit(prog.init_states)(jax.random.PRNGKey(0)) if local else prog.init_states(
+st = jax.jit(prog.init_states)(jax.random.PRNGKey(0)) if jit_init else prog.init_states(
     jax.random.PRNGKey(0))
 res = {"init": jax.tree.map(np.asarray, st), "metrics": [], "states": [], "data_tokens": [],
        "data": [], "means": [], "efs": []}
@@ -192,17 +193,19 @@ with open(out, "wb") as f:
 """.replace("@XLA_FLAGS@", CHILD_XLA_FLAGS)
 
 
-def run_child(case, tmp_path_factory, arch=ARCH, local=False) -> dict:
-    """JAX's mesh run of ``case`` on ``arch``; with ``local`` its initial
-    state made under ``jax.jit`` (an eager init of the mesh program takes
-    15 s) and JAX's unsharded trainer one step from each of its inputs
-    (``local_stepped``)."""
+def run_child(case, tmp_path_factory, arch=ARCH, local=False, seq_shard_acts=False,
+              jit_init=None) -> dict:
+    """JAX's mesh run of ``case`` on ``arch``; with ``local`` JAX's
+    unsharded trainer one step from each of its inputs (``local_stepped``)
+    and, unless ``jit_init`` says otherwise, its initial state made under
+    ``jax.jit`` (an eager init of the mesh program takes 15 s);
+    ``seq_shard_acts`` goes into JAX's ``make_ctx``."""
     over, fsdp, optkw, comp, steps = CASES[case]
     out = tmp_path_factory.mktemp(case) / "jax.pkl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     arg = pickle.dumps((arch, over, fsdp, optkw, comp, steps, BATCH, SEQ, OPT, str(out),
-                        local)).hex()
+                        local, seq_shard_acts, local if jit_init is None else jit_init)).hex()
     proc = subprocess.run([sys.executable, "-c", _CHILD, arg], env=env, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -210,12 +213,13 @@ def run_child(case, tmp_path_factory, arch=ARCH, local=False) -> dict:
         return pickle.load(f)
 
 
-def port_setup(case, shape=(2, 4), arch=ARCH):
+def port_setup(case, shape=(2, 4), arch=ARCH, seq_shard_acts=False):
     """(cfg, tcfg, ctx) of a case on a mesh of ``shape`` CPU devices."""
     over, fsdp, optkw, comp, _ = CASES[case]
     cfg = dataclasses.replace(tget(arch), dtype="float32", **over)
     mesh = make_mesh(shape, ("data", "model"), devices=["cpu"] * (shape[0] * shape[1]))
-    ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, fsdp=fsdp)
+    ctx = make_ctx(mesh, vocab_size=cfg.vocab_size, d_model=cfg.d_model, fsdp=fsdp,
+                   seq_shard_acts=seq_shard_acts)
     tcfg = TL.TrainConfig(data=DataConfig(batch=BATCH, seq_len=SEQ, vocab=cfg.vocab_size),
                           opt=OptConfig(**OPT, **optkw), grad_compression=comp)
     return cfg, tcfg, ctx
@@ -235,15 +239,16 @@ def jax_input(jax_res, step) -> dict:
     return {"trainer": jax_res["states"][step - 1], "data": jax_res["data"][step - 1]}
 
 
-def port_run(case, jax_res, arch=ARCH) -> dict:
-    """The port's steps from JAX's initial states, sharded and (but for
-    ``int8_ef``, which needs the mesh) unsharded: chained (``states``),
-    and each step taken from JAX's state before it (``stepped``)."""
-    cfg, tcfg, ctx = port_setup(case, arch=arch)
+def port_run(case, jax_res, arch=ARCH, seq_shard_acts=False, unsharded=True) -> dict:
+    """The port's steps from JAX's initial states, sharded and (with
+    ``unsharded``, but for ``int8_ef``, which needs the mesh) unsharded:
+    chained (``states``), and each step taken from JAX's state before it
+    (``stepped``)."""
+    cfg, tcfg, ctx = port_setup(case, arch=arch, seq_shard_acts=seq_shard_acts)
     steps = CASES[case][4]
     out = {}
     for label, c in (("sharded", ctx), ("unsharded", None)):
-        if c is None and tcfg.grad_compression != "none":
+        if c is None and (tcfg.grad_compression != "none" or not unsharded):
             continue
         prog = TL.make_train_program(cfg, tcfg, c) if c is not None else TL.make_train_program(cfg, tcfg)
         exe = tmiso.compile(prog, backend="host", device="cpu")
